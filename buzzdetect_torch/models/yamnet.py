@@ -1,0 +1,129 @@
+"""YAMNet (MobileNet-v1 audio embedder) in PyTorch.
+
+Counterpart of ``buzzdetect_tpu/models/yamnet.py`` (architecture parity with
+the published YAMNet, reference `embedders/yamnet/yamnet.py:77-106`): a 3x3
+stride-2 full conv to 32 channels, then 13 depthwise-separable blocks up to
+1024 channels, each conv followed by BatchNorm (center only, eps 1e-4) and
+ReLU, ending in global average pooling to a 1024-d embedding per patch.
+
+Inference runs on BatchNorm-folded weights. Layer 1 is a plain ``F.conv2d``
+(the JAX package leaves it to XLA); layers 2-7 and 8-14 + pooling go through
+the hand-written kernels in ``ops/sepconv.py``.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from buzzdetect_torch.ops.sepconv import (
+    exact_f32, fused_front, fused_tail, same_pad, tail_specs)
+
+# (kind, stride, output_filters); every kernel is 3x3.
+LAYER_DEFS = (
+    ('conv', 2, 32),
+    ('sep', 1, 64),
+    ('sep', 2, 128),
+    ('sep', 1, 128),
+    ('sep', 2, 256),
+    ('sep', 1, 256),
+    ('sep', 2, 512),
+    ('sep', 1, 512),
+    ('sep', 1, 512),
+    ('sep', 1, 512),
+    ('sep', 1, 512),
+    ('sep', 1, 512),
+    ('sep', 2, 1024),
+    ('sep', 1, 1024),
+)
+
+N_EMBEDDINGS = 1024
+BN_EPSILON = 1e-4
+# the kernels' split of the stack: fused_front runs [2, TAIL_START),
+# fused_tail runs [TAIL_START, end) and pools
+TAIL_START = 8
+
+
+# --- parameter construction --------------------------------------------------
+
+def _conv_shapes():
+    """Yield (name, kind, stride, kernel_shape) for every conv in the net.
+
+    Kernel shapes are HWIO; depthwise kernels are (3, 3, 1, C).
+    """
+    in_ch = 1
+    for i, (kind, stride, filters) in enumerate(LAYER_DEFS):
+        name = f'layer{i + 1}'
+        if kind == 'conv':
+            yield f'{name}/conv', 'full', stride, (3, 3, in_ch, filters)
+        else:
+            yield f'{name}/depthwise_conv', 'depthwise', stride, (3, 3, 1, in_ch)
+            yield f'{name}/pointwise_conv', 'full', 1, (1, 1, in_ch, filters)
+        in_ch = filters
+
+
+def init_raw_params(seed: int = 0):
+    """Deterministic raw (unfolded) parameters: truncated-normal kernels,
+    fresh BatchNorm statistics (numpy, HWIO)."""
+    rng = np.random.default_rng(seed)
+    params = {}
+    for key, kind, _stride, shape in _conv_shapes():
+        fan_in = shape[0] * shape[1] * (shape[2] if kind == 'full' else 1)
+        std = float(np.sqrt(2.0 / fan_in))
+        k = rng.standard_normal(shape).astype(np.float32) * std
+        np.clip(k, -2 * std, 2 * std, out=k)
+        ch = shape[3]
+        params[f'{key}/kernel'] = k
+        params[f'{key}/bn_beta'] = np.zeros(ch, np.float32)
+        params[f'{key}/bn_mean'] = np.zeros(ch, np.float32)
+        params[f'{key}/bn_var'] = np.ones(ch, np.float32)
+    return params
+
+
+def fold_batchnorm(raw: dict) -> dict:
+    """Fold BatchNorm (center only, no scale) into conv kernel + bias:
+
+        y = (conv(x) - mean) / sqrt(var + eps) + beta
+          = conv(x) * s + (beta - mean * s),   s = 1/sqrt(var + eps)
+
+    Returns numpy {conv/kernel, conv/bias} in HWIO.
+    """
+    folded = {}
+    for key, _kind, _stride, _shape in _conv_shapes():
+        kernel = np.asarray(raw[f'{key}/kernel'], np.float32)
+        beta = np.asarray(raw[f'{key}/bn_beta'], np.float32)
+        mean = np.asarray(raw[f'{key}/bn_mean'], np.float32)
+        var = np.asarray(raw[f'{key}/bn_var'], np.float32)
+        scale = 1.0 / np.sqrt(var + BN_EPSILON)
+        folded[f'{key}/kernel'] = kernel * scale  # broadcast over last axis
+        folded[f'{key}/bias'] = beta - mean * scale
+    return folded
+
+
+# --- forward pass -------------------------------------------------------------
+
+def layer1(params: dict, patches: torch.Tensor) -> torch.Tensor:
+    """(B, 96, 64[, 1]) patches -> (B, 48, 32, 32) NHWC layer-1 activations:
+    full 3x3 stride-2 conv with TF-SAME padding (bottom/right only), bias,
+    ReLU, in exact f32."""
+    exact_f32()
+    x = patches.to(torch.float32)
+    if x.dim() == 4:
+        x = x[..., 0]
+    ph, pw = same_pad(x.shape[1], 2), same_pad(x.shape[2], 2)
+    x = F.pad(x[:, None], (pw[0], pw[1], ph[0], ph[1]))
+    y = F.conv2d(x, params['layer1/conv/kernel'], stride=2)
+    y = torch.relu(y + params['layer1/conv/bias'][:, None, None])
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def embed(params: dict, patches: torch.Tensor) -> torch.Tensor:
+    """Log-mel patches (B, 96, 64) or (B, 96, 64, 1) -> (B, 1024) embeddings
+    (pre-head, post-pooling), exact f32.
+
+    ``params`` is the ``yamnet`` dict of ``models/weights.params_from_numpy``.
+    """
+    x = layer1(params, patches)
+    y = fused_front(params, x, start_layer=2, stop_layer=TAIL_START)
+    s = tail_specs(2, TAIL_START)[-1]
+    y = y.reshape(y.shape[0], s.h_out, s.w_out, s.c_out)
+    return fused_tail(params, y, start_layer=TAIL_START, gap=True)

@@ -1,0 +1,182 @@
+"""Small shared utilities: wire encoding, wall-clock timer, recursive file
+search, result idents.
+
+Copy of ``buzzdetect_tpu/utils.py`` (parity: reference `src/utils.py:8-62`)
+with the numpy paths of the wire encoders and a device preflight that probes
+torch.cuda.
+"""
+
+import os
+import time
+from datetime import datetime
+
+import numpy as np
+
+
+def quantize_int16(samples):
+    """float [-1, 1] samples -> int16 wire format (the pipeline's transfer
+    dtype; see ChunkClassifier.transfer_dtype): x32767, round half to even,
+    clip — the same values as the native decode stage's fused quantizer."""
+    samples = np.asarray(samples)
+    return (np.clip(samples, -1.0, 1.0) * 32767.0).round().astype(np.int16)
+
+
+_LN256 = float(np.log(256.0))
+
+
+def encode_mulaw(samples):
+    """float [-1, 1] -> continuous mu-law (mu=255) int8 in [-127, 127].
+
+    The 8-bit wire format: halves host->device bytes vs int16 at ~38 dB
+    SNR (constant *relative* quantization error — safer than linear int8
+    for quiet passages). The device inverts it
+    (models/classifier.py _to_float). Agrees with the native decode
+    stage's fused companding within ±1 code (float32 log1pf vs float64
+    log1p round half-way cases differently).
+    """
+    x = np.clip(samples, -1.0, 1.0)
+    m = np.round(np.log1p(255.0 * np.abs(x)) * (127.0 / _LN256))
+    return (np.sign(x) * m).astype(np.int8)
+
+
+def encode_wire(samples, transfer_dtype: str):
+    """Convert float samples to a named wire format ('float32' | 'int16' |
+    'mulaw') — the fallback for drivers without a fused read_s16/read_mulaw."""
+    if transfer_dtype == 'int16':
+        return quantize_int16(samples)
+    if transfer_dtype == 'mulaw':
+        return encode_mulaw(samples)
+    samples = np.asarray(samples)
+    return samples if samples.dtype == np.float32 \
+        else samples.astype(np.float32)
+
+
+def get_ext(path: str) -> str:
+    """Lower-case extension without the leading dot."""
+    return os.path.splitext(path)[1].lower().lstrip('.')
+
+
+class Timer:
+    """Start/stop wall timer used for analysis-rate reporting."""
+
+    def __init__(self):
+        self.time_start = datetime.now()
+        self._t0 = time.monotonic()
+        self._t1 = self._t0
+
+    def restart(self):
+        self._t0 = time.monotonic()
+        self._t1 = self._t0  # a get_total() before the next stop() must
+        # never report a negative (pre-restart) duration
+
+    def stop(self):
+        self._t1 = time.monotonic()
+
+    def get_current(self) -> float:
+        return time.monotonic() - self._t0
+
+    def get_total(self, decimals: int = 2) -> float:
+        return round(self._t1 - self._t0, decimals)
+
+
+def search_dir(dir_in: str, extensions=None):
+    """Recursively list files under ``dir_in``; optionally filter by extension.
+
+    ``extensions`` is a list of extension strings (no dot, case-insensitive),
+    e.g. ``['wav', 'mp3']``.
+    """
+    if extensions is not None:
+        if not isinstance(extensions, (list, tuple)) or not all(
+                isinstance(e, str) for e in extensions):
+            raise ValueError('extensions should be None or a list of strings')
+        wanted = {e.lower().lstrip('.').rstrip('$') for e in extensions}
+
+    paths = []
+    for root, _dirs, files in os.walk(dir_in):
+        for f in files:
+            p = os.path.join(root, f)
+            if extensions is None or get_ext(p) in wanted:
+                paths.append(p)
+    return sorted(paths)
+
+
+def build_ident(path: str, root_dir: str, tag: str = None) -> str:
+    """Identity of an audio file = its path relative to the audio root, minus
+    extension (and an optional tag substring). Used to name result files."""
+    path = os.path.normpath(path)
+    root_dir = os.path.normpath(root_dir)
+    # component-wise containment, NOT a string prefix: '/data/audio2/x.wav'
+    # is no child of '/data/audio', and a prefix check would hand relpath a
+    # '../audio2/...' ident whose result file lands OUTSIDE dir_results
+    inside = path == root_dir or path.startswith(root_dir + os.sep)
+    rel = os.path.relpath(path, root_dir) if inside else path
+    ident = os.path.splitext(rel)[0]
+    if tag is not None:
+        ident = ident.replace(tag, '')
+    ident = ident.replace(os.sep, '/').lstrip('/')
+    return ident
+
+
+def pid_alive(pid) -> bool:
+    """Is a process with this pid running on THIS machine? (signal 0 —
+    EPERM still means alive.) Non-numeric pids read as alive: refusing is
+    the safe direction for a run lock we cannot attribute."""
+    try:
+        pid = int(pid)
+    except (TypeError, ValueError):
+        return True
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def write_wav(path, samples, rate: int = 16000):
+    """Write float samples in [-1, 1] as a 16-bit mono WAV (stdlib only).
+
+    Shared by the tools, examples, and driver entry points that synthesize
+    fixture audio — each used to carry its own copy of this loop."""
+    import wave
+    import numpy as np
+    ints = np.clip(np.round(np.asarray(samples) * 32768),
+                   -32768, 32767).astype('<i2')
+    with wave.open(str(path), 'wb') as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(int(rate))
+        w.writeframes(ints.tobytes())
+
+
+# One real dispatch on the card, synchronized by host materialization.
+PREFLIGHT_CODE = (
+    "import torch\n"
+    "x = torch.ones((128, 128), device='cuda')\n"
+    "assert float((x @ x)[0, 0].cpu()) == 128.0\n"
+    "print('BUZZ_PREFLIGHT_OK')\n"
+)
+
+
+def backend_preflight(timeout: float, code: str = None):
+    """(ok, why_not): prove one CUDA dispatch completes, in a subprocess.
+
+    A wedged driver can hang the first CUDA call forever; any caller that
+    must stay responsive probes through this watched child before its first
+    in-process device call.
+    """
+    import subprocess
+    import sys
+    code = PREFLIGHT_CODE if code is None else code
+    try:
+        out = subprocess.run([sys.executable, '-c', code],
+                             capture_output=True, text=True,
+                             timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return False, (f'no dispatch completed within {timeout:.0f}s — '
+                       f'CUDA device unreachable')
+    if out.returncode == 0 and 'BUZZ_PREFLIGHT_OK' in out.stdout:
+        return True, None
+    tail = (out.stderr or out.stdout).strip().splitlines()
+    return False, (tail[-1] if tail else f'probe exited {out.returncode}')

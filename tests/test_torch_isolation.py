@@ -1,0 +1,97 @@
+"""The port stands alone: no JAX, nothing of buzzdetect_tpu, and no quiet
+fallback from CUDA to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ('jax', 'jaxlib', 'buzzdetect_tpu')
+
+
+def _port_sources():
+    root = os.path.join(REPO, 'buzzdetect_torch')
+    for base, _dirs, files in os.walk(root):
+        for f in files:
+            if f.endswith('.py'):
+                yield os.path.join(base, f)
+    yield os.path.join(REPO, 'chip_smoke.py')
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split('.')[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split('.')[0]
+
+
+def test_no_jax_or_reference_package_imports():
+    sources = list(_port_sources())
+    assert len(sources) > 20 and os.path.exists(sources[-1])
+    bad = [f'{os.path.relpath(p, REPO)}:{line} imports {mod}'
+           for p in sources for line, mod in _imported_roots(p)
+           if mod in FORBIDDEN]
+    assert bad == []
+
+
+@pytest.mark.parametrize('first', [
+    'buzzdetect_torch', 'buzzdetect_torch.ops.sepconv',
+    'buzzdetect_torch.models.yamnet', 'buzzdetect_torch.models.classifier'])
+def test_importing_the_port_loads_no_jax(first):
+    """Each module imports first without an import cycle, and the package
+    with its orchestrator pulls in no JAX. A subprocess: tests/conftest.py
+    imports jax into this process."""
+    code = (f'import sys, {first}, buzzdetect_torch.analysis\n'
+            'bad = sorted(m for m in sys.modules\n'
+            f'             if m.split(".")[0] in {FORBIDDEN!r})\n'
+            'print(bad)\n'
+            'assert not bad, bad\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_cuda_without_a_card_raises(tmp_path):
+    """Asking for the card where torch finds none raises at every entry
+    point; nothing carries on on the CPU."""
+    import torch
+    import buzzdetect_torch
+    from buzzdetect_torch.models.classifier import ChunkClassifier
+    from buzzdetect_torch.models.registry import load_model
+    assert not torch.cuda.is_available()  # tests/conftest.py hides the card
+    with pytest.raises(RuntimeError, match='CUDA'):
+        ChunkClassifier({}, device='cuda')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        load_model('model_general_v3')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        buzzdetect_torch.analyze(modelname='model_general_v3',
+                                 dir_audio=str(tmp_path),
+                                 dir_out=str(tmp_path / 'out'))
+    assert not (tmp_path / 'out').exists()
+    x = torch.zeros(1, 48, 32, 32)
+    from buzzdetect_torch.ops import sepconv
+    with pytest.raises(ValueError, match='unsupported device'):
+        sepconv._route(x.to('meta'))
+    np.testing.assert_array_equal(sepconv.fused_front.launches, 0)
+
+
+@pytest.mark.parametrize('kw', [
+    {'mesh': object()}, {'devices': 2}, {'host_shard': (0, 2)},
+    {'profile_dir': '/nonexistent'}, {'resample_on_device': True},
+    {'compute_dtype': 'bfloat16'},
+])
+def test_unported_analyze_options_raise(tmp_path, kw):
+    import buzzdetect_torch
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        buzzdetect_torch.analyze(modelname='model_general_v3',
+                                 dir_audio=str(tmp_path), device='cpu',
+                                 dir_out=str(tmp_path / 'out'), **kw)
