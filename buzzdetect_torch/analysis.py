@@ -33,8 +33,7 @@ from buzzdetect_torch.write.thresholds import calculate_threshold
 
 
 def _refuse_unported(mesh=None, devices=None, host_shard=None,
-                     profile_dir=None, resample_on_device=False,
-                     compute_dtype=None):
+                     profile_dir=None, resample_on_device=False):
     """Raise for an argument whose code is outside this slice of the port,
     naming the ROADMAP item that brings it."""
     later = (
@@ -44,9 +43,6 @@ def _refuse_unported(mesh=None, devices=None, host_shard=None,
         ('profile_dir', bool(profile_dir), 'Watch mode, alerts and profiling'),
         ('resample_on_device', bool(resample_on_device),
          'The libav decode stage and resampling'),
-        ('compute_dtype', compute_dtype is not None
-         and 'float32' not in str(compute_dtype),
-         'The emulated-HIGH and bf16 modes of the conv kernels'),
     )
     for name, given, item in later:
         if given:
@@ -216,8 +212,7 @@ class Analyzer:
 
         _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard,
                          profile_dir=profile_dir,
-                         resample_on_device=resample_on_device,
-                         compute_dtype=compute_dtype)
+                         resample_on_device=resample_on_device)
         if model is not None:
             # watch cycles share one model so device params upload once,
             # not once per polling cycle
@@ -242,10 +237,17 @@ class Analyzer:
         # logger worker is up (_launch_logger): the GUI runs analyze() in a
         # spawned child whose stderr nobody sees — the log queue is the only
         # path that reaches its log pane (and the run's .log file).
-        # setup-time warnings fire via warnings.warn for API callers AND
-        # are stashed here to re-emit through the run's log channel once
-        # the logger worker is up (_launch_logger)
         self.startup_warnings = []
+        dtype = compute_dtype
+        if model is not None and dtype is None:
+            dtype = getattr(model, '_compute_dtype', None)
+        if dtype is not None and 'bfloat16' in str(dtype) and precision is None:
+            self._startup_warn(
+                'compute_dtype=bfloat16 with activations output: measured '
+                'max activation deviation vs float32 is ~0.006, exceeding '
+                'the 1e-3 score-parity contract (still inside the 2-decimal '
+                'output rounding; detections mode is insensitive). Use '
+                'float32 where the parity contract matters.')
         if self._profile_note:
             # log-channel only (startup_warnings reaches the .log file and
             # the GUI pane): the profile is a deliberate choice, not an
@@ -1321,8 +1323,11 @@ def analyze(modelname: str,
         the port reads 16 kHz PCM16 WAV (audio/__init__.WavDriver).
     verbosity_print / verbosity_log / log_progress : logging controls.
     q_gui / event_stopanalysis : GUI integration hooks.
-    compute_dtype : None or float32 (exact f32, the 1e-3 parity budget);
-        bf16 is not ported yet.
+    compute_dtype : None or float32 (exact f32, the 1e-3 parity budget), or
+        bfloat16 (``torch.bfloat16`` or ``'bfloat16'``): the conv kernels'
+        bf16 mode, the JAX package's ``conv='pallas'`` bf16 function. With
+        activations output it warns (scores move by up to ~0.006 against
+        float32).
     profile_dir, mesh, devices, host_shard, resample_on_device : not ported
         yet; passing them raises NotImplementedError naming the ROADMAP
         item (see ``buzzdetect_tpu.analyze`` for what they do there).
@@ -1334,8 +1339,9 @@ def analyze(modelname: str,
         (8-bit mu-law companding — halves transfer bytes again at ~38 dB
         SNR, for deployments where the host->device link is the bottleneck;
         activations typically shift by well under one rounding digit).
-    strict_f32 : exact f32 everywhere — what this slice always computes,
-        so it changes nothing here but the manifest's profile record.
+    strict_f32 : pin the conv kernels to exact f32 (``conv_precision=
+        'highest'``), over a bundle config's ``'high'``; the default already
+        runs exact f32, and bf16 compute ignores it.
     profile : one-flag deployment preset — ``'field'`` (throughput-first
         for real recordings: mu-law wire, measured up to 2.9x pipeline on
         link-bound deployments; its digital-silence caveat is logged and
@@ -1388,8 +1394,7 @@ def analyze(modelname: str,
     """
     _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard,
                      profile_dir=profile_dir,
-                     resample_on_device=resample_on_device,
-                     compute_dtype=compute_dtype)
+                     resample_on_device=resample_on_device)
     if backend_timeout is not None:
         backend_timeout = float(backend_timeout)
         if backend_timeout <= 0:

@@ -1,4 +1,4 @@
-// YAMNet depthwise-separable conv stack (fused_front / fused_tail), exact f32.
+// YAMNet depthwise-separable conv stack (fused_front / fused_tail).
 //
 // Replaces the TPU kernel buzzdetect_tpu/ops/pallas_conv.py::_tail_kernel as
 // launched by fused_front (layers 2-7 with plain_through=8) and fused_tail
@@ -8,12 +8,31 @@
 // Each separable layer is: depthwise 3x3 (TF-SAME padding) + bias + ReLU,
 // then pointwise 1x1 (C -> F) + bias + ReLU, on NHWC f32 activations.
 //
+// Three modes of the pointwise product, as the TPU kernel's compute_dtype
+// and precision select them (pallas_conv.py::_pw_dot / _pack_pw):
+//   HIGHEST  f32 weights and activations, exact f32;
+//   BF16     bf16 weights; the activation entering the product is rounded
+//            to bf16 (round to nearest even); f32 accumulate;
+//   HIGH     the emulated HIGH: weights as bf16 hi and lo planes
+//            (w ~= hi + lo), the activation split the same way on the fly
+//            (a_hi = bf16(a), a_lo = bf16(a - a_hi)), and the product
+//            a_hi*w_hi + a_hi*w_lo + a_lo*w_hi with f32 accumulate.
+// The depthwise taps, biases, ReLU and pooling stay f32 in every mode. A
+// product of two bf16 values is exact in f32, so FFMA on bf16-rounded
+// values computes exactly the products the TPU's one-pass bf16 products
+// compute; only the order of the f32 sums differs. Weights stay bf16 in
+// device memory (half the bytes); the shared-memory tiles hold the
+// bf16-rounded values as f32, so the inner loop is the same FFMA loop in
+// every mode.
+//
 // Bound on an H100 SXM. One 200 s chunk is 209 patches; the front does
 // 26.7 M MAC per patch and the tail 41.5 M, so ~11.2 and ~17.3 GFLOP per
 // chunk, against tens of MB of compulsory traffic (~41 MB of layer-1
 // activations in, ~11 MB of tail weights). At the card's 67 TFLOP/s
 // non-tensor f32 peak that is ~0.17 ms and ~0.26 ms: the stack is bound by
-// f32 FFMA throughput, not by memory.
+// f32 FFMA throughput, not by memory. (The bf16 and HIGH modes are bound by
+// the same FFMA work here: one and three products per multiply-add; the
+// tensor cores, which would bound them lower, are later work.)
 //
 // What the design does about it. The pointwise product is >95% of the
 // operations, so each layer is one launch of a tiled FFMA matrix product
@@ -35,6 +54,7 @@
 // Plain C interface, loaded with ctypes; every function returns a
 // cudaError_t code (0 = success) and launches on the given stream.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,22 +71,30 @@ constexpr int TN = BN / 16;  // 4 output channels per thread
 constexpr int APAD = 4;
 constexpr int DIMS = 9;  // ints per layer descriptor on the host side
 
+enum Mode { HIGHEST = 0, BF16 = 1, HIGH = 2 };
+
 struct Layer {
     const float* dw;    // (9, C) depthwise taps, tap t = (dy+1)*3 + (dx+1)
     const float* dw_b;  // (C,)
-    const float* pw;    // (C, F) pointwise, row-major
+    const void* pw;     // (C, F) pointwise, row-major: f32 (HIGHEST), bf16
+                        // (BF16), or bf16 hi then lo planes, (2, C, F) (HIGH)
     const float* pw_b;  // (F,)
     int h, w, c, f, stride, ho, wo, off_h, off_w;
 };
 
-template <int BM>
+__device__ __forceinline__ float bf16_round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int BM, int MODE>
 __global__ void __launch_bounds__(NT, 2)
 sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
                  const Layer L, const int m_total) {
     constexpr int TM = BM / 16;             // output positions per thread
     constexpr int DW_SLOTS = BM * BK / NT;  // depthwise values per chunk
-    __shared__ __align__(16) float As[BK][BM + APAD];  // depthwise output
-    __shared__ __align__(16) float Bs[BK][BN];         // pointwise weights
+    constexpr int NP = MODE == HIGH ? 2 : 1;  // operand planes: hi, lo
+    __shared__ __align__(16) float As[NP][BK][BM + APAD];  // depthwise out
+    __shared__ __align__(16) float Bs[NP][BK][BN];         // pointwise w
 
     const int tid = threadIdx.x;
     const int tx = tid % 16, ty = tid / 16;
@@ -124,28 +152,55 @@ sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
                 }
                 v = fmaxf(a + bias, 0.f);
             }
-            As[kk][tid / BK + j * (NT / BK)] = v;
+            const int pos = tid / BK + j * (NT / BK);
+            if (MODE == HIGHEST) {
+                As[0][kk][pos] = v;
+            } else {
+                const float hi = bf16_round(v);
+                As[0][kk][pos] = hi;
+                if (MODE == HIGH) As[NP - 1][kk][pos] = bf16_round(v - hi);
+            }
         }
-        *reinterpret_cast<float2*>(&Bs[pk][pn]) =
-            *reinterpret_cast<const float2*>(
-                L.pw + (long long)(k0 + pk) * L.f + n0 + pn);
+        const long long w_off = (long long)(k0 + pk) * L.f + n0 + pn;
+        if (MODE == HIGHEST) {
+            *reinterpret_cast<float2*>(&Bs[0][pk][pn]) =
+                *reinterpret_cast<const float2*>(
+                    static_cast<const float*>(L.pw) + w_off);
+        } else {
+            const __nv_bfloat16* pw = static_cast<const __nv_bfloat16*>(L.pw);
+#pragma unroll
+            for (int p = 0; p < NP; ++p)
+                *reinterpret_cast<float2*>(&Bs[p][pk][pn]) =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                        pw + (long long)p * L.c * L.f + w_off));
+        }
         __syncthreads();
 #pragma unroll
         for (int k = 0; k < BK; ++k) {
-            float a[TM];
+            float a[NP][TM], b[NP][TN];
 #pragma unroll
-            for (int q = 0; q < TM; q += 4) {
-                const float4 v =
-                    *reinterpret_cast<const float4*>(&As[k][ty * TM + q]);
-                a[q] = v.x; a[q + 1] = v.y; a[q + 2] = v.z; a[q + 3] = v.w;
+            for (int p = 0; p < NP; ++p) {
+#pragma unroll
+                for (int q = 0; q < TM; q += 4) {
+                    const float4 v = *reinterpret_cast<const float4*>(
+                        &As[p][k][ty * TM + q]);
+                    a[p][q] = v.x; a[p][q + 1] = v.y;
+                    a[p][q + 2] = v.z; a[p][q + 3] = v.w;
+                }
+                const float4 b4 =
+                    *reinterpret_cast<const float4*>(&Bs[p][k][tx * TN]);
+                b[p][0] = b4.x; b[p][1] = b4.y; b[p][2] = b4.z; b[p][3] = b4.w;
             }
-            const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-            const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
             for (int i = 0; i < TM; ++i)
 #pragma unroll
-                for (int j = 0; j < TN; ++j)
-                    acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+                for (int j = 0; j < TN; ++j) {
+                    acc[i][j] = fmaf(a[0][i], b[0][j], acc[i][j]);
+                    if (MODE == HIGH) {  // + a_hi*w_lo + a_lo*w_hi
+                        acc[i][j] = fmaf(a[0][i], b[NP - 1][j], acc[i][j]);
+                        acc[i][j] = fmaf(a[NP - 1][i], b[0][j], acc[i][j]);
+                    }
+                }
         }
         __syncthreads();
     }
@@ -179,10 +234,25 @@ __global__ void gap_kernel(const float* __restrict__ x, float* __restrict__ y,
 // Runs the layers in order: layer i reads the previous layer's output from
 // one scratch buffer and writes the other; the last layer writes `out`
 // directly, or (with gap) a scratch buffer that gap_kernel reduces to `out`.
+template <int BM>
+void launch_layer(int mode, dim3 grid, cudaStream_t stream, const float* in,
+                  float* dst, const Layer& L, int m_total) {
+    if (mode == BF16)
+        sep_layer_kernel<BM, BF16><<<grid, NT, 0, stream>>>(in, dst, L,
+                                                            m_total);
+    else if (mode == HIGH)
+        sep_layer_kernel<BM, HIGH><<<grid, NT, 0, stream>>>(in, dst, L,
+                                                            m_total);
+    else
+        sep_layer_kernel<BM, HIGHEST><<<grid, NT, 0, stream>>>(in, dst, L,
+                                                               m_total);
+}
+
 int run_stack(const float* x, float* out, float* buf0, float* buf1, int batch,
               int n_layers, const int64_t* ptrs, const int* dims, int gap,
-              cudaStream_t stream) {
-    if (batch <= 0 || n_layers <= 0) return (int)cudaErrorInvalidValue;
+              int mode, cudaStream_t stream) {
+    if (batch <= 0 || n_layers <= 0 || mode < HIGHEST || mode > HIGH)
+        return (int)cudaErrorInvalidValue;
     int device = 0, sms = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -193,7 +263,7 @@ int run_stack(const float* x, float* out, float* buf0, float* buf1, int batch,
         const int* d = dims + DIMS * i;
         L.dw = reinterpret_cast<const float*>(ptrs[4 * i + 0]);
         L.dw_b = reinterpret_cast<const float*>(ptrs[4 * i + 1]);
-        L.pw = reinterpret_cast<const float*>(ptrs[4 * i + 2]);
+        L.pw = reinterpret_cast<const void*>(ptrs[4 * i + 2]);
         L.pw_b = reinterpret_cast<const float*>(ptrs[4 * i + 3]);
         L.h = d[0]; L.w = d[1]; L.c = d[2]; L.f = d[3]; L.stride = d[4];
         L.ho = d[5]; L.wo = d[6]; L.off_h = d[7]; L.off_w = d[8];
@@ -203,15 +273,12 @@ int run_stack(const float* x, float* out, float* buf0, float* buf1, int batch,
         float* dst = (last && !gap) ? out : bufs[i % 2];
         const int m_total = batch * L.ho * L.wo;
         const int tiles128 = (m_total + 127) / 128 * (L.f / BN);
-        if (tiles128 >= 2 * sms) {
-            const dim3 grid((m_total + 127) / 128, L.f / BN);
-            sep_layer_kernel<128><<<grid, NT, 0, stream>>>(in, dst, L,
-                                                           m_total);
-        } else {
-            const dim3 grid((m_total + 63) / 64, L.f / BN);
-            sep_layer_kernel<64><<<grid, NT, 0, stream>>>(in, dst, L,
-                                                          m_total);
-        }
+        if (tiles128 >= 2 * sms)
+            launch_layer<128>(mode, dim3((m_total + 127) / 128, L.f / BN),
+                              stream, in, dst, L, m_total);
+        else
+            launch_layer<64>(mode, dim3((m_total + 63) / 64, L.f / BN),
+                             stream, in, dst, L, m_total);
         cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
         in = dst;
@@ -233,12 +300,12 @@ extern "C" {
 
 // A range of separable layers on NHWC f32, e.g. layers 2-7 of the front,
 // (B, 48, 32, 32) -> (B, 6, 4, 512), or layers 8-14 with gap=1,
-// (B, 6, 4, 512) -> (B, 1024).
+// (B, 6, 4, 512) -> (B, 1024); mode is a Mode (0 HIGHEST, 1 BF16, 2 HIGH).
 int bz_sep_stack(const float* x, float* out, float* buf0, float* buf1,
                  int batch, int n_layers, const int64_t* ptrs,
-                 const int* dims, int gap, void* stream) {
+                 const int* dims, int gap, int mode, void* stream) {
     return run_stack(x, out, buf0, buf1, batch, n_layers, ptrs, dims, gap,
-                     static_cast<cudaStream_t>(stream));
+                     mode, static_cast<cudaStream_t>(stream));
 }
 
 const char* bz_error_string(int code) {

@@ -10,8 +10,29 @@ padding matches the reference's pad_waveform, so those rows are the only
 difference. PyTorch runs eagerly, so there is no shape bucketing.
 
 On a CUDA device the conv stack runs through the hand-written kernels of
-``ops/sepconv.py`` and results stay on the card until the pipeline copies
-them back (runtime/inferer.py). On the CPU every op runs its plain version.
+``ops/sepconv.py`` (and the log-mel through ``ops/logmel.py`` with
+``frontend='pallas'``), and results stay on the card until the pipeline
+copies them back (runtime/inferer.py). On the CPU every op runs its plain
+version. Nothing falls back: an option the port computes runs its kernel or
+raises, and an option it does not compute raises NotImplementedError naming
+the ROADMAP item that brings it.
+
+The knobs, and how they resolve here:
+
+* ``frontend``: ``'auto'`` and ``'xla'`` are the matmul frontend
+  (``ops/frontend.py``); ``'pallas'`` is the fused log-mel kernel, on the
+  single-chunk and the batch path alike.
+* ``conv``: ``'auto'`` and ``'pallas'`` run the hand-written conv kernels at
+  every compute dtype. The JAX package's ``resolve_conv_auto`` sends bf16
+  to its XLA conv, because Mosaic cannot rotate 16-bit vectors and the f32
+  depthwise work then dominates on a TPU; the card has no such limit, so
+  the port's bf16 computes the JAX package's ``conv='pallas'`` bf16
+  function. ``'xla'`` (the XLA conv path) is not ported and raises.
+* ``conv_precision``: ``'auto'`` resolves to ``'highest'`` on the kernels,
+  as the JAX package resolves it for ``conv='pallas'``; ``'high'`` selects
+  the emulated-HIGH mode. bf16 compute ignores it (one bf16 product).
+* ``compute_dtype``: float32 (``None``, ``torch.float32``, ``'float32'``)
+  or bfloat16 (``torch.bfloat16``, ``'bfloat16'``).
 """
 
 import numpy as np
@@ -20,9 +41,10 @@ import torch
 from buzzdetect_torch.models import yamnet as yamnet_lib
 from buzzdetect_torch.models.heads import apply_head
 from buzzdetect_torch.models.weights import params_from_numpy
+from buzzdetect_torch.ops import logmel, sepconv
 from buzzdetect_torch.ops.frontend import (
-    FrontendConfig, padded_length, num_patches, log_mel_patches)
-from buzzdetect_torch.ops.sepconv import exact_f32, load_kernels
+    FrontendConfig, padded_length, num_patches, log_mel_patches,
+    patches_from_log_mel)
 from buzzdetect_torch.utils import encode_mulaw, quantize_int16
 
 _LN256 = float(np.log(256.0))
@@ -42,6 +64,20 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def resolve_conv(conv) -> str:
+    """'auto' and 'pallas' -> 'pallas' (the CUDA conv kernels, at every
+    compute dtype); 'xla' raises NotImplementedError naming its ROADMAP
+    item; anything else raises ValueError."""
+    if conv not in ('auto', 'xla', 'pallas'):
+        raise ValueError("conv must be 'auto', 'xla' or 'pallas'")
+    if conv == 'xla':
+        raise NotImplementedError(
+            "conv='xla': the XLA conv path is not ported to "
+            "buzzdetect_torch yet (ROADMAP, \"The XLA conv path "
+            "(conv='xla')\"); 'auto' and 'pallas' run the CUDA conv kernels")
+    return 'pallas'
+
+
 def _to_float(waveform: torch.Tensor) -> torch.Tensor:
     """Undo the wire format on the device: int16 is linear PCM; int8 is
     continuous mu-law (mu=255, utils.encode_mulaw), expanded with one
@@ -55,11 +91,24 @@ def _to_float(waveform: torch.Tensor) -> torch.Tensor:
     return waveform
 
 
-def _classify(params, wavs: torch.Tensor, cfg: FrontendConfig):
+def _patches(wavs: torch.Tensor, cfg: FrontendConfig, frontend: str):
+    """(..., L) padded f32 waveforms -> (..., P, 96, 64) log-mel patches
+    through the selected frontend: 'xla' (the matmul frontend) or 'pallas'
+    (the fused log-mel kernel, which takes (L,) or (B, L))."""
+    if frontend == 'pallas':
+        return patches_from_log_mel(
+            logmel.log_mel_spectrogram_fused(wavs, cfg), cfg)
+    return log_mel_patches(wavs, cfg)
+
+
+def _classify(params, wavs: torch.Tensor, cfg: FrontendConfig,
+              frontend: str = 'xla', compute_dtype=torch.float32,
+              conv_precision: str = 'highest'):
     """(..., L) padded wire waveforms -> (..., n_patches, n_classes)."""
-    patches = log_mel_patches(_to_float(wavs), cfg)   # (..., P, 96, 64)
+    patches = _patches(_to_float(wavs), cfg, frontend)   # (..., P, 96, 64)
     lead = patches.shape[:-2]
-    emb = yamnet_lib.embed(params['yamnet'], patches.reshape(-1, 96, 64))
+    emb = yamnet_lib.embed(params['yamnet'], patches.reshape(-1, 96, 64),
+                           compute_dtype, conv_precision)
     return apply_head(params['head'], emb).reshape(*lead, -1)
 
 
@@ -74,31 +123,22 @@ class ChunkClassifier:
 
     def __init__(self, arrays: dict, framehop_prop: float = 1.0,
                  compute_dtype=None, device='cuda', transfer_dtype='float32',
-                 frontend='auto', conv_precision='auto'):
+                 frontend='auto', conv='auto', conv_precision='auto'):
         self.cfg = FrontendConfig().with_framehop(framehop_prop)
-        if compute_dtype not in (None, torch.float32, 'float32'):
-            raise NotImplementedError(
-                f'compute_dtype={compute_dtype}: only float32 is ported; '
-                f'the bf16 mode of the conv kernels is a later slice '
-                f'(ROADMAP "TPU kernels to port")')
-        self.compute_dtype = torch.float32
+        self.compute_dtype = sepconv.resolve_compute_dtype(compute_dtype)
         if frontend not in ('auto', 'xla', 'pallas'):
             raise ValueError("frontend must be 'auto', 'xla' or 'pallas'")
-        if frontend == 'pallas':
-            raise NotImplementedError(
-                "frontend='pallas': the fused log-mel kernel is not ported "
-                "yet (ROADMAP \"TPU kernels to port\"); 'auto' runs the "
-                "matmul frontend")
-        self.frontend = 'xla'
+        self.frontend = 'xla' if frontend == 'auto' else frontend
+        self.conv = resolve_conv(conv)
         if conv_precision not in ('auto', 'high', 'highest'):
             raise ValueError(
                 "conv_precision must be 'auto', 'high' or 'highest'")
-        if conv_precision == 'high':
-            raise NotImplementedError(
-                "conv_precision='high': the emulated-HIGH mode of the conv "
-                "kernels is not ported yet (ROADMAP \"TPU kernels to "
-                "port\"); 'auto' and 'highest' run exact f32")
-        self.conv_precision = 'highest'
+        self.conv_precision = ('highest' if conv_precision == 'auto'
+                               else conv_precision)
+        # the conv kernels' mode ('highest' | 'bf16' | 'high')
+        self.mode = sepconv.resolve_mode(
+            self.compute_dtype, yamnet_lib.conv_mxu_precision(
+                self.compute_dtype, self.conv_precision))
         # 'mulaw' rides int8 on the wire; linear int8 is not offered
         self.transfer_name = str(transfer_dtype)
         if self.transfer_name not in ('float32', 'int16', 'mulaw'):
@@ -106,10 +146,15 @@ class ChunkClassifier:
         self.transfer_dtype = np.dtype(
             'int8' if self.transfer_name == 'mulaw' else self.transfer_name)
         self.device = resolve_device(device)
-        exact_f32()
+        sepconv.exact_f32()
         if self.device.type == 'cuda':
-            load_kernels()
+            sepconv.load_kernels()
+            if self.frontend == 'pallas':
+                logmel.load_kernels()
         self.params = params_from_numpy(arrays, self.device)
+        # the mode's pointwise operands, packed once beside the f32 params
+        self.params['yamnet'] = sepconv.pack_params(self.params['yamnet'],
+                                                    self.mode)
 
     def to_wire(self, samples: np.ndarray) -> np.ndarray:
         """Convert host samples to this classifier's wire dtype (no-op when
@@ -190,14 +235,18 @@ class ChunkClassifier:
         n_valids = [num_patches(len(a), self.cfg) for a in arrs]
         target = padded_length(max(len(a) for a in arrs), self.cfg)
         batch = np.stack([self._pad_to(a, target) for a in arrs])
-        return _classify(self.params, self._upload(batch), self.cfg), n_valids
+        return self._classify(self._upload(batch)), n_valids
 
     @torch.inference_mode()
     def classify_resident(self, wav_device: torch.Tensor) -> torch.Tensor:
         """Classify an already device-resident padded wire-format waveform
         (no host staging): (n_patches, n_classes) on the device."""
         self._need_head()
-        return _classify(self.params, wav_device, self.cfg)
+        return self._classify(wav_device)
+
+    def _classify(self, wavs: torch.Tensor) -> torch.Tensor:
+        return _classify(self.params, wavs, self.cfg, self.frontend,
+                         self.compute_dtype, self.conv_precision)
 
     @torch.inference_mode()
     def embed(self, samples: np.ndarray) -> np.ndarray:
@@ -206,8 +255,9 @@ class ChunkClassifier:
         n_valid = num_patches(len(samples), self.cfg)
         wav = self._upload(self._pad_to(samples,
                                         padded_length(len(samples), self.cfg)))
-        patches = log_mel_patches(_to_float(wav), self.cfg)
-        out = yamnet_lib.embed(self.params['yamnet'], patches)
+        patches = _patches(_to_float(wav), self.cfg, self.frontend)
+        out = yamnet_lib.embed(self.params['yamnet'], patches,
+                               self.compute_dtype, self.conv_precision)
         return out.cpu().numpy()[:n_valid]
 
     def warmup(self, chunk_samples: int):

@@ -19,7 +19,8 @@ import os
 import threading
 
 from buzzdetect_torch import config as cfg
-from buzzdetect_torch.models.classifier import ChunkClassifier, resolve_device
+from buzzdetect_torch.models.classifier import (
+    ChunkClassifier, resolve_conv, resolve_device)
 from buzzdetect_torch.ops.frontend import FrontendConfig
 
 
@@ -160,7 +161,7 @@ class BundleModel(BaseModel):
 
     def __init__(self, dir_model: str, framehop_prop: float = 1.0,
                  compute_dtype=None, transfer_dtype=None, frontend=None,
-                 device='cuda', conv_precision=None):
+                 conv=None, device='cuda', conv_precision=None):
         self.dir_model = dir_model
         self.framehop_prop = framehop_prop
         self.modelname = os.path.basename(dir_model.rstrip('/'))
@@ -180,11 +181,16 @@ class BundleModel(BaseModel):
         self._transfer_dtype = (transfer_dtype
                                 or self.config.get('transfer_dtype')
                                 or 'int16')
-        # frontend implementation: 'auto' (default; the matmul frontend)
-        # or 'xla' (the same); 'pallas' is not ported yet
+        # frontend implementation: 'auto' (default) and 'xla' run the
+        # matmul frontend, 'pallas' the fused log-mel kernel
         self._frontend = frontend or self.config.get('frontend') or 'auto'
-        # conv-dot precision: 'auto'/'highest' run exact f32 (the only mode
-        # this slice computes); 'high' is not ported yet
+        # conv stack implementation: 'auto' (default) and 'pallas' run the
+        # CUDA conv kernels at every compute dtype; 'xla' is not ported and
+        # raises here, in the caller's thread (ChunkClassifier has the rules)
+        self._conv = conv or self.config.get('conv') or 'auto'
+        resolve_conv(self._conv)
+        # conv-dot precision: 'auto' (default) and 'highest' run exact f32,
+        # 'high' the emulated-HIGH mode of the conv kernels
         self._conv_precision = (conv_precision
                                 or self.config.get('conv_precision')
                                 or 'auto')
@@ -213,8 +219,8 @@ class BundleModel(BaseModel):
                 arrays, framehop_prop=self.framehop_prop,
                 compute_dtype=self._compute_dtype,
                 transfer_dtype=self._transfer_dtype,
-                frontend=self._frontend, device=self._device,
-                conv_precision=self._conv_precision)
+                frontend=self._frontend, conv=self._conv,
+                device=self._device, conv_precision=self._conv_precision)
             self.embedder._classifier = classifier
             self.classifier = classifier
 
@@ -299,7 +305,7 @@ def load_embedder(embeddername: str, framehop_prop: float = 1.0) -> BaseEmbedder
 
 def load_model(modelname: str, framehop_prop: float = 1.0,
                initialize: bool = False, compute_dtype=None,
-               transfer_dtype=None, frontend=None, device='cuda',
+               transfer_dtype=None, frontend=None, conv=None, device='cuda',
                conv_precision=None) -> BaseModel:
     """Resolve a model by directory name.
 
@@ -316,7 +322,7 @@ def load_model(modelname: str, framehop_prop: float = 1.0,
         model = BundleModel(dir_model, framehop_prop,
                             compute_dtype=compute_dtype,
                             transfer_dtype=transfer_dtype,
-                            frontend=frontend, device=device,
+                            frontend=frontend, conv=conv, device=device,
                             conv_precision=conv_precision)
     elif os.path.exists(os.path.join(dir_model, 'model.py')):
         klass = _import_plugin(os.path.join(dir_model, 'model.py'), BaseModel)

@@ -8,7 +8,10 @@ ReLU, ending in global average pooling to a 1024-d embedding per patch.
 
 Inference runs on BatchNorm-folded weights. Layer 1 is a plain ``F.conv2d``
 (the JAX package leaves it to XLA); layers 2-7 and 8-14 + pooling go through
-the hand-written kernels in ``ops/sepconv.py``.
+the hand-written kernels in ``ops/sepconv.py``, in the mode that
+``compute_dtype`` and ``conv_precision`` select (``conv_mxu_precision``,
+copied from ``buzzdetect_tpu/models/yamnet.py``, then
+``sepconv.resolve_mode``).
 """
 
 import numpy as np
@@ -16,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from buzzdetect_torch.ops.sepconv import (
-    exact_f32, fused_front, fused_tail, same_pad, tail_specs)
+    exact_f32, fused_front, fused_tail, resolve_compute_dtype, resolve_mode,
+    round_bf16, same_pad, tail_specs)
 
 # (kind, stride, output_filters); every kernel is 3x3.
 LAYER_DEFS = (
@@ -101,29 +105,71 @@ def fold_batchnorm(raw: dict) -> dict:
 
 # --- forward pass -------------------------------------------------------------
 
-def layer1(params: dict, patches: torch.Tensor) -> torch.Tensor:
+def conv_mxu_precision(compute_dtype, conv_precision: str) -> str:
+    """Precision of the conv stack's products, from the product knob, as
+    ``buzzdetect_tpu.models.yamnet.conv_mxu_precision`` resolves it (the
+    names of ``jax.lax.Precision`` in lower case).
+
+    f32 operands: ``'highest'`` is exact f32 (the oracle and the kernels'
+    default), ``'high'`` the 3-product bf16 hi/lo split. bf16 compute always
+    runs ``'default'``: one bf16 product, the operands are already bf16.
+    """
+    # validate BEFORE the dtype short-circuit: a typo'd knob must fail
+    # loudly on the bf16 path too, not only when f32 happens to run
+    if conv_precision not in ('high', 'highest'):
+        raise ValueError(
+            f"conv_precision must be 'high' or 'highest', "
+            f"got {conv_precision!r}")
+    if resolve_compute_dtype(compute_dtype) != torch.float32:
+        return 'default'
+    return conv_precision
+
+
+def layer1(params: dict, patches: torch.Tensor,
+           mode: str = 'highest') -> torch.Tensor:
     """(B, 96, 64[, 1]) patches -> (B, 48, 32, 32) NHWC layer-1 activations:
     full 3x3 stride-2 conv with TF-SAME padding (bottom/right only), bias,
-    ReLU, in exact f32."""
+    ReLU.
+
+    ``mode`` is the conv kernels' mode. In ``'bf16'`` the patches and the
+    kernel are rounded to bf16, the products accumulate in f32, bias and
+    ReLU run in f32, and the output is rounded to bf16 (held in f32), as the
+    JAX package's ``packed_l1`` computes under bf16 compute. Otherwise
+    (``'highest'``, and ``'high'`` too) the layer is exact f32: for HIGH,
+    exact f32 is what XLA computes on the CPU oracle, and cuDNN has no
+    3-product bf16 convolution."""
     exact_f32()
     x = patches.to(torch.float32)
     if x.dim() == 4:
         x = x[..., 0]
+    kernel = params['layer1/conv/kernel']
+    if mode == 'bf16':
+        x, kernel = round_bf16(x), round_bf16(kernel)
     ph, pw = same_pad(x.shape[1], 2), same_pad(x.shape[2], 2)
     x = F.pad(x[:, None], (pw[0], pw[1], ph[0], ph[1]))
-    y = F.conv2d(x, params['layer1/conv/kernel'], stride=2)
+    y = F.conv2d(x, kernel, stride=2)
     y = torch.relu(y + params['layer1/conv/bias'][:, None, None])
+    if mode == 'bf16':
+        y = round_bf16(y)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def embed(params: dict, patches: torch.Tensor) -> torch.Tensor:
+def embed(params: dict, patches: torch.Tensor, compute_dtype=torch.float32,
+          conv_precision: str = 'highest') -> torch.Tensor:
     """Log-mel patches (B, 96, 64) or (B, 96, 64, 1) -> (B, 1024) embeddings
-    (pre-head, post-pooling), exact f32.
+    (pre-head, post-pooling), f32.
 
-    ``params`` is the ``yamnet`` dict of ``models/weights.params_from_numpy``.
+    ``params`` is the ``yamnet`` dict of ``models/weights.params_from_numpy``,
+    with ``sepconv.pack_params`` applied for the mode (the f32 'highest'
+    mode needs nothing packed). ``compute_dtype`` and
+    ``conv_precision`` select the kernels' mode, as in the JAX package's
+    ``embed(..., conv='pallas')``.
     """
-    x = layer1(params, patches)
-    y = fused_front(params, x, start_layer=2, stop_layer=TAIL_START)
+    mode = resolve_mode(compute_dtype,
+                        conv_mxu_precision(compute_dtype, conv_precision))
+    x = layer1(params, patches, mode)
+    y = fused_front(params, x, start_layer=2, stop_layer=TAIL_START,
+                    mode=mode)
     s = tail_specs(2, TAIL_START)[-1]
     y = y.reshape(y.shape[0], s.h_out, s.w_out, s.c_out)
-    return fused_tail(params, y, start_layer=TAIL_START, gap=True)
+    return fused_tail(params, y, start_layer=TAIL_START, gap=True, mode=mode)

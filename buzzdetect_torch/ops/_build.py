@@ -5,6 +5,8 @@ interface, loaded with ctypes. The build goes to ``csrc/build/`` (listed in
 .gitignore), keyed by a hash of the source, and is serialized across threads
 and processes with a file lock, so concurrent first users build once.
 Nothing here runs at import: callers build from model initialization.
+``build_all`` starts one ``nvcc`` per source at once, for callers that need
+several libraries (the doctor, ``chip_smoke.py``).
 """
 
 import ctypes
@@ -18,6 +20,8 @@ import threading
 DIR_CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
 DIR_BUILD = os.path.join(DIR_CSRC, 'build')
+# every kernel source of the port, csrc/<name>.cu
+SOURCES = ('sepconv', 'logmel')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 
@@ -62,6 +66,27 @@ def build(name: str) -> str:
                                f'{proc.stderr}')
         os.replace(tmp, out)
     return out
+
+
+def build_all(names=SOURCES):
+    """Build several sources at once, one ``nvcc`` (in its own thread) per
+    source; returns their library paths. Raises the first failure after
+    every build has ended."""
+    paths, errors = {}, []
+
+    def one(name):
+        try:
+            paths[name] = build(name)
+        except Exception as e:  # collected, re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return [paths[n] for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:

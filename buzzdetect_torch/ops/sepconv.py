@@ -3,15 +3,31 @@
 Counterpart of ``buzzdetect_tpu/ops/pallas_conv.py``: ``fused_front`` runs
 layers 2-7 and ``fused_tail`` layers 8-14 plus global average pooling (or
 any sep-layer range without pooling). On a CUDA tensor each wrapper launches
-its kernel from ``csrc/sepconv.cu`` (exact f32 FFMA; see the note at the top
-of that file) and counts the launch in ``<wrapper>.launches``; on a CPU
+its kernel from ``csrc/sepconv.cu`` (FFMA only; see the note at the top of
+that file) and counts the launch in ``<wrapper>.launches[mode]``; on a CPU
 tensor it computes the plain PyTorch version. There is no other path.
+
+``mode`` selects the pointwise product's operands, as the TPU kernel's
+``compute_dtype`` and ``precision`` do (``resolve_mode``):
+
+* ``'highest'``: f32 operands, exact f32 (the TPU's HIGHEST);
+* ``'bf16'``: activation and weight rounded to bf16, f32 accumulate (the
+  TPU's bf16 ``compute_dtype`` at DEFAULT precision);
+* ``'high'``: the emulated HIGH of ``pallas_conv._pw_dot``: activation and
+  weight split into bf16 hi and lo halves, ``a_hi*w_hi + a_hi*w_lo +
+  a_lo*w_hi`` with f32 accumulate.
+
+The depthwise taps, biases, ReLU and pooling stay f32 in every mode. A
+product of two bf16 values is exact in f32, so f32 FFMA on bf16-rounded
+values computes what the TPU's one-pass bf16 products compute.
 
 Parameters are the ``yamnet`` dict from ``models/weights.params_from_numpy``:
 per layer, ``layerN/depthwise_conv/kernel`` as (9, C) taps (tap
 t = (dy+1)*3 + (dx+1) holds kernel[dy+1, dx+1, 0, :]),
 ``layerN/pointwise_conv/kernel`` as (C, F) row-major, and their (C,) / (F,)
-biases.
+biases. ``pack_params`` adds each mode's pointwise operand beside them
+(``layerN/pointwise_conv/kernel[bf16]``: (C, F) bf16;
+``...[high]``: (2, C, F) bf16 hi, lo), so a caller packs once, not per call.
 """
 
 import ctypes
@@ -75,6 +91,96 @@ def same_pad(n: int, stride: int, k: int = 3):
     return total // 2, total - total // 2
 
 
+MODES = ('highest', 'bf16', 'high')
+# the kernel's mode argument (csrc/sepconv.cu, enum Mode)
+_MODE_CODE = {'highest': 0, 'bf16': 1, 'high': 2}
+
+
+def resolve_compute_dtype(compute_dtype) -> torch.dtype:
+    """None, float32 (or 'float32') -> torch.float32; bfloat16 (or
+    'bfloat16') -> torch.bfloat16; anything else raises."""
+    if compute_dtype in (None, torch.float32, 'float32'):
+        return torch.float32
+    if compute_dtype in (torch.bfloat16, 'bfloat16'):
+        return torch.bfloat16
+    raise ValueError(f'compute_dtype must be float32 or bfloat16, got '
+                     f'{compute_dtype!r}')
+
+
+def resolve_mode(compute_dtype=torch.float32, precision=None) -> str:
+    """The kernel mode for a compute dtype and a product precision
+    ('highest' | 'high' | 'default' | None), as ``pallas_conv.
+    _resolve_precision`` and ``_pw_dot`` resolve them: None means HIGHEST
+    for f32 operands and DEFAULT for bf16; 'high' is the hi/lo split at
+    either dtype; bf16 operands at 'default' or 'highest' are one bf16
+    product. f32 operands at 'default' (one bf16 pass of f32 operands) are
+    not a mode of the product and raise."""
+    dtype = resolve_compute_dtype(compute_dtype)
+    if precision not in (None, 'highest', 'high', 'default'):
+        raise ValueError(f"precision must be 'highest', 'high', 'default' "
+                         f"or None, got {precision!r}")
+    if precision == 'high':
+        return 'high'
+    if dtype == torch.bfloat16:
+        return 'bf16'
+    if precision == 'default':
+        raise ValueError("float32 operands at precision 'default' are not a "
+                         "mode of the conv kernels; use 'highest' or 'high'")
+    return 'highest'
+
+
+def _check_mode(mode):
+    if mode not in MODES:
+        raise ValueError(f'mode must be one of {MODES}, got {mode!r}')
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 value (ties to even), kept in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def pack_pointwise(pw: torch.Tensor, mode: str) -> torch.Tensor:
+    """A (C, F) f32 pointwise kernel as ``mode``'s operand, as
+    ``pallas_conv._pack_pw`` packs it: itself ('highest'); rounded to bf16
+    ('bf16'); or the (2, C, F) bf16 hi/lo split of ``_split_hi_lo``,
+    ``w ~= hi + lo`` ('high')."""
+    _check_mode(mode)
+    if mode == 'highest':
+        return pw
+    hi = pw.to(torch.bfloat16)
+    if mode == 'bf16':
+        return hi
+    lo = (pw - hi.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([hi, lo]).contiguous()
+
+
+def _packed_key(s, mode):
+    key = f'{s.name}/pointwise_conv/kernel'
+    return key if mode == 'highest' else f'{key}[{mode}]'
+
+
+def pack_params(params: dict, mode: str) -> dict:
+    """``params`` plus every sep layer's pointwise operand for ``mode``
+    (a new dict; the f32 tensors are shared, not copied)."""
+    out = dict(params)
+    for s in tail_specs(2, None):
+        key = _packed_key(s, mode)
+        if key not in out:
+            out[key] = pack_pointwise(params[f'{s.name}/pointwise_conv/kernel'],
+                                      mode)
+    return out
+
+
+def _pointwise(params, s, mode):
+    """Layer ``s``'s pointwise operand for ``mode``, as ``pack_params``
+    put it beside the f32 params."""
+    key = _packed_key(s, mode)
+    if key not in params:
+        raise KeyError(f'{key}: no {mode} operand; apply '
+                       f'sepconv.pack_params(params, {mode!r}) first')
+    return params[key]
+
+
 def exact_f32():
     """Keep float32 convolutions and matrix products out of TF32 on the card:
     cuDNN allows TF32 for convolutions by default, which keeps about three
@@ -85,7 +191,21 @@ def exact_f32():
 
 # --- plain versions ------------------------------------------------------------
 
-def _sep_layer_plain(params, x, s: SepSpec):
+def _pointwise_plain(flat, pw, mode):
+    """The pointwise product of ``mode`` in f32 matrix products (TF32 off):
+    the bf16 operands are bf16 values held in f32, whose products are exact,
+    and the HIGH split sums its three products as ``_pw_dot`` does."""
+    if mode == 'highest':
+        return flat @ pw
+    if mode == 'bf16':
+        return round_bf16(flat) @ pw.to(torch.float32)
+    a_hi = round_bf16(flat)
+    a_lo = round_bf16(flat - a_hi)
+    w_hi, w_lo = pw[0].to(torch.float32), pw[1].to(torch.float32)
+    return a_hi @ w_hi + a_hi @ w_lo + a_lo @ w_hi
+
+
+def _sep_layer_plain(params, x, s: SepSpec, mode='highest'):
     """(B, H, W, C) -> (B, Ho, Wo, F): one separable layer in torch ops."""
     ph, pw_ = same_pad(s.h, s.stride), same_pad(s.w, s.stride)
     dw = params[f'{s.name}/depthwise_conv/kernel']          # (9, C)
@@ -95,29 +215,34 @@ def _sep_layer_plain(params, x, s: SepSpec):
     y = torch.relu(y + params[f'{s.name}/depthwise_conv/bias'][:, None, None])
     b = y.shape[0]
     flat = y.permute(0, 2, 3, 1).reshape(b * s.h_out * s.w_out, s.c_in)
-    z = torch.relu(flat @ params[f'{s.name}/pointwise_conv/kernel']
+    z = torch.relu(_pointwise_plain(flat, _pointwise(params, s, mode), mode)
                    + params[f'{s.name}/pointwise_conv/bias'])
     return z.reshape(b, s.h_out, s.w_out, s.c_out)
 
 
-def _stack_plain(params, x, specs, gap):
+def _stack_plain(params, x, specs, gap, mode):
+    _check_mode(mode)
     exact_f32()
     for s in specs:
-        x = _sep_layer_plain(params, x, s)
+        x = _sep_layer_plain(params, x, s, mode)
     if gap:
         return x.mean(dim=(1, 2))
     return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
-def fused_front_plain(params, x, *, start_layer=2, stop_layer=8):
+def fused_front_plain(params, x, *, start_layer=2, stop_layer=8,
+                      mode='highest'):
     """Plain version of ``fused_front``: (B, H, W, C) -> (B, Ho*Wo, F)."""
-    return _stack_plain(params, x, tail_specs(start_layer, stop_layer), False)
+    return _stack_plain(params, x, tail_specs(start_layer, stop_layer), False,
+                        mode)
 
 
-def fused_tail_plain(params, x, *, start_layer=8, stop_layer=None, gap=True):
+def fused_tail_plain(params, x, *, start_layer=8, stop_layer=None, gap=True,
+                     mode='highest'):
     """Plain version of ``fused_tail``: (B, H, W, C) -> (B, F) with ``gap``,
     else (B, Ho*Wo, F)."""
-    return _stack_plain(params, x, tail_specs(start_layer, stop_layer), gap)
+    return _stack_plain(params, x, tail_specs(start_layer, stop_layer), gap,
+                        mode)
 
 
 # --- kernel launch ---------------------------------------------------------------
@@ -131,14 +256,17 @@ def load_kernels():
     lib = _build.load('sepconv')
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bz_sep_stack.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, i32,
-                                 ptr]
+                                 i32, ptr]
     lib.bz_sep_stack.restype = i32
     lib.bz_error_string.argtypes = [i32]
     lib.bz_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(params, x, specs):
+def _check(params, x, specs, mode):
+    """Validate the input and every layer's operands for ``mode``; returns
+    the per-layer (dw, dw_b, pw, pw_b) tensors the kernel reads, with the
+    pointwise kernel as ``mode``'s operand."""
     s0 = specs[0]
     want = (s0.h, s0.w, s0.c_in)
     if x.dim() != 4 or tuple(x.shape[1:]) != want:
@@ -149,37 +277,40 @@ def _check(params, x, specs):
         raise TypeError(f'expected float32 activations, got {x.dtype}')
     if x.shape[0] == 0:
         raise ValueError('empty batch')
+    pw_dtype = torch.float32 if mode == 'highest' else torch.bfloat16
+    operands = []
     for s in specs:
-        for key, shape in ((f'{s.name}/depthwise_conv/kernel', (9, s.c_in)),
-                           (f'{s.name}/depthwise_conv/bias', (s.c_in,)),
-                           (f'{s.name}/pointwise_conv/kernel',
-                            (s.c_in, s.c_out)),
-                           (f'{s.name}/pointwise_conv/bias', (s.c_out,))):
-            t = params[key]
-            if tuple(t.shape) != shape or t.dtype != torch.float32:
-                raise ValueError(f'{key}: expected float32 {shape}, got '
+        pw_shape = (s.c_in, s.c_out) if mode != 'high' else (2, s.c_in,
+                                                             s.c_out)
+        layer = ((f'{s.name}/depthwise_conv/kernel', (9, s.c_in),
+                  torch.float32, params[f'{s.name}/depthwise_conv/kernel']),
+                 (f'{s.name}/depthwise_conv/bias', (s.c_in,), torch.float32,
+                  params[f'{s.name}/depthwise_conv/bias']),
+                 (_packed_key(s, mode), pw_shape, pw_dtype,
+                  _pointwise(params, s, mode)),
+                 (f'{s.name}/pointwise_conv/bias', (s.c_out,), torch.float32,
+                  params[f'{s.name}/pointwise_conv/bias']))
+        for key, shape, dtype, t in layer:
+            if tuple(t.shape) != shape or t.dtype != dtype:
+                raise ValueError(f'{key}: expected {dtype} {shape}, got '
                                  f'{t.dtype} {tuple(t.shape)}')
             if t.device != x.device:
                 raise ValueError(f'{key} is on {t.device}, input on '
                                  f'{x.device}')
+        operands.append(tuple(t for *_, t in layer))
+    return operands
 
 
-def _launch(params, x, specs, gap):
+def _launch(operands, x, specs, gap, mode):
     """Launch ``bz_sep_stack`` of ``csrc/sepconv.cu`` on the current
     stream; returns the output tensor. Raises on any CUDA error code."""
     if not x.is_contiguous():
         raise ValueError('input must be contiguous NHWC')
-    for s in specs:
-        for part in ('depthwise_conv', 'pointwise_conv'):
-            for leaf in ('kernel', 'bias'):
-                if not params[f'{s.name}/{part}/{leaf}'].is_contiguous():
-                    raise ValueError(f'{s.name}/{part}/{leaf} must be '
-                                     f'contiguous')
+    if not all(t.is_contiguous() for layer in operands for t in layer):
+        raise ValueError('every weight and bias must be contiguous')
     lib = load_kernels()
     b, sl = x.shape[0], specs[-1]
-    ptrs = np.array([params[f'{s.name}/{k}'].data_ptr() for s in specs
-                     for k in ('depthwise_conv/kernel', 'depthwise_conv/bias',
-                               'pointwise_conv/kernel', 'pointwise_conv/bias')],
+    ptrs = np.array([t.data_ptr() for layer in operands for t in layer],
                     np.int64)
     dims = np.array([[s.h, s.w, s.c_in, s.c_out, s.stride, s.h_out, s.w_out,
                       1 - same_pad(s.h, s.stride)[0],
@@ -201,18 +332,21 @@ def _launch(params, x, specs, gap):
         code = lib.bz_sep_stack(x.data_ptr(), out.data_ptr(), buf0.data_ptr(),
                                 buf1.data_ptr(), b, len(specs),
                                 ptrs.ctypes.data, dims.ctypes.data, int(gap),
-                                stream)
+                                _MODE_CODE[mode], stream)
     if code != 0:
         raise RuntimeError(f'bz_sep_stack failed: CUDA error {code} '
                            f'({lib.bz_error_string(code).decode()})')
     return out
 
 
-def _count_launch(wrapper):
-    """One more launch on ``wrapper.launches``; inferer threads share the
-    wrappers, and ``+=`` on an attribute is not atomic."""
+def _count_launch(wrapper, mode=None):
+    """One more launch on ``wrapper.launches`` (or on its ``mode`` entry);
+    inferer threads share the wrappers, and ``+=`` is not atomic."""
     with _count_lock:
-        wrapper.launches += 1
+        if mode is None:
+            wrapper.launches += 1
+        else:
+            wrapper.launches[mode] += 1
 
 
 def _route(x):
@@ -222,33 +356,36 @@ def _route(x):
     return x.device.type
 
 
-def fused_front(params, x, *, start_layer: int = 2, stop_layer: int = 8):
+def fused_front(params, x, *, start_layer: int = 2, stop_layer: int = 8,
+                mode: str = 'highest'):
     """Layer-1 output (B, 48, 32, 32) NHWC -> (B, 6*4, 512) entering layer 8
     (flattened spatial, as the TPU kernel returns it)."""
+    _check_mode(mode)
     specs = tail_specs(start_layer, stop_layer)
-    _check(params, x, specs)
+    operands = _check(params, x, specs, mode)
     if _route(x) == 'cpu':
         return fused_front_plain(params, x, start_layer=start_layer,
-                                 stop_layer=stop_layer)
-    out = _launch(params, x, specs, gap=False)
-    _count_launch(fused_front)
+                                 stop_layer=stop_layer, mode=mode)
+    out = _launch(operands, x, specs, False, mode)
+    _count_launch(fused_front, mode)
     return out
 
 
 def fused_tail(params, x, *, start_layer: int = 8, stop_layer: int = None,
-               gap: bool = True):
+               gap: bool = True, mode: str = 'highest'):
     """(B, H, W, C) entering ``start_layer`` -> (B, 1024) embeddings with
     ``gap``, else the last layer's activations (B, Ho*Wo, F)."""
+    _check_mode(mode)
     specs = tail_specs(start_layer, stop_layer)
-    _check(params, x, specs)
+    operands = _check(params, x, specs, mode)
     if _route(x) == 'cpu':
         return fused_tail_plain(params, x, start_layer=start_layer,
-                                stop_layer=stop_layer, gap=gap)
-    out = _launch(params, x, specs, gap=gap)
-    _count_launch(fused_tail)
+                                stop_layer=stop_layer, gap=gap, mode=mode)
+    out = _launch(operands, x, specs, gap, mode)
+    _count_launch(fused_tail, mode)
     return out
 
 
 _count_lock = threading.Lock()
-fused_front.launches = 0
-fused_tail.launches = 0
+fused_front.launches = dict.fromkeys(MODES, 0)
+fused_tail.launches = dict.fromkeys(MODES, 0)

@@ -6,7 +6,6 @@ import os
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +43,9 @@ def test_no_jax_or_reference_package_imports():
 
 @pytest.mark.parametrize('first', [
     'buzzdetect_torch', 'buzzdetect_torch.ops.sepconv',
-    'buzzdetect_torch.models.yamnet', 'buzzdetect_torch.models.classifier'])
+    'buzzdetect_torch.models.yamnet', 'buzzdetect_torch.models.classifier',
+    'buzzdetect_torch.ops.logmel', 'buzzdetect_torch.cli',
+    'buzzdetect_torch.api', 'buzzdetect_torch.doctor'])
 def test_importing_the_port_loads_no_jax(first):
     """Each module imports first without an import cycle, and the package
     with its orchestrator pulls in no JAX. A subprocess: tests/conftest.py
@@ -76,18 +77,24 @@ def test_cuda_without_a_card_raises(tmp_path):
         buzzdetect_torch.analyze(modelname='model_general_v3',
                                  dir_audio=str(tmp_path),
                                  dir_out=str(tmp_path / 'out'))
+    from buzzdetect_torch import api, cli
+    with pytest.raises(RuntimeError, match='CUDA'):
+        cli.main(['--modelname', 'model_general_v3', '--dir_audio',
+                  str(tmp_path), '--dir_out', str(tmp_path / 'out')])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        api.score_file(str(tmp_path / 'none.wav'))
     assert not (tmp_path / 'out').exists()
     x = torch.zeros(1, 48, 32, 32)
     from buzzdetect_torch.ops import sepconv
     with pytest.raises(ValueError, match='unsupported device'):
         sepconv._route(x.to('meta'))
-    np.testing.assert_array_equal(sepconv.fused_front.launches, 0)
+    assert sepconv.fused_front.launches == dict.fromkeys(sepconv.MODES, 0)
 
 
 @pytest.mark.parametrize('kw', [
     {'mesh': object()}, {'devices': 2}, {'host_shard': (0, 2)},
     {'profile_dir': '/nonexistent'}, {'resample_on_device': True},
-    {'compute_dtype': 'bfloat16'},
+    {'devices': 'all'},
 ])
 def test_unported_analyze_options_raise(tmp_path, kw):
     import buzzdetect_torch

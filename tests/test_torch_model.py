@@ -161,10 +161,18 @@ def test_classifier_embed_and_wire_formats(classifiers, bundle):
 
 
 def test_unported_options_raise(bundle):
-    for kw in ({'conv_precision': 'high'}, {'frontend': 'pallas'},
-               {'compute_dtype': torch.bfloat16}):
-        with pytest.raises(NotImplementedError):
-            ChunkClassifier(bundle, device='cpu', **kw)
+    """conv='xla' is the one classifier option left unported; the modes
+    ported since (bf16, emulated HIGH, the fused log-mel) construct and
+    resolve as the JAX package's conv='pallas' resolves them."""
+    with pytest.raises(NotImplementedError, match="The XLA conv path"):
+        ChunkClassifier(bundle, device='cpu', conv='xla')
+    for kw, knobs in (
+            ({'conv_precision': 'high'}, ('xla', 'high', 'high')),
+            ({'frontend': 'pallas'}, ('pallas', 'highest', 'highest')),
+            ({'compute_dtype': torch.bfloat16}, ('xla', 'highest', 'bf16'))):
+        clf = ChunkClassifier(bundle, device='cpu', **kw)
+        assert (clf.frontend, clf.conv_precision, clf.mode) == knobs
+        assert clf.conv == 'pallas'
     clf = ChunkClassifier(bundle, device='cpu')
     with pytest.raises(NotImplementedError, match='resampling'):
         clf.predict_async(np.zeros(16000, np.float32), input_rate=44100)

@@ -83,7 +83,8 @@ def test_fused_tail_plain_matches_pallas(folded, tparams, start_layer,
 
 def test_wrappers_on_cpu_take_the_plain_path(tparams):
     """A CPU tensor runs the plain version and never touches a counter."""
-    before = (sepconv.fused_front.launches, sepconv.fused_tail.launches)
+    before = (dict(sepconv.fused_front.launches),
+              dict(sepconv.fused_tail.launches))
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((3, 48, 32, 32))
                          .astype(np.float32))
@@ -94,8 +95,9 @@ def test_wrappers_on_cpu_take_the_plain_path(tparams):
                          .astype(np.float32))
     np.testing.assert_array_equal(sepconv.fused_tail(tparams, y).numpy(),
                                   sepconv.fused_tail_plain(tparams, y).numpy())
+    zero = dict.fromkeys(sepconv.MODES, 0)
     assert (sepconv.fused_front.launches,
-            sepconv.fused_tail.launches) == before == (0, 0)
+            sepconv.fused_tail.launches) == before == (zero, zero)
 
 
 def test_wrappers_reject_bad_inputs(tparams):
