@@ -33,14 +33,13 @@ from buzzdetect_torch.write.thresholds import calculate_threshold
 
 
 def _refuse_unported(mesh=None, devices=None, host_shard=None,
-                     profile_dir=None, resample_on_device=False):
+                     resample_on_device=False):
     """Raise for an argument whose code is outside this slice of the port,
     naming the ROADMAP item that brings it."""
     later = (
         ('mesh', mesh is not None, 'Multi-GPU layouts'),
         ('devices', devices is not None, 'Multi-GPU layouts'),
         ('host_shard', host_shard is not None, 'Multi-GPU layouts'),
-        ('profile_dir', bool(profile_dir), 'Watch mode, alerts and profiling'),
         ('resample_on_device', bool(resample_on_device),
          'The libav decode stage and resampling'),
     )
@@ -211,7 +210,6 @@ class Analyzer:
         self.session_lock = session_lock
 
         _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard,
-                         profile_dir=profile_dir,
                          resample_on_device=resample_on_device)
         if model is not None:
             # watch cycles share one model so device params upload once,
@@ -1058,6 +1056,24 @@ class Analyzer:
 
     # --- run ------------------------------------------------------------------
     def run(self):
+        if self.profile_dir:
+            # a torch.profiler trace of the whole run (view it in
+            # TensorBoard's profiler plugin or in Perfetto): the CPU ops of
+            # every thread (inference runs on the analyzer_* threads, and
+            # the profiler records only the thread that starts it unless
+            # told otherwise) and, on the card, every kernel and copy
+            from torch.profiler import (ProfilerActivity, _ExperimentalConfig,
+                                        profile, tensorboard_trace_handler)
+            activities = [ProfilerActivity.CPU]
+            device = getattr(self.model, 'device', None)
+            if device is not None and device.type == 'cuda':
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities,
+                         experimental_config=_ExperimentalConfig(
+                             profile_all_threads=True),
+                         on_trace_ready=tensorboard_trace_handler(
+                             self.profile_dir)):
+                return self._run()
         return self._run()
 
     def _run(self):
@@ -1328,9 +1344,13 @@ def analyze(modelname: str,
         bf16 mode, the JAX package's ``conv='pallas'`` bf16 function. With
         activations output it warns (scores move by up to ~0.006 against
         float32).
-    profile_dir, mesh, devices, host_shard, resample_on_device : not ported
-        yet; passing them raises NotImplementedError naming the ROADMAP
-        item (see ``buzzdetect_tpu.analyze`` for what they do there).
+    profile_dir : if set, write a ``torch.profiler`` trace of the run into
+        this directory (``<host>_<pid>.<time>.pt.trace.json``, for TensorBoard
+        or Perfetto): the CPU ops of every thread and, on the card, its
+        kernels and copies.
+    mesh, devices, host_shard, resample_on_device : not ported yet; passing
+        them raises NotImplementedError naming the ROADMAP item (see
+        ``buzzdetect_tpu.analyze`` for what they do there).
     batch_chunks : stack up to this many ready chunks (possibly from
         different files) into one device dispatch — larger device batches and
         fewer round trips; 1 disables batching.
@@ -1393,7 +1413,6 @@ def analyze(modelname: str,
         Asking for CUDA without a CUDA device raises RuntimeError.
     """
     _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard,
-                     profile_dir=profile_dir,
                      resample_on_device=resample_on_device)
     if backend_timeout is not None:
         backend_timeout = float(backend_timeout)
@@ -1426,6 +1445,7 @@ def analyze(modelname: str,
                             log_progress=log_progress,
                             coordinator=coordinator,
                             compute_dtype=compute_dtype,
+                            profile_dir=profile_dir,
                             batch_chunks=batch_chunks,
                             transfer_dtype=transfer_dtype,
                             strict_f32=strict_f32,

@@ -11,7 +11,7 @@ the same exit codes (0 = all checks passed, 1 = a check failed, 2 = an
 unknown flag). The checks follow the port: the CUDA device through
 ``utils.backend_preflight`` (a watched subprocess, so a hung card cannot
 hang the doctor; ``BUZZDETECT_DOCTOR_TIMEOUT`` seconds, default 60),
-the ``nvcc`` build and load of both CUDA libraries, and a WAV write/read
+the ``nvcc`` build and load of every CUDA library, and a WAV write/read
 round trip in place of the libav one. Without a card the CUDA check fails,
 the inference is skipped, and the host-side checks still run.
 """
@@ -124,10 +124,10 @@ def main(modelname: str = None, json_mode: bool = False):
                   '(CLI: --device cpu).')
 
     def check_kernels():
-        from buzzdetect_torch.ops import _build, logmel, sepconv
+        from buzzdetect_torch.ops import _build, logmel, probe, sepconv
         _build.build_all(_build.SOURCES)
-        sepconv.load_kernels()
-        logmel.load_kernels()
+        for module in (sepconv, logmel, probe):
+            module.load_kernels()
         return ', '.join(f'{name}.cu' for name in _build.SOURCES) + \
             ' built (nvcc) and loaded'
     ok &= _check('CUDA kernels (nvcc build)', check_kernels, results,

@@ -203,6 +203,11 @@ class BundleModel(BaseModel):
         self.embedder = EmbedderYamnet(framehop_prop, device=self._device)
 
     @property
+    def device(self):
+        """The torch device the model runs on."""
+        return self._device
+
+    @property
     def transfer_dtype(self):
         """Wire dtype for samples (streamers convert early so the
         quantization cost parallelizes across decode threads)."""

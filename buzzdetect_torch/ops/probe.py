@@ -1,0 +1,289 @@
+"""The capability probe's kernels: CUDA wrappers, plain versions, counters.
+
+Counterpart of the kernels in ``tools/mosaic_capability_probe.py``
+(``run``, ``case_collapsed_dot``, ``case_dot_high``,
+``case_dot_high_emulated``), with the CUDA sources in ``csrc/probe.cu`` (see
+the note at the top of that file):
+
+* ``remap(case, x, w=None)``: one of the 20 layout cases of ``CASES``
+  (stride-2 slices, reshapes, rolls, pad-shifts, a transpose, a row gather,
+  masks, an outer broadcast product);
+* ``dot_f32(a, w)``: (M, K) @ (K, N) in exact f32 (FFMA);
+* ``dot_high(a, w)``: the same product at HIGH on the tensor cores, both f32
+  operands split into bf16 hi/lo and hi*hi + hi*lo + lo*hi summed in f32;
+* ``dot_high_emulated(a, w_hilo)``: the same function on FFMA, from the
+  (2, K, N) bf16 hi/lo weight of ``sepconv.pack_pointwise(w, 'high')``;
+* ``fma_chain(x, steps, a, b)``: ``v = fma(v, a, b)`` applied ``steps``
+  times to every element, the f32 peak probe of ``tools/roofline.py``.
+
+On a CUDA tensor each wrapper launches its kernel and adds one to its
+``launches`` counter; on a CPU tensor it computes the plain PyTorch version.
+There is no other path.
+"""
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from buzzdetect_torch.ops.sepconv import (
+    _count_launch, _pointwise_plain, _route, exact_f32, pack_pointwise)
+
+# The 20 layout cases, in the order of csrc/probe.cu's case ids: name ->
+# the plain version, a torch expression of the input (and, for
+# outer_broadcast_mul, the weight).
+CASES = {
+    'stride_lane': lambda x: x[:, :, ::2],
+    'stride_sublane': lambda x: x[:, ::2, :],
+    'stride_leading': lambda x: x[::2],
+    'reshape_leading_split': lambda x: x.reshape(
+        x.shape[0] // 2, 2, *x.shape[1:])[:, 0],
+    'reshape_leading_merge': lambda x: x.reshape(
+        x.shape[0] * x.shape[1], *x.shape[2:]),
+    'collapse_to_2d': lambda x: x.reshape(-1, x.shape[-1]),
+    'split_minor': lambda x: x.reshape(x.shape[0], -1, 128),
+    'roll_sublane': lambda x: torch.roll(x, 1, 1),
+    'roll_lane': lambda x: torch.roll(x, 128, 2),
+    'pad_slice_shift': lambda x: F.pad(x, (0, 0, 1, 0))[:, :-1, :],
+    'transpose_minor': lambda x: x.transpose(1, 2),
+    'row_gather': lambda x: x[:, ::2, ::2].reshape(-1, x.shape[-1]),
+    'iota_mask': lambda x: torch.where(
+        (torch.arange(x.shape[1], device=x.device) % 4 == 0)[None, :, None],
+        0.0, x),
+    'iota_mod24': lambda x: torch.where(
+        (torch.arange(x.shape[1], device=x.device) % 3 == 0)[None, :, None],
+        0.0, x),
+    'split_sublane': lambda x: x.reshape(
+        x.shape[0], x.shape[1] // 2, 2, x.shape[2])[:, :, 0],
+    'roll_lane_32': lambda x: torch.roll(x, 32, 2),
+    'pad_slice_lane': lambda x: F.pad(x, (1, 0))[:, :, :-1],
+    'split_minor_small': lambda x: x.reshape(*x.shape[:2], -1, 32),
+    'swap_nonminor_merge': lambda x: x.reshape(
+        x.shape[0], x.shape[1], -1, 128).transpose(1, 2).reshape(
+        -1, x.shape[1], 128),
+    'outer_broadcast_mul': lambda x, w: x * w,
+}
+_CASE_ID = {name: i for i, name in enumerate(CASES)}
+# the input's rank for each case (the kernels index 4 dims, leading ones)
+_RANK = {**dict.fromkeys(CASES, 3),
+         'stride_leading': 4, 'reshape_leading_split': 4,
+         'reshape_leading_merge': 4, 'collapse_to_2d': 4, 'row_gather': 4,
+         'split_minor': 2}
+
+
+def _check_case(case, x, w):
+    if case not in CASES:
+        raise ValueError(f'unknown layout case {case!r}; one of {list(CASES)}')
+    if x.dtype != torch.float32 or x.dim() != _RANK[case]:
+        raise ValueError(f'{case}: expected a {_RANK[case]}-d float32 input, '
+                         f'got {x.dtype} {tuple(x.shape)}')
+    if (w is not None) != (case == 'outer_broadcast_mul'):
+        raise ValueError(f'{case}: a weight is taken by outer_broadcast_mul '
+                         f'and nothing else')
+    if w is not None and (w.dtype != torch.float32
+                          or tuple(w.shape) != (x.shape[0], 1, 1)
+                          or w.device != x.device):
+        raise ValueError(f'{case}: expected a float32 ({x.shape[0]}, 1, 1) '
+                         f'weight on {x.device}, got {w.dtype} '
+                         f'{tuple(w.shape)} on {w.device}')
+
+
+def remap_plain(case: str, x: torch.Tensor, w: torch.Tensor = None):
+    """Plain version of ``remap``: the case's torch expression."""
+    _check_case(case, x, w)
+    out = CASES[case](x, w) if w is not None else CASES[case](x)
+    return out.contiguous()
+
+
+def _check_dot(a, w, planes):
+    """(m, n, k) of a product a (M, K) @ w, w as (K, N) f32 or (planes,
+    K, N) bf16."""
+    w_dtype = torch.float32 if planes is None else torch.bfloat16
+    lead = () if planes is None else (planes,)
+    if a.dim() != 2 or a.dtype != torch.float32:
+        raise ValueError(f'expected a (M, K) float32 activation, got '
+                         f'{a.dtype} {tuple(a.shape)}')
+    m, k = a.shape
+    if (w.dtype != w_dtype or w.dim() != 2 + len(lead)
+            or tuple(w.shape[:-1]) != lead + (k,)):
+        raise ValueError(f'expected a {w_dtype} {lead + (k,)} + (N,) weight, '
+                         f'got {w.dtype} {tuple(w.shape)}')
+    if w.device != a.device:
+        raise ValueError(f'weight on {w.device}, activation on {a.device}')
+    n = w.shape[-1]
+    if m == 0 or n % 64 or k % 32:
+        raise ValueError(f'the product kernels take M > 0, N a multiple of '
+                         f'64 and K of 32; got M={m}, N={n}, K={k}')
+    return m, n, k
+
+
+def dot_f32_plain(a, w):
+    """Plain version of ``dot_f32``: one f32 matrix product, TF32 off."""
+    _check_dot(a, w, None)
+    exact_f32()
+    return _pointwise_plain(a, w, 'highest')
+
+
+def dot_high_plain(a, w):
+    """Plain version of ``dot_high``: the weight split by
+    ``pack_pointwise(w, 'high')``, then the emulated-HIGH product."""
+    _check_dot(a, w, None)
+    exact_f32()
+    return _pointwise_plain(a, pack_pointwise(w, 'high'), 'high')
+
+
+def dot_high_emulated_plain(a, w_hilo):
+    """Plain version of ``dot_high_emulated``."""
+    _check_dot(a, w_hilo, 2)
+    exact_f32()
+    return _pointwise_plain(a, w_hilo, 'high')
+
+
+def fma_chain_plain(x, steps, a, b):
+    """Plain version of ``fma_chain``, in float64 on the kernel's f32
+    constants (one rounding, to f32, at the end; the kernel rounds once per
+    step)."""
+    _check_fma(x, steps)
+    a, b = float(np.float32(a)), float(np.float32(b))
+    v = x.to(torch.float64)
+    for _ in range(steps):
+        v = v * a + b
+    return v.to(torch.float32)
+
+
+def _check_fma(x, steps):
+    if x.dtype != torch.float32 or x.dim() != 1 or x.numel() % 4 or steps < 0:
+        raise ValueError(f'expected a 1-d float32 input of a multiple of 4 '
+                         f'elements and steps >= 0, got {x.dtype} '
+                         f'{tuple(x.shape)}, steps={steps}')
+
+
+# --- kernel launch ---------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def load_kernels():
+    """Build (once) and load ``csrc/probe.cu``; returns the ctypes library."""
+    from buzzdetect_torch.ops import _build
+    lib = _build.load('probe')
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.bz_probe_remap.argtypes = [i32, ptr, ptr, ptr, ptr,
+                                   ctypes.c_longlong, ptr]
+    for fn in (lib.bz_probe_dot_f32, lib.bz_probe_dot_high,
+               lib.bz_probe_dot_high_emulated):
+        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.bz_probe_fma_chain.argtypes = [ptr, ptr, ctypes.c_longlong, i32,
+                                       ctypes.c_float, ctypes.c_float, ptr]
+    for fn in (lib.bz_probe_remap, lib.bz_probe_dot_f32, lib.bz_probe_dot_high,
+               lib.bz_probe_dot_high_emulated, lib.bz_probe_fma_chain):
+        fn.restype = i32
+    lib.bz_probe_error_string.argtypes = [i32]
+    lib.bz_probe_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _call(name, device, *args):
+    """Run ``lib.<name>(*args, stream)`` on ``device``'s current stream;
+    raises on any CUDA error code."""
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        code = getattr(lib, name)(*args, stream)
+    if code != 0:
+        raise RuntimeError(f'{name} failed: CUDA error {code} '
+                           f'({lib.bz_probe_error_string(code).decode()})')
+
+
+def _contiguous(*tensors):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError('the probe kernels take contiguous tensors')
+
+
+@lru_cache(maxsize=None)
+def _out_shape(case, x_shape, w_shape):
+    """The output shape of ``case`` on inputs of these shapes: the plain
+    version's, traced once on meta tensors."""
+    meta = [torch.empty(x_shape, device='meta')]
+    if w_shape is not None:
+        meta.append(torch.empty(w_shape, device='meta'))
+    return tuple(remap_plain(case, *meta).shape)
+
+
+def _padded(shape):
+    return [1] * (4 - len(shape)) + list(shape)
+
+
+def remap(case: str, x: torch.Tensor, w: torch.Tensor = None):
+    """Layout case ``case`` of ``CASES`` applied to ``x`` (and ``w``)."""
+    _check_case(case, x, w)
+    if _route(x) == 'cpu':
+        return remap_plain(case, x, w)
+    _contiguous(x, *([w] if w is not None else []))
+    shape = _out_shape(case, tuple(x.shape),
+                       None if w is None else tuple(w.shape))
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    dims = np.array(_padded(x.shape) + _padded(shape), np.int64)
+    _call('bz_probe_remap', x.device, _CASE_ID[case], x.data_ptr(),
+          None if w is None else w.data_ptr(), out.data_ptr(),
+          dims.ctypes.data, out.numel())
+    _count_launch(remap)
+    return out
+
+
+def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) in exact f32."""
+    m, n, k = _check_dot(a, w, None)
+    if _route(a) == 'cpu':
+        return dot_f32_plain(a, w)
+    _contiguous(a, w)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _call('bz_probe_dot_f32', a.device, a.data_ptr(), w.data_ptr(),
+          out.data_ptr(), m, n, k)
+    _count_launch(dot_f32)
+    return out
+
+
+def dot_high(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) at HIGH on the tensor cores (f32 operands)."""
+    m, n, k = _check_dot(a, w, None)
+    if _route(a) == 'cpu':
+        return dot_high_plain(a, w)
+    _contiguous(a, w)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _call('bz_probe_dot_high', a.device, a.data_ptr(), w.data_ptr(),
+          out.data_ptr(), m, n, k)
+    _count_launch(dot_high)
+    return out
+
+
+def dot_high_emulated(a: torch.Tensor, w_hilo: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ hi/lo (2, K, N) bf16 at emulated HIGH on FFMA."""
+    m, n, k = _check_dot(a, w_hilo, 2)
+    if _route(a) == 'cpu':
+        return dot_high_emulated_plain(a, w_hilo)
+    _contiguous(a, w_hilo)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _call('bz_probe_dot_high_emulated', a.device, a.data_ptr(),
+          w_hilo.data_ptr(), out.data_ptr(), m, n, k)
+    _count_launch(dot_high_emulated)
+    return out
+
+
+def fma_chain(x: torch.Tensor, steps: int, a: float, b: float):
+    """Every element of the 1-d f32 ``x`` after ``steps`` of
+    ``v = fma(v, a, b)``."""
+    _check_fma(x, steps)
+    if _route(x) == 'cpu':
+        return fma_chain_plain(x, steps, a, b)
+    _contiguous(x)
+    out = torch.empty_like(x)
+    _call('bz_probe_fma_chain', x.device, x.data_ptr(), out.data_ptr(),
+          x.numel(), steps, a, b)
+    _count_launch(fma_chain)
+    return out
+
+
+KERNELS = (remap, dot_f32, dot_high, dot_high_emulated, fma_chain)
+for _kernel in KERNELS:
+    _kernel.launches = 0

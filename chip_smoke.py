@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases, each printed before the last line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the build of both CUDA libraries from ``buzzdetect_torch/csrc``
-   (one ``nvcc`` per source, started together);
+   and the build of the three CUDA libraries from ``buzzdetect_torch/csrc``
+   (``sepconv``, ``logmel``, ``probe``; one ``nvcc`` per source, started
+   together);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (B = 209 patches, one default 200 s chunk; and B = 5), with
    the weights of ``models/model_general_v3/model.npz``: the conv kernels in
@@ -33,20 +34,38 @@ Phases, each printed before the last line:
    against the same chunk on the CPU in the same mode; for the analyze()
    run also the realtime factor and an upper estimate of the device busy
    share;
-4. one JSON line with every kernel's numbers.
+4. the developer tools (``buzzdetect_torch/tools``): (a) the capability
+   probe's 23 cases through the kernels of ``csrc/probe.cu`` (launch counts
+   set to 0 just before and read just after); (b) ``remap`` on the 20
+   layout cases and the three product kernels at the probe's shape and at
+   the conv tail's pointwise shapes (B = 209: 5016 x 512 x 512 with layer
+   8's input and weight, 1254 x 1024 x 1024 with layer 14's), each against
+   its plain version, twice for bit-identity, timed beside its plain
+   version, ``torch.matmul`` in f32 and its bound; then the two HIGH
+   routes against float64 on standard-normal operands at the tail's two
+   shapes, within a bound that one bf16 pass would exceed; (c) ``analyze(
+   profile_dir=)`` on one 60 s recording, beside one run without the
+   profiler: the trace must name the conv kernels; its five longest device
+   operations and the CPU ops per thread;
+   (d) the stack sampler of ``tools/profile_pipeline.py`` around one
+   ``analyze()`` of phase 3's recordings; (e) ``tools/roofline.py`` for one
+   200 s chunk with peaks measured on the card, then its FMA chain kernel
+   against its plain version;
+5. one JSON line with every kernel's numbers.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero with a message, and without a CUDA device the script exits
 non-zero before printing any result.
 """
 
+import collections
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 
@@ -66,10 +85,33 @@ SCORE_ATOL = {'highest': 1e-3,   # the score parity budget (BASELINE.md)
               'high': 1e-3,
               'bf16': 5e-3}      # past this a bf16 score is a fault
 SOURCES = {'sepconv': 'buzzdetect_torch/csrc/sepconv.cu',
-           'logmel': 'buzzdetect_torch/csrc/logmel.cu'}
+           'logmel': 'buzzdetect_torch/csrc/logmel.cu',
+           'probe': 'buzzdetect_torch/csrc/probe.cu'}
 REPLACES = {'fused_front': 'buzzdetect_tpu/ops/pallas_conv.py:448',
             'fused_tail': 'buzzdetect_tpu/ops/pallas_conv.py:529',
-            'log_mel': 'buzzdetect_tpu/ops/pallas_frontend.py:128'}
+            'log_mel': 'buzzdetect_tpu/ops/pallas_frontend.py:128',
+            'remap': 'tools/mosaic_capability_probe.py:49',
+            'dot_f32': 'tools/mosaic_capability_probe.py:152',
+            'dot_high': 'tools/mosaic_capability_probe.py:270',
+            'dot_high_emulated': 'tools/mosaic_capability_probe.py:289',
+            # the jitted FMA chain of the JAX roofline's measure_peaks (XLA,
+            # not a Pallas kernel): the f32 peak probe of tools/roofline.py
+            'fma_chain': 'tools/roofline.py:157'}
+# the product kernels of csrc/probe.cu
+DOTS = ('dot_f32', 'dot_high', 'dot_high_emulated')
+# the length of the recording analyze(profile_dir=) traces in phase 4
+PROFILED_SECONDS = 60.0
+# the two HIGH routes against float64 of their common function on
+# standard-normal operands, at K = 512 and 1024 (values up to ~160): the
+# tensor cores' f32 accumulation read a max |error| of 6.2e-4 at K = 1024,
+# the FFMA route 3.2e-4, cuBLAS f32 4.3e-5 (NVIDIA H100 80GB HBM3, 700 W);
+# one bf16 pass (hi*hi alone) errs by ~0.1, so the check can tell them apart
+HIGH_F64_ATOL = 2e-3
+# the FMA chain against its float64 plain version: the map contracts
+# towards 1, so the running value stays within max(|x|, 1); 1024 roundings
+# of at most half an f32 ulp of it give |kernel - plain| <= 1024 * 2**-24
+# = 6.1e-5 of max(|x|, 1) per element, checked as FMA_RTOL * max(|x|, 1)
+FMA_RTOL = 1e-4
 # the CLI runs: model variant -> (its config key, CLI flags, kernel mode)
 VARIANTS = {'model_general_v3_pallas': ({'frontend': 'pallas'}, ['--bf16'],
                                         'bf16'),
@@ -80,34 +122,6 @@ VARIANTS = {'model_general_v3_pallas': ({'frontend': 'pallas'}, ['--bf16'],
 def fail(msg):
     print(f'chip_smoke FAILED: {msg}', file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def peaks(name):
-    """(f32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s,
-    memory bytes/s) from NVIDIA's data sheets, for the card nvidia-smi
-    names."""
-    if 'H100' not in name:
-        fail(f'no peak table for {name!r} (this script targets an H100)')
-    if 'PCIe' in name:
-        return 51.2e12, 756e12, 2.0e12
-    return 67e12, 989e12, 3.35e12   # H100 SXM
-
-
-def time_ms(torch, fn, reps=15, warmup=3):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def stack_work(specs, b, gap, mode):
@@ -128,36 +142,29 @@ def stack_work(specs, b, gap, mode):
     return pw_flops, dw_flops, n_bytes + 4 * (b * s0.h * s0.w * s0.c_in + out)
 
 
+def remap_bytes(torch, case, inputs, out):
+    """Compulsory bytes of one ``remap`` case: the 32-byte sectors of the
+    input that its output maps from (masked rows and dropped rows or lanes
+    are never loaded; the other inputs' elements each at most once), all of
+    both inputs of ``outer_broadcast_mul``, and the output written once."""
+    from buzzdetect_torch.ops import probe
+    if len(inputs) > 1:
+        read = 4 * sum(t.numel() for t in inputs)
+    else:
+        # the plain version on 1, 2, ... in the input's place gives each
+        # output element's source offset + 1, or 0 where nothing is read
+        x = inputs[0]
+        src = probe.remap_plain(case, torch.arange(
+            1, x.numel() + 1, dtype=torch.float32,
+            device=x.device).reshape(x.shape))
+        offsets = src[src > 0].long() - 1
+        read = 32 * torch.unique(offsets * 4 // 32).numel()
+    return read + 4 * out.numel()
+
+
 def bound(t_ops, t_bytes):
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
-
-
-def library_weights(params, specs, dtype):
-    """Per layer (depthwise OIHW, its bias, pointwise OIHW, its bias), in
-    the layout and type cuDNN takes; built once, outside the timed region."""
-    return [tuple(t.to(dtype) for t in (
-        params[f'{s.name}/depthwise_conv/kernel'].t().reshape(
-            s.c_in, 1, 3, 3).contiguous(),
-        params[f'{s.name}/depthwise_conv/bias'],
-        params[f'{s.name}/pointwise_conv/kernel'].t().reshape(
-            s.c_out, s.c_in, 1, 1).contiguous(),
-        params[f'{s.name}/pointwise_conv/bias'])) for s in specs]
-
-
-def library_stack(weights, x_nchw, specs, gap):
-    """The same layers through cuDNN (F.conv2d for both convs, in the
-    weights' type; f32 with TF32 off): the yardstick, timed here only; the
-    port never calls it."""
-    import torch.nn.functional as F
-    from buzzdetect_torch.ops.sepconv import same_pad
-    x = x_nchw
-    for s, (dw, dwb, pw, pwb) in zip(specs, weights):
-        ph, pw_ = same_pad(s.h, s.stride), same_pad(s.w, s.stride)
-        x = F.conv2d(F.pad(x, (pw_[0], pw_[1], ph[0], ph[1])), dw, dwb,
-                     stride=s.stride, groups=s.c_in).relu_()
-        x = F.conv2d(x, pw, pwb).relu_()
-    return x.mean(dim=(2, 3)) if gap else x
 
 
 def write_recording(path, seconds, seed):
@@ -271,7 +278,12 @@ def run(torch, tmp):
     from buzzdetect_torch.models.classifier import _classify, _to_float
     from buzzdetect_torch.models.heads import apply_head
     from buzzdetect_torch.models.weights import params_from_numpy
-    from buzzdetect_torch.ops import _build, frontend, logmel, sepconv
+    from buzzdetect_torch.ops import _build, frontend, logmel, probe, sepconv
+    from buzzdetect_torch.tools import (capability_probe, profile_pipeline,
+                                        roofline)
+    from buzzdetect_torch.tools.roofline import (
+        library_stack, library_weights, peaks)
+    from buzzdetect_torch.utils import cuda_time_ms as time_ms
     from buzzdetect_torch.utils import quantize_int16
 
     # --- 1. the card and the build ------------------------------------
@@ -291,6 +303,7 @@ def run(torch, tmp):
     _build.build_all(_build.SOURCES)
     sepconv.load_kernels()
     logmel.load_kernels()
+    probe.load_kernels()
     print(f'built and loaded {", ".join(SOURCES.values())} in '
           f'{time.perf_counter() - t0:.1f} s (one nvcc per source, in '
           f'parallel)', flush=True)
@@ -319,9 +332,9 @@ def run(torch, tmp):
             fail(f'{name}: B={b} rows differ from the same rows inside '
                  f'B={BATCHES[0]}')
         t_ops, t_bytes, flops, n_bytes = work
-        row = dict(max_abs_err=err, ms=time_ms(torch, run_kernel),
-                   plain_ms=time_ms(torch, run_plain),
-                   library_ms=time_ms(torch, run_library),
+        row = dict(max_abs_err=err, ms=time_ms(run_kernel),
+                   plain_ms=time_ms(run_plain),
+                   library_ms=time_ms(run_library),
                    **bound(t_ops, t_bytes))
         torch.cuda.synchronize()
         print(f'kernel {name} B={b}: max |kernel - plain| = {err:.3g} '
@@ -438,9 +451,9 @@ def run(torch, tmp):
             'head': lambda: apply_head(all_params['head'],
                                        outputs['fused_tail']),
         }
-        stage_ms = {k: time_ms(torch, fn) for k, fn in stages.items()}
-        classify_ms = time_ms(torch, lambda: _classify(all_params, wire, cfg))
-        pallas_ms = time_ms(torch, lambda: _classify(all_params, wire, cfg,
+        stage_ms = {k: time_ms(fn) for k, fn in stages.items()}
+        classify_ms = time_ms(lambda: _classify(all_params, wire, cfg))
+        pallas_ms = time_ms(lambda: _classify(all_params, wire, cfg,
                                                      'pallas'))
         torch.cuda.synchronize()
         print('one chunk on the card (B=209): ' + ', '.join(
@@ -541,15 +554,244 @@ def run(torch, tmp):
                            os.path.join(out, 'site0_buzzdetect.csv'), mode,
                            **key, **kw)
 
-    # --- 4. the kernels line ------------------------------------------
+    # --- 4. the developer tools ----------------------------------------
+    # (a) the capability probe: its 23 cases through the kernels
+    for kernel in probe.KERNELS:
+        kernel.launches = 0
+    results = capability_probe.run_probe(dev)
+    counts = {k.__name__: k.launches for k in probe.KERNELS}
+    bad = {n: s for n, s in results.items() if s != 'PASS'}
+    print(f'capability probe: {len(results) - len(bad)} of {len(results)} '
+          f'cases PASS on the card; kernel launches {counts}', flush=True)
+    if bad or len(results) != 23:
+        fail(f'capability probe cases not passing: {bad}')
+    for name in ('remap',) + DOTS:
+        if counts[name] <= 0:
+            fail(f'the capability probe never launched {name}')
+        launches[name] = counts[name]
+
+    with torch.inference_mode():
+        # remap: the 20 layout cases on the probe's inputs, all together
+        cases = [(name, [torch.from_numpy(a).to(dev) for a in inputs])
+                 for name, inputs, _ref, _detail in
+                 capability_probe.layout_cases()]
+
+        def all_cases(fn):
+            return [fn(name, *ts) for name, ts in cases]
+        got, again = all_cases(probe.remap), all_cases(probe.remap)
+        ref = all_cases(probe.remap_plain)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            fail('remap: two launches on the same input differ')
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        n_bytes = sum(remap_bytes(torch, name, ts, g)
+                      for (name, ts), g in zip(cases, got))
+        n_mul = got[-1].numel()   # outer_broadcast_mul's multiplies
+        rows['remap'] = dict(
+            max_abs_err=err, ms=time_ms(lambda: all_cases(probe.remap)),
+            plain_ms=time_ms(lambda: all_cases(probe.remap_plain)),
+            library_ms=None, **bound(n_mul / f32_peak, n_bytes / bytes_peak))
+        r = rows['remap']
+        print(f'kernel remap, 20 layout cases: max |kernel - plain| = {err} '
+              f'(exact); kernel {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} '
+              f'ms, bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}: '
+              f'{n_bytes / 1e6:.1f} MB)', flush=True)
+        if err != 0:
+            fail(f'remap disagrees with its plain version by {err}')
+
+        # (b) the three products at the probe's shape and the tail's own
+        # pointwise shapes at B = 209: layer 8's input activations (layers
+        # 8-12 run this product) and layer 14's, with those layers'
+        # pointwise weights from the bundle
+        params = all_params['yamnet']
+        flat, w = capability_probe.dot_inputs()
+        l14_in = sepconv.fused_tail_plain(params, mid, start_layer=8,
+                                          stop_layer=14, gap=False)
+        shapes = (
+            ('probe', torch.from_numpy(flat).to(dev),
+             torch.from_numpy(w).to(dev)),
+            ('layers 8-12', mid.reshape(-1, 512).contiguous(),
+             params['layer8/pointwise_conv/kernel']),
+            ('layer 14', l14_in.reshape(-1, 1024).contiguous(),
+             params['layer14/pointwise_conv/kernel']))
+        for label, a, w in shapes:
+            m, k = a.shape
+            n = w.shape[1]
+            library_ms = time_ms(lambda: torch.matmul(a, w))
+            for name in DOTS:
+                kern, plain = getattr(probe, name), getattr(probe,
+                                                            f'{name}_plain')
+                w_op = (sepconv.pack_pointwise(w, 'high')
+                        if name == 'dot_high_emulated' else w)
+                got, again = kern(a, w_op), kern(a, w_op)
+                ref = plain(a, w_op)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f'{name} {label}: two launches differ')
+                err = float((got - ref).abs().max())
+                # HIGH: three products of bf16 operands, at the card's bf16
+                # rate whichever unit the kernel runs them on (as the conv
+                # kernels' HIGH rows)
+                flops = 2 * m * n * k * (1 if name == 'dot_f32' else 3)
+                t_ops = flops / (f32_peak if name == 'dot_f32'
+                                 else bf16_peak)
+                # the weight: f32, or its bf16 hi/lo pair (as many bytes)
+                n_bytes = 4 * (m * k + m * n + k * n)
+                row = dict(max_abs_err=err, ms=time_ms(lambda: kern(a, w_op)),
+                           plain_ms=time_ms(lambda: plain(a, w_op)),
+                           library_ms=library_ms,
+                           **bound(t_ops, n_bytes / bytes_peak))
+                print(f'kernel {name} {label} ({m}x{k} @ {k}x{n}): max '
+                      f'|kernel - plain| = {err:.3g} (atol {ATOL}, rtol '
+                      f'{RTOL}); kernel {row["ms"]:.4f} ms, plain '
+                      f'{row["plain_ms"]:.4f} ms, torch.matmul f32 '
+                      f'{library_ms:.4f} ms, bound {row["bound_ms"]:.4f} ms '
+                      f'({row["bound_by"]}: {flops / 1e9:.2f} GFLOP, '
+                      f'{n_bytes / 1e6:.1f} MB)', flush=True)
+                if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
+                    fail(f'{name} {label} disagrees with its plain version: '
+                         f'max |d| {err:.3g}')
+                if label == 'layers 8-12':
+                    rows[name] = row
+
+        # the two HIGH routes against float64 of their common function
+        # (a_hi w_hi + a_hi w_lo + a_lo w_hi), on seeded standard-normal
+        # operands at the tail's two shapes: on the model's operands all
+        # routes lie within 5e-6, too close to tell one bf16 pass from three
+        gen = torch.Generator(device=dev).manual_seed(2)
+        for m, k in ((5016, 512), (1254, 1024)):
+            a = torch.randn((m, k), device=dev, generator=gen)
+            w = torch.randn((k, k), device=dev, generator=gen)
+            w_hilo = sepconv.pack_pointwise(w, 'high')
+            a_hi = a.to(torch.bfloat16)
+            a_lo = (a - a_hi.float()).to(torch.bfloat16).double()
+            a_hi, w_hi, w_lo = (a_hi.double(), w_hilo[0].double(),
+                                w_hilo[1].double())
+            one_pass = a_hi @ w_hi
+            exact = one_pass + a_hi @ w_lo + a_lo @ w_hi
+            one_pass_err = float((one_pass - exact).abs().max())
+            for name, out in (('dot_high', probe.dot_high(a, w)),
+                              ('dot_high_emulated',
+                               probe.dot_high_emulated(a, w_hilo)),
+                              ('dot_high_plain', probe.dot_high_plain(a, w))):
+                d = out.double() - exact
+                err = float(d.abs().max())
+                print(f'HIGH vs float64, standard-normal {m}x{k} @ {k}x{k}, '
+                      f'{name}: max |d| {err:.3g} (bound {HIGH_F64_ATOL}; '
+                      f'one bf16 pass {one_pass_err:.3g}), mean |d| '
+                      f'{float(d.abs().mean()):.3g}, mean d '
+                      f'{float(d.mean()):.3g} (max |value| '
+                      f'{float(exact.abs().max()):.3g})', flush=True)
+                if not err <= HIGH_F64_ATOL < one_pass_err:
+                    fail(f'{name} {m}x{k}x{k}: max |d| {err:.3g} from float64 '
+                         f'(bound {HIGH_F64_ATOL}, one bf16 pass '
+                         f'{one_pass_err:.3g})')
+
+    # (c) analyze(profile_dir=) on one short recording: a torch.profiler
+    # trace that must name the conv kernels
+    prof_audio = os.path.join(tmp, 'prof_audio')
+    os.makedirs(prof_audio)
+    write_recording(os.path.join(prof_audio, 'short.wav'), PROFILED_SECONDS,
+                    5)
+    # one run without the profiler, then one with it, for its cost; the
+    # profiled run's trace and launch counts are checked
+    walls = {}
+    trace_dir = os.path.join(tmp, 'trace')
+    for profiled in (False, True):
+        reset_counts()
+        t0 = time.perf_counter()
+        result = buzzdetect_torch.analyze(
+            modelname=MODEL, dir_audio=prof_audio,
+            dir_out=os.path.join(tmp, f'out_prof{int(profiled)}'),
+            verbosity_print='WARNING',
+            profile_dir=trace_dir if profiled else None)
+        walls[profiled] = time.perf_counter() - t0
+        if result.coordinator.end_reason != 'completed':
+            fail(f'analyze(profile_dir=) ({"with" if profiled else "without"}'
+                 f' the profiler) ended {result.coordinator.end_reason!r}')
+    counts = read_counts()
+    traces = [os.path.join(b, f) for b, _d, files in os.walk(trace_dir)
+              for f in files if f.endswith('.json')]
+    if len(traces) != 1:
+        fail(f'analyze(profile_dir=) wrote {traces}, expected one trace')
+    with open(traces[0]) as f:
+        events = [e for e in json.load(f)['traceEvents'] if e.get('ph') == 'X']
+    device_ops = sorted((e for e in events if e.get('cat') in (
+        'kernel', 'gpu_memcpy', 'gpu_memset')), key=lambda e: -e['dur'])
+    conv = [e for e in device_ops if 'sep_layer_kernel' in e['name']]
+    main_tid = threading.main_thread().native_id
+    cpu_tids = collections.Counter(e['tid'] for e in events
+                                   if e.get('cat') == 'cpu_op')
+    print(f'analyze(profile_dir=) on {PROFILED_SECONDS:.0f} s: wall '
+          f'{walls[True]:.3f} s profiled, {walls[False]:.3f} s without; '
+          f'kernel launches {counts}; trace {os.path.basename(traces[0])} '
+          f'({os.path.getsize(traces[0]) / 1e6:.1f} MB): {len(device_ops)} '
+          f'device ops, {len(conv)} of them sep_layer_kernel; CPU ops by '
+          f'thread: main {cpu_tids.pop(main_tid, 0)}, other threads '
+          f'{dict(cpu_tids)}', flush=True)
+    for e in device_ops[:5]:
+        print(f'  {e["dur"]:10.1f} us  {e["cat"]:10s} {e["name"][:90]}',
+              flush=True)
+    if not conv or counts['fused_front'] <= 0:
+        fail('the profiled run\'s trace names no sep_layer_kernel')
+
+    # (d) the pipeline sampler around one analyze() of phase 3's recordings
+    with profile_pipeline.Sampler() as sampler:
+        t0 = time.perf_counter()
+        result = buzzdetect_torch.analyze(
+            modelname=MODEL, dir_audio=dir_audio,
+            dir_out=os.path.join(tmp, 'out_sampled'),
+            verbosity_print='WARNING')
+        wall = time.perf_counter() - t0
+    if result.coordinator.end_reason != 'completed':
+        fail(f'the sampled analyze() ended {result.coordinator.end_reason!r}')
+    print(f'sampled analyze(): {wall:.2f} s wall; '
+          + '\n'.join(profile_pipeline.report(sampler, 12)), flush=True)
+
+    # (e) the roofline of one 200 s chunk with peaks measured on the card
+    probe.fma_chain.launches = 0
+    roofline.main(['--seconds', '200.64', '--measure'])
+    launches['fma_chain'] = probe.fma_chain.launches
+    if launches['fma_chain'] <= 0:
+        fail('the roofline never launched fma_chain')
+    with torch.inference_mode():
+        x = torch.randn(roofline.FMA_ELEMENTS, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+        args = (roofline.FMA_STEPS, roofline.FMA_A, roofline.FMA_B)
+        got, again = probe.fma_chain(x, *args), probe.fma_chain(x, *args)
+        ref = probe.fma_chain_plain(x, *args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        flops = 2 * roofline.FMA_STEPS * x.numel()
+        rows['fma_chain'] = dict(
+            max_abs_err=err, ms=time_ms(lambda: probe.fma_chain(x, *args)),
+            plain_ms=time_ms(lambda: probe.fma_chain_plain(x, *args)),
+            library_ms=None,
+            **bound(flops / f32_peak, 8 * x.numel() / bytes_peak))
+        r = rows['fma_chain']
+        print(f'kernel fma_chain ({x.numel()} x {roofline.FMA_STEPS} steps): '
+              f'max |kernel - plain| = {err:.3g} (bound {FMA_RTOL} max(|x|, '
+              f'1)); the chain moved values by up to '
+              f'{float((ref - x).abs().max()):.3g}; kernel '
+              f'{r["ms"]:.4f} ms ({flops / r["ms"] / 1e9:.1f} TFLOP/s), '
+              f'plain {r["plain_ms"]:.4f} ms, bound {r["bound_ms"]:.4f} ms '
+              f'({r["bound_by"]})', flush=True)
+        if not torch.equal(got, again):
+            fail('fma_chain: two launches differ')
+        if not bool(((got - ref).abs()
+                     <= FMA_RTOL * x.abs().clamp(min=1.0)).all()):
+            fail(f'fma_chain disagrees with its plain version: {err:.3g}')
+
+    # --- 5. the kernels line ------------------------------------------
     order = ('fused_front', 'fused_tail', 'fused_front[bf16]',
              'fused_tail[bf16]', 'fused_front[high]', 'fused_tail[high]',
-             'log_mel')
+             'log_mel', 'remap') + DOTS + ('fma_chain',)
     table = []
     for name in order:
         r = rows[name]
         base = name.split('[')[0]
-        source = SOURCES['logmel' if base == 'log_mel' else 'sepconv']
+        source = SOURCES['logmel' if base == 'log_mel' else
+                         'sepconv' if base.startswith('fused') else 'probe']
         table.append({'name': name, 'route': 'cuda', 'source': source,
                       'replaces': REPLACES[base],
                       'launches': launches[name],

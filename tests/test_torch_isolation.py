@@ -45,7 +45,10 @@ def test_no_jax_or_reference_package_imports():
     'buzzdetect_torch', 'buzzdetect_torch.ops.sepconv',
     'buzzdetect_torch.models.yamnet', 'buzzdetect_torch.models.classifier',
     'buzzdetect_torch.ops.logmel', 'buzzdetect_torch.cli',
-    'buzzdetect_torch.api', 'buzzdetect_torch.doctor'])
+    'buzzdetect_torch.api', 'buzzdetect_torch.doctor',
+    'buzzdetect_torch.ops.probe', 'buzzdetect_torch.tools.capability_probe',
+    'buzzdetect_torch.tools.roofline',
+    'buzzdetect_torch.tools.profile_pipeline'])
 def test_importing_the_port_loads_no_jax(first):
     """Each module imports first without an import cycle, and the package
     with its orchestrator pulls in no JAX. A subprocess: tests/conftest.py
@@ -93,7 +96,7 @@ def test_cuda_without_a_card_raises(tmp_path):
 
 @pytest.mark.parametrize('kw', [
     {'mesh': object()}, {'devices': 2}, {'host_shard': (0, 2)},
-    {'profile_dir': '/nonexistent'}, {'resample_on_device': True},
+    {'resample_on_device': True},
     {'devices': 'all'},
 ])
 def test_unported_analyze_options_raise(tmp_path, kw):
