@@ -3,9 +3,11 @@
 Counterpart of ``buzzdetect_tpu/ops/pallas_conv.py``: ``fused_front`` runs
 layers 2-7 and ``fused_tail`` layers 8-14 plus global average pooling (or
 any sep-layer range without pooling). On a CUDA tensor each wrapper launches
-its kernel from ``csrc/sepconv.cu`` (FFMA only; see the note at the top of
-that file) and counts the launch in ``<wrapper>.launches[mode]``; on a CPU
-tensor it computes the plain PyTorch version. There is no other path.
+its kernels from ``csrc/sepconv.cu`` (see the note at the top of that file)
+and counts the launch in ``<wrapper>.launches[mode]``; on a CPU tensor it
+computes the plain PyTorch version. There is no other path. The pointwise
+product runs on FFMA in exact f32 ('highest') and on the tensor cores
+('bf16', 'high'; ``layer_route``).
 
 ``mode`` selects the pointwise product's operands, as the TPU kernel's
 ``compute_dtype`` and ``precision`` do (``resolve_mode``):
@@ -18,8 +20,9 @@ tensor it computes the plain PyTorch version. There is no other path.
   a_lo*w_hi`` with f32 accumulate.
 
 The depthwise taps, biases, ReLU and pooling stay f32 in every mode. A
-product of two bf16 values is exact in f32, so f32 FFMA on bf16-rounded
-values computes what the TPU's one-pass bf16 products compute.
+product of two bf16 values is exact in f32, so the plain versions' f32
+products of bf16-rounded values compute what the TPU's one-pass bf16
+products compute.
 
 Parameters are the ``yamnet`` dict from ``models/weights.params_from_numpy``:
 per layer, ``layerN/depthwise_conv/kernel`` as (9, C) taps (tap
@@ -94,6 +97,25 @@ def same_pad(n: int, stride: int, k: int = 3):
 MODES = ('highest', 'bf16', 'high')
 # the kernel's mode argument (csrc/sepconv.cu, enum Mode)
 _MODE_CODE = {'highest': 0, 'bf16': 1, 'high': 2}
+
+
+def layer_route(mode: str) -> str:
+    """The unit that runs a layer's pointwise product in ``mode``: 'ffma'
+    (sep_layer_kernel, exact f32) or 'mma' (sep_layer_mma_kernel, bf16
+    operands on the tensor cores)."""
+    _check_mode(mode)
+    return 'ffma' if mode == 'highest' else 'mma'
+
+
+def _kernel_takes(s, mode) -> bool:
+    """Whether layer ``s``'s shape fits its route's tiles in csrc/sepconv.cu:
+    FFMA, C in chunks of 8 and F in blocks of 64; the tensor cores, C in
+    chunks of 32 and F = 64, 128 or a multiple of 256. The same rule as
+    ``run_stack`` and ``mma_takes`` in that file: a change to one is made in
+    the other."""
+    if layer_route(mode) == 'ffma':
+        return s.c_in % 8 == 0 and s.c_out % 64 == 0
+    return s.c_in % 32 == 0 and (s.c_out in (64, 128) or s.c_out % 256 == 0)
 
 
 def resolve_compute_dtype(compute_dtype) -> torch.dtype:
@@ -264,9 +286,14 @@ def load_kernels():
 
 
 def _check(params, x, specs, mode):
-    """Validate the input and every layer's operands for ``mode``; returns
-    the per-layer (dw, dw_b, pw, pw_b) tensors the kernel reads, with the
-    pointwise kernel as ``mode``'s operand."""
+    """Validate the input and every layer's shape and operands for ``mode``;
+    returns the per-layer (dw, dw_b, pw, pw_b) tensors the kernel reads,
+    with the pointwise kernel as ``mode``'s operand."""
+    for s in specs:
+        if not _kernel_takes(s, mode):
+            raise ValueError(f'{s.name}: the {layer_route(mode)} kernel does '
+                             f'not take C={s.c_in}, F={s.c_out} in mode '
+                             f'{mode!r}')
     s0 = specs[0]
     want = (s0.h, s0.w, s0.c_in)
     if x.dim() != 4 or tuple(x.shape[1:]) != want:

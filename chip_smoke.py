@@ -19,9 +19,15 @@ Phases, each printed before the last line:
    that two launches agree bit for bit and that the B = 5 rows equal the
    same rows inside B = 209, and gives the median times of the kernel, the
    plain version and one library call for the same function (cuDNN
-   ``F.conv2d`` stacks; the matmul frontend for the log-mel), beside the
-   least time the card could take (bound). Then one chunk's device time
-   stage by stage, with the matmul frontend and with the fused log-mel;
+   ``F.conv2d`` stacks; the matmul frontend for the log-mel), their ratio,
+   and the least time the card could take (bound). A conv row also names
+   the unit its layers' pointwise product runs on (FFMA in exact f32, the
+   tensor cores in bf16 and HIGH) and gives the kernel's and the library's device time alone
+   (``torch.profiler``), since the CUDA-event times include the host's
+   launches. Then each mode's device time layer by layer, with the ratio
+   of the bf16 and HIGH kernels' to the exact-f32 FFMA kernel's, and one
+   chunk's device time stage by stage, with the matmul frontend and with
+   the fused log-mel;
 3. the main paths end to end: ``buzzdetect_torch.analyze()`` on three
    30-minute 16 kHz WAV recordings (exact f32), then the CLI in process
    (``buzzdetect_torch.cli.main``) on two 10-minute recordings through a
@@ -37,7 +43,8 @@ Phases, each printed before the last line:
 4. the developer tools (``buzzdetect_torch/tools``): (a) the capability
    probe's 23 cases through the kernels of ``csrc/probe.cu`` (launch counts
    set to 0 just before and read just after); (b) ``remap`` on the 20
-   layout cases and the three product kernels at the probe's shape and at
+   layout cases, beside one PyTorch call per case (``remap_library``), and
+   the three product kernels at the probe's shape and at
    the conv tail's pointwise shapes (B = 209: 5016 x 512 x 512 with layer
    8's input and weight, 1254 x 1024 x 1024 with layer 14's), each against
    its plain version, twice for bit-identity, timed beside its plain
@@ -97,6 +104,9 @@ REPLACES = {'fused_front': 'buzzdetect_tpu/ops/pallas_conv.py:448',
             # the jitted FMA chain of the JAX roofline's measure_peaks (XLA,
             # not a Pallas kernel): the f32 peak probe of tools/roofline.py
             'fma_chain': 'tools/roofline.py:157'}
+# the units that run the conv kernels' pointwise product
+# (sepconv.layer_route)
+PRODUCT_UNITS = {'mma': 'the tensor cores (mma)', 'ffma': 'FFMA'}
 # the product kernels of csrc/probe.cu
 DOTS = ('dot_f32', 'dot_high', 'dot_high_emulated')
 # the length of the recording analyze(profile_dir=) traces in phase 4
@@ -160,6 +170,60 @@ def remap_bytes(torch, case, inputs, out):
         offsets = src[src > 0].long() - 1
         read = 32 * torch.unique(offsets * 4 // 32).numel()
     return read + 4 * out.numel()
+
+
+def device_ms(fn, reps=10):
+    """Device milliseconds per call of ``fn``: the CUDA kernels' durations
+    that ``torch.profiler`` records over ``reps`` calls, after 3 warmups,
+    summed and divided by ``reps``. The CUDA-event timer of the other
+    columns also counts the host's time to launch them, which can exceed
+    the kernels' own: a stack of many small library calls is host-bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        fail('torch.profiler recorded no device time')
+    return total / 1e3 / reps
+
+
+def remap_library(torch, cases):
+    """For each of the 20 layout cases, one PyTorch call that makes the same
+    tensor as ``remap`` in new memory: ``torch.mul``; ``F.pad`` of the
+    sliced input for the pad-shifts; ``masked_fill`` for the masks, which
+    are built outside the timed call; the case's own expression where it
+    already makes new memory (``torch.roll``, a reshape that copies); else
+    the one copy that turns the case's view into a tensor of its own
+    (``contiguous``, or ``clone`` where the view is already contiguous)."""
+    import torch.nn.functional as F
+    from buzzdetect_torch.ops import probe
+    calls = []
+    for name, ts in cases:
+        x, f = ts[0], probe.CASES[name]
+        if name == 'outer_broadcast_mul':
+            calls.append(lambda x=x, w=ts[1]: torch.mul(x, w))
+        elif name == 'pad_slice_shift':
+            calls.append(lambda x=x: F.pad(x[:, :-1, :], (0, 0, 1, 0)))
+        elif name == 'pad_slice_lane':
+            calls.append(lambda x=x: F.pad(x[:, :, :-1], (1, 0)))
+        elif name.startswith('iota'):
+            mask = f(torch.ones_like(x)) == 0
+            calls.append(lambda x=x, m=mask: x.masked_fill(m, 0.0))
+        elif (f(x).untyped_storage().data_ptr()
+              != x.untyped_storage().data_ptr()):
+            calls.append(lambda x=x, f=f: f(x))
+        elif f(x).is_contiguous():
+            calls.append(lambda x=x, f=f: f(x).clone())
+        else:
+            calls.append(lambda x=x, f=f: f(x).contiguous())
+    return calls
 
 
 def bound(t_ops, t_bytes):
@@ -318,9 +382,11 @@ def run(torch, tmp):
     rows, outputs = {}, {}
 
     def check_row(name, b, got, ref, again, run_kernel, run_plain,
-                  run_library, work, tol):
+                  run_library, work, tol, product=None):
         """Hold one kernel call against its plain version, time the three,
-        print the row; keep it at B=209."""
+        print the row; keep it at B=209. A conv row also gives the unit that
+        runs its layers' product ('mma' or 'ffma') and the device time of
+        the kernel and library calls."""
         err = float((got - ref).abs().max())
         atol, rtol = tol(ref)
         ok = torch.allclose(got, ref, atol=atol, rtol=rtol)
@@ -336,13 +402,25 @@ def run(torch, tmp):
                    plain_ms=time_ms(run_plain),
                    library_ms=time_ms(run_library),
                    **bound(t_ops, t_bytes))
+        row['ratio'] = row['ms'] / row['library_ms']
+        if product is not None:
+            row.update(product=product, device_ms=device_ms(run_kernel),
+                       library_device_ms=device_ms(run_library))
         torch.cuda.synchronize()
         print(f'kernel {name} B={b}: max |kernel - plain| = {err:.3g} '
               f'(atol {atol:.3g}, rtol {rtol:.3g}); kernel {row["ms"]:.4f} '
               f'ms, plain {row["plain_ms"]:.4f} ms, library '
-              f'{row["library_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms '
+              f'{row["library_ms"]:.4f} ms (kernel / library '
+              f'{row["ratio"]:.2f}x), bound {row["bound_ms"]:.4f} ms '
               f'({row["bound_by"]}: {flops / 1e9:.2f} GFLOP, '
               f'{n_bytes / 1e6:.1f} MB)', flush=True)
+        if product is not None:
+            print(f'  {name} B={b}: every layer\'s product on '
+                  f'{PRODUCT_UNITS[product]}; device time (kernels only, '
+                  f'torch.profiler) kernel {row["device_ms"]:.4f} ms, library '
+                  f'{row["library_device_ms"]:.4f} ms (kernel / library '
+                  f'{row["device_ms"] / row["library_device_ms"]:.2f}x)',
+                  flush=True)
         if not ok:
             fail(f'{name} B={b} disagrees with its plain version: max |d| '
                  f'{err:.3g}')
@@ -433,7 +511,36 @@ def run(torch, tmp):
                                                     gap),
                               (t_ops, n_bytes / bytes_peak, pw_f + dw_f,
                                n_bytes),
-                              bf16_scale if mode == 'bf16' else exact)
+                              bf16_scale if mode == 'bf16' else exact,
+                              sepconv.layer_route(mode))
+
+        # each mode's device time layer by layer, at B = 209, each layer on
+        # its input from the plain stack; the exact-f32 kernel's FFMA loop is
+        # the one the bf16 and HIGH modes ran before the tensor cores
+        layer_ms = {}
+        for mode in sepconv.MODES:
+            params = sepconv.pack_params(all_params['yamnet'], mode)
+            x = yamnet.layer1(params, patches, mode)
+            parts = []
+            for s in sepconv.tail_specs(2, None):
+                layer = dict(start_layer=s.index, stop_layer=s.index + 1,
+                             gap=False, mode=mode)
+                pw_f, dw_f, n_bytes = stack_work((s,), b0, False, mode)
+                t_ops = ((pw_f + dw_f) / f32_peak if mode == 'highest'
+                         else max(pw_f / bf16_peak, dw_f / f32_peak))
+                t_bound = max(t_ops, n_bytes / bytes_peak)
+                ms = device_ms(lambda: sepconv.fused_tail(params, x, **layer))
+                layer_ms[mode, s.index] = ms
+                parts.append(f'{s.index}: {ms:.4f} (bound {1e3 * t_bound:.4f})')
+                x = sepconv.fused_tail_plain(params, x, **layer).reshape(
+                    b0, s.h_out, s.w_out, s.c_out)
+            print(f'device time per layer, ms, [{mode}] B={b0}: '
+                  + ', '.join(parts), flush=True)
+        for mode in ('bf16', 'high'):
+            ratios = (f'{i}: {layer_ms[mode, i] / layer_ms["highest", i]:.2f}x'
+                      for i in range(2, 15))
+            print(f'[{mode}] tensor cores / exact-f32 FFMA kernel, per layer: '
+                  + ', '.join(ratios), flush=True)
 
         # where one chunk's device time goes, stage by stage, at B = 209,
         # with the matmul frontend and with the fused log-mel
@@ -587,15 +694,22 @@ def run(torch, tmp):
         n_bytes = sum(remap_bytes(torch, name, ts, g)
                       for (name, ts), g in zip(cases, got))
         n_mul = got[-1].numel()   # outer_broadcast_mul's multiplies
+        library = remap_library(torch, cases)
+        if not all(torch.equal(call(), r) for call, r in zip(library, ref)):
+            fail('remap: a library call differs from the plain version')
         rows['remap'] = dict(
             max_abs_err=err, ms=time_ms(lambda: all_cases(probe.remap)),
             plain_ms=time_ms(lambda: all_cases(probe.remap_plain)),
-            library_ms=None, **bound(n_mul / f32_peak, n_bytes / bytes_peak))
+            library_ms=time_ms(lambda: [call() for call in library]),
+            **bound(n_mul / f32_peak, n_bytes / bytes_peak))
         r = rows['remap']
+        r['ratio'] = r['ms'] / r['library_ms']
         print(f'kernel remap, 20 layout cases: max |kernel - plain| = {err} '
               f'(exact); kernel {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} '
-              f'ms, bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}: '
-              f'{n_bytes / 1e6:.1f} MB)', flush=True)
+              f'ms, library {r["library_ms"]:.4f} ms (one PyTorch call per '
+              f'case, each equal to the plain version; kernel / library '
+              f'{r["ratio"]:.2f}x), bound {r["bound_ms"]:.4f} ms '
+              f'({r["bound_by"]}: {n_bytes / 1e6:.1f} MB)', flush=True)
         if err != 0:
             fail(f'remap disagrees with its plain version by {err}')
 
@@ -798,7 +912,9 @@ def run(torch, tmp):
                       'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                       'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                       'bound_by': r['bound_by'],
-                      'library_ms': r['library_ms']})
+                      'library_ms': r['library_ms'],
+                      **{k: r[k] for k in ('ratio', 'product', 'device_ms',
+                                           'library_device_ms') if k in r}})
     print(json.dumps({'kernels': table}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

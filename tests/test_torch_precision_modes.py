@@ -193,6 +193,39 @@ def bundle():
         return {k: z[k] for k in z.files}
 
 
+@pytest.fixture
+def clean_interpreter():
+    """A whole-classifier reference computed from a clean process state.
+
+    The TPU interpreter keeps one simulated memory per process, which a
+    kernel that raised leaves behind and a kernel still running from
+    another test shares (jax's ``reset_tpu_interpret_mode_state``); and the
+    JAX classifier's jitted graph, once traced, is reused by any later
+    classifier of the same static arguments, whatever module globals
+    (``yamnet.PALLAS_FRONT``) it was traced under. A worker of the tier-1
+    run that had run other test files first scored 5.9e-3 here, against
+    7.45e-4 on its own; that failure was not reproduced, so whether this
+    state was its cause is not known. Against both suspects, wait for every
+    outstanding side effect, reset the interpreter and drop the traced
+    graphs before the reference runs."""
+    jax.effects_barrier()
+    pltpu.reset_tpu_interpret_mode_state()
+    jax.clear_caches()
+
+
+def _files_run_before(request):
+    """This process's name under xdist and the test files of which it ran a
+    test before this one, in collection order (pytest sets a test's
+    ``funcargs`` to None once it has run): what to read when a test fails
+    in the tier-1 run and passes on its own."""
+    files = []
+    for item in request.session.items:
+        f = item.nodeid.split('::')[0]
+        if getattr(item, 'funcargs', {}) is None and f not in files:
+            files.append(f)
+    return os.environ.get('PYTEST_XDIST_WORKER', 'no xdist'), files
+
+
 def _wave(seconds, seed):
     rng = np.random.default_rng(seed)
     t = np.arange(int(seconds * 16000)) / 16000
@@ -201,30 +234,35 @@ def _wave(seconds, seed):
 
 
 @pytest.mark.parametrize('mode', ['bf16', 'high'])
-def test_classifier_scores_match_jax(bundle, mode):
+def test_classifier_scores_match_jax(bundle, clean_interpreter, request,
+                                     mode):
     """Whole-classifier scores on the real bundle against the JAX package's
     ChunkClassifier(conv='pallas') in the same mode (interpret mode)."""
     kw = ({'compute_dtype': jnp.bfloat16} if mode == 'bf16'
           else {'conv_precision': 'high'})
     tkw = ({'compute_dtype': torch.bfloat16} if mode == 'bf16'
            else {'conv_precision': 'high'})
+    wav = _wave(7.7, seed=5)
     jclf = JaxClassifier(bundle, conv='pallas', transfer_dtype='int16', **kw)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jclf.predict(wav)
+    del jclf   # one interpreted classifier alive at a time
     tclf = ChunkClassifier(bundle, device='cpu', transfer_dtype='int16',
                            **tkw)
     assert tclf.mode == mode
-    wav = _wave(7.7, seed=5)
-    with pltpu.force_tpu_interpret_mode():
-        ref = jclf.predict(wav)
     got = tclf.predict(wav)
     assert got.shape == ref.shape
     err = float(np.abs(got - ref).max())
     budget = BF16_SCORE_FAULT if mode == 'bf16' else ATOL_SCORE
     print(f'scores [{mode}] vs JAX conv=pallas: max |dscore| = {err:.3g} '
           f'(budget {budget})')
-    assert err <= budget
+    worker, files = _files_run_before(request)
+    assert err <= budget, (f'max |dscore| = {err:.3g} > {budget}; worker '
+                           f'{worker} had run tests of {files}')
 
 
-def test_bf16_scores_against_jax_default_bf16_and_f32(bundle):
+def test_bf16_scores_against_jax_default_bf16_and_f32(bundle,
+                                                      clean_interpreter):
     """The port's bf16 is the JAX conv='pallas' bf16 function. Against the
     JAX package's default --bf16 (conv='xla' off the TPU, which rounds every
     layer's activations to bf16) and against f32 it differs as much as the

@@ -121,6 +121,53 @@ def test_same_pad_is_tf_same(n, stride, pad):
     assert sepconv.same_pad(n, stride) == pad
 
 
+@pytest.mark.parametrize('mode', sepconv.MODES)
+@pytest.mark.parametrize('layer', range(2, 15))
+def test_check_takes_every_sep_layer(tparams, mode, layer):
+    """Every sep layer 2-14 fits the tiles of its mode's kernel in
+    csrc/sepconv.cu (FFMA for 'highest', the tensor cores for 'bf16' and
+    'high'), so _check hands its operands on."""
+    s = sepconv.tail_specs(layer, layer + 1)[0]
+    x = torch.zeros(1, s.h, s.w, s.c_in)
+    (dw, dw_b, pw, pw_b), = sepconv._check(
+        sepconv.pack_params(tparams, mode), x, (s,), mode)
+    assert pw.dtype == (torch.float32 if mode == 'highest'
+                        else torch.bfloat16)
+    assert pw.shape[-2:] == (s.c_in, s.c_out)
+    assert sepconv.layer_route(mode) == ('ffma' if mode == 'highest'
+                                         else 'mma')
+
+
+@pytest.mark.parametrize('mode,c_in,c_out', [
+    ('bf16', 48, 64),     # C not in chunks of 32
+    ('high', 64, 192),    # F neither 64, 128 nor a multiple of 256
+    ('bf16', 256, 384),
+    ('highest', 12, 64),  # C not in chunks of 8
+    ('highest', 64, 96),  # F not in blocks of 64
+])
+def test_check_refuses_shapes_the_kernels_do_not_take(monkeypatch, mode, c_in,
+                                                      c_out):
+    """A layer shape that the mode's kernel does not take raises in _check,
+    before the wrapper picks a route: neither the launch nor the plain
+    version is reached."""
+    s = sepconv.SepSpec(15, 6, 4, c_in, c_out, 1)
+    pw = torch.zeros(c_in, c_out)
+    params = {'layer15/depthwise_conv/kernel': torch.zeros(9, c_in),
+              'layer15/depthwise_conv/bias': torch.zeros(c_in),
+              'layer15/pointwise_conv/kernel': pw,
+              'layer15/pointwise_conv/bias': torch.zeros(c_out)}
+    params[sepconv._packed_key(s, mode)] = sepconv.pack_pointwise(pw, mode)
+
+    def reached(*args, **kwargs):
+        raise AssertionError('a route was taken')
+    monkeypatch.setattr(sepconv, 'tail_specs', lambda *args: (s,))
+    monkeypatch.setattr(sepconv, '_launch', reached)
+    monkeypatch.setattr(sepconv, 'fused_tail_plain', reached)
+    with pytest.raises(ValueError, match='does not take'):
+        sepconv.fused_tail(params, torch.zeros(2, 6, 4, c_in), gap=False,
+                           mode=mode)
+
+
 def test_stride2_layer_reads_odd_centres(tparams):
     """A depthwise tap that only reads the centre (kernel = one-hot centre,
     pointwise = identity, zero bias) must sample input (2i+1, 2j+1) at a
