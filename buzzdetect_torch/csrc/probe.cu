@@ -7,10 +7,11 @@
 // which tensor-shape operations the Mosaic compiler lowers at all. On this
 // card every form compiles, so what the probe checks here is the index
 // arithmetic a fused front would use (stride-2 subsampling, rolls,
-// pad-shifts, a row gather), and which of the card's two routes to an
-// emulated-HIGH product is faster: three bf16 products on the tensor cores,
-// or the same three products on FFMA as csrc/sepconv.cu's HIGH mode runs
-// them.
+// pad-shifts, a row gather), and which of the card's two tensor-core routes
+// to an emulated-HIGH product is faster: the native one (wmma, both
+// operands split in shared memory, one accumulator), or the one
+// csrc/sepconv.cu's HIGH mode runs (mma.sync on a pre-split weight, two
+// accumulators).
 //
 // remap (for `run`). One __global__ template over a case functor: each
 // output element is one input element (its flat offset from the case's
@@ -25,10 +26,9 @@
 // tiled FFMA product, 64 x 64 outputs per block of 256 threads, 4 x 4 per
 // thread from float4 shared-memory reads, K staged in chunks of 16. No
 // TF32, no tensor cores; every output is one thread's sum in a fixed order
-// (k ascending), so results are identical from run to run. It is the inner
-// loop of csrc/sepconv.cu's HIGHEST mode. Bound: FFMA throughput (2 M N K
-// operations at the f32 peak) at the shapes the probe and the conv tail
-// use.
+// (k ascending), so results are identical from run to run. Bound: FFMA
+// throughput (2 M N K operations at the f32 peak) at the shapes the probe
+// and the conv tail use.
 //
 // dot_high (for `case_dot_high`, "native HIGH"). The card's native form of
 // the TPU's three-pass HIGH: f32 activation and f32 weight are split into
@@ -44,13 +44,28 @@
 // tensor cores' dense bf16 peak, or the bytes, whichever is larger. No wgmma,
 // no TMA, no pipelining: simple and right first.
 //
-// dot_high_emulated (for `case_dot_high_emulated`). The same function by
-// FFMA: the weight arrives pre-split as (2, K, N) bf16 hi and lo planes
-// (ops/sepconv.pack_pointwise(w, 'high')), the activation is split on the
-// fly, and each k adds a_hi*w_hi, a_hi*w_lo, a_lo*w_hi in that order:
-// exactly csrc/sepconv.cu's HIGH arithmetic. A product of two bf16 values
-// is exact in f32, so only the order of the f32 sums differs from the
-// tensor-core route. Bound: 6 M N K operations at the f32 peak.
+// dot_high_emulated (for `case_dot_high_emulated`, the TPU's `_pw_dot` at
+// HIGH: three one-pass bf16 products on the MXU). The product of
+// csrc/sepconv.cu's HIGH mode on its own, on the tensor cores. The weight
+// arrives pre-split as (2, K, N) bf16 hi and lo planes
+// (ops/sepconv.pack_pointwise(w, 'high')); a ring of 3 cp.async stages
+// brings each K chunk of 32 (the f32 activation tile and both weight
+// planes, 16 bytes a thread) to shared memory while earlier chunks
+// compute; each chunk's activation is split once into bf16 hi and lo planes
+// in shared memory (a_hi = bf16(a), a_lo = bf16(a - a_hi)); ldmatrix feeds
+// mma.sync.m16n8k16 bf16 -> f32 with two accumulators, hi*hi and
+// hi*lo + lo*hi, added in the epilogue, exactly as sep_layer_mma_kernel
+// does. 64 x 128 outputs per block of 8 warps (2 along M x 4 along N, each
+// 32 x 32), so the conv tail's shapes launch 316 (5016 x 512) and 160
+// (1254 x 1024) blocks, at least one per SM; the M edge is masked with
+// zero rows and an N edge (N = 64 mod 128) with zero columns, neither
+// stored. K in order, no split K, no atomics: identical from run to run.
+// Bound: three bf16 products at the dense bf16 peak, as dot_high. Measured
+// (chip_smoke.py, H100 SXM at 700 W): 0.035 ms device time at 5016 x 512 x
+// 512 and 0.041 at 1254 x 1024 x 1024, 4-5x that bound and 0.58-0.65x
+// torch.matmul in f32; the earlier FFMA kernel took 0.26-0.30 ms. Within
+// 2.2e-4 of float64 on standard-normal operands at K = 1024 (dot_high, one
+// accumulator: 6.3e-4).
 //
 // fma_chain (for tools/roofline.py's measured f32 peak). Each thread keeps
 // four independent values in registers and applies v = fma(v, a, b) to each
@@ -64,6 +79,10 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "ptx.cuh"
 
 namespace {
 
@@ -276,25 +295,17 @@ int launch_remap(const float* x, const float* w, float* y, const Dims& D,
     return (int)cudaGetLastError();
 }
 
-// --- the FFMA products ---------------------------------------------------------
+// --- the FFMA product ------------------------------------------------------------
 
 constexpr int FM = 64, FN = 64, FK = 16;  // block tile; K chunk
 constexpr int FT = 256;                   // threads: 16 x 16, 4 x 4 outputs each
 constexpr int APAD = 4;                   // keeps As rows 16-byte aligned
 
-enum FfmaMode { F32 = 0, HIGH_EMULATED = 1 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <int MODE>
 __global__ void __launch_bounds__(FT)
-dot_ffma_kernel(const float* __restrict__ a, const void* __restrict__ w,
-                float* __restrict__ c, int m, int n, int k) {
-    constexpr int NP = MODE == HIGH_EMULATED ? 2 : 1;  // planes: hi, lo
-    __shared__ __align__(16) float As[NP][FK][FM + APAD];
-    __shared__ __align__(16) float Ws[NP][FK][FN];
+dot_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
+               float* __restrict__ c, int m, int n, int k) {
+    __shared__ __align__(16) float As[FK][FM + APAD];
+    __shared__ __align__(16) float Ws[FK][FN];
     const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
     const int m0 = blockIdx.x * FM, n0 = blockIdx.y * FN;
     // staging: one float4 of the A tile (row ar, k ak..ak+3) and one of
@@ -313,60 +324,25 @@ dot_ffma_kernel(const float* __restrict__ a, const void* __restrict__ w,
         if (m0 + ar < m)
             v = *reinterpret_cast<const float4*>(a + (long long)(m0 + ar) * k
                                                  + k0 + ak);
-        const float vals[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if (MODE == F32) {
-                As[0][ak + j][ar] = vals[j];
-            } else {
-                const float hi = bf16_round(vals[j]);
-                As[0][ak + j][ar] = hi;
-                As[NP - 1][ak + j][ar] = bf16_round(vals[j] - hi);
-            }
-        }
-        const long long w_off = (long long)(k0 + wr) * n + n0 + wc;
-        if (MODE == F32) {
-            *reinterpret_cast<float4*>(&Ws[0][wr][wc]) =
-                *reinterpret_cast<const float4*>(
-                    static_cast<const float*>(w) + w_off);
-        } else {
-            const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
-#pragma unroll
-            for (int p = 0; p < NP; ++p) {
-                const __nv_bfloat162* src =
-                    reinterpret_cast<const __nv_bfloat162*>(
-                        wb + (long long)p * k * n + w_off);
-                const float2 lo2 = __bfloat1622float2(src[0]);
-                const float2 hi2 = __bfloat1622float2(src[1]);
-                *reinterpret_cast<float4*>(&Ws[p][wr][wc]) =
-                    make_float4(lo2.x, lo2.y, hi2.x, hi2.y);
-            }
-        }
+        As[ak + 0][ar] = v.x;
+        As[ak + 1][ar] = v.y;
+        As[ak + 2][ar] = v.z;
+        As[ak + 3][ar] = v.w;
+        *reinterpret_cast<float4*>(&Ws[wr][wc]) =
+            *reinterpret_cast<const float4*>(w + (long long)(k0 + wr) * n +
+                                             n0 + wc);
         __syncthreads();
 #pragma unroll
         for (int kk = 0; kk < FK; ++kk) {
-            float av[NP][4], bv[NP][4];
-#pragma unroll
-            for (int p = 0; p < NP; ++p) {
-                const float4 a4 =
-                    *reinterpret_cast<const float4*>(&As[p][kk][ty * 4]);
-                const float4 b4 =
-                    *reinterpret_cast<const float4*>(&Ws[p][kk][tx * 4]);
-                av[p][0] = a4.x; av[p][1] = a4.y; av[p][2] = a4.z;
-                av[p][3] = a4.w;
-                bv[p][0] = b4.x; bv[p][1] = b4.y; bv[p][2] = b4.z;
-                bv[p][3] = b4.w;
-            }
+            const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+            const float4 b4 = *reinterpret_cast<const float4*>(&Ws[kk][tx * 4]);
+            const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    acc[i][j] = fmaf(av[0][i], bv[0][j], acc[i][j]);
-                    if (MODE == HIGH_EMULATED) {  // + a_hi*w_lo + a_lo*w_hi
-                        acc[i][j] = fmaf(av[0][i], bv[NP - 1][j], acc[i][j]);
-                        acc[i][j] = fmaf(av[NP - 1][i], bv[0][j], acc[i][j]);
-                    }
-                }
+                for (int j = 0; j < 4; ++j)
+                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
         }
         __syncthreads();
     }
@@ -379,7 +355,180 @@ dot_ffma_kernel(const float* __restrict__ a, const void* __restrict__ w,
     }
 }
 
-// --- the tensor-core product ------------------------------------------------------
+// --- the emulated-HIGH product on the tensor cores -------------------------------
+
+constexpr int EM = 64, EN = 128, EK = 32;  // block tile; K chunk
+constexpr int ET = 256;    // threads: 8 warps, 2 along M x 4 along N
+constexpr int ERING = 3;   // cp.async ring stages
+// bf16 row padding: the 8 rows an ldmatrix reads start on distinct bank
+// groups, and every row stays 16-byte aligned
+constexpr int EPAD = 8;
+constexpr int E_LDA = EK + EPAD, E_LDB = EN + EPAD;  // bf16 rows
+constexpr int E_A_PLANE = EM * E_LDA;  // one plane of the split A tile
+constexpr int E_B_PLANE = EK * E_LDB;  // one plane of a chunk's weights
+// bytes: a ring stage (the f32 activation tile, then the weights' hi and
+// lo planes), then the whole: the split A tile's two planes and the ring
+constexpr int E_STAGE_A = EM * EK * (int)sizeof(float);
+constexpr int E_STAGE = E_STAGE_A + 2 * E_B_PLANE * (int)sizeof(__nv_bfloat16);
+constexpr int E_SMEM =
+    2 * E_A_PLANE * (int)sizeof(__nv_bfloat16) + ERING * E_STAGE;
+
+__global__ void __launch_bounds__(ET, 2)
+dot_hilo_mma_kernel(const float* __restrict__ a,
+                    const __nv_bfloat16* __restrict__ w,
+                    float* __restrict__ c, int m, int n, int k) {
+    extern __shared__ __align__(16) unsigned char esmem[];
+    __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(esmem);
+    unsigned char* const ring =
+        esmem + 2 * E_A_PLANE * (int)sizeof(__nv_bfloat16);
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int wm = warp / 4, wn = warp % 4;  // the warp's 32 x 32 sub-tile
+    const int m0 = blockIdx.x * EM, n0 = blockIdx.y * EN;
+    const int n_chunks = k / EK;
+    const long long plane = (long long)k * n;
+
+    auto stage_a = [&](int chunk) {
+        return reinterpret_cast<float*>(ring + (chunk % ERING) * E_STAGE);
+    };
+    auto stage_w = [&](int chunk) {
+        return reinterpret_cast<__nv_bfloat16*>(
+            ring + (chunk % ERING) * E_STAGE + E_STAGE_A);
+    };
+    // chunk k's (EM, EK) f32 activations (zero rows past M) and its (EK,
+    // EN) hi and lo weights (zero columns past N) into ring stage k % ERING
+    auto load_chunk = [&](int chunk) {
+        const int k0 = chunk * EK;
+        float* const A = stage_a(chunk);
+#pragma unroll
+        for (int i = 0; i < EM * EK / 4 / ET; ++i) {
+            const int q = tid + i * ET;
+            const int r = q / (EK / 4), cc = (q % (EK / 4)) * 4;
+            const bool ok = m0 + r < m;
+            cp_async16(A + r * EK + cc,
+                       a + (long long)(ok ? m0 + r : 0) * k + k0 + cc, ok);
+        }
+        __nv_bfloat16* const W = stage_w(chunk);
+#pragma unroll
+        for (int i = 0; i < 2 * EK * EN / 8 / ET; ++i) {
+            const int q = tid + i * ET;
+            const int p = q / (EK * EN / 8), r = (q / (EN / 8)) % EK;
+            const int cc = (q % (EN / 8)) * 8;
+            const bool ok = n0 + cc < n;
+            cp_async16(W + p * E_B_PLANE + r * E_LDB + cc,
+                       w + p * plane + (long long)(k0 + r) * n +
+                           (ok ? n0 + cc : 0),
+                       ok);
+        }
+    };
+    // chunk k's activations split once into the A tile's hi and lo planes
+    auto split = [&](int chunk) {
+        const float* const A = stage_a(chunk);
+#pragma unroll
+        for (int i = 0; i < EM * EK / 4 / ET; ++i) {
+            const int q = tid + i * ET;
+            const int r = q / (EK / 4), cc = (q % (EK / 4)) * 4;
+            split_hi_lo(lds4(A + r * EK + cc), As + r * E_LDA + cc,
+                        As + E_A_PLANE + r * E_LDA + cc);
+        }
+    };
+
+    // acc[0]: a_hi * w_hi; acc[1]: a_hi * w_lo + a_lo * w_hi
+    float acc[2][2][4][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[p][i][j][e] = 0.f;
+
+    auto multiply = [&](int chunk) {
+        const __nv_bfloat16* const W = stage_w(chunk);
+#pragma unroll
+        for (int ks = 0; ks < EK; ks += 16) {
+            uint32_t af[2][2][4], bf[2][4][2];
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+                // A: lanes 0-15 rows 0-15 at k, lanes 16-31 the same rows
+                // at k + 8 (a0..a3 of the m16n8k16 fragment)
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                    ldmatrix_x4(af[p][i],
+                                As + p * E_A_PLANE +
+                                    (wm * 32 + i * 16 + lane % 16) * E_LDA +
+                                    ks + (lane / 16) * 8);
+                // B, stored (k, n): transposed loads of k rows 0-15 at
+                // columns n and n + 8 give two n8 tiles' (b0, b1)
+#pragma unroll
+                for (int jj = 0; jj < 2; ++jj) {
+                    uint32_t r[4];
+                    ldmatrix_x4_trans(r, W + p * E_B_PLANE +
+                                             (ks + lane % 16) * E_LDB +
+                                             wn * 32 + jj * 16 +
+                                             (lane / 16) * 8);
+                    bf[p][2 * jj][0] = r[0];
+                    bf[p][2 * jj][1] = r[1];
+                    bf[p][2 * jj + 1][0] = r[2];
+                    bf[p][2 * jj + 1][1] = r[3];
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    mma_bf16(acc[0][i][j], af[0][i], bf[0][j]);
+                    mma_bf16(acc[1][i][j], af[0][i], bf[1][j]);
+                    mma_bf16(acc[1][i][j], af[1][i], bf[0][j]);
+                }
+        }
+    };
+
+    // Chunk k's stage was committed as cp.async group k. The first barrier
+    // of iteration k follows the wait for it and ends chunk k-1's product,
+    // so stage (k-1) % ERING can be refilled and the A tile rewritten; the
+    // second makes the A tile whole before the product.
+#pragma unroll
+    for (int s = 0; s < ERING - 1; ++s) {
+        if (s < n_chunks) load_chunk(s);
+        cp_async_commit();
+    }
+    for (int kc = 0; kc < n_chunks; ++kc) {
+        cp_async_wait<ERING - 2>();
+        __syncthreads();
+        if (kc + ERING - 1 < n_chunks) load_chunk(kc + ERING - 1);
+        cp_async_commit();
+        split(kc);
+        __syncthreads();
+        multiply(kc);
+    }
+
+    // c0, c1 of an mma tile are row g's columns 2t, 2t+1 and c2, c3 row
+    // g+8's; each pair of lanes swaps halves, so the even lane stores row
+    // g's columns 2t..2t+3 and the odd lane row g+8's 2t-2..2t+1
+    const int g = lane / 4, t = lane % 4;
+    const bool odd = t & 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                v[e] = acc[0][i][j][e] + acc[1][i][j][e];
+            const float s0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[2], 1);
+            const float s1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : v[3], 1);
+            const int row = m0 + wm * 32 + i * 16 + g + (odd ? 8 : 0);
+            const int col = n0 + wn * 32 + j * 8 + 2 * (t & ~1);
+            if (row < m && col < n)
+                *reinterpret_cast<float4*>(c + (long long)row * n + col) =
+                    odd ? make_float4(s0, s1, v[2], v[3])
+                        : make_float4(v[0], v[1], s0, s1);
+        }
+}
+
+
+// --- the native-HIGH product on the tensor cores (wmma) -------------------------
 
 namespace wmma = nvcuda::wmma;
 
@@ -388,13 +537,6 @@ constexpr int HT = 128;                   // threads: 4 warps, 2 x 2
 constexpr int LDA = HK + 8;               // bf16; a multiple of 8
 constexpr int LDB = HN + 8;               // bf16; a multiple of 8
 constexpr int LDC = HN + 4;               // f32; a multiple of 4
-
-__device__ __forceinline__ void split_store(float v, __nv_bfloat16* hi,
-                                            __nv_bfloat16* lo) {
-    const __nv_bfloat16 h = __float2bfloat16_rn(v);
-    *hi = h;
-    *lo = __float2bfloat16_rn(v - __bfloat162float(h));
-}
 
 __global__ void __launch_bounds__(HT)
 dot_high_kernel(const float* __restrict__ a, const float* __restrict__ w,
@@ -419,19 +561,13 @@ dot_high_kernel(const float* __restrict__ a, const float* __restrict__ w,
             if (m0 + r < m)
                 v = *reinterpret_cast<const float4*>(
                     a + (long long)(m0 + r) * k + k0 + cc);
-            split_store(v.x, &As[0][r][cc + 0], &As[1][r][cc + 0]);
-            split_store(v.y, &As[0][r][cc + 1], &As[1][r][cc + 1]);
-            split_store(v.z, &As[0][r][cc + 2], &As[1][r][cc + 2]);
-            split_store(v.w, &As[0][r][cc + 3], &As[1][r][cc + 3]);
+            split_hi_lo(v, &As[0][r][cc], &As[1][r][cc]);
         }
         for (int q = tid; q < HK * HN / 4; q += HT) {
             const int r = q / (HN / 4), cc = (q % (HN / 4)) * 4;
             const float4 v = *reinterpret_cast<const float4*>(
                 w + (long long)(k0 + r) * n + n0 + cc);
-            split_store(v.x, &Ws[0][r][cc + 0], &Ws[1][r][cc + 0]);
-            split_store(v.y, &Ws[0][r][cc + 1], &Ws[1][r][cc + 1]);
-            split_store(v.z, &Ws[0][r][cc + 2], &Ws[1][r][cc + 2]);
-            split_store(v.w, &Ws[0][r][cc + 3], &Ws[1][r][cc + 3]);
+            split_hi_lo(v, &Ws[0][r][cc], &Ws[1][r][cc]);
         }
         __syncthreads();
 #pragma unroll
@@ -545,9 +681,8 @@ int bz_probe_remap(int case_id, const float* x, const float* w, float* y,
 int bz_probe_dot_f32(const float* a, const float* w, float* c, int m, int n,
                      int k, void* stream) {
     if (!dot_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
-    dot_ffma_kernel<F32><<<dim3((m + FM - 1) / FM, n / FN), FT, 0,
-                           static_cast<cudaStream_t>(stream)>>>(a, w, c, m,
-                                                                n, k);
+    dot_f32_kernel<<<dim3((m + FM - 1) / FM, n / FN), FT, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a, w, c, m, n, k);
     return (int)cudaGetLastError();
 }
 
@@ -561,13 +696,19 @@ int bz_probe_dot_high(const float* a, const float* w, float* c, int m, int n,
     return (int)cudaGetLastError();
 }
 
-// c = a @ w at emulated HIGH on FFMA: w_hilo (2, k, n) bf16 hi then lo.
+// c = a @ w at emulated HIGH on the tensor cores: w_hilo (2, k, n) bf16 hi
+// then lo; hi*hi and hi*lo + lo*hi in two f32 accumulators.
 int bz_probe_dot_high_emulated(const float* a, const void* w_hilo, float* c,
                                int m, int n, int k, void* stream) {
     if (!dot_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
-    dot_ffma_kernel<HIGH_EMULATED><<<dim3((m + FM - 1) / FM, n / FN), FT, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-        a, w_hilo, c, m, n, k);
+    static std::atomic<bool> ready[MAX_DEVICES];
+    int device = 0;
+    cudaGetDevice(&device);
+    const cudaError_t err = opt_in_smem(dot_hilo_mma_kernel, device, ready);
+    if (err != cudaSuccess) return (int)err;
+    dot_hilo_mma_kernel<<<dim3((m + EM - 1) / EM, (n + EN - 1) / EN), ET,
+                          E_SMEM, static_cast<cudaStream_t>(stream)>>>(
+        a, static_cast<const __nv_bfloat16*>(w_hilo), c, m, n, k);
     return (int)cudaGetLastError();
 }
 

@@ -20,13 +20,18 @@
 // The depthwise taps, biases, ReLU and pooling stay f32 in every mode.
 // Weights stay bf16 in device memory in BF16 and HIGH (half the bytes).
 //
-// Two kernels, one per route of the pointwise product:
+// Two kernels, one per route of the pointwise product, built on one
+// scheme: a block owns BM positions x BN = min(F, 256) output channels; K
+// goes in chunks of input channels, in order; a ring of cp.async stages
+// brings each chunk's weights, its 9 depthwise taps and bias, and the
+// window of input positions its outputs read to shared memory while
+// earlier chunks compute; the chunk's depthwise is computed from that
+// window into a shared-memory A tile, so it never reaches device memory.
 //   sep_layer_kernel      HIGHEST: FFMA, exact f32 (the main path);
 //   sep_layer_mma_kernel  BF16 and HIGH: bf16 operands on the tensor cores
 //                         (mma.sync m16n8k16, f32 accumulate).
-// Every layer of both stacks ran faster on the tensor cores in BF16 and
-// HIGH than the FFMA loop ran it in exact f32 (chip_smoke.py prints the
-// ratio per layer; BF16 and HIGH ran that same loop before), so those modes
+// Every layer ran faster on the tensor cores in BF16 and HIGH than on FFMA
+// in exact f32 (chip_smoke.py prints the ratio per layer), so those modes
 // take the tensor cores on every layer, and sep_layer_kernel is exact f32
 // only.
 //
@@ -34,25 +39,56 @@
 // 26.7 M MAC per patch and the tail 41.5 M, so ~11.2 and ~17.3 GFLOP per
 // chunk, against tens of MB of compulsory traffic (~41 MB of layer-1
 // activations in, ~11 MB of tail weights). HIGHEST: at the card's 67
-// TFLOP/s non-tensor f32 peak that is ~0.17 ms and ~0.26 ms, bound by FFMA
-// throughput, not by memory. BF16 and HIGH: one and three bf16 products
-// per multiply-add at 989 TFLOP/s, ~0.017 and ~0.052 ms for the tail. That
-// is so little that the rest weighs as much: the tail's ~16-22 MB of
-// compulsory traffic (0.005-0.007 ms at 3.35 TB/s) and its depthwise,
-// which stays on FFMA: 0.27 GFLOP per chunk, 0.004 ms at 67 TFLOP/s, or
-// 0.6 GFLOP (0.009 ms) with the recompute below.
+// TFLOP/s non-tensor f32 peak that is ~0.17 ms and ~0.26 ms (~0.21 and
+// ~0.32 ms at the 54 TFLOP/s an FMA chain reaches on the card), bound by
+// FFMA throughput, not by memory. BF16 and HIGH: one and three bf16
+// products per multiply-add at 989 TFLOP/s, ~0.017 and ~0.052 ms for the
+// tail. That is so little that the rest weighs as much: the tail's ~16-22
+// MB of compulsory traffic (0.005-0.007 ms at 3.35 TB/s) and its
+// depthwise, which stays on FFMA: 0.27 GFLOP per chunk, 0.004 ms at 67
+// TFLOP/s, or 0.6 GFLOP (0.009 ms) with the recompute below.
 //
-// HIGHEST design. The pointwise product is >95% of the operations, so each
-// layer is one launch of a tiled FFMA matrix product (128 or 64 positions x
-// 64 output channels per block, 8x4 or 4x4 outputs per thread fed by
-// float4 shared-memory reads, K staged through shared memory in chunks of
-// 8 input channels, two blocks per SM). The depthwise 3x3 for a K chunk is
-// computed straight into the shared-memory A tile, so the depthwise output
-// never reaches device memory; only the layer's output does. Exact f32:
-// FFMA only, no TF32, no tensor cores, and every output is one thread's sum
-// in a fixed order, with no atomics, so results are identical from run to
-// run. Pooling is a second small kernel that sums the spatial positions in
-// a fixed order.
+// HIGHEST design (sep_layer_kernel<BN, TM>). 256 threads; each owns TM = 8,
+// 5 or 4 positions x 8 output channels, the channels read as two float4s
+// BN / 2 apart from the weight stage, the positions as float4s 4 * TY apart
+// (TM = 8, 4) or five scalars (TM = 5) from the A tile; a warp is 8
+// threads along N x 4 along M, so each of its reads touches at most 128
+// distinct bytes. K in chunks of 16 input channels through a ring of 3
+// cp.async stages (2 where 3 would leave one block per SM: layer 3), the
+// chunk's (16, BN) f32 weights beside its taps, bias and input window. Two
+// barriers per chunk, as the tensor-core kernel.
+//   - Exact f32: FFMA only, no TF32, no tensor cores, no split K, no
+//     atomics. The arithmetic is that of the earlier 64-channel FFMA
+//     kernel, so its outputs are bit for bit the same: depthwise
+//     a = x_centre * w[4], then fmaf over the other taps in tap order (a
+//     tap off the image is skipped), then fmaxf(a + bias, 0); pointwise one
+//     accumulator per output from 0, acc = fmaf(a_k, w_k, acc) for k
+//     ascending; epilogue fmaxf(acc + bias, 0).
+//   - Recompute. Each A tile is computed F / BN times: 1 on layers 2-6, 2
+//     on 7-12, 4 on 13-14 (the earlier FFMA kernel's BN = 64: up to 16,
+//     each tap a load from L2).
+//   - Grid. BN = min(F, 256); TM = 8, 5 or 4, whichever gives the busiest
+//     SM the fewest positions (ceil(blocks / SMs) x BM), the larger TM on a
+//     tie. Two blocks fit an SM (registers and shared memory), 264 slots
+//     on 132 SMs. At B = 209: layer 2 2508 blocks (BM 128, 9.5 waves of
+//     264), 3 and 4 627 (BM 128, 2.4 waves), 5 and 6 502 (40, 1.9), 7-12
+//     252 (40, 0.95: every SM one or two blocks, the busiest 80 positions
+//     against a mean of 76; BM 32 gives 314 blocks and the busiest SM 96),
+//     13-14 128 (40, one block on each of 128 SMs; BM 64 gives 80 blocks of
+//     64 positions). The earlier kernel launched 320 blocks of 64 channels
+//     on every tail layer, 1.21 waves. Only BM depends on the batch, never
+//     BK, BN or the order of K, so a patch's outputs do not depend on it.
+//   Pooling is a second small kernel that sums the spatial positions in a
+//   fixed order.
+//   Measured (chip_smoke.py, device time alone at B = 209, H100 SXM at 700
+//   W): fused_tail 0.62 ms against the earlier kernel's 1.84 and the cuDNN
+//   f32 stack's 1.12 (0.55x); fused_front 0.46 ms (earlier 1.07). Per
+//   layer 1.9-3.0x the bound at 67 TFLOP/s; at the 54 TFLOP/s an FMA chain
+//   reaches, layers 8-12 run at ~52% of FFMA throughput. What bounds it
+//   now: the instructions around the FFMAs (shared-memory reads, the
+//   depthwise, the cp.async issue) and two barriers per 16 channels, at
+//   two blocks per SM; and at B = 5 the serial chain of K chunks (a block
+//   per 32-40 positions, no split K), which cuDNN does not have.
 //
 // BF16 / HIGH design (sep_layer_mma_kernel). Eight warps, each a 32 x 32
 // (or 16 x 32) tile of the block's BM positions x BN output channels; K in
@@ -77,11 +113,9 @@
 //     accumulators, hi*hi and hi*lo + lo*hi, added in the epilogue (the
 //     tensor cores' own f32 accumulation errs more than FFMA; keeping the
 //     small terms apart keeps them from rounding against the large one).
-//   - Recompute. A block computes the depthwise of its positions for all K
-//     and reuses it for its BN output channels, so each A tile is computed
-//     F / BN times. BN = min(F, 256) (F = 64, 128, or a multiple of 256),
-//     so the factor is 1 on layers 2-6, 2 on 7-12 and 4 on 13-14 (the FFMA
-//     route: F / 64, up to 16).
+//   - Recompute. As the HIGHEST kernel, each A tile is computed F / BN
+//     times, BN = min(F, 256) (F = 64, 128, or a multiple of 256): 1 on
+//     layers 2-6, 2 on 7-12 and 4 on 13-14.
 //   - Grid. BM = 128, 64 or 32 rows for BN = 64, 128, 256 (warp tiles 32
 //     x 32), halved (warp tiles 16 x 32) where the full tile would give the
 //     card fewer than two blocks per SM, by count or by shared memory. At
@@ -119,18 +153,14 @@
 
 #include <atomic>
 
+#include "ptx.cuh"
+
 namespace {
 
-// A block owns BM output positions (128, or 64 where 128 would leave the
-// card with fewer than two blocks per SM) x BN output channels.
-constexpr int BN = 64;   // output channels per block
-constexpr int BK = 8;    // input channels per K chunk
-constexpr int NT = 256;  // threads per block: 16 x 16
-constexpr int TN = BN / 16;  // 4 output channels per thread
-// As rows padded by 4 floats: the depthwise staging stores hit 32 distinct
-// banks, and every row stays 16-byte aligned for the float4 reads
-constexpr int APAD = 4;
 constexpr int DIMS = 9;  // ints per layer descriptor on the host side
+// rows of a chunk's depthwise stage ahead of the input window: the 9 taps
+// and the bias of the chunk's channels
+constexpr int XHEAD = 10;
 
 enum Mode { HIGHEST = 0, BF16 = 1, HIGH = 2 };
 
@@ -143,109 +173,259 @@ struct Layer {
     int h, w, c, f, stride, ho, wo, off_h, off_w;
 };
 
-template <int BM>
-__global__ void __launch_bounds__(NT, 2)
-sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
-                 const Layer L, const int m_total) {
-    constexpr int TM = BM / 16;             // output positions per thread
-    constexpr int DW_SLOTS = BM * BK / NT;  // depthwise values per chunk
-    __shared__ __align__(16) float As[BK][BM + APAD];  // depthwise output
-    __shared__ __align__(16) float Bs[BK][BN];         // pointwise weights
+// Input rows (flattened (b, h, w) positions) that the depthwise of `bm`
+// consecutive outputs can read: they span at most bm / Wo + 2 output rows,
+// so stride * (that - 1) + 3 input rows of W, and a position either side.
+__host__ __device__ inline int window_rows(int bm, const Layer& L) {
+    return (L.stride * ((bm + L.wo - 1) / L.wo + 1) + 3) * L.w + 2;
+}
 
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
+// --- the FFMA route (HIGHEST) ----------------------------------------------------
+
+constexpr int FK = 16;   // input channels per K chunk
+constexpr int FT = 256;  // threads per block: 8 warps
+constexpr int FRING = 3;  // cp.async ring stages, where two blocks fit an SM
+// A rows padded by 4 floats: rows stay 16-byte aligned for the float4 reads
+constexpr int APAD = 4;
+
+// The tile of sep_layer_kernel<BN, TM>: TX = BN / 8 threads along N, each
+// 8 channels in two float4 groups BN / 2 apart; TY = 256 / TX along M, each
+// TM positions: TM = 8 or 4 in float4 groups 4 * TY apart, TM = 5 as five
+// neighbouring positions. A warp is 8 x 4 threads.
+template <int BN, int TM>
+struct FfmaTile {
+    static constexpr int TX = BN / 8;
+    static constexpr int TY = FT / TX;
+    static constexpr int BM = TM * TY;  // positions per block
+    static constexpr int WX = TX / 8;   // warps along N
+    static constexpr int LDA = BM + APAD;
+    // the block row of the thread's i-th position
+    __device__ static int row(int ty, int i) {
+        return TM % 4 == 0 ? (i / 4) * 4 * TY + ty * 4 + i % 4 : ty * TM + i;
+    }
+};
+
+// One ring stage, in floats: a chunk's (FK, BN) weights, then its taps,
+// bias and input window, FK channels a row
+__host__ __device__ inline int ffma_stage(int bm, int bn, const Layer& L) {
+    return FK * bn + (XHEAD + window_rows(bm, L)) * FK;
+}
+
+// Dynamic shared memory of a tile: the f32 A tile (FK, BM + APAD), then the
+// ring's stages
+inline int ffma_smem(int bm, int bn, int stages, const Layer& L) {
+    return (int)sizeof(float) *
+           (FK * (bm + APAD) + stages * ffma_stage(bm, bn, L));
+}
+
+template <int BN, int TM>
+__global__ void __launch_bounds__(FT, 2)
+sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
+                 const Layer L, const int m_total, const int ring) {
+    using T = FfmaTile<BN, TM>;
+    constexpr int BM = T::BM, LDA = T::LDA;
+    // depthwise: 4 threads per position, 4 neighbouring channels each, so
+    // 64 positions per pass (BM = 32: half the threads rest)
+    constexpr int DW_POS = (BM + 63) / 64;
+    constexpr int PIECES = FK * BN / 4;  // 16-byte pieces of weights
+    static_assert(PIECES % FT == 0, "weight tile");
+    const int stage = ffma_stage(BM, BN, L);  // floats
+    extern __shared__ __align__(16) unsigned char ffma_smem_raw[];
+    float* const As = reinterpret_cast<float*>(ffma_smem_raw);
+    float* const Ring = As + FK * LDA;
+
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int tx = (warp % T::WX) * 8 + lane % 8;
+    const int ty = (warp / T::WX) * 4 + lane / 8;
     const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
     const int hwo = L.ho * L.wo;
-    const float* const pw = static_cast<const float*>(L.pw);
+    const int n_chunks = L.c / FK;
+    const int n_in = m_total / hwo * L.h * L.w;  // input positions
 
-    // depthwise staging: each thread computes channel kk of every K chunk
-    // at positions tid / BK + j * (NT / BK), so 8 neighbouring threads read
-    // 8 neighbouring channels of one input pixel. Positions are fixed
-    // across K chunks; pix is the centre pixel's offset.
-    const int kk = tid % BK;
-    long long pix[DW_SLOTS];
-    int ch[DW_SLOTS], cw[DW_SLOTS];
-    bool live[DW_SLOTS];
+    // the flattened input position of output m's centre tap
+    auto centre = [&](int m) {
+        const int b = m / hwo, r = m % hwo;
+        return (b * L.h + (r / L.wo) * L.stride + L.off_h) * L.w +
+               (r % L.wo) * L.stride + L.off_w;
+    };
+    // the block's input window: every tap of its outputs
+    const int m_last = (m0 + BM < m_total ? m0 + BM : m_total) - 1;
+    const int lo = centre(m0) - L.w - 1;
+    const int hi = centre(m_last) + L.w + 1;
+    const int xrows = window_rows(BM, L);
+    const int n_rows = hi - lo + 1 < xrows ? hi - lo + 1 : xrows;
+
+    // the thread's depthwise positions: the window row of each centre tap,
+    // and one bit per tap t that lies on the image (none for a position
+    // past the batch or past the block)
+    const int kq = (tid % 4) * 4;
+    int row[DW_POS], taps[DW_POS];
 #pragma unroll
-    for (int j = 0; j < DW_SLOTS; ++j) {
-        const int m = m0 + tid / BK + j * (NT / BK);
-        live[j] = m < m_total;
-        const int mm = live[j] ? m : 0;
-        const int b = mm / hwo, r = mm % hwo;
-        ch[j] = (r / L.wo) * L.stride + L.off_h;
-        cw[j] = (r % L.wo) * L.stride + L.off_w;
-        pix[j] = (((long long)b * L.h + ch[j]) * L.w + cw[j]) * L.c;
+    for (int j = 0; j < DW_POS; ++j) {
+        const int pos = tid / 4 + 64 * j, m = m0 + pos;
+        row[j] = XHEAD;
+        taps[j] = 0;
+        if (pos < BM && m < m_total) {
+            const int r = m % hwo;
+            const int ch = (r / L.wo) * L.stride + L.off_h;
+            const int cw = (r % L.wo) * L.stride + L.off_w;
+            row[j] = XHEAD + centre(m) - lo;
+#pragma unroll
+            for (int t = 0; t < 9; ++t) {
+                const int ih = ch + t / 3 - 1, iw = cw + t % 3 - 1;
+                if (ih >= 0 && ih < L.h && iw >= 0 && iw < L.w)
+                    taps[j] |= 1 << t;
+            }
+        }
     }
-    // pointwise staging: one float2 of the (BK, BN) weight chunk per thread
-    const int pk = tid / (BN / 2), pn = (tid % (BN / 2)) * 2;
 
-    float acc[TM][TN];
+    const float* const pw = static_cast<const float*>(L.pw);
+    // chunk k's (FK, BN) weights and its depthwise inputs (taps, bias, the
+    // input window's FK channels; zeros off the ends of the batch) into
+    // ring stage k % ring
+    auto load_chunk = [&](int chunk) {
+        float* const B = Ring + (chunk % ring) * stage;
+        float* const X = B + FK * BN;
+        const int c0 = chunk * FK;
+        const float* const src = pw + (long long)c0 * L.f + n0;
+#pragma unroll
+        for (int i = 0; i < PIECES / FT; ++i) {
+            const int q = tid + i * FT;
+            const int r = q / (BN / 4), cc = (q % (BN / 4)) * 4;
+            cp_async16(B + r * BN + cc, src + (long long)r * L.f + cc);
+        }
+        for (int q = tid; q < (XHEAD + n_rows) * (FK / 4); q += FT) {
+            const int r = q / (FK / 4), cc = (q % (FK / 4)) * 4;
+            const int p = lo + r - XHEAD;
+            const bool ok = r < XHEAD || (p >= 0 && p < n_in);
+            const float* g =
+                r < 9 ? L.dw + r * L.c
+                      : r == 9 ? L.dw_b
+                               : x + (long long)(ok ? p : 0) * L.c;
+            cp_async16(X + r * FK + cc, g + c0 + cc, ok);
+        }
+    };
+    // chunk k's depthwise + bias + ReLU from its stage into the A tile,
+    // stored (k, position)
+    auto depthwise = [&](int chunk) {
+        const float* const X = Ring + (chunk % ring) * stage + FK * BN;
+        float4 a[DW_POS];
+        // centre tap first, then the others in tap order, as the TPU
+        // kernel accumulates them
+        const float4 wc = lds4(X + 4 * FK + kq);
+#pragma unroll
+        for (int j = 0; j < DW_POS; ++j) {
+            a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (taps[j]) {
+                const float4 v = lds4(X + row[j] * FK + kq);
+                a[j] = make_float4(v.x * wc.x, v.y * wc.y, v.z * wc.z,
+                                   v.w * wc.w);
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+            if (t == 4) continue;
+            const int off = ((t / 3 - 1) * L.w + (t % 3 - 1)) * FK;
+            const float4 w = lds4(X + t * FK + kq);
+#pragma unroll
+            for (int j = 0; j < DW_POS; ++j) {
+                if (!((taps[j] >> t) & 1)) continue;
+                const float4 v = lds4(X + row[j] * FK + off + kq);
+                a[j].x = fmaf(v.x, w.x, a[j].x);
+                a[j].y = fmaf(v.y, w.y, a[j].y);
+                a[j].z = fmaf(v.z, w.z, a[j].z);
+                a[j].w = fmaf(v.w, w.w, a[j].w);
+            }
+        }
+        const float4 bias = lds4(X + 9 * FK + kq);
+#pragma unroll
+        for (int j = 0; j < DW_POS; ++j) {
+            const int pos = tid / 4 + 64 * j;
+            if (pos >= BM) continue;
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (taps[j])
+                v = make_float4(fmaxf(a[j].x + bias.x, 0.f),
+                                fmaxf(a[j].y + bias.y, 0.f),
+                                fmaxf(a[j].z + bias.z, 0.f),
+                                fmaxf(a[j].w + bias.w, 0.f));
+            As[(kq + 0) * LDA + pos] = v.x;
+            As[(kq + 1) * LDA + pos] = v.y;
+            As[(kq + 2) * LDA + pos] = v.z;
+            As[(kq + 3) * LDA + pos] = v.w;
+        }
+    };
+
+    float acc[TM][8];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    for (int k0 = 0; k0 < L.c; k0 += BK) {
-        const int c = k0 + kk;
-        float w[9];
+    auto multiply = [&](int chunk) {
+        const float* const B = Ring + (chunk % ring) * stage;
 #pragma unroll
-        for (int t = 0; t < 9; ++t) w[t] = L.dw[t * L.c + c];
-        const float bias = L.dw_b[c];
+        for (int k = 0; k < FK; ++k) {
+            float a[TM], b[8];
+            if constexpr (TM % 4 == 0) {
 #pragma unroll
-        for (int j = 0; j < DW_SLOTS; ++j) {
-            float v = 0.f;
-            if (live[j]) {
-                const float* xp = x + pix[j] + c;
-                // centre tap first, then the others in tap order, as the
-                // TPU kernel accumulates them
-                float a = xp[0] * w[4];
-#pragma unroll
-                for (int t = 0; t < 9; ++t) {
-                    if (t == 4) continue;
-                    const int dy = t / 3 - 1, dx = t % 3 - 1;
-                    const int ih = ch[j] + dy, iw = cw[j] + dx;
-                    if (ih >= 0 && ih < L.h && iw >= 0 && iw < L.w)
-                        a = fmaf(xp[(dy * L.w + dx) * L.c], w[t], a);
+                for (int q = 0; q < TM / 4; ++q) {
+                    const float4 v = lds4(As + k * LDA + T::row(ty, 4 * q));
+                    a[4 * q] = v.x; a[4 * q + 1] = v.y;
+                    a[4 * q + 2] = v.z; a[4 * q + 3] = v.w;
                 }
-                v = fmaxf(a + bias, 0.f);
-            }
-            As[kk][tid / BK + j * (NT / BK)] = v;
-        }
-        *reinterpret_cast<float2*>(&Bs[pk][pn]) =
-            *reinterpret_cast<const float2*>(
-                pw + (long long)(k0 + pk) * L.f + n0 + pn);
-        __syncthreads();
+            } else {
 #pragma unroll
-        for (int k = 0; k < BK; ++k) {
-            float a[TM];
-#pragma unroll
-            for (int q = 0; q < TM; q += 4) {
-                const float4 v =
-                    *reinterpret_cast<const float4*>(&As[k][ty * TM + q]);
-                a[q] = v.x; a[q + 1] = v.y; a[q + 2] = v.z; a[q + 3] = v.w;
+                for (int i = 0; i < TM; ++i)
+                    a[i] = As[k * LDA + T::row(ty, i)];
             }
-            const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-            const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
+            const float4 b0 = lds4(B + k * BN + tx * 4);
+            const float4 b1 = lds4(B + k * BN + BN / 2 + tx * 4);
+            b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+            b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
 #pragma unroll
             for (int i = 0; i < TM; ++i)
 #pragma unroll
-                for (int j = 0; j < TN; ++j)
+                for (int j = 0; j < 8; ++j)
                     acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         }
+    };
+
+    // Chunk k's stage was committed as cp.async group k. The first barrier
+    // of iteration k follows the wait for it and ends chunk k-1's product,
+    // so stage (k-1) % ring can be refilled (with chunk k+ring-1) and the A
+    // tile rewritten; the second makes the A tile whole before the product.
+    for (int s = 0; s < ring - 1; ++s) {
+        if (s < n_chunks) load_chunk(s);
+        cp_async_commit();
+    }
+    for (int kc = 0; kc < n_chunks; ++kc) {
+        if (ring == FRING)
+            cp_async_wait<FRING - 2>();
+        else
+            cp_async_wait<0>();
         __syncthreads();
+        if (kc + ring - 1 < n_chunks) load_chunk(kc + ring - 1);
+        cp_async_commit();
+        depthwise(kc);
+        __syncthreads();
+        multiply(kc);
     }
 
-    const int n = n0 + tx * TN;
-    const float4 pb = *reinterpret_cast<const float4*>(L.pw_b + n);
+    const float4 pb0 = *reinterpret_cast<const float4*>(L.pw_b + n0 + tx * 4);
+    const float4 pb1 =
+        *reinterpret_cast<const float4*>(L.pw_b + n0 + BN / 2 + tx * 4);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-        const int m = m0 + ty * TM + i;
+        const int m = m0 + T::row(ty, i);
         if (m >= m_total) continue;
-        const float4 o = make_float4(fmaxf(acc[i][0] + pb.x, 0.f),
-                                     fmaxf(acc[i][1] + pb.y, 0.f),
-                                     fmaxf(acc[i][2] + pb.z, 0.f),
-                                     fmaxf(acc[i][3] + pb.w, 0.f));
-        *reinterpret_cast<float4*>(y + (long long)m * L.f + n) = o;
+        const float* c = acc[i];
+        float* const out = y + (long long)m * L.f + n0 + tx * 4;
+        *reinterpret_cast<float4*>(out) = make_float4(
+            fmaxf(c[0] + pb0.x, 0.f), fmaxf(c[1] + pb0.y, 0.f),
+            fmaxf(c[2] + pb0.z, 0.f), fmaxf(c[3] + pb0.w, 0.f));
+        *reinterpret_cast<float4*>(out + BN / 2) = make_float4(
+            fmaxf(c[4] + pb1.x, 0.f), fmaxf(c[5] + pb1.y, 0.f),
+            fmaxf(c[6] + pb1.z, 0.f), fmaxf(c[7] + pb1.w, 0.f));
     }
 }
 
@@ -256,10 +436,6 @@ constexpr int MT = 256;  // threads per block: 8 warps
 // bf16 row padding of the A and B tiles: the 8 rows an ldmatrix reads start
 // on distinct bank groups, and every row stays 16-byte aligned
 constexpr int MPAD = 8;
-// rows of a chunk's depthwise stage ahead of the input window: the 9 taps
-// and the bias of the chunk's MK channels
-constexpr int XHEAD = 10;
-constexpr int MAX_DEVICES = 64;
 
 // operand planes (hi, lo) and cp.async ring stages of a mode: HIGH's
 // weights are twice the bytes, so its ring is one stage shorter
@@ -287,13 +463,6 @@ struct MmaTile {
     static constexpr int B_STAGE = NP * B_PLANE;     // a chunk's weights
 };
 
-// Input rows (flattened (b, h, w) positions) that the depthwise of `bm`
-// consecutive outputs can read: they span at most bm / Wo + 2 output rows,
-// so stride * (that - 1) + 3 input rows of W, and a position either side.
-__host__ __device__ inline int mma_xrows(int bm, const Layer& L) {
-    return (L.stride * ((bm + L.wo - 1) / L.wo + 1) + 3) * L.w + 2;
-}
-
 // Dynamic shared memory of a tile: the bf16 A tile, then the ring of
 // stages, each a chunk's bf16 weights and its f32 depthwise inputs (taps,
 // bias, input window). A layer of fewer chunks than ring stages uses fewer.
@@ -307,66 +476,7 @@ __host__ __device__ inline int mma_smem(int mode, int bm, int bn,
     return (int)sizeof(__nv_bfloat16) * mma_planes(mode) *
                (bm * (MK + MPAD) + mma_stages(mode, L) * MK * (bn + MPAD)) +
            (int)sizeof(float) * mma_stages(mode, L) *
-               (XHEAD + mma_xrows(bm, L)) * MK;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; with ok false, 16 zero bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok = true) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p))
-        : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_u32(p))
-        : "memory");
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
+               (XHEAD + window_rows(bm, L)) * MK;
 }
 
 template <int BN, int FM, int MODE>
@@ -381,7 +491,7 @@ sep_layer_mma_kernel(const float* __restrict__ x, float* __restrict__ y,
     constexpr int DW_POS = (BM + 31) / 32;
     constexpr int PIECES = NP * MK * BN / 8;  // 16-byte pieces of weights
     static_assert(PIECES % MT == 0, "weight tile");
-    const int xrows = mma_xrows(BM, L);
+    const int xrows = window_rows(BM, L);
     const int x_stage = (XHEAD + xrows) * MK;  // floats
     extern __shared__ __align__(16) unsigned char smem[];
     __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -492,17 +602,13 @@ sep_layer_mma_kernel(const float* __restrict__ x, float* __restrict__ y,
                                 fmaxf(a.z + bias.z, 0.f),
                                 fmaxf(a.w + bias.w, 0.f));
             }
-            const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
-            const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
             __nv_bfloat16* const a_row = As + pos * LDA + kq;
-            *reinterpret_cast<uint2*>(a_row) =
-                make_uint2(bits(h01), bits(h23));
-            if (MODE == HIGH) {  // lo = bf16(v - hi)
-                const float2 f01 = __bfloat1622float2(h01);
-                const float2 f23 = __bfloat1622float2(h23);
-                *reinterpret_cast<uint2*>(a_row + T::A_PLANE) = make_uint2(
-                    bits(__floats2bfloat162_rn(v.x - f01.x, v.y - f01.y)),
-                    bits(__floats2bfloat162_rn(v.z - f23.x, v.w - f23.y)));
+            if (MODE == HIGH) {
+                split_hi_lo(v, a_row, a_row + T::A_PLANE);
+            } else {
+                *reinterpret_cast<uint2*>(a_row) =
+                    make_uint2(bits(__floats2bfloat162_rn(v.x, v.y)),
+                               bits(__floats2bfloat162_rn(v.z, v.w)));
             }
         }
     };
@@ -620,32 +726,90 @@ __global__ void gap_kernel(const float* __restrict__ x, float* __restrict__ y,
     y[i] = s / (float)p;
 }
 
-// The shapes sep_layer_mma_kernel takes: K in whole chunks, and F = 64, 128
-// or a multiple of BN = 256. ops/sepconv.py::_kernel_takes states the same
-// rule, and the rule of sep_layer_kernel, for the wrapper's check: a change
-// to one is made in the other.
-bool mma_takes(const Layer& L) {
-    return L.c % MK == 0 && (L.f == 64 || L.f == 128 || L.f % 256 == 0);
+// The shapes the kernels take: K in whole chunks (16 channels on FFMA, 32
+// on the tensor cores), and F = 64, 128 or a multiple of BN = 256.
+// ops/sepconv.py::_kernel_takes states the same rule for the wrapper's
+// check: a change to one is made in the other.
+bool takes(int mode, const Layer& L) {
+    const int chunk = mode == HIGHEST ? FK : MK;
+    return L.c % chunk == 0 && (L.f == 64 || L.f == 128 || L.f % 256 == 0);
+}
+
+template <int BN, int TM>
+cudaError_t launch_ffma(int device, dim3 grid, int smem, int ring,
+                        cudaStream_t stream, const float* in, float* dst,
+                        const Layer& L, int m_total) {
+    static std::atomic<bool> ready[MAX_DEVICES];
+    const cudaError_t err =
+        opt_in_smem(sep_layer_kernel<BN, TM>, device, ready);
+    if (err != cudaSuccess) return err;
+    sep_layer_kernel<BN, TM><<<grid, FT, smem, stream>>>(in, dst, L, m_total,
+                                                        ring);
+    return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_ffma_tm(int tm, int device, dim3 grid, int smem, int ring,
+                           cudaStream_t stream, const float* in, float* dst,
+                           const Layer& L, int m_total) {
+    switch (tm) {
+        case 8:
+            return launch_ffma<BN, 8>(device, grid, smem, ring, stream, in,
+                                      dst, L, m_total);
+        case 5:
+            return launch_ffma<BN, 5>(device, grid, smem, ring, stream, in,
+                                      dst, L, m_total);
+        default:
+            return launch_ffma<BN, 4>(device, grid, smem, ring, stream, in,
+                                      dst, L, m_total);
+    }
+}
+
+// One HIGHEST layer: BN = min(F, 256); TM = 8, 5 or 4 positions per
+// thread, whichever gives the busiest SM the fewest positions (its
+// ceil(blocks / SMs) blocks of BM), the larger on a tie; a ring of FRING
+// stages if two blocks still fit an SM's shared memory, else 2.
+cudaError_t launch_ffma_layer(int device, int sms, int sm_smem,
+                              cudaStream_t stream, const float* in,
+                              float* dst, const Layer& L, int m_total) {
+    const int bn = L.f < 256 ? L.f : 256;
+    const int ty = FT / (bn / 8);
+    const int n_blocks = L.f / bn;
+    auto busiest = [&](int bm) {
+        const long long blocks = (long long)((m_total + bm - 1) / bm) *
+                                 n_blocks;
+        return (blocks + sms - 1) / sms * bm;
+    };
+    int tm = 8;
+    for (const int t : {5, 4})
+        if (busiest(t * ty) < busiest(tm * ty)) tm = t;
+    const int bm = tm * ty;
+    const int ring =
+        2 * (ffma_smem(bm, bn, FRING, L) + 1024) <= sm_smem ? FRING : 2;
+    const int chunks = L.c / FK;
+    const int smem = ffma_smem(bm, bn, chunks < ring ? chunks : ring, L);
+    const dim3 grid((m_total + bm - 1) / bm, n_blocks);
+    switch (bn) {
+        case 64:
+            return launch_ffma_tm<64>(tm, device, grid, smem, ring, stream,
+                                      in, dst, L, m_total);
+        case 128:
+            return launch_ffma_tm<128>(tm, device, grid, smem, ring, stream,
+                                       in, dst, L, m_total);
+        default:
+            return launch_ffma_tm<256>(tm, device, grid, smem, ring, stream,
+                                       in, dst, L, m_total);
+    }
 }
 
 template <int BN, int FM, int MODE>
 cudaError_t launch_mma(int device, dim3 grid, int smem, cudaStream_t stream,
                        const float* in, float* dst, const Layer& L,
                        int m_total) {
-    // past 48 KB a kernel must ask for its dynamic shared memory; ask once
-    // per device for all a block can have
     static std::atomic<bool> ready[MAX_DEVICES];
-    if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
-    if (!ready[device].load()) {
-        int most = 0;
-        cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-        const cudaError_t err = cudaFuncSetAttribute(
-            sep_layer_mma_kernel<BN, FM, MODE>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-        if (err != cudaSuccess) return err;
-        ready[device].store(true);
-    }
+    const cudaError_t err =
+        opt_in_smem(sep_layer_mma_kernel<BN, FM, MODE>, device, ready);
+    if (err != cudaSuccess) return err;
     sep_layer_mma_kernel<BN, FM, MODE><<<grid, MT, smem, stream>>>(
         in, dst, L, m_total);
     return cudaGetLastError();
@@ -719,27 +883,16 @@ int run_stack(const float* x, float* out, float* buf0, float* buf1, int batch,
         L.pw_b = reinterpret_cast<const float*>(ptrs[4 * i + 3]);
         L.h = d[0]; L.w = d[1]; L.c = d[2]; L.f = d[3]; L.stride = d[4];
         L.ho = d[5]; L.wo = d[6]; L.off_h = d[7]; L.off_w = d[8];
-        if (mode == HIGHEST ? (L.c % BK != 0 || L.f % BN != 0)
-                            : !mma_takes(L))
-            return (int)cudaErrorInvalidValue;
+        if (!takes(mode, L)) return (int)cudaErrorInvalidValue;
         const bool last = i == n_layers - 1;
         float* dst = (last && !gap) ? out : bufs[i % 2];
         const int m_total = batch * L.ho * L.wo;
-        if (mode != HIGHEST) {
-            const cudaError_t err = launch_mma_layer(
-                mode, device, sms, sm_smem, stream, in, dst, L, m_total);
-            if (err != cudaSuccess) return (int)err;
-            in = dst;
-            continue;
-        }
-        const int tiles128 = (m_total + 127) / 128 * (L.f / BN);
-        if (tiles128 >= 2 * sms)
-            sep_layer_kernel<128><<<dim3((m_total + 127) / 128, L.f / BN),
-                                     NT, 0, stream>>>(in, dst, L, m_total);
-        else
-            sep_layer_kernel<64><<<dim3((m_total + 63) / 64, L.f / BN), NT,
-                                   0, stream>>>(in, dst, L, m_total);
-        cudaError_t err = cudaGetLastError();
+        const cudaError_t err =
+            mode == HIGHEST
+                ? launch_ffma_layer(device, sms, sm_smem, stream, in, dst, L,
+                                    m_total)
+                : launch_mma_layer(mode, device, sms, sm_smem, stream, in,
+                                   dst, L, m_total);
         if (err != cudaSuccess) return (int)err;
         in = dst;
     }

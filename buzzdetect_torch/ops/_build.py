@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``buzzdetect_torch/csrc/*.cu``).
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
-interface, loaded with ctypes. The build goes to ``csrc/build/`` (listed in
-.gitignore), keyed by a hash of the source, and is serialized across threads
+interface, loaded with ctypes; ``csrc/*.cuh`` are headers the sources
+share. The build goes to ``csrc/build/`` (listed in .gitignore), keyed by a
+hash of the source and the headers, and is serialized across threads
 and processes with a file lock, so concurrent first users build once.
 Nothing here runs at import: callers build at first use (model
 initialization for ``sepconv`` and ``logmel``, the tools for ``probe``).
@@ -41,10 +42,14 @@ def _nvcc():
 
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` builds to: the file name carries a hash of
-    the source and the flags, so an edited source never loads a stale
-    library."""
-    with open(os.path.join(DIR_CSRC, f'{name}.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    the source, of every shared header (``csrc/*.cuh``, which a source
+    includes) and of the flags, so an edited source or header never loads
+    a stale library."""
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(DIR_CSRC) if f.endswith('.cuh'))
+    for part in [f'{name}.cu'] + headers:
+        with open(os.path.join(DIR_CSRC, part), 'rb') as f:
+            digest.update(part.encode() + b'\0' + f.read())
     return os.path.join(DIR_BUILD, f'lib{name}_{digest.hexdigest()[:16]}.so')
 
 

@@ -11,8 +11,10 @@ the note at the top of that file):
 * ``dot_f32(a, w)``: (M, K) @ (K, N) in exact f32 (FFMA);
 * ``dot_high(a, w)``: the same product at HIGH on the tensor cores, both f32
   operands split into bf16 hi/lo and hi*hi + hi*lo + lo*hi summed in f32;
-* ``dot_high_emulated(a, w_hilo)``: the same function on FFMA, from the
-  (2, K, N) bf16 hi/lo weight of ``sepconv.pack_pointwise(w, 'high')``;
+* ``dot_high_emulated(a, w_hilo)``: the same function on the tensor cores
+  as the conv kernels' HIGH mode runs it, from the (2, K, N) bf16 hi/lo
+  weight of ``sepconv.pack_pointwise(w, 'high')``, with hi*hi and
+  hi*lo + lo*hi in two f32 accumulators;
 * ``fma_chain(x, steps, a, b)``: ``v = fma(v, a, b)`` applied ``steps``
   times to every element, the f32 peak probe of ``tools/roofline.py``.
 
@@ -258,7 +260,8 @@ def dot_high(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def dot_high_emulated(a: torch.Tensor, w_hilo: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ hi/lo (2, K, N) bf16 at emulated HIGH on FFMA."""
+    """(M, K) @ hi/lo (2, K, N) bf16 at emulated HIGH on the tensor
+    cores."""
     m, n, k = _check_dot(a, w_hilo, 2)
     if _route(a) == 'cpu':
         return dot_high_emulated_plain(a, w_hilo)

@@ -109,13 +109,12 @@ def layer_route(mode: str) -> str:
 
 def _kernel_takes(s, mode) -> bool:
     """Whether layer ``s``'s shape fits its route's tiles in csrc/sepconv.cu:
-    FFMA, C in chunks of 8 and F in blocks of 64; the tensor cores, C in
-    chunks of 32 and F = 64, 128 or a multiple of 256. The same rule as
-    ``run_stack`` and ``mma_takes`` in that file: a change to one is made in
-    the other."""
-    if layer_route(mode) == 'ffma':
-        return s.c_in % 8 == 0 and s.c_out % 64 == 0
-    return s.c_in % 32 == 0 and (s.c_out in (64, 128) or s.c_out % 256 == 0)
+    C in chunks of 16 (FFMA) or 32 (the tensor cores), and F = 64, 128 or a
+    multiple of 256 (a block's BN = min(F, 256) channels). The same rule as
+    ``takes`` in that file: a change to one is made in the other."""
+    chunk = 16 if layer_route(mode) == 'ffma' else 32
+    return s.c_in % chunk == 0 and (s.c_out in (64, 128)
+                                    or s.c_out % 256 == 0)
 
 
 def resolve_compute_dtype(compute_dtype) -> torch.dtype:
@@ -275,7 +274,12 @@ def load_kernels():
     Every pointer and the stream pass as c_void_p: an untyped int argument
     would be cut to 32 bits."""
     from buzzdetect_torch.ops import _build
-    lib = _build.load('sepconv')
+    return bind(_build.load('sepconv'))
+
+
+def bind(lib):
+    """Declare the C interface of a library built from ``csrc/sepconv.cu``
+    on ``lib`` (a ctypes CDLL); returns it."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.bz_sep_stack.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, i32,
                                  i32, ptr]
@@ -328,14 +332,15 @@ def _check(params, x, specs, mode):
     return operands
 
 
-def _launch(operands, x, specs, gap, mode):
-    """Launch ``bz_sep_stack`` of ``csrc/sepconv.cu`` on the current
-    stream; returns the output tensor. Raises on any CUDA error code."""
+def _launch(operands, x, specs, gap, mode, lib=None):
+    """Launch ``bz_sep_stack`` of ``csrc/sepconv.cu`` (or of ``lib``,
+    another build of it) on the current stream; returns the output tensor.
+    Raises on any CUDA error code."""
     if not x.is_contiguous():
         raise ValueError('input must be contiguous NHWC')
     if not all(t.is_contiguous() for layer in operands for t in layer):
         raise ValueError('every weight and bias must be contiguous')
-    lib = load_kernels()
+    lib = lib or load_kernels()
     b, sl = x.shape[0], specs[-1]
     ptrs = np.array([t.data_ptr() for layer in operands for t in layer],
                     np.int64)

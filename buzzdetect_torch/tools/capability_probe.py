@@ -8,7 +8,8 @@ the JAX probe's inputs and holds the result against the same numpy
 expression: the 20 layout cases exactly, the three products within the JAX
 probe's tolerances (1e-4 for exact f32, 1e-3 for HIGH). ``dot_high`` runs
 HIGH natively on the tensor cores (it failed to lower on the TPU), and
-``dot_high_emulated`` runs the conv kernels' FFMA emulation of it.
+``dot_high_emulated`` runs the conv kernels' emulation of it, also on the
+tensor cores (``mma.sync`` on a pre-split weight, two accumulators).
 
 Run on the card (the default), or on the CPU through the plain versions:
 
@@ -145,7 +146,7 @@ def run_probe(device):
                         'cores)'),
         'dot_high_emulated': dot(kernels.dot_high_emulated,
                                  lambda: pack_pointwise(on(w), 'high'), 1e-3,
-                                 'dot @HIGH emulated (hi/lo bf16 x3, FFMA)'),
+                                 'dot @HIGH emulated (hi/lo bf16 x3, mma)'),
     }
     order = ['stride_lane', 'stride_sublane', 'stride_leading',
              'reshape_leading_split', 'reshape_leading_merge',

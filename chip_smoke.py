@@ -24,8 +24,9 @@ Phases, each printed before the last line:
    the unit its layers' pointwise product runs on (FFMA in exact f32, the
    tensor cores in bf16 and HIGH) and gives the kernel's and the library's device time alone
    (``torch.profiler``), since the CUDA-event times include the host's
-   launches. Then each mode's device time layer by layer, with the ratio
-   of the bf16 and HIGH kernels' to the exact-f32 FFMA kernel's, and one
+   launches. Then each mode's device time layer by layer with its bound,
+   the exact-f32 FFMA kernel's against the cuDNN layer's (TF32 off), the
+   ratio of the bf16 and HIGH kernels' to the exact-f32 kernel's, and one
    chunk's device time stage by stage, with the matmul frontend and with
    the fused log-mel;
 3. the main paths end to end: ``buzzdetect_torch.analyze()`` on three
@@ -48,7 +49,10 @@ Phases, each printed before the last line:
    the conv tail's pointwise shapes (B = 209: 5016 x 512 x 512 with layer
    8's input and weight, 1254 x 1024 x 1024 with layer 14's), each against
    its plain version, twice for bit-identity, timed beside its plain
-   version, ``torch.matmul`` in f32 and its bound; then the two HIGH
+   version, ``torch.matmul`` in f32 and its bound, each row naming the
+   unit that runs its product (FFMA or the tensor cores) and giving its
+   and ``torch.matmul``'s device time alone (``torch.profiler``); then the
+   two HIGH
    routes against float64 on standard-normal operands at the tail's two
    shapes, within a bound that one bf16 pass would exceed; (c) ``analyze(
    profile_dir=)`` on one 60 s recording, beside one run without the
@@ -107,15 +111,17 @@ REPLACES = {'fused_front': 'buzzdetect_tpu/ops/pallas_conv.py:448',
 # the units that run the conv kernels' pointwise product
 # (sepconv.layer_route)
 PRODUCT_UNITS = {'mma': 'the tensor cores (mma)', 'ffma': 'FFMA'}
-# the product kernels of csrc/probe.cu
+# the product kernels of csrc/probe.cu, and the unit each runs on
 DOTS = ('dot_f32', 'dot_high', 'dot_high_emulated')
+DOT_UNITS = {'dot_f32': 'ffma', 'dot_high': 'mma', 'dot_high_emulated': 'mma'}
 # the length of the recording analyze(profile_dir=) traces in phase 4
 PROFILED_SECONDS = 60.0
 # the two HIGH routes against float64 of their common function on
 # standard-normal operands, at K = 512 and 1024 (values up to ~160): the
-# tensor cores' f32 accumulation read a max |error| of 6.2e-4 at K = 1024,
-# the FFMA route 3.2e-4, cuBLAS f32 4.3e-5 (NVIDIA H100 80GB HBM3, 700 W);
-# one bf16 pass (hi*hi alone) errs by ~0.1, so the check can tell them apart
+# tensor cores' f32 accumulation in one accumulator (dot_high) read a max
+# |error| of 6.2e-4 at K = 1024, the three products in order on FFMA
+# 3.2e-4, cuBLAS f32 4.3e-5 (NVIDIA H100 80GB HBM3, 700 W); one bf16 pass
+# (hi*hi alone) errs by ~0.1, so the check can tell them apart
 HIGH_F64_ATOL = 2e-3
 # the FMA chain against its float64 plain version: the map contracts
 # towards 1, so the running value stays within max(|x|, 1); 1024 roundings
@@ -515,13 +521,13 @@ def run(torch, tmp):
                               sepconv.layer_route(mode))
 
         # each mode's device time layer by layer, at B = 209, each layer on
-        # its input from the plain stack; the exact-f32 kernel's FFMA loop is
-        # the one the bf16 and HIGH modes ran before the tensor cores
+        # its input from the plain stack, with its bound; in exact f32 also
+        # the cuDNN layer's (TF32 off), to show where the FFMA kernel loses
         layer_ms = {}
         for mode in sepconv.MODES:
             params = sepconv.pack_params(all_params['yamnet'], mode)
             x = yamnet.layer1(params, patches, mode)
-            parts = []
+            parts, vs_library = [], []
             for s in sepconv.tail_specs(2, None):
                 layer = dict(start_layer=s.index, stop_layer=s.index + 1,
                              gap=False, mode=mode)
@@ -531,11 +537,22 @@ def run(torch, tmp):
                 t_bound = max(t_ops, n_bytes / bytes_peak)
                 ms = device_ms(lambda: sepconv.fused_tail(params, x, **layer))
                 layer_ms[mode, s.index] = ms
-                parts.append(f'{s.index}: {ms:.4f} (bound {1e3 * t_bound:.4f})')
+                parts.append(f'{s.index}: {ms:.4f} (bound {1e3 * t_bound:.4f}'
+                             f', {ms / (1e3 * t_bound):.1f}x)')
+                if mode == 'highest':
+                    lib_w = library_weights(params, (s,), torch.float32)
+                    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+                    lib_ms = device_ms(lambda: library_stack(
+                        lib_w, x_nchw, (s,), False))
+                    vs_library.append(f'{s.index}: {lib_ms:.4f} '
+                                      f'({ms / lib_ms:.2f}x)')
                 x = sepconv.fused_tail_plain(params, x, **layer).reshape(
                     b0, s.h_out, s.w_out, s.c_out)
             print(f'device time per layer, ms, [{mode}] B={b0}: '
                   + ', '.join(parts), flush=True)
+            if vs_library:
+                print(f'cuDNN f32 device time per layer, ms (FFMA kernel / '
+                      f'cuDNN) B={b0}: ' + ', '.join(vs_library), flush=True)
         for mode in ('bf16', 'high'):
             ratios = (f'{i}: {layer_ms[mode, i] / layer_ms["highest", i]:.2f}x'
                       for i in range(2, 15))
@@ -732,6 +749,7 @@ def run(torch, tmp):
             m, k = a.shape
             n = w.shape[1]
             library_ms = time_ms(lambda: torch.matmul(a, w))
+            library_device = device_ms(lambda: torch.matmul(a, w))
             for name in DOTS:
                 kern, plain = getattr(probe, name), getattr(probe,
                                                             f'{name}_plain')
@@ -754,14 +772,24 @@ def run(torch, tmp):
                 row = dict(max_abs_err=err, ms=time_ms(lambda: kern(a, w_op)),
                            plain_ms=time_ms(lambda: plain(a, w_op)),
                            library_ms=library_ms,
-                           **bound(t_ops, n_bytes / bytes_peak))
-                print(f'kernel {name} {label} ({m}x{k} @ {k}x{n}): max '
+                           **bound(t_ops, n_bytes / bytes_peak),
+                           product=DOT_UNITS[name],
+                           device_ms=device_ms(lambda: kern(a, w_op)),
+                           library_device_ms=library_device)
+                row['ratio'] = row['ms'] / library_ms
+                print(f'kernel {name} {label} ({m}x{k} @ {k}x{n}) on '
+                      f'{PRODUCT_UNITS[row["product"]]}: max '
                       f'|kernel - plain| = {err:.3g} (atol {ATOL}, rtol '
                       f'{RTOL}); kernel {row["ms"]:.4f} ms, plain '
                       f'{row["plain_ms"]:.4f} ms, torch.matmul f32 '
-                      f'{library_ms:.4f} ms, bound {row["bound_ms"]:.4f} ms '
+                      f'{library_ms:.4f} ms (kernel / library '
+                      f'{row["ratio"]:.2f}x), bound {row["bound_ms"]:.4f} ms '
                       f'({row["bound_by"]}: {flops / 1e9:.2f} GFLOP, '
-                      f'{n_bytes / 1e6:.1f} MB)', flush=True)
+                      f'{n_bytes / 1e6:.1f} MB); device time (torch.profiler)'
+                      f' kernel {row["device_ms"]:.4f} ms, torch.matmul '
+                      f'{library_device:.4f} ms (kernel / library '
+                      f'{row["device_ms"] / library_device:.2f}x)',
+                      flush=True)
                 if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
                     fail(f'{name} {label} disagrees with its plain version: '
                          f'max |d| {err:.3g}')

@@ -1,0 +1,77 @@
+"""The port's kernel build (``buzzdetect_torch/ops/_build.py``) on the CPU:
+where each library goes, and what its name is keyed by. Nothing here runs
+``nvcc``: the build itself happens on the card's machine (``chip_smoke.py``).
+"""
+
+import os
+import re
+import shutil
+
+import pytest
+import torch
+
+from buzzdetect_torch.ops import _build
+from buzzdetect_torch.tools import compare_builds
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A copy of ``csrc/`` (sources and headers) that the test may edit."""
+    root = tmp_path / 'csrc'
+    root.mkdir()
+    for f in os.listdir(_build.DIR_CSRC):
+        if f.endswith(('.cu', '.cuh')):
+            shutil.copy(os.path.join(_build.DIR_CSRC, f), root / f)
+    monkeypatch.setattr(_build, 'DIR_CSRC', str(root))
+    monkeypatch.setattr(_build, 'DIR_BUILD', str(root / 'build'))
+    return root
+
+
+def test_every_source_and_included_header_is_in_csrc():
+    for name in _build.SOURCES:
+        path = os.path.join(_build.DIR_CSRC, f'{name}.cu')
+        with open(path) as f:
+            for header in re.findall(r'#include "([^"]+)"', f.read()):
+                assert header.endswith('.cuh'), (name, header)
+                assert os.path.exists(os.path.join(_build.DIR_CSRC, header))
+
+
+@pytest.mark.parametrize('name', _build.SOURCES)
+def test_library_path_is_stable_and_in_the_build_dir(csrc, name):
+    path = _build.library_path(name)
+    assert path == _build.library_path(name)
+    assert os.path.dirname(path) == str(csrc / 'build')
+    assert os.path.basename(path).startswith(f'lib{name}_')
+
+
+@pytest.mark.parametrize('name', _build.SOURCES)
+def test_editing_a_shared_header_changes_every_library_path(csrc, name):
+    """A source that includes csrc/*.cuh must not load a library built
+    against the header's old bytes."""
+    before = _build.library_path(name)
+    with open(csrc / 'ptx.cuh', 'a') as f:
+        f.write('\n// edited\n')
+    assert _build.library_path(name) != before
+
+
+@pytest.mark.parametrize('name', _build.SOURCES)
+def test_editing_a_source_changes_only_its_library_path(csrc, name):
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    with open(csrc / f'{name}.cu', 'a') as f:
+        f.write('\n// edited\n')
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert {n for n in _build.SOURCES if after[n] != before[n]} == {name}
+
+
+def test_compare_builds_asks_for_the_card():
+    assert not torch.cuda.is_available()  # tests/conftest.py hides the card
+    with pytest.raises(RuntimeError, match='CUDA'):
+        compare_builds.main(['--against', os.path.join(
+            _build.DIR_CSRC, 'sepconv.cu')])
+
+
+def test_compare_builds_covers_every_mode_and_both_batches():
+    modes = {m for _layers, _gap, ms in compare_builds.CASES.values()
+             for m in ms}
+    assert modes == set(compare_builds.sepconv.MODES)
+    assert compare_builds.BATCHES == (209, 5)

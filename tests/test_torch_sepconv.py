@@ -139,11 +139,13 @@ def test_check_takes_every_sep_layer(tparams, mode, layer):
 
 
 @pytest.mark.parametrize('mode,c_in,c_out', [
-    ('bf16', 48, 64),     # C not in chunks of 32
-    ('high', 64, 192),    # F neither 64, 128 nor a multiple of 256
+    ('bf16', 48, 64),      # C not in chunks of 32
+    ('high', 64, 192),     # F neither 64, 128 nor a multiple of 256
     ('bf16', 256, 384),
-    ('highest', 12, 64),  # C not in chunks of 8
-    ('highest', 64, 96),  # F not in blocks of 64
+    ('highest', 24, 64),   # C not in chunks of 16
+    ('highest', 64, 96),   # F neither 64, 128 nor a multiple of 256
+    ('highest', 512, 192),
+    ('highest', 8, 128),
 ])
 def test_check_refuses_shapes_the_kernels_do_not_take(monkeypatch, mode, c_in,
                                                       c_out):
@@ -166,6 +168,21 @@ def test_check_refuses_shapes_the_kernels_do_not_take(monkeypatch, mode, c_in,
     with pytest.raises(ValueError, match='does not take'):
         sepconv.fused_tail(params, torch.zeros(2, 6, 4, c_in), gap=False,
                            mode=mode)
+
+
+@pytest.mark.parametrize('mode', sepconv.MODES)
+@pytest.mark.parametrize('start_layer,stop_layer', [(2, 8), (8, None),
+                                                    (4, 8)])
+def test_kernel_takes_every_layer_the_wrappers_launch(mode, start_layer,
+                                                      stop_layer):
+    """fused_front (layers 2-7), fused_tail (8-14) and fused_tail(4, 8)
+    launch only layer shapes that their mode's kernel takes: C in chunks of
+    16 (FFMA) or 32 (tensor cores), F = 64, 128 or a multiple of 256."""
+    specs = sepconv.tail_specs(start_layer, stop_layer)
+    assert [s.index for s in specs] == list(range(start_layer,
+                                                  stop_layer or 15))
+    for s in specs:
+        assert sepconv._kernel_takes(s, mode), s
 
 
 def test_stride2_layer_reads_odd_centres(tparams):
