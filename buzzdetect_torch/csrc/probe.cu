@@ -13,22 +13,71 @@
 // csrc/sepconv.cu's HIGH mode runs (mma.sync on a pre-split weight, two
 // accumulators).
 //
-// remap (for `run`). One __global__ template over a case functor: each
-// output element is one input element (its flat offset from the case's
-// index arithmetic, written out below per case), or zero for the mask and
-// pad cases, or (outer_broadcast_mul) an input element times a weight. The
-// host passes the input and output shapes, padded to 4 dims with leading
-// ones. Bound: bytes (each input element read once, each output written
-// once); a grid-stride loop with one element per thread and iteration.
-// Exact: it moves values, and outer_broadcast_mul is one f32 multiply.
+// remap (for `run`, tools/mosaic_capability_probe.py:48-54, one
+// whole-array pallas_call per layout case). Each output element is one
+// input element (its flat offset from the case's index arithmetic, written
+// out below per case), or zero for the mask and pad cases, or
+// (outer_broadcast_mul) an input element times a weight. Exact: it moves
+// values, and outer_broadcast_mul is one f32 multiply. Bound: bytes (the
+// input sectors each case reads, each output written once): 21.2 MB for
+// the probe's 20 cases, 0.0063 ms at 3.35 TB/s. What held the earlier
+// kernel far from it was not the card: one launch per case (20 per sweep,
+// each with its host wrapper), and per element a 4-dimensional unravel in
+// 64-bit division, which the card emulates in software. The design:
+//   - One launch for a batch of cases. The host passes a table by value
+//     (__grid_constant__, so the kernel indexes it without a copy): per
+//     case its id, the three pointers, the input and output shapes as
+//     32-bit ints with leading ones, its element count and its first
+//     block. A block finds its case from the first-block prefix and
+//     dispatches on the id to the case's functor, so a warp never mixes
+//     cases.
+//   - 32-bit index arithmetic: every input and output has under 2^31
+//     elements (the host refuses others).
+//   - Each thread makes 4 neighbouring outputs and stores them as one
+//     float4 where the output's last dimension is a multiple of 4 (so the
+//     four share their outer indices and one unravel serves them; every
+//     probe case), else as four scalars. Loads stay per element: the
+//     functors gather.
+//   Measured: at the end of this note.
 //
-// dot_f32 (for `case_collapsed_dot`). (M, K) @ (K, N) in exact f32: a
-// tiled FFMA product, 64 x 64 outputs per block of 256 threads, 4 x 4 per
-// thread from float4 shared-memory reads, K staged in chunks of 16. No
-// TF32, no tensor cores; every output is one thread's sum in a fixed order
-// (k ascending), so results are identical from run to run. Bound: FFMA
-// throughput (2 M N K operations at the f32 peak) at the shapes the probe
-// and the conv tail use.
+// dot_f32 (for `case_collapsed_dot`, the pallas_call at
+// tools/mosaic_capability_probe.py:152: jnp.dot at HIGHEST). (M, K) @ (K,
+// N) in exact f32 on FFMA: no TF32, no tensor cores. Bound: FFMA
+// throughput, 2 M N K operations at the f32 peak (at 5016 x 512 x 512,
+// layers 8-12's pointwise product at B = 209, and 1254 x 1024 x 1024,
+// layer 14's: 2.63 GFLOP, 0.039 ms at 67 TFLOP/s, 0.051 ms at the 51-55
+// TFLOP/s an FMA chain reaches on the card). The design,
+// dot_f32_kernel<TM, BN>:
+//   - The same arithmetic as the earlier 64 x 64 kernel, so its outputs
+//     are bit for bit the same: one accumulator per output from 0, acc =
+//     fmaf(a[m][k], w[k][n], acc) for k ascending. No split K, no atomics:
+//     identical from run to run.
+//   - A block of 2 BN threads owns 16 TM rows x BN columns; each thread TM
+//     rows (16 apart) x 8 columns (two float4 groups BN / 2 apart). Per 4
+//     k steps a thread reads TM float4s of A (4 k of one row each) and 8
+//     float4s of B: TM + 8 shared loads per 32 TM FFMA (TM = 5: 13 per
+//     160; the earlier 4 x 4 tile: 8 per 64).
+//   - No transpose. A stays (m, k) in shared memory, rows padded to 20
+//     floats: a thread's float4 holds 4 k of one row, and the 4 rows a
+//     warp reads at once (rows 16 i + ty, ty consecutive) start on bank
+//     quads 0, 20, 8, 28, so each read is one wavefront. So both operands
+//     go to shared memory by cp.async as they lie in device memory.
+//   - Loads in flight while a chunk computes: K in chunks of 16 through a
+//     ring of 3 cp.async stages (A's 16 TM rows, B's 16 x BN slice), one
+//     barrier per chunk; 43776 bytes at TM = 5, BN = 128. Chunks of 32
+//     measured no faster (compare_builds against a build with them).
+//   - Filling 132 SMs: BN = 128 where N allows it, else 64; TM = 5 or 4;
+//     the pair whose busiest SM gets the fewest outputs (its ceil(blocks /
+//     SMs) blocks), the larger tile on a tie. 5016 x 512: 63 x 4 = 252
+//     blocks of 80 x 128, the busiest SM 2 (20480 outputs against a mean
+//     of 19456; 128-row tiles would give 160 blocks and the busiest
+//     32768). 1254 x 1024: 16 x 8 = 128 blocks of 80 x 128, one per SM
+//     (10240 against 9728; 128-row tiles: 80 blocks of 16384). The probe's
+//     1024 x 128: 32 blocks of 64 x 64. BN = 128 halves the L2 reads of A
+//     against BN = 64 and measured 2-3% faster at both tail shapes, the
+//     tiles' balance being the same. No TM = 8: it never gives the better
+//     balance at these shapes, and takes 161 registers a thread.
+//   Measured: at the end of this note.
 //
 // dot_high (for `case_dot_high`, "native HIGH"). The card's native form of
 // the TPU's three-pass HIGH: f32 activation and f32 weight are split into
@@ -72,6 +121,20 @@
 // `steps` times: 2 operations per step and value, against 8 bytes of
 // traffic per value. Bound: FFMA throughput.
 //
+// Measured (chip_smoke.py and tools/compare_builds.py, device time alone
+// from torch.profiler, NVIDIA H100 80GB HBM3 at 700 W):
+//   remap, the probe's 20 cases in one launch: 0.0076-0.0092 ms against the
+//     0.0063 ms bound (the earlier one-launch-per-case kernel: 0.058 ms; 20
+//     PyTorch calls: 0.039 ms). By CUDA events the batch takes 0.12-0.40
+//     ms: the host wrapper's 20 item checks, not the card.
+//   dot_f32: 0.055 ms at 5016 x 512 x 512 on layer 8's activations (48
+//     TFLOP/s; torch.matmul f32 0.055 ms) and 0.061 ms at 1254 x 1024 x
+//     1024 (44 TFLOP/s; torch.matmul 0.062), against the 0.039 ms bound; on
+//     seeded normal activations 0.068 and 0.076 ms against the earlier
+//     kernel's 0.091 and 0.106. Its busiest SM runs at 94-98% of the FMA
+//     chain's rate: what holds it is the FFMA issue rate itself and the
+//     tile granularity (the busiest SM 1.05x the mean work).
+//
 // Plain C interface, loaded with ctypes; every function returns a
 // cudaError_t code (0 = success) and launches on the given stream.
 
@@ -89,25 +152,22 @@ namespace {
 // --- remap -------------------------------------------------------------------
 
 struct Dims {
-    long long i[4];  // input shape, leading ones
-    long long o[4];  // output shape, leading ones
+    int i[4];  // input shape, leading ones
+    int o[4];  // output shape, leading ones
 };
 
-__device__ __forceinline__ long long ravel(long long a, long long b,
-                                           long long c, long long d,
-                                           const long long* s) {
+__device__ __forceinline__ int ravel(int a, int b, int c, int d,
+                                     const int* s) {
     return ((a * s[1] + b) * s[2] + c) * s[3] + d;
 }
 
-__device__ __forceinline__ long long wrap(long long v, long long n) {
+__device__ __forceinline__ int wrap(int v, int n) {
     return ((v % n) + n) % n;
 }
 
 struct NoMul {
     static constexpr bool kMul = false;
-    __device__ static long long mul(const long long*, const Dims&) {
-        return 0;
-    }
+    __device__ static int mul(const int*, const Dims&) { return 0; }
 };
 
 // Each case: src(o, D) is the input offset of output index o (4 dims), or
@@ -115,78 +175,78 @@ struct NoMul {
 
 // x[:, :, ::2]
 struct StrideLane : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0], o[1], o[2], 2 * o[3], D.i);
     }
 };
 
 // x[:, ::2, :]
 struct StrideSublane : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0], o[1], 2 * o[2], o[3], D.i);
     }
 };
 
 // x[::2] on (N, H, W, C)
 struct StrideLeading : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(2 * o[0], o[1], o[2], o[3], D.i);
     }
 };
 
 // x.reshape(N / 2, 2, H, W, C)[:, 0]: leading index n -> 2 n + 0
 struct ReshapeLeadingSplit : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0] * 2 + 0, o[1], o[2], o[3], D.i);
     }
 };
 
 // (N, H, W, C) -> (N * H, W, C): output row r is (r / H, r % H)
 struct ReshapeLeadingMerge : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[1] / D.i[1], o[1] % D.i[1], o[2], o[3], D.i);
     }
 };
 
 // (N, H, W, C) -> (N * H * W, C)
 struct CollapseTo2d : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
-        const long long r = o[2], hw = D.i[1] * D.i[2];
+    __device__ static int src(const int* o, const Dims& D) {
+        const int r = o[2], hw = D.i[1] * D.i[2];
         return ravel(r / hw, (r / D.i[2]) % D.i[1], r % D.i[2], o[3], D.i);
     }
 };
 
 // (R, W * C) -> (R, W, C)
 struct SplitMinor : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(0, 0, o[1], o[2] * D.o[3] + o[3], D.i);
     }
 };
 
 // np.roll(x, 1, 1)
 struct RollSublane : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0], o[1], wrap(o[2] - 1, D.i[2]), o[3], D.i);
     }
 };
 
 // np.roll(x, 128, 2)
 struct RollLane : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0], o[1], o[2], wrap(o[3] - 128, D.i[3]), D.i);
     }
 };
 
 // np.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1, :]
 struct PadSliceShift : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return o[2] == 0 ? -1 : ravel(o[0], o[1], o[2] - 1, o[3], D.i);
     }
 };
 
 // np.swapaxes(x, 1, 2)
 struct TransposeMinor : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0], o[1], o[3], o[2], D.i);
     }
 };
@@ -194,60 +254,60 @@ struct TransposeMinor : NoMul {
 // (N, H, W, C) as rows (N * H * W, C); output row (p, ho, wo) of
 // (N, H / 2, W / 2) reads row p * H * W + 2 ho * W + 2 wo
 struct RowGather : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
-        const long long h2 = D.i[1] / 2, w2 = D.i[2] / 2, r = o[2];
-        const long long p = r / (h2 * w2), ho = (r / w2) % h2, wo = r % w2;
+    __device__ static int src(const int* o, const Dims& D) {
+        const int h2 = D.i[1] / 2, w2 = D.i[2] / 2, r = o[2];
+        const int p = r / (h2 * w2), ho = (r / w2) % h2, wo = r % w2;
         return ravel(p, 2 * ho, 2 * wo, o[3], D.i);
     }
 };
 
 // np.where(pos % 4 == 0, 0, x), pos the index on axis 1
 struct IotaMask : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return (o[2] & 3) == 0 ? -1 : ravel(o[0], o[1], o[2], o[3], D.i);
     }
 };
 
 // np.where(pos % 3 == 0, 0, x)
 struct IotaMod24 : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return o[2] % 3 == 0 ? -1 : ravel(o[0], o[1], o[2], o[3], D.i);
     }
 };
 
 // x.reshape(A, B / 2, 2, C)[:, :, 0]
 struct SplitSublane : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0], o[1], o[2] * 2 + 0, o[3], D.i);
     }
 };
 
 // np.roll(x, 32, 2)
 struct RollLane32 : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0], o[1], o[2], wrap(o[3] - 32, D.i[3]), D.i);
     }
 };
 
 // np.pad(x, ((0, 0), (0, 0), (1, 0)))[:, :, :-1]
 struct PadSliceLane : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return o[3] == 0 ? -1 : ravel(o[0], o[1], o[2], o[3] - 1, D.i);
     }
 };
 
 // (A, B, W * C) -> (A, B, W, C)
 struct SplitMinorSmall : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(0, o[0], o[1], o[2] * D.o[3] + o[3], D.i);
     }
 };
 
 // (A, R, Q * C) -> reshape (A, R, Q, C) -> swapaxes(1, 2) -> (A * Q, R, C)
 struct SwapNonminorMerge : NoMul {
-    __device__ static long long src(const long long* o, const Dims& D) {
-        const long long q_count = D.i[3] / D.o[3];
-        const long long a = o[1] / q_count, q = o[1] % q_count;
+    __device__ static int src(const int* o, const Dims& D) {
+        const int q_count = D.i[3] / D.o[3];
+        const int a = o[1] / q_count, q = o[1] % q_count;
         return ravel(0, a, o[2], q * D.o[3] + o[3], D.i);
     }
 };
@@ -255,104 +315,250 @@ struct SwapNonminorMerge : NoMul {
 // x * w, w of shape (C, 1, 1) against x (C, H, L)
 struct OuterBroadcastMul {
     static constexpr bool kMul = true;
-    __device__ static long long src(const long long* o, const Dims& D) {
+    __device__ static int src(const int* o, const Dims& D) {
         return ravel(o[0], o[1], o[2], o[3], D.i);
     }
-    __device__ static long long mul(const long long* o, const Dims&) {
-        return o[1];
-    }
+    __device__ static int mul(const int* o, const Dims&) { return o[1]; }
 };
 
-template <class Case>
-__global__ void remap_kernel(const float* __restrict__ x,
-                             const float* __restrict__ w,
-                             float* __restrict__ y, const Dims D,
-                             long long n) {
-    const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < n; i += step) {
-        long long o[4];
-        long long r = i;
+constexpr int N_CASES = 20;    // the case ids of bz_probe_remap_batch
+constexpr int MAX_REMAP = 32;  // cases in one launch's table
+constexpr int RT = 256;        // threads per block
+constexpr int R_BLOCK = 4 * RT;  // outputs per block: 4 neighbours a thread
+
+// One case of a batch. The table travels as a kernel parameter (2.3 KB of
+// the 4 KB a launch may pass).
+struct RemapCase {
+    const float* x;
+    const float* w;  // outer_broadcast_mul's weight, else unused
+    float* y;
+    Dims D;
+    int n;      // output elements
+    int first;  // the case's first block
+    int id;     // case id, the order of ops/probe.py's CASES
+    int vec;    // 1: four neighbouring outputs stored as one float4
+};
+
+struct RemapBatch {
+    RemapCase c[MAX_REMAP];
+    int count;
+};
+
+__device__ __forceinline__ void unravel(unsigned i, const int* s, int* o) {
 #pragma unroll
-        for (int d = 3; d >= 0; --d) {
-            o[d] = r % D.o[d];
-            r /= D.o[d];
-        }
-        const long long s = Case::src(o, D);
-        float v = s < 0 ? 0.f : x[s];
-        if (Case::kMul) v *= w[Case::mul(o, D)];
-        y[i] = v;
+    for (int d = 3; d > 0; --d) {
+        o[d] = (int)(i % (unsigned)s[d]);
+        i /= (unsigned)s[d];
     }
+    o[0] = (int)i;
 }
 
 template <class Case>
-int launch_remap(const float* x, const float* w, float* y, const Dims& D,
-                 long long n, cudaStream_t stream) {
-    const int threads = 256;
-    const long long blocks = (n + threads - 1) / threads;
-    remap_kernel<Case><<<(unsigned)(blocks < 4096 ? blocks : 4096), threads,
-                         0, stream>>>(x, w, y, D, n);
-    return (int)cudaGetLastError();
+__device__ __forceinline__ float remap_value(const RemapCase& R,
+                                             const Dims& D, const int* o) {
+    const int s = Case::src(o, D);
+    float v = s < 0 ? 0.f : R.x[s];
+    if (Case::kMul) v *= R.w[Case::mul(o, D)];
+    return v;
+}
+
+// Outputs 4 t .. 4 t + 3 of the case's block `block`, t the thread
+template <class Case>
+__device__ void remap_block(const RemapCase& R, int block) {
+    const Dims D = R.D;
+    const int i0 = (block * RT + (int)threadIdx.x) * 4;
+    if (i0 >= R.n) return;
+    int o[4];
+    if (R.vec) {
+        // o[3] is a multiple of 4 and o[3] + 3 < D.o[3]: the four share
+        // o[0..2]
+        unravel((unsigned)i0, D.o, o);
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int oj[4] = {o[0], o[1], o[2], o[3] + j};
+            v[j] = remap_value<Case>(R, D, oj);
+        }
+        *reinterpret_cast<float4*>(R.y + i0) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        return;
+    }
+    for (int j = 0; j < 4 && i0 + j < R.n; ++j) {
+        unravel((unsigned)(i0 + j), D.o, o);
+        R.y[i0 + j] = remap_value<Case>(R, D, o);
+    }
+}
+
+__global__ void __launch_bounds__(RT)
+remap_kernel(const __grid_constant__ RemapBatch batch) {
+    const int b = (int)blockIdx.x;
+    int c = 0;
+    while (c + 1 < batch.count && b >= batch.c[c + 1].first) ++c;
+    const RemapCase& R = batch.c[c];
+    const int blk = b - R.first;
+    switch (R.id) {
+        case 0: remap_block<StrideLane>(R, blk); break;
+        case 1: remap_block<StrideSublane>(R, blk); break;
+        case 2: remap_block<StrideLeading>(R, blk); break;
+        case 3: remap_block<ReshapeLeadingSplit>(R, blk); break;
+        case 4: remap_block<ReshapeLeadingMerge>(R, blk); break;
+        case 5: remap_block<CollapseTo2d>(R, blk); break;
+        case 6: remap_block<SplitMinor>(R, blk); break;
+        case 7: remap_block<RollSublane>(R, blk); break;
+        case 8: remap_block<RollLane>(R, blk); break;
+        case 9: remap_block<PadSliceShift>(R, blk); break;
+        case 10: remap_block<TransposeMinor>(R, blk); break;
+        case 11: remap_block<RowGather>(R, blk); break;
+        case 12: remap_block<IotaMask>(R, blk); break;
+        case 13: remap_block<IotaMod24>(R, blk); break;
+        case 14: remap_block<SplitSublane>(R, blk); break;
+        case 15: remap_block<RollLane32>(R, blk); break;
+        case 16: remap_block<PadSliceLane>(R, blk); break;
+        case 17: remap_block<SplitMinorSmall>(R, blk); break;
+        case 18: remap_block<SwapNonminorMerge>(R, blk); break;
+        default: remap_block<OuterBroadcastMul>(R, blk); break;
+    }
 }
 
 // --- the FFMA product ------------------------------------------------------------
 
-constexpr int FM = 64, FN = 64, FK = 16;  // block tile; K chunk
-constexpr int FT = 256;                   // threads: 16 x 16, 4 x 4 outputs each
-constexpr int APAD = 4;                   // keeps As rows 16-byte aligned
+constexpr int DK = 16;    // K chunk
+constexpr int DTY = 16;   // threads along M
+constexpr int DRING = 3;  // cp.async ring stages
+// A rows (m, k) padded by 4 floats: 16-byte aligned, and the 4 consecutive
+// rows a warp reads at once start on distinct bank quads
+constexpr int DLDA = DK + 4;
 
-__global__ void __launch_bounds__(FT)
+// The tile of dot_f32_kernel<TM, BN>: TX = BN / 8 threads along N, each 8
+// columns in two float4 groups BN / 2 apart; 16 along M, each TM rows 16
+// apart. A warp is 8 threads along N x 4 along M.
+template <int TM, int BN>
+struct DotTile {
+    static constexpr int TX = BN / 8;
+    static constexpr int THREADS = TX * DTY;
+    static constexpr int WX = TX / 8;             // warps along N
+    static constexpr int BM = TM * DTY;           // rows per block
+    static constexpr int A_STAGE = BM * DLDA;     // floats
+    static constexpr int STAGE = A_STAGE + DK * BN;
+    static constexpr int SMEM = DRING * STAGE * (int)sizeof(float);
+};
+
+template <int TM, int BN>
+__global__ void __launch_bounds__(DotTile<TM, BN>::THREADS)
 dot_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
                float* __restrict__ c, int m, int n, int k) {
-    __shared__ __align__(16) float As[FK][FM + APAD];
-    __shared__ __align__(16) float Ws[FK][FN];
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-    const int m0 = blockIdx.x * FM, n0 = blockIdx.y * FN;
-    // staging: one float4 of the A tile (row ar, k ak..ak+3) and one of
-    // the W tile (row wr, columns wc..wc+3) per thread
-    const int ar = tid / (FK / 4), ak = (tid % (FK / 4)) * 4;
-    const int wr = tid / (FN / 4), wc = (tid % (FN / 4)) * 4;
+    using T = DotTile<TM, BN>;
+    constexpr int NT = T::THREADS;
+    constexpr int A_PIECES = T::BM * DK / 4;  // 16-byte pieces of a chunk
+    extern __shared__ __align__(16) unsigned char dot_smem[];
+    float* const ring = reinterpret_cast<float*>(dot_smem);
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int tx = (warp % T::WX) * 8 + lane % 8;
+    const int ty = (warp / T::WX) * 4 + lane / 8;
+    const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * BN;
+    const int n_chunks = k / DK;
 
-    float acc[4][4];
+    // chunk k's (BM, DK) rows of A (zero rows past M) and (DK, BN) slice
+    // of W into ring stage k % DRING, as they lie in device memory
+    auto load_chunk = [&](int chunk) {
+        float* const As = ring + (chunk % DRING) * T::STAGE;
+        float* const Ws = As + T::A_STAGE;
+        const int k0 = chunk * DK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < k; k0 += FK) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m0 + ar < m)
-            v = *reinterpret_cast<const float4*>(a + (long long)(m0 + ar) * k
-                                                 + k0 + ak);
-        As[ak + 0][ar] = v.x;
-        As[ak + 1][ar] = v.y;
-        As[ak + 2][ar] = v.z;
-        As[ak + 3][ar] = v.w;
-        *reinterpret_cast<float4*>(&Ws[wr][wc]) =
-            *reinterpret_cast<const float4*>(w + (long long)(k0 + wr) * n +
-                                             n0 + wc);
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < FK; ++kk) {
-            const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-            const float4 b4 = *reinterpret_cast<const float4*>(&Ws[kk][tx * 4]);
-            const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int i = 0; i < (A_PIECES + NT - 1) / NT; ++i) {
+            const int q = tid + i * NT;
+            if (A_PIECES % NT != 0 && q >= A_PIECES) break;
+            const int r = q / (DK / 4), cc = (q % (DK / 4)) * 4;
+            const bool ok = m0 + r < m;
+            cp_async16(As + r * DLDA + cc,
+                       a + (long long)(ok ? m0 + r : 0) * k + k0 + cc, ok);
         }
-        __syncthreads();
-    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = m0 + ty * 4 + i;
-        if (row >= m) continue;
-        *reinterpret_cast<float4*>(c + (long long)row * n + n0 + tx * 4) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        for (int i = 0; i < DK * BN / 4 / NT; ++i) {
+            const int q = tid + i * NT;
+            const int r = q / (BN / 4), cc = (q % (BN / 4)) * 4;
+            cp_async16(Ws + r * BN + cc,
+                       w + (long long)(k0 + r) * n + n0 + cc);
+        }
+    };
+
+    float acc[TM][8];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    // the thread's rows 16 i + ty, columns tx * 4 .. + 3 and BN / 2 + tx *
+    // 4 .. + 3; per 4 k, one float4 of each row, then k by k two of W
+    auto multiply = [&](int chunk) {
+        const float* const As = ring + (chunk % DRING) * T::STAGE;
+        const float* const Ws = As + T::A_STAGE;
+#pragma unroll
+        for (int k4 = 0; k4 < DK; k4 += 4) {
+            float4 av[TM];
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+                av[i] = lds4(As + (i * DTY + ty) * DLDA + k4);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const float4 b0 = lds4(Ws + (k4 + kk) * BN + tx * 4);
+                const float4 b1 = lds4(Ws + (k4 + kk) * BN + BN / 2 + tx * 4);
+                const float b[8] = {b0.x, b0.y, b0.z, b0.w,
+                                    b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                for (int i = 0; i < TM; ++i) {
+                    const float ai = kk == 0   ? av[i].x
+                                     : kk == 1 ? av[i].y
+                                     : kk == 2 ? av[i].z
+                                               : av[i].w;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        acc[i][j] = fmaf(ai, b[j], acc[i][j]);
+                }
+            }
+        }
+    };
+
+    // Chunk k's stage was committed as cp.async group k. The barrier of
+    // iteration k follows the wait for it and ends chunk k-1's product, so
+    // stage (k-1) % DRING can be refilled with chunk k + DRING - 1.
+#pragma unroll
+    for (int s = 0; s < DRING - 1; ++s) {
+        if (s < n_chunks) load_chunk(s);
+        cp_async_commit();
     }
+    for (int kc = 0; kc < n_chunks; ++kc) {
+        cp_async_wait<DRING - 2>();
+        __syncthreads();
+        if (kc + DRING - 1 < n_chunks) load_chunk(kc + DRING - 1);
+        cp_async_commit();
+        multiply(kc);
+    }
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        const int row = m0 + i * DTY + ty;
+        if (row >= m) continue;
+        float* const out = c + (long long)row * n + n0 + tx * 4;
+        *reinterpret_cast<float4*>(out) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        *reinterpret_cast<float4*>(out + BN / 2) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+}
+
+template <int TM, int BN>
+int launch_dot_f32(const float* a, const float* w, float* c, int m, int n,
+                   int k, int device, cudaStream_t stream) {
+    using T = DotTile<TM, BN>;
+    static std::atomic<bool> ready[MAX_DEVICES];
+    const cudaError_t err =
+        opt_in_smem(dot_f32_kernel<TM, BN>, device, ready);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((m + T::BM - 1) / T::BM, n / BN);
+    dot_f32_kernel<TM, BN><<<grid, T::THREADS, T::SMEM, stream>>>(a, w, c, m,
+                                                                  n, k);
+    return (int)cudaGetLastError();
 }
 
 // --- the emulated-HIGH product on the tensor cores -------------------------------
@@ -639,51 +845,93 @@ bool dot_shape_ok(int m, int n, int k) {
 
 extern "C" {
 
-// One layout case (0..19, the order of ops/probe.py's CASES) from x (and w
-// for outer_broadcast_mul) into y; dims holds the input then the output
+// `count` layout cases (ids 0..19, the order of ops/probe.py's CASES) in
+// one launch: case i reads ptrs[3 i] (and ptrs[3 i + 1], the weight of
+// outer_broadcast_mul) and writes ptrs[3 i + 2]; dims[8 i ..] holds its
+// input then its output shape, 4 entries each with leading ones. Every
+// input and output must have under 2^31 elements.
+int bz_probe_remap_batch(int count, const int* ids, const int64_t* ptrs,
+                         const int* dims, void* stream) {
+    if (count <= 0 || count > MAX_REMAP) return (int)cudaErrorInvalidValue;
+    RemapBatch batch{};
+    batch.count = count;
+    long long blocks = 0;
+    for (int c = 0; c < count; ++c) {
+        RemapCase& R = batch.c[c];
+        R.id = ids[c];
+        if (R.id < 0 || R.id >= N_CASES) return (int)cudaErrorInvalidValue;
+        R.x = reinterpret_cast<const float*>(ptrs[3 * c]);
+        R.w = reinterpret_cast<const float*>(ptrs[3 * c + 1]);
+        R.y = reinterpret_cast<float*>(ptrs[3 * c + 2]);
+        long long n_in = 1, n_out = 1;
+        for (int d = 0; d < 4; ++d) {
+            R.D.i[d] = dims[8 * c + d];
+            R.D.o[d] = dims[8 * c + 4 + d];
+            if (R.D.i[d] <= 0 || R.D.o[d] <= 0)
+                return (int)cudaErrorInvalidValue;
+            n_in *= R.D.i[d];
+            n_out *= R.D.o[d];
+        }
+        if (n_in >= (1LL << 31) || n_out >= (1LL << 31))
+            return (int)cudaErrorInvalidValue;
+        R.n = (int)n_out;
+        R.vec = R.D.o[3] % 4 == 0 &&
+                reinterpret_cast<uintptr_t>(R.y) % 16 == 0;
+        R.first = (int)blocks;
+        blocks += (n_out + R_BLOCK - 1) / R_BLOCK;
+    }
+    remap_kernel<<<(unsigned)blocks, RT, 0,
+                   static_cast<cudaStream_t>(stream)>>>(batch);
+    return (int)cudaGetLastError();
+}
+
+// One layout case: a batch of one. dims holds the input then the output
 // shape, 4 entries each with leading ones; n_out = the output's size.
 int bz_probe_remap(int case_id, const float* x, const float* w, float* y,
                    const int64_t* dims, long long n_out, void* stream) {
-    if (n_out <= 0) return (int)cudaErrorInvalidValue;
-    Dims D;
-    for (int d = 0; d < 4; ++d) {
-        D.i[d] = dims[d];
-        D.o[d] = dims[4 + d];
-        if (D.i[d] <= 0 || D.o[d] <= 0) return (int)cudaErrorInvalidValue;
+    int d32[8];
+    long long size = 1;
+    for (int d = 0; d < 8; ++d) {
+        if (dims[d] <= 0 || dims[d] >= (1LL << 31))
+            return (int)cudaErrorInvalidValue;
+        d32[d] = (int)dims[d];
+        if (d >= 4) size *= dims[d];
     }
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (case_id) {
-        case 0: return launch_remap<StrideLane>(x, w, y, D, n_out, s);
-        case 1: return launch_remap<StrideSublane>(x, w, y, D, n_out, s);
-        case 2: return launch_remap<StrideLeading>(x, w, y, D, n_out, s);
-        case 3: return launch_remap<ReshapeLeadingSplit>(x, w, y, D, n_out, s);
-        case 4: return launch_remap<ReshapeLeadingMerge>(x, w, y, D, n_out, s);
-        case 5: return launch_remap<CollapseTo2d>(x, w, y, D, n_out, s);
-        case 6: return launch_remap<SplitMinor>(x, w, y, D, n_out, s);
-        case 7: return launch_remap<RollSublane>(x, w, y, D, n_out, s);
-        case 8: return launch_remap<RollLane>(x, w, y, D, n_out, s);
-        case 9: return launch_remap<PadSliceShift>(x, w, y, D, n_out, s);
-        case 10: return launch_remap<TransposeMinor>(x, w, y, D, n_out, s);
-        case 11: return launch_remap<RowGather>(x, w, y, D, n_out, s);
-        case 12: return launch_remap<IotaMask>(x, w, y, D, n_out, s);
-        case 13: return launch_remap<IotaMod24>(x, w, y, D, n_out, s);
-        case 14: return launch_remap<SplitSublane>(x, w, y, D, n_out, s);
-        case 15: return launch_remap<RollLane32>(x, w, y, D, n_out, s);
-        case 16: return launch_remap<PadSliceLane>(x, w, y, D, n_out, s);
-        case 17: return launch_remap<SplitMinorSmall>(x, w, y, D, n_out, s);
-        case 18: return launch_remap<SwapNonminorMerge>(x, w, y, D, n_out, s);
-        case 19: return launch_remap<OuterBroadcastMul>(x, w, y, D, n_out, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    if (size != n_out) return (int)cudaErrorInvalidValue;
+    const int64_t ptrs[3] = {reinterpret_cast<int64_t>(x),
+                             reinterpret_cast<int64_t>(w),
+                             reinterpret_cast<int64_t>(y)};
+    return bz_probe_remap_batch(1, &case_id, ptrs, d32, stream);
 }
 
-// c (m, n) = a (m, k) @ w (k, n), exact f32 on FFMA.
+// c (m, n) = a (m, k) @ w (k, n), exact f32 on FFMA. The tile: BN = 128
+// where N allows it, else 64; TM = 5 or 4 rows per thread; the pair that
+// gives the busiest SM the fewest outputs (its ceil(blocks / SMs) blocks of
+// 16 TM x BN), the larger tile on a tie.
 int bz_probe_dot_f32(const float* a, const float* w, float* c, int m, int n,
                      int k, void* stream) {
     if (!dot_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
-    dot_f32_kernel<<<dim3((m + FM - 1) / FM, n / FN), FT, 0,
-                     static_cast<cudaStream_t>(stream)>>>(a, w, c, m, n, k);
-    return (int)cudaGetLastError();
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (sms <= 0) return (int)cudaErrorInvalidDevice;
+    auto busiest = [&](int tm, int bn) {
+        const int bm = tm * DTY;
+        const long long blocks = (long long)((m + bm - 1) / bm) * (n / bn);
+        return (blocks + sms - 1) / sms * bm * bn;
+    };
+    int tm = 0, bn = 0;  // candidates from the largest tile down
+    for (const int b : {128, 64}) {
+        if (n % b != 0) continue;
+        for (const int t : {5, 4})
+            if (tm == 0 || busiest(t, b) < busiest(tm, bn)) tm = t, bn = b;
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (bn == 128)
+        return tm == 5 ? launch_dot_f32<5, 128>(a, w, c, m, n, k, device, s)
+                       : launch_dot_f32<4, 128>(a, w, c, m, n, k, device, s);
+    return tm == 5 ? launch_dot_f32<5, 64>(a, w, c, m, n, k, device, s)
+                   : launch_dot_f32<4, 64>(a, w, c, m, n, k, device, s);
 }
 
 // c = a @ w at HIGH on the tensor cores: a (m, k) and w (k, n) f32, split

@@ -5,9 +5,11 @@ Counterpart of the kernels in ``tools/mosaic_capability_probe.py``
 ``case_dot_high_emulated``), with the CUDA sources in ``csrc/probe.cu`` (see
 the note at the top of that file):
 
-* ``remap(case, x, w=None)``: one of the 20 layout cases of ``CASES``
-  (stride-2 slices, reshapes, rolls, pad-shifts, a transpose, a row gather,
-  masks, an outer broadcast product);
+* ``remap_batch(items)``: a list of ``(case, x, w)`` items, each one of the
+  20 layout cases of ``CASES`` (stride-2 slices, reshapes, rolls,
+  pad-shifts, a transpose, a row gather, masks, an outer broadcast
+  product; ``w`` is None but for ``outer_broadcast_mul``), in one launch;
+  ``remap(case, x, w=None)`` is a batch of one;
 * ``dot_f32(a, w)``: (M, K) @ (K, N) in exact f32 (FFMA);
 * ``dot_high(a, w)``: the same product at HIGH on the tensor cores, both f32
   operands split into bf16 hi/lo and hi*hi + hi*lo + lo*hi summed in f32;
@@ -19,11 +21,14 @@ the note at the top of that file):
   times to every element, the f32 peak probe of ``tools/roofline.py``.
 
 On a CUDA tensor each wrapper launches its kernel and adds one to its
-``launches`` counter; on a CPU tensor it computes the plain PyTorch version.
-There is no other path.
+``launches`` counter (``remap_batch`` to ``remap.launches``, once per
+batch); on a CPU tensor it computes the plain PyTorch version. There is no
+other path.
 """
 
 import ctypes
+import itertools
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -75,21 +80,29 @@ _RANK = {**dict.fromkeys(CASES, 3),
          'split_minor': 2}
 
 
-def _check_case(case, x, w):
+# the most items one remap_batch launch takes (csrc/probe.cu: MAX_REMAP,
+# the kernel's table of cases)
+MAX_BATCH = 32
+
+
+def _check_case(case, x, w, where=''):
+    """Raise ValueError (its message led by ``where``) unless ``case``
+    takes ``x`` and ``w``."""
     if case not in CASES:
-        raise ValueError(f'unknown layout case {case!r}; one of {list(CASES)}')
+        raise ValueError(f'{where}unknown layout case {case!r}; one of '
+                         f'{list(CASES)}')
     if x.dtype != torch.float32 or x.dim() != _RANK[case]:
-        raise ValueError(f'{case}: expected a {_RANK[case]}-d float32 input, '
-                         f'got {x.dtype} {tuple(x.shape)}')
+        raise ValueError(f'{where}{case}: expected a {_RANK[case]}-d float32 '
+                         f'input, got {x.dtype} {tuple(x.shape)}')
     if (w is not None) != (case == 'outer_broadcast_mul'):
-        raise ValueError(f'{case}: a weight is taken by outer_broadcast_mul '
-                         f'and nothing else')
+        raise ValueError(f'{where}{case}: a weight is taken by '
+                         f'outer_broadcast_mul and nothing else')
     if w is not None and (w.dtype != torch.float32
                           or tuple(w.shape) != (x.shape[0], 1, 1)
                           or w.device != x.device):
-        raise ValueError(f'{case}: expected a float32 ({x.shape[0]}, 1, 1) '
-                         f'weight on {x.device}, got {w.dtype} '
-                         f'{tuple(w.shape)} on {w.device}')
+        raise ValueError(f'{where}{case}: expected a float32 '
+                         f'({x.shape[0]}, 1, 1) weight on {x.device}, got '
+                         f'{w.dtype} {tuple(w.shape)} on {w.device}')
 
 
 def remap_plain(case: str, x: torch.Tensor, w: torch.Tensor = None):
@@ -168,27 +181,46 @@ def _check_fma(x, steps):
 def load_kernels():
     """Build (once) and load ``csrc/probe.cu``; returns the ctypes library."""
     from buzzdetect_torch.ops import _build
-    lib = _build.load('probe')
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bz_probe_remap.argtypes = [i32, ptr, ptr, ptr, ptr,
-                                   ctypes.c_longlong, ptr]
-    for fn in (lib.bz_probe_dot_f32, lib.bz_probe_dot_high,
-               lib.bz_probe_dot_high_emulated):
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.bz_probe_fma_chain.argtypes = [ptr, ptr, ctypes.c_longlong, i32,
-                                       ctypes.c_float, ctypes.c_float, ptr]
-    for fn in (lib.bz_probe_remap, lib.bz_probe_dot_f32, lib.bz_probe_dot_high,
-               lib.bz_probe_dot_high_emulated, lib.bz_probe_fma_chain):
-        fn.restype = i32
-    lib.bz_probe_error_string.argtypes = [i32]
+    return bind(_build.load('probe'))
+
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# the C interface of csrc/probe.cu: name -> argument types; every pointer
+# and the stream (the last argument) pass as c_void_p, since an untyped int
+# argument would be cut to 32 bits
+_INTERFACE = {
+    'bz_probe_remap': [_I32, _PTR, _PTR, _PTR, _PTR, ctypes.c_longlong,
+                       _PTR],
+    'bz_probe_remap_batch': [_I32, _PTR, _PTR, _PTR, _PTR],
+    'bz_probe_dot_f32': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
+    'bz_probe_dot_high': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
+    'bz_probe_dot_high_emulated': [_PTR, _PTR, _PTR, _I32, _I32, _I32,
+                                   _PTR],
+    'bz_probe_fma_chain': [_PTR, _PTR, ctypes.c_longlong, _I32,
+                           ctypes.c_float, ctypes.c_float, _PTR],
+}
+
+
+def bind(lib):
+    """Declare the C interface of a library built from ``csrc/probe.cu`` on
+    ``lib`` (a ctypes CDLL); returns it. A function that an older build of
+    the source lacks (``bz_probe_remap_batch``) stays undeclared, and
+    calling it raises AttributeError."""
+    for name, argtypes in _INTERFACE.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = _I32
+    lib.bz_probe_error_string.argtypes = [_I32]
     lib.bz_probe_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _call(name, device, *args):
-    """Run ``lib.<name>(*args, stream)`` on ``device``'s current stream;
-    raises on any CUDA error code."""
-    lib = load_kernels()
+def _call(name, device, *args, lib=None):
+    """Run ``lib.<name>(*args, stream)`` (this checkout's library, or
+    ``lib``, another build of it) on ``device``'s current stream; raises on
+    any CUDA error code."""
+    lib = load_kernels() if lib is None else lib
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         code = getattr(lib, name)(*args, stream)
@@ -216,32 +248,101 @@ def _padded(shape):
     return [1] * (4 - len(shape)) + list(shape)
 
 
-def remap(case: str, x: torch.Tensor, w: torch.Tensor = None):
-    """Layout case ``case`` of ``CASES`` applied to ``x`` (and ``w``)."""
-    _check_case(case, x, w)
-    if _route(x) == 'cpu':
-        return remap_plain(case, x, w)
-    _contiguous(x, *([w] if w is not None else []))
-    shape = _out_shape(case, tuple(x.shape),
-                       None if w is None else tuple(w.shape))
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    dims = np.array(_padded(x.shape) + _padded(shape), np.int64)
-    _call('bz_probe_remap', x.device, _CASE_ID[case], x.data_ptr(),
-          None if w is None else w.data_ptr(), out.data_ptr(),
-          dims.ctypes.data, out.numel())
+def _strides(shape):
+    """The strides of a contiguous tensor of ``shape``."""
+    strides, step = [], 1
+    for size in reversed(shape):
+        strides.insert(0, step)
+        step *= size
+    return tuple(strides)
+
+
+@lru_cache(maxsize=None)
+def _batch_table(key):
+    """For a batch's ``((case, x shape, w shape or None), ...)``: the
+    kernel's case ids and dims (input then output shape, padded to 4 with
+    leading ones) as ctypes arrays; each output's shape, strides and offset
+    in one buffer for all of them (a multiple of 4 elements, so every output
+    starts 16-byte aligned); and the buffer's size. Cached by shape, so a
+    repeated sweep builds only its pointers. Raises ValueError naming the
+    item whose input or output has 2**31 elements or more."""
+    shapes = []
+    for i, (case, x_shape, w_shape) in enumerate(key):
+        out = _out_shape(case, x_shape, w_shape)
+        if max(math.prod(x_shape), math.prod(out)) >= 2 ** 31:
+            raise ValueError(f'item {i}: {case}: the kernel indexes in 32 '
+                             f'bits; input {x_shape}, output {out}')
+        shapes.append(out)
+    ids = (ctypes.c_int * len(key))(*(_CASE_ID[case] for case, *_ in key))
+    dims = (ctypes.c_int * (8 * len(key)))(*itertools.chain.from_iterable(
+        _padded(x_shape) + _padded(out)
+        for (_case, x_shape, _w), out in zip(key, shapes)))
+    outs, total = [], 0
+    for shape in shapes:
+        outs.append((shape, _strides(shape), total))
+        total += -(-math.prod(shape) // 4) * 4
+    return ids, dims, tuple(outs), total
+
+
+def remap_batch(items):
+    """The layout cases ``items`` (a list of ``(case, x, w)``, ``w`` None
+    but for ``outer_broadcast_mul``), all in one launch; returns their
+    outputs in order (on the card, views of one new buffer). Every item must
+    lie on one device, with inputs and outputs of under 2**31 elements, and
+    a batch holds 1 to ``MAX_BATCH`` items; anything else raises ValueError
+    naming the item."""
+    items = list(items)
+    if not 0 < len(items) <= MAX_BATCH:
+        raise ValueError(f'remap_batch takes 1 to {MAX_BATCH} items, got '
+                         f'{len(items)}')
+    device = items[0][1].device
+    key = []
+    for i, (case, x, w) in enumerate(items):
+        _check_case(case, x, w, f'item {i}: ')
+        if x.device != device:
+            raise ValueError(f'item {i}: {case} on {x.device}, item 0 on '
+                             f'{device}: a batch lies on one device')
+        key.append((case, tuple(x.shape),
+                    None if w is None else tuple(w.shape)))
+    ids, dims, outs, total = _batch_table(tuple(key))
+    if _route(items[0][1]) == 'cpu':
+        return [remap_plain(case, x, w) for case, x, w in items]
+    _contiguous(*(t for _case, x, w in items
+                  for t in (x, w) if t is not None))
+    buf = torch.empty(total, dtype=torch.float32, device=device)
+    base = buf.data_ptr()
+    ptrs = (ctypes.c_int64 * (3 * len(items)))(*itertools.chain.from_iterable(
+        (x.data_ptr(), 0 if w is None else w.data_ptr(), base + 4 * offset)
+        for (_case, x, w), (_shape, _stride, offset) in zip(items, outs)))
+    _call('bz_probe_remap_batch', device, len(items), ids, ptrs, dims)
     _count_launch(remap)
+    return [buf.as_strided(shape, stride, offset)
+            for shape, stride, offset in outs]
+
+
+def remap(case: str, x: torch.Tensor, w: torch.Tensor = None):
+    """Layout case ``case`` of ``CASES`` applied to ``x`` (and ``w``): a
+    batch of one."""
+    return remap_batch([(case, x, w)])[0]
+
+
+def launch_dot_f32(a, w, lib=None):
+    """``bz_probe_dot_f32`` of this checkout's library (or of ``lib``,
+    another build of it) on CUDA operands; returns the new output."""
+    m, n, k = _check_dot(a, w, None)
+    _contiguous(a, w)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _call('bz_probe_dot_f32', a.device, a.data_ptr(), w.data_ptr(),
+          out.data_ptr(), m, n, k, lib=lib)
     return out
 
 
 def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) in exact f32."""
-    m, n, k = _check_dot(a, w, None)
+    _check_dot(a, w, None)
     if _route(a) == 'cpu':
         return dot_f32_plain(a, w)
-    _contiguous(a, w)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _call('bz_probe_dot_f32', a.device, a.data_ptr(), w.data_ptr(),
-          out.data_ptr(), m, n, k)
+    out = launch_dot_f32(a, w)
     _count_launch(dot_f32)
     return out
 

@@ -5,7 +5,8 @@ whether the TPU's Mosaic compiler lowers one tensor-shape operation inside a
 kernel at all. On the card every form compiles, so here each case runs one
 of the hand-written kernels of ``csrc/probe.cu`` (via ``ops/probe.py``) on
 the JAX probe's inputs and holds the result against the same numpy
-expression: the 20 layout cases exactly, the three products within the JAX
+expression: the 20 layout cases exactly (all 20 in one ``remap_batch``
+launch), the three products within the JAX
 probe's tolerances (1e-4 for exact f32, 1e-3 for HIGH). ``dot_high`` runs
 HIGH natively on the tensor cores (it failed to lower on the TPU), and
 ``dot_high_emulated`` runs the conv kernels' emulation of it, also on the
@@ -109,21 +110,43 @@ def dot_inputs():
     return xs.reshape(4 * 16 * 16, 128), w
 
 
+def _on(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def layout_items(device):
+    """The 20 layout cases as ``remap_batch`` items ``(case, x, w)`` on
+    ``device``."""
+    return [(name, _on(inputs[0], device),
+             _on(inputs[1], device) if len(inputs) > 1 else None)
+            for name, inputs, _ref, _detail in layout_cases()]
+
+
 def run_probe(device):
     """Run the 23 cases on ``device``, in the JAX probe's order; returns
-    {name: status}."""
+    {name: status}. The 20 layout cases go to the card as one
+    ``remap_batch`` launch; if it raises, each of them reports ``FAIL``
+    with its message."""
     from buzzdetect_torch.ops import probe as kernels
     from buzzdetect_torch.ops.sepconv import pack_pointwise
 
     def on(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return _on(a, device)
 
-    def layout(case, inputs, ref, detail):
+    try:
+        items = layout_items(device)
+        outs = kernels.remap_batch(items)
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        batch = {case: out for (case, _x, _w), out in zip(items, outs)}
+    except Exception as e:  # noqa: BLE001 — every layout case reports it
+        batch = e
+
+    def layout(case, _inputs, ref, detail):
         def fn():
-            out = kernels.remap(case, *map(on, inputs))
-            if device.type == 'cuda':
-                torch.cuda.synchronize(device)
-            return np.array_equal(out.cpu().numpy(), ref), detail
+            if isinstance(batch, Exception):
+                raise batch
+            return np.array_equal(batch[case].cpu().numpy(), ref), detail
         return fn
 
     flat, w = dot_inputs()

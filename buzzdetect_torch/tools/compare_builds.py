@@ -1,22 +1,34 @@
-"""Are this checkout's conv kernels bit for bit another build's?
+"""Are this checkout's kernels bit for bit another build's?
 
-Builds a second ``csrc/sepconv.cu`` (for example a parent commit's,
-unpacked beside this checkout) with the same ``nvcc`` flags, loads it next
-to this checkout's library, and runs the same stacks through both on the
-card: ``fused_front`` (layers 2-7), ``fused_tail`` (layers 8-14 + pooling)
-and layers 4-7 in exact f32, and the fronts and tails in bf16 and HIGH, at
-B = 209 (one 200 s chunk) and B = 5, on seeded inputs with the bundle's
-weights. Every pair must be equal (``torch.equal``): resume is
-byte-identical only if a redesigned kernel keeps its arithmetic. Then it
-times each exact-f32 layer 2-14 alone at B = 209 through both libraries,
-in turns (other, this, this, other; the median of 15 CUDA-event timings
-each, the better of each pair kept), so that a layer the redesign made
-slower shows on the same card in the same run.
+Builds a second ``csrc/sepconv.cu`` and/or ``csrc/probe.cu`` (for example a
+parent commit's, unpacked beside this checkout) with the same ``nvcc``
+flags, loads it next to this checkout's library, and runs the same work
+through both on the card. Every pair must be equal (``torch.equal``):
+resume is byte-identical only if a redesigned kernel keeps its arithmetic.
+
+``--against sepconv.cu``: ``fused_front`` (layers 2-7), ``fused_tail``
+(layers 8-14 + pooling) and layers 4-7 in exact f32, and the fronts and
+tails in bf16 and HIGH, at B = 209 (one 200 s chunk) and B = 5, on seeded
+inputs with the bundle's weights. Then it times each exact-f32 layer 2-14
+alone at B = 209 through both libraries, in turns (other, this, this,
+other; the median of 15 CUDA-event timings each, the better of each pair
+kept), so that a layer the redesign made slower shows on the same card in
+the same run.
+
+``--against-probe probe.cu``: ``dot_f32`` at the probe's shape (1024 x 128
+x 128, its seeded operands) and the conv tail's two pointwise shapes
+(5016 x 512 x 512 with layer 8's weight, 1254 x 1024 x 1024 with layer
+14's, seeded activations), and the 20 layout cases: the other build's
+``bz_probe_remap`` one case at a time against this build's
+``bz_probe_remap_batch`` over all 20. Then it times each ``dot_f32`` shape
+and the 20 layout cases through both libraries in the same turns, by CUDA
+events and by device time alone (``torch.profiler``).
 
     python -m buzzdetect_torch.tools.compare_builds \\
-        --against OTHER_CHECKOUT/buzzdetect_torch/csrc/sepconv.cu
+        [--against OTHER_CHECKOUT/buzzdetect_torch/csrc/sepconv.cu] \\
+        [--against-probe OTHER_CHECKOUT/buzzdetect_torch/csrc/probe.cu]
 
-One line per case and per timed layer; exit code 0 only when every case
+One line per case and per timed item; exit code 0 only when every case
 is equal.
 """
 
@@ -30,7 +42,7 @@ import sys
 import numpy as np
 import torch
 
-from buzzdetect_torch.ops import _build, sepconv
+from buzzdetect_torch.ops import _build, probe, sepconv
 
 # name -> (layers, gap, modes)
 CASES = {'fused_front': (dict(start_layer=2, stop_layer=8), False,
@@ -40,16 +52,25 @@ CASES = {'fused_front': (dict(start_layer=2, stop_layer=8), False,
          'fused_tail[4:8]': (dict(start_layer=4, stop_layer=8), False,
                              ('highest',))}
 BATCHES = (209, 5)
+# dot_f32's cases: label -> (M, K, N, the bundle's pointwise weight or None
+# for the probe's own seeded one)
+DOT_SHAPES = {'probe': (1024, 128, 128, None),
+              'layers 8-12': (5016, 512, 512, 'layer8'),
+              'layer 14': (1254, 1024, 1024, 'layer14')}
 
 
-def build_other(path):
-    """Compile ``path`` (a copy of ``csrc/sepconv.cu``, its headers beside
-    it) into ``csrc/build/`` and load it, bound as ``sepconv.bind`` binds
-    this checkout's."""
-    with open(path, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(_build.NVCC_FLAGS)
-                                .encode()).hexdigest()[:16]
-    out = os.path.join(_build.DIR_BUILD, f'libother_{digest}.so')
+def build_other(path, bind=sepconv.bind):
+    """Compile ``path`` (another copy of a ``csrc/*.cu``, its headers beside
+    it) into ``csrc/build/`` and load it, bound by ``bind`` (``sepconv.bind``
+    or ``probe.bind``) as this checkout's library is."""
+    digest = hashlib.sha256(' '.join(_build.NVCC_FLAGS).encode())
+    folder = os.path.dirname(os.path.abspath(path))
+    for f in [path] + sorted(os.path.join(folder, h) for h in
+                             os.listdir(folder) if h.endswith('.cuh')):
+        with open(f, 'rb') as fh:
+            digest.update(fh.read())
+    out = os.path.join(_build.DIR_BUILD,
+                       f'libother_{digest.hexdigest()[:16]}.so')
     if not os.path.exists(out):
         os.makedirs(_build.DIR_BUILD, exist_ok=True)
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-o', out,
@@ -57,7 +78,7 @@ def build_other(path):
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed on {path}:\n{proc.stdout}'
                                f'{proc.stderr}')
-    return sepconv.bind(ctypes.CDLL(out))
+    return bind(ctypes.CDLL(out))
 
 
 def inputs(params, mode, device, seed=0):
@@ -99,19 +120,24 @@ def compare(other, device):
                     theirs = sepconv._launch(ops, x, specs, gap, mode,
                                              lib=other)
                     torch.cuda.synchronize(device)
-                    same = torch.equal(ours, theirs)
-                    d = float((ours - theirs).abs().max())
-                    print(f'{name} [{mode}] B={b} {tuple(ours.shape)}: '
-                          f'{"bit-identical" if same else "DIFFERENT"}'
-                          f' (max |d| {d:.3g})', flush=True)
-                    results[name, mode, b] = same
+                    results[name, mode, b] = _report(
+                        f'{name} [{mode}] B={b} {tuple(ours.shape)}', ours,
+                        theirs)
     return results
+
+
+def _report(label, ours, theirs):
+    """Print whether ``ours`` equals ``theirs`` bit for bit; return it."""
+    same = torch.equal(ours, theirs)
+    d = float((ours - theirs).abs().max())
+    print(f'{label}: {"bit-identical" if same else "DIFFERENT"} (max |d| '
+          f'{d:.3g})', flush=True)
+    return same
 
 
 def time_layers(other, device):
     """{layer: (this ms, other ms)} of every exact-f32 layer alone at the
     largest batch, each on its input from the plain stack."""
-    from buzzdetect_torch.utils import cuda_time_ms
     params = sepconv.pack_params(_weights(device), 'highest')
     b = BATCHES[0]
     times = {}
@@ -119,11 +145,9 @@ def time_layers(other, device):
         x = inputs(params, 'highest', device)['fused_front']
         for s in sepconv.tail_specs(2, None):
             ops = sepconv._check(params, x, (s,), 'highest')
-            runs = [lambda lib=lib: sepconv._launch(ops, x, (s,), False,
-                                                    'highest', lib=lib)
-                    for lib in (other, None, None, other)]
-            t = [cuda_time_ms(run) for run in runs]
-            ours, theirs = min(t[1:3]), min(t[0], t[3])
+            ours, theirs = _in_turns(
+                lambda lib: sepconv._launch(ops, x, (s,), False, 'highest',
+                                            lib=lib), other)
             times[s.index] = ours, theirs
             print(f'layer {s.index} (C={s.c_in}, F={s.c_out}, B={b}): this '
                   f'{ours:.4f} ms, other {theirs:.4f} ms (this / other '
@@ -131,6 +155,104 @@ def time_layers(other, device):
             x = sepconv.fused_tail_plain(
                 params, x, start_layer=s.index, stop_layer=s.index + 1,
                 gap=False).reshape(b, s.h_out, s.w_out, s.c_out)
+    return times
+
+
+def _in_turns(run, other, timer=None):
+    """(this ms, other ms): ``run(lib)`` timed through ``other``, this
+    checkout's library (lib None) twice, then ``other`` again, by ``timer``
+    (default: the median of 15 CUDA-event timings); the better of each
+    pair."""
+    from buzzdetect_torch.utils import cuda_time_ms
+    timer = timer or cuda_time_ms
+    t = [timer(lambda lib=lib: run(lib)) for lib in (other, None, None,
+                                                      other)]
+    return min(t[1:3]), min(t[0], t[3])
+
+
+def dot_operands(device):
+    """{label: (a, w)} of ``DOT_SHAPES``: the probe's seeded operands, and
+    seeded standard-normal activations with the bundle's pointwise weights
+    at the tail's shapes."""
+    from buzzdetect_torch.tools.capability_probe import dot_inputs
+    yam = _weights(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ops = {}
+    for label, (m, k, n, layer) in DOT_SHAPES.items():
+        if layer is None:
+            flat, w = dot_inputs()
+            ops[label] = (torch.from_numpy(flat).to(device),
+                          torch.from_numpy(w).to(device))
+        else:
+            w = yam[f'{layer}/pointwise_conv/kernel'].contiguous()
+            ops[label] = (torch.randn((m, k), device=device, generator=gen),
+                          w)
+    return ops
+
+
+def remap_one(lib, case, x, w):
+    """One layout case through ``lib``'s ``bz_probe_remap``, the one-case
+    entry every build of ``csrc/probe.cu`` has."""
+    shape = probe._out_shape(case, tuple(x.shape),
+                             None if w is None else tuple(w.shape))
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    dims = (ctypes.c_int64 * 8)(*probe._padded(x.shape),
+                                *probe._padded(shape))
+    probe._call('bz_probe_remap', x.device, probe._CASE_ID[case],
+                x.data_ptr(), None if w is None else w.data_ptr(),
+                out.data_ptr(), dims, out.numel(), lib=lib)
+    return out
+
+
+def compare_probe(other, device):
+    """{case: equal}: ``dot_f32`` at ``DOT_SHAPES`` and the 20 layout cases,
+    this checkout's library against ``other``."""
+    from buzzdetect_torch.tools.capability_probe import layout_items
+    sepconv.exact_f32()
+    results = {}
+    with torch.inference_mode():
+        for label, (a, w) in dot_operands(device).items():
+            ours = probe.launch_dot_f32(a, w)
+            theirs = probe.launch_dot_f32(a, w, lib=other)
+            torch.cuda.synchronize(device)
+            m, k = a.shape
+            results['dot_f32', label] = _report(
+                f'dot_f32 {label} ({m}x{k} @ {k}x{w.shape[1]})', ours, theirs)
+        items = layout_items(device)
+        ours = probe.remap_batch(items)
+        theirs = [remap_one(other, *item) for item in items]
+        torch.cuda.synchronize(device)
+        for (case, x, _w), o, t in zip(items, ours, theirs):
+            results['remap', case] = _report(
+                f'remap {case} {tuple(x.shape)} -> {tuple(o.shape)} (this '
+                f'build: one batch of 20; other: one launch each)', o, t)
+    return results
+
+
+def time_probe(other, device):
+    """{item: ((this, other) CUDA-event ms, (this, other) device ms)} of
+    ``dot_f32`` at each shape and of the 20 layout cases (this build: one
+    batch; other: one launch per case), in turns."""
+    from buzzdetect_torch.tools.capability_probe import layout_items
+    from buzzdetect_torch.utils import cuda_device_ms
+    times = {}
+    with torch.inference_mode():
+        runs = {f'dot_f32 {label}':
+                lambda lib, a=a, w=w: probe.launch_dot_f32(a, w, lib=lib)
+                for label, (a, w) in dot_operands(device).items()}
+        items = layout_items(device)
+        runs['remap, 20 layout cases'] = lambda lib: (
+            probe.remap_batch(items) if lib is None
+            else [remap_one(lib, *item) for item in items])
+        for name, run in runs.items():
+            events = _in_turns(run, other)
+            device_time = _in_turns(run, other, cuda_device_ms)
+            times[name] = events, device_time
+            print(f'{name}: this {events[0]:.4f} ms, other {events[1]:.4f} '
+                  f'ms by CUDA events (this / other '
+                  f'{events[0] / events[1]:.2f}x); device time this '
+                  f'{device_time[0]:.4f} ms, other {device_time[1]:.4f} ms '
+                  f'({device_time[0] / device_time[1]:.2f}x)', flush=True)
     return times
 
 
@@ -145,22 +267,34 @@ def _weights(device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description='Run the conv stacks through this checkout\'s '
-                    'csrc/sepconv.cu and another build of it, and check '
-                    'that their outputs are equal bit for bit.')
-    ap.add_argument('--against', required=True,
-                    help='path of the other sepconv.cu')
+        description='Run the conv stacks and/or the probe\'s dot_f32 and '
+                    'layout cases through this checkout\'s kernels and '
+                    'another build of them, and check that their outputs '
+                    'are equal bit for bit.')
+    ap.add_argument('--against', help='path of the other sepconv.cu')
+    ap.add_argument('--against-probe', help='path of the other probe.cu')
     args = ap.parse_args(argv)
+    if not (args.against or args.against_probe):
+        ap.error('give --against, --against-probe or both')
     from buzzdetect_torch.models.classifier import resolve_device
     device = resolve_device('cuda')
+    others = [p for p in (args.against, args.against_probe) if p]
     print(f'device: {torch.cuda.get_device_name(device)}; this checkout '
-          f'against {args.against}', flush=True)
-    other = build_other(args.against)
-    results = compare(other, device)
+          f'against {", ".join(others)}', flush=True)
+    results = {}
+    if args.against:
+        other = build_other(args.against)
+        results.update(compare(other, device))
+    if args.against_probe:
+        other_probe = build_other(args.against_probe, probe.bind)
+        results.update(compare_probe(other_probe, device))
     bad = [k for k, same in results.items() if not same]
     print(f'{len(results) - len(bad)} of {len(results)} cases '
           f'bit-identical', flush=True)
-    time_layers(other, device)
+    if args.against:
+        time_layers(other, device)
+    if args.against_probe:
+        time_probe(other_probe, device)
     return 1 if bad else 0
 
 

@@ -1,9 +1,10 @@
 """Small shared utilities: wire encoding, wall-clock timer, recursive file
-search, result idents, the CUDA-event timer of the tools.
+search, result idents, the CUDA-event and profiler timers of the tools.
 
 Copy of ``buzzdetect_tpu/utils.py`` (parity: reference `src/utils.py:8-62`)
 with the numpy paths of the wire encoders, a device preflight that probes
-torch.cuda, and ``cuda_time_ms`` in place of ``dispatch_slope``.
+torch.cuda, ``cuda_time_ms`` in place of ``dispatch_slope``, and
+``cuda_device_ms`` (device time alone, from ``torch.profiler``).
 """
 
 import os
@@ -214,3 +215,30 @@ def cuda_time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_device_ms(fn, reps: int = 10, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn()``: the CUDA kernels'
+    durations that ``torch.profiler`` records over ``reps`` calls, after
+    ``warmup`` untimed calls, summed and divided by ``reps``. The
+    CUDA-event timer of ``cuda_time_ms`` also counts the host's time to
+    launch them, which can exceed the kernels' own: a run of many small
+    launches is host-bound. Raises if the profiler records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        raise RuntimeError('cuda_device_ms times work on a CUDA device; torch '
+                           'finds none')
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        raise RuntimeError('torch.profiler recorded no device time')
+    return total / 1e3 / reps

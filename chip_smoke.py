@@ -20,11 +20,12 @@ Phases, each printed before the last line:
    same rows inside B = 209, and gives the median times of the kernel, the
    plain version and one library call for the same function (cuDNN
    ``F.conv2d`` stacks; the matmul frontend for the log-mel), their ratio,
-   and the least time the card could take (bound). A conv row also names
-   the unit its layers' pointwise product runs on (FFMA in exact f32, the
-   tensor cores in bf16 and HIGH) and gives the kernel's and the library's device time alone
-   (``torch.profiler``), since the CUDA-event times include the host's
-   launches. Then each mode's device time layer by layer with its bound,
+   and the least time the card could take (bound), and the kernel's and
+   the library's device time alone (``torch.profiler``), since the
+   CUDA-event times include the host's launches. A conv row also names the
+   unit its layers' pointwise product runs on (FFMA in exact f32, the
+   tensor cores in bf16 and HIGH). Then each mode's device time layer by
+   layer with its bound,
    the exact-f32 FFMA kernel's against the cuDNN layer's (TF32 off), the
    ratio of the bf16 and HIGH kernels' to the exact-f32 kernel's, and one
    chunk's device time stage by stage, with the matmul frontend and with
@@ -43,8 +44,10 @@ Phases, each printed before the last line:
    share;
 4. the developer tools (``buzzdetect_torch/tools``): (a) the capability
    probe's 23 cases through the kernels of ``csrc/probe.cu`` (launch counts
-   set to 0 just before and read just after); (b) ``remap`` on the 20
-   layout cases, beside one PyTorch call per case (``remap_library``), and
+   set to 0 just before and read just after; its 20 layout cases are one
+   ``remap`` launch); (b) ``remap_batch`` on the 20 layout cases in one
+   launch, beside the per-case path (20 launches) and one PyTorch call per
+   case (``remap_library``), by CUDA events and device time, and
    the three product kernels at the probe's shape and at
    the conv tail's pointwise shapes (B = 209: 5016 x 512 x 512 with layer
    8's input and weight, 1254 x 1024 x 1024 with layer 14's), each against
@@ -176,28 +179,6 @@ def remap_bytes(torch, case, inputs, out):
         offsets = src[src > 0].long() - 1
         read = 32 * torch.unique(offsets * 4 // 32).numel()
     return read + 4 * out.numel()
-
-
-def device_ms(fn, reps=10):
-    """Device milliseconds per call of ``fn``: the CUDA kernels' durations
-    that ``torch.profiler`` records over ``reps`` calls, after 3 warmups,
-    summed and divided by ``reps``. The CUDA-event timer of the other
-    columns also counts the host's time to launch them, which can exceed
-    the kernels' own: a stack of many small library calls is host-bound."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total <= 0:
-        fail('torch.profiler recorded no device time')
-    return total / 1e3 / reps
 
 
 def remap_library(torch, cases):
@@ -353,6 +334,7 @@ def run(torch, tmp):
                                         roofline)
     from buzzdetect_torch.tools.roofline import (
         library_stack, library_weights, peaks)
+    from buzzdetect_torch.utils import cuda_device_ms as device_ms
     from buzzdetect_torch.utils import cuda_time_ms as time_ms
     from buzzdetect_torch.utils import quantize_int16
 
@@ -390,9 +372,9 @@ def run(torch, tmp):
     def check_row(name, b, got, ref, again, run_kernel, run_plain,
                   run_library, work, tol, product=None):
         """Hold one kernel call against its plain version, time the three,
-        print the row; keep it at B=209. A conv row also gives the unit that
-        runs its layers' product ('mma' or 'ffma') and the device time of
-        the kernel and library calls."""
+        give the kernel's and the library call's device time alone, print
+        the row; keep it at B=209. A conv row also gives the unit that runs
+        its layers' product ('mma' or 'ffma')."""
         err = float((got - ref).abs().max())
         atol, rtol = tol(ref)
         ok = torch.allclose(got, ref, atol=atol, rtol=rtol)
@@ -407,11 +389,12 @@ def run(torch, tmp):
         row = dict(max_abs_err=err, ms=time_ms(run_kernel),
                    plain_ms=time_ms(run_plain),
                    library_ms=time_ms(run_library),
+                   device_ms=device_ms(run_kernel),
+                   library_device_ms=device_ms(run_library),
                    **bound(t_ops, t_bytes))
         row['ratio'] = row['ms'] / row['library_ms']
         if product is not None:
-            row.update(product=product, device_ms=device_ms(run_kernel),
-                       library_device_ms=device_ms(run_library))
+            row['product'] = product
         torch.cuda.synchronize()
         print(f'kernel {name} B={b}: max |kernel - plain| = {err:.3g} '
               f'(atol {atol:.3g}, rtol {rtol:.3g}); kernel {row["ms"]:.4f} '
@@ -420,13 +403,13 @@ def run(torch, tmp):
               f'{row["ratio"]:.2f}x), bound {row["bound_ms"]:.4f} ms '
               f'({row["bound_by"]}: {flops / 1e9:.2f} GFLOP, '
               f'{n_bytes / 1e6:.1f} MB)', flush=True)
-        if product is not None:
-            print(f'  {name} B={b}: every layer\'s product on '
-                  f'{PRODUCT_UNITS[product]}; device time (kernels only, '
-                  f'torch.profiler) kernel {row["device_ms"]:.4f} ms, library '
-                  f'{row["library_device_ms"]:.4f} ms (kernel / library '
-                  f'{row["device_ms"] / row["library_device_ms"]:.2f}x)',
-                  flush=True)
+        unit = ('' if product is None else
+                f'every layer\'s product on {PRODUCT_UNITS[product]}; ')
+        print(f'  {name} B={b}: {unit}device time (kernels only, '
+              f'torch.profiler) kernel {row["device_ms"]:.4f} ms, library '
+              f'{row["library_device_ms"]:.4f} ms (kernel / library '
+              f'{row["device_ms"] / row["library_device_ms"]:.2f}x)',
+              flush=True)
         if not ok:
             fail(f'{name} B={b} disagrees with its plain version: max |d| '
                  f'{err:.3g}')
@@ -693,20 +676,30 @@ def run(torch, tmp):
         if counts[name] <= 0:
             fail(f'the capability probe never launched {name}')
         launches[name] = counts[name]
+    if counts['remap'] != 1:
+        fail(f'the capability probe launched remap {counts["remap"]} times; '
+             f'its 20 layout cases are one batch')
 
     with torch.inference_mode():
-        # remap: the 20 layout cases on the probe's inputs, all together
-        cases = [(name, [torch.from_numpy(a).to(dev) for a in inputs])
-                 for name, inputs, _ref, _detail in
-                 capability_probe.layout_cases()]
+        # remap: the 20 layout cases on the probe's inputs, as one batch
+        # (one launch), beside the per-case path (20 batches of one) and one
+        # PyTorch call per case
+        items = capability_probe.layout_items(dev)
+        cases = [(name, [x] + ([w] if w is not None else []))
+                 for name, x, w in items]
 
-        def all_cases(fn):
-            return [fn(name, *ts) for name, ts in cases]
-        got, again = all_cases(probe.remap), all_cases(probe.remap)
-        ref = all_cases(probe.remap_plain)
+        def per_case():
+            return [probe.remap(*item) for item in items]
+
+        def plain():
+            return [probe.remap_plain(*item) for item in items]
+        got, again = probe.remap_batch(items), probe.remap_batch(items)
+        single, ref = per_case(), plain()
         torch.cuda.synchronize()
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             fail('remap: two launches on the same input differ')
+        if not all(torch.equal(g, o) for g, o in zip(got, single)):
+            fail('remap: the batch differs from the per-case path')
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         n_bytes = sum(remap_bytes(torch, name, ts, g)
                       for (name, ts), g in zip(cases, got))
@@ -714,19 +707,31 @@ def run(torch, tmp):
         library = remap_library(torch, cases)
         if not all(torch.equal(call(), r) for call, r in zip(library, ref)):
             fail('remap: a library call differs from the plain version')
+
+        def run_library():
+            return [call() for call in library]
         rows['remap'] = dict(
-            max_abs_err=err, ms=time_ms(lambda: all_cases(probe.remap)),
-            plain_ms=time_ms(lambda: all_cases(probe.remap_plain)),
-            library_ms=time_ms(lambda: [call() for call in library]),
+            max_abs_err=err, ms=time_ms(lambda: probe.remap_batch(items)),
+            plain_ms=time_ms(plain), library_ms=time_ms(run_library),
+            device_ms=device_ms(lambda: probe.remap_batch(items)),
+            library_device_ms=device_ms(run_library),
             **bound(n_mul / f32_peak, n_bytes / bytes_peak))
         r = rows['remap']
         r['ratio'] = r['ms'] / r['library_ms']
-        print(f'kernel remap, 20 layout cases: max |kernel - plain| = {err} '
-              f'(exact); kernel {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f} '
-              f'ms, library {r["library_ms"]:.4f} ms (one PyTorch call per '
-              f'case, each equal to the plain version; kernel / library '
-              f'{r["ratio"]:.2f}x), bound {r["bound_ms"]:.4f} ms '
-              f'({r["bound_by"]}: {n_bytes / 1e6:.1f} MB)', flush=True)
+        per_case_ms, per_case_device = time_ms(per_case), device_ms(per_case)
+        print(f'kernel remap, 20 layout cases in one launch: max |kernel - '
+              f'plain| = {err} (exact); kernel {r["ms"]:.4f} ms, plain '
+              f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]:.4f} ms (one '
+              f'PyTorch call per case, each equal to the plain version; '
+              f'kernel / library {r["ratio"]:.2f}x), bound '
+              f'{r["bound_ms"]:.4f} ms ({r["bound_by"]}: {n_bytes / 1e6:.1f} '
+              f'MB); device time (torch.profiler) kernel '
+              f'{r["device_ms"]:.4f} ms, library '
+              f'{r["library_device_ms"]:.4f} ms (kernel / library '
+              f'{r["device_ms"] / r["library_device_ms"]:.2f}x)', flush=True)
+        print(f'  remap per case (20 launches, each a batch of one, equal to '
+              f'the batch): {per_case_ms:.4f} ms by CUDA events, device time '
+              f'{per_case_device:.4f} ms', flush=True)
         if err != 0:
             fail(f'remap disagrees with its plain version by {err}')
 
@@ -786,7 +791,9 @@ def run(torch, tmp):
                       f'{row["ratio"]:.2f}x), bound {row["bound_ms"]:.4f} ms '
                       f'({row["bound_by"]}: {flops / 1e9:.2f} GFLOP, '
                       f'{n_bytes / 1e6:.1f} MB); device time (torch.profiler)'
-                      f' kernel {row["device_ms"]:.4f} ms, torch.matmul '
+                      f' kernel {row["device_ms"]:.4f} ms ('
+                      f'{flops / row["device_ms"] / 1e9:.1f} TFLOP/s), '
+                      f'torch.matmul '
                       f'{library_device:.4f} ms (kernel / library '
                       f'{row["device_ms"] / library_device:.2f}x)',
                       flush=True)

@@ -75,3 +75,48 @@ def test_compare_builds_covers_every_mode_and_both_batches():
              for m in ms}
     assert modes == set(compare_builds.sepconv.MODES)
     assert compare_builds.BATCHES == (209, 5)
+
+
+def test_compare_builds_asks_for_the_card_with_the_probe_flag():
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        compare_builds.main(['--against-probe', os.path.join(
+            _build.DIR_CSRC, 'probe.cu')])
+
+
+def test_compare_builds_needs_a_source_to_compare():
+    with pytest.raises(SystemExit):
+        compare_builds.main([])
+
+
+def test_compare_builds_probe_cases_are_the_layout_cases_and_three_dots():
+    from buzzdetect_torch.ops import probe
+    from buzzdetect_torch.tools.capability_probe import layout_items
+    device = torch.device('cpu')
+    assert [case for case, _x, _w in layout_items(device)] == list(
+        probe.CASES)
+    ops = compare_builds.dot_operands(device)
+    shapes = [(a.shape[0], a.shape[1], w.shape[1]) for a, w in ops.values()]
+    assert shapes == [(1024, 128, 128), (5016, 512, 512), (1254, 1024, 1024)]
+    assert shapes == [v[:3] for v in compare_builds.DOT_SHAPES.values()]
+    yam = compare_builds._weights(device)
+    assert torch.equal(ops['layer 14'][1],
+                       yam['layer14/pointwise_conv/kernel'])
+
+
+def test_probe_bind_declares_what_a_build_has():
+    """An older build of csrc/probe.cu lacks bz_probe_remap_batch: binding
+    it declares the rest and leaves that one absent."""
+    from buzzdetect_torch.ops import probe
+
+    class Lib:
+        pass
+    lib = Lib()
+    for name in [*probe._INTERFACE, 'bz_probe_error_string']:
+        if name != 'bz_probe_remap_batch':
+            setattr(lib, name, Lib())
+    assert probe.bind(lib) is lib
+    assert lib.bz_probe_dot_f32.argtypes == probe._INTERFACE[
+        'bz_probe_dot_f32']
+    assert lib.bz_probe_remap.restype is probe._I32
+    assert not hasattr(lib, 'bz_probe_remap_batch')

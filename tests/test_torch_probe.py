@@ -12,6 +12,8 @@ on the CPU: ``dot_f32`` against ``jnp.dot`` at HIGHEST (atol 1e-4, rtol
 ``_split_hi_lo`` weight (atol 2e-4, rtol 1e-5: the same three products,
 f32 sums in another order); and all three against numpy's float64 product
 within the JAX probe's own tolerances (atol 1e-4, 1e-3, 1e-3).
+``remap_batch`` (the 20 cases in one launch on the card) is held to the same
+numpy references and to ``remap`` case by case, exactly.
 """
 
 import os
@@ -172,3 +174,85 @@ def test_cpu_tensors_leave_every_launch_counter_at_zero(capsys):
 def test_wrappers_refuse_what_the_kernels_do_not_take(call, match):
     with pytest.raises(ValueError, match=match):
         call()
+
+
+def _items(device='cpu'):
+    """The 20 layout cases as ``remap_batch`` items, on REFS's inputs."""
+    return [(case, torch.from_numpy(inputs[0]).to(device),
+             torch.from_numpy(inputs[1]).to(device) if len(inputs) > 1
+             else None) for case, (inputs, _ref) in REFS.items()]
+
+
+def test_remap_batch_on_the_cpu_equals_the_references_and_remap():
+    for kernel in probe.KERNELS:
+        kernel.launches = 0
+    items = _items()
+    outs = probe.remap_batch(items)
+    assert len(outs) == 20
+    for (case, x, w), out in zip(items, outs):
+        want = REFS[case][1]()
+        single = probe.remap(case, x, w)
+        got = out.numpy()
+        err = (float(np.abs(got - want).max()) if got.shape == want.shape
+               else float('inf'))
+        print(f'remap_batch {case}: {got.shape}, max |port - numpy| = {err}')
+        assert got.shape == want.shape and np.array_equal(got, want)
+        assert torch.equal(out, single)
+    assert probe.remap.launches == 0   # the CPU runs the plain versions
+
+
+@pytest.mark.parametrize('bad,match', [
+    (('no_such_case', torch.zeros(2, 2, 2), None), 'item 3: unknown'),
+    (('stride_lane', torch.zeros(4, 16, 16, 128), None), 'item 3: .*3-d'),
+    (('roll_lane', torch.zeros(16, 16, 128), torch.zeros(16, 1, 1)),
+     'item 3: .*weight'),
+    (('outer_broadcast_mul', torch.zeros(32, 96, 128), None),
+     'item 3: .*weight'),
+    (('outer_broadcast_mul', torch.zeros(32, 96, 128), torch.zeros(8, 1, 1)),
+     'item 3: .*weight'),
+    (('stride_lane', torch.zeros(16, 16, 128, device='meta'), None),
+     'item 3: .*one device'),
+])
+def test_remap_batch_refuses_a_bad_item_naming_it(bad, match):
+    items = _items()[:3] + [bad] + _items()[3:5]
+    with pytest.raises(ValueError, match=match):
+        probe.remap_batch(items)
+
+
+def test_remap_batch_refuses_what_32_bit_indices_cannot_reach():
+    big = torch.zeros(2, 1024, 1024, 1024, device='meta')   # 2**31
+    with pytest.raises(ValueError, match='item 1: .*32 bits'):
+        probe.remap_batch([('stride_leading', big[:, :8], None),
+                           ('collapse_to_2d', big, None)])
+
+
+@pytest.mark.parametrize('n', [0, probe.MAX_BATCH + 1])
+def test_remap_batch_refuses_an_empty_or_oversized_batch(n):
+    items = (_items() * 2)[:n]
+    with pytest.raises(ValueError, match=f'1 to {probe.MAX_BATCH} items'):
+        probe.remap_batch(items)
+
+
+def test_a_failed_batch_fails_every_layout_case_and_the_products_run(
+        monkeypatch):
+    def broken(items):
+        raise RuntimeError('bz_probe_remap_batch failed: CUDA error 1')
+    monkeypatch.setattr(probe, 'remap_batch', broken)
+    results = capability_probe.run_probe(torch.device('cpu'))
+    layout = {name for name, *_ in capability_probe.layout_cases()}
+    assert len(results) == 23 and list(results)[11] == 'collapsed_dot'
+    assert {results[n] for n in layout} == {'FAIL'}
+    assert {s for n, s in results.items() if n not in layout} == {'PASS'}
+
+
+def test_the_probe_sends_its_layout_cases_as_one_batch(monkeypatch):
+    batches = []
+    real = probe.remap_batch
+
+    def spy(items):
+        batches.append([case for case, _x, _w in items])
+        return real(items)
+    monkeypatch.setattr(probe, 'remap_batch', spy)
+    results = capability_probe.run_probe(torch.device('cpu'))
+    assert set(results.values()) == {'PASS'}
+    assert batches == [list(probe.CASES)]
