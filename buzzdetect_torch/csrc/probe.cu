@@ -7,11 +7,12 @@
 // which tensor-shape operations the Mosaic compiler lowers at all. On this
 // card every form compiles, so what the probe checks here is the index
 // arithmetic a fused front would use (stride-2 subsampling, rolls,
-// pad-shifts, a row gather), and which of the card's two tensor-core routes
-// to an emulated-HIGH product is faster: the native one (wmma, both
-// operands split in shared memory, one accumulator), or the one
-// csrc/sepconv.cu's HIGH mode runs (mma.sync on a pre-split weight, two
-// accumulators).
+// pad-shifts, a row gather), and which of the card's two routes to an
+// emulated-HIGH product on the tensor cores is faster: the native one (an
+// f32 weight split in the kernel, one accumulator), or the one
+// csrc/sepconv.cu's HIGH mode runs (a pre-split weight, two accumulators).
+// Both run one pipeline, dot_hilo_mma_kernel<F32_W, ONE_ACC>, so the
+// comparison measures those two choices and nothing else.
 //
 // remap (for `run`, tools/mosaic_capability_probe.py:48-54, one
 // whole-array pallas_call per layout case). Each output element is one
@@ -79,42 +80,37 @@
 //     balance at these shapes, and takes 161 registers a thread.
 //   Measured: at the end of this note.
 //
-// dot_high (for `case_dot_high`, "native HIGH"). The card's native form of
-// the TPU's three-pass HIGH: f32 activation and f32 weight are split into
-// bf16 hi and lo halves as they are staged in shared memory
-// (hi = bf16(v), lo = bf16(v - hi), round to nearest even), and
-// hi*hi + hi*lo + lo*hi run on the tensor cores with f32 accumulation
-// (nvcuda::wmma bf16 16x16x16 fragments). 64 x 64 outputs per block of 4
-// warps, each warp 32 x 32 (2 x 2 fragments), K staged in chunks of 32.
-// Shared-memory rows are padded by 8 bf16 (ldm a multiple of 8 elements,
-// every fragment pointer 32-byte aligned); the M edge is masked with zero
-// rows, and the output goes through shared memory so that masked rows are
-// never stored. Bound: three bf16 products (6 M N K operations) at the
-// tensor cores' dense bf16 peak, or the bytes, whichever is larger. No wgmma,
-// no TMA, no pipelining: simple and right first.
-//
-// dot_high_emulated (for `case_dot_high_emulated`, the TPU's `_pw_dot` at
-// HIGH: three one-pass bf16 products on the MXU). The product of
-// csrc/sepconv.cu's HIGH mode on its own, on the tensor cores. The weight
-// arrives pre-split as (2, K, N) bf16 hi and lo planes
-// (ops/sepconv.pack_pointwise(w, 'high')); a ring of 3 cp.async stages
-// brings each K chunk of 32 (the f32 activation tile and both weight
-// planes, 16 bytes a thread) to shared memory while earlier chunks
-// compute; each chunk's activation is split once into bf16 hi and lo planes
-// in shared memory (a_hi = bf16(a), a_lo = bf16(a - a_hi)); ldmatrix feeds
-// mma.sync.m16n8k16 bf16 -> f32 with two accumulators, hi*hi and
-// hi*lo + lo*hi, added in the epilogue, exactly as sep_layer_mma_kernel
-// does. 64 x 128 outputs per block of 8 warps (2 along M x 4 along N, each
-// 32 x 32), so the conv tail's shapes launch 316 (5016 x 512) and 160
-// (1254 x 1024) blocks, at least one per SM; the M edge is masked with
-// zero rows and an N edge (N = 64 mod 128) with zero columns, neither
-// stored. K in order, no split K, no atomics: identical from run to run.
-// Bound: three bf16 products at the dense bf16 peak, as dot_high. Measured
-// (chip_smoke.py, H100 SXM at 700 W): 0.035 ms device time at 5016 x 512 x
-// 512 and 0.041 at 1254 x 1024 x 1024, 4-5x that bound and 0.58-0.65x
-// torch.matmul in f32; the earlier FFMA kernel took 0.26-0.30 ms. Within
-// 2.2e-4 of float64 on standard-normal operands at K = 1024 (dot_high, one
-// accumulator: 6.3e-4).
+// dot_high (for `case_dot_high`, "native HIGH") and dot_high_emulated (for
+// `case_dot_high_emulated`, the TPU's `_pw_dot` at HIGH: three one-pass bf16
+// products on the MXU): the card's form of the TPU's three-pass HIGH. The
+// f32 activation is split into bf16 hi and lo halves (hi = bf16(v), lo =
+// bf16(v - hi), round to nearest even), and hi*hi + hi*lo + lo*hi run on the
+// tensor cores (mma.sync.m16n8k16 bf16 -> f32). One kernel,
+// dot_hilo_mma_kernel<F32_W, ONE_ACC>, serves both; they differ only in
+//   - the weight's form: dot_high takes it f32 and splits each (32 x 128)
+//     chunk once in shared memory, as it splits the activation;
+//     dot_high_emulated takes it pre-split as (2, K, N) bf16 hi and lo
+//     planes (ops/sepconv.pack_pointwise(w, 'high')), as csrc/sepconv.cu's
+//     HIGH mode does;
+//   - the accumulators: dot_high adds hi*hi, hi*lo and lo*hi into one for
+//     each 16 taps, in that order; dot_high_emulated keeps hi*hi in one and
+//     hi*lo + lo*hi in another, added in the epilogue, exactly as
+//     sep_layer_mma_kernel does.
+// The pipeline: a ring of 3 cp.async stages brings each K chunk of 32 (the
+// f32 activation tile and the weight tile, 16 bytes a thread) to shared
+// memory while earlier chunks compute; each chunk is split once into bf16
+// planes; ldmatrix feeds the mma.sync tiles. 64 x 128 outputs per block of 8
+// warps (2 along M x 4 along N, each 32 x 32), so the conv tail's shapes
+// launch 316 (5016 x 512) and 160 (1254 x 1024) blocks, at least one per
+// SM; the M edge is masked with zero rows and an N edge (N = 64 mod 128)
+// with zero columns, neither stored. K in order, no split K, no atomics:
+// identical from run to run. dot_high's earlier kernel (nvcuda::wmma, 4
+// warps on 64 x 64 tiles, each chunk loaded and split between two barriers
+// with nothing in flight) ran the same mma sequence into its one
+// accumulator: a wmma bf16 16x16x16 product is two m16n8k16 mma on this
+// card. Bound: three bf16 products (6 M N K operations) at the tensor
+// cores' dense bf16 peak, or the bytes, whichever is larger. Measured: at
+// the end of this note.
 //
 // fma_chain (for tools/roofline.py's measured f32 peak). Each thread keeps
 // four independent values in registers and applies v = fma(v, a, b) to each
@@ -134,13 +130,20 @@
 //     kernel's 0.091 and 0.106. Its busiest SM runs at 94-98% of the FMA
 //     chain's rate: what holds it is the FFMA issue rate itself and the
 //     tile granularity (the busiest SM 1.05x the mean work).
+//   dot_high: 0.039 ms at 5016 x 512 x 512 and 0.047 ms at 1254 x 1024 x
+//     1024 on the conv tail's operands (0.64x and 0.74x torch.matmul f32,
+//     1.11x and 1.16x dot_high_emulated's 0.035 and 0.040), against the
+//     earlier wmma kernel's 0.042 and 0.061; its outputs are bit for bit
+//     that kernel's. Pipelining its weight split behind the previous
+//     chunk's product took it from 1.21x to 1.16x dot_high_emulated at
+//     1254 x 1024 x 1024. Both HIGH routes sit at 4.4-5.9x the bound; what
+//     is left between them is the weight's split.
 //
 // Plain C interface, loaded with ctypes; every function returns a
 // cudaError_t code (0 = success) and launches on the given stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -561,7 +564,7 @@ int launch_dot_f32(const float* a, const float* w, float* c, int m, int n,
     return (int)cudaGetLastError();
 }
 
-// --- the emulated-HIGH product on the tensor cores -------------------------------
+// --- the HIGH products on the tensor cores -------------------------------------
 
 constexpr int EM = 64, EN = 128, EK = 32;  // block tile; K chunk
 constexpr int ET = 256;    // threads: 8 warps, 2 along M x 4 along N
@@ -572,21 +575,51 @@ constexpr int EPAD = 8;
 constexpr int E_LDA = EK + EPAD, E_LDB = EN + EPAD;  // bf16 rows
 constexpr int E_A_PLANE = EM * E_LDA;  // one plane of the split A tile
 constexpr int E_B_PLANE = EK * E_LDB;  // one plane of a chunk's weights
-// bytes: a ring stage (the f32 activation tile, then the weights' hi and
-// lo planes), then the whole: the split A tile's two planes and the ring
 constexpr int E_STAGE_A = EM * EK * (int)sizeof(float);
-constexpr int E_STAGE = E_STAGE_A + 2 * E_B_PLANE * (int)sizeof(__nv_bfloat16);
-constexpr int E_SMEM =
-    2 * E_A_PLANE * (int)sizeof(__nv_bfloat16) + ERING * E_STAGE;
 
+// The two HIGH routes differ only in the weight's form and the
+// accumulators:
+//   - F32_W: the weight arrives f32 (K, N); a ring stage holds its (EK, EN)
+//     f32 tile, split once per chunk into the W tile's bf16 hi and lo planes
+//     in shared memory, as the activation is. Else it arrives pre-split as
+//     (2, K, N) bf16 hi, lo, and a ring stage holds both planes.
+//   - ONE_ACC: hi*hi, hi*lo and lo*hi added into one accumulator for each
+//     16 taps, in that order (dot_high); else hi*hi in one and hi*lo +
+//     lo*hi in another, added in the epilogue (dot_high_emulated).
+//   With an f32 weight the split is three times the work, so it is
+//   pipelined: chunk k+1 is split while chunk k's product runs, into the
+//   other of two split buffers, one barrier a chunk, and a ring of 2 stages
+//   keeps the whole within two blocks an SM. A pre-split weight keeps one
+//   split buffer, a ring of 3 and two barriers a chunk.
+template <bool F32_W>
+struct HiloSmem {
+    static constexpr int NBUF = F32_W ? 2 : 1;     // split buffers
+    static constexpr int RING = F32_W ? 2 : ERING;  // cp.async stages
+    // bf16 elements of a split buffer: the A tile's two planes, then the W
+    // tile's two planes (F32_W)
+    static constexpr int BUF = 2 * (E_A_PLANE + (F32_W ? E_B_PLANE : 0));
+    // bytes: a ring stage (the f32 activation tile, then the weight: f32,
+    // or its hi and lo planes), then the whole: the split buffers and the
+    // ring
+    static constexpr int STAGE_W = F32_W
+        ? EK * EN * (int)sizeof(float)
+        : 2 * E_B_PLANE * (int)sizeof(__nv_bfloat16);
+    static constexpr int STAGE = E_STAGE_A + STAGE_W;
+    static constexpr int SPLIT = NBUF * BUF * (int)sizeof(__nv_bfloat16);
+    static constexpr int BYTES = SPLIT + RING * STAGE;
+};
+
+template <bool F32_W, bool ONE_ACC>
 __global__ void __launch_bounds__(ET, 2)
 dot_hilo_mma_kernel(const float* __restrict__ a,
-                    const __nv_bfloat16* __restrict__ w,
+                    const void* __restrict__ w_any,
                     float* __restrict__ c, int m, int n, int k) {
+    using L = HiloSmem<F32_W>;
+    constexpr int NACC = ONE_ACC ? 1 : 2;
     extern __shared__ __align__(16) unsigned char esmem[];
-    __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(esmem);
-    unsigned char* const ring =
-        esmem + 2 * E_A_PLANE * (int)sizeof(__nv_bfloat16);
+    // split buffer b: the A tile's hi, lo planes, then (F32_W) the W tile's
+    __nv_bfloat16* const split_base = reinterpret_cast<__nv_bfloat16*>(esmem);
+    unsigned char* const ring = esmem + L::SPLIT;
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int wm = warp / 4, wn = warp % 4;  // the warp's 32 x 32 sub-tile
     const int m0 = blockIdx.x * EM, n0 = blockIdx.y * EN;
@@ -594,14 +627,13 @@ dot_hilo_mma_kernel(const float* __restrict__ a,
     const long long plane = (long long)k * n;
 
     auto stage_a = [&](int chunk) {
-        return reinterpret_cast<float*>(ring + (chunk % ERING) * E_STAGE);
+        return reinterpret_cast<float*>(ring + (chunk % L::RING) * L::STAGE);
     };
     auto stage_w = [&](int chunk) {
-        return reinterpret_cast<__nv_bfloat16*>(
-            ring + (chunk % ERING) * E_STAGE + E_STAGE_A);
+        return ring + (chunk % L::RING) * L::STAGE + E_STAGE_A;
     };
     // chunk k's (EM, EK) f32 activations (zero rows past M) and its (EK,
-    // EN) hi and lo weights (zero columns past N) into ring stage k % ERING
+    // EN) weights (zero columns past N) into ring stage k % RING
     auto load_chunk = [&](int chunk) {
         const int k0 = chunk * EK;
         float* const A = stage_a(chunk);
@@ -613,22 +645,42 @@ dot_hilo_mma_kernel(const float* __restrict__ a,
             cp_async16(A + r * EK + cc,
                        a + (long long)(ok ? m0 + r : 0) * k + k0 + cc, ok);
         }
-        __nv_bfloat16* const W = stage_w(chunk);
+        if constexpr (F32_W) {
+            const float* const w = static_cast<const float*>(w_any);
+            float* const W = reinterpret_cast<float*>(stage_w(chunk));
 #pragma unroll
-        for (int i = 0; i < 2 * EK * EN / 8 / ET; ++i) {
-            const int q = tid + i * ET;
-            const int p = q / (EK * EN / 8), r = (q / (EN / 8)) % EK;
-            const int cc = (q % (EN / 8)) * 8;
-            const bool ok = n0 + cc < n;
-            cp_async16(W + p * E_B_PLANE + r * E_LDB + cc,
-                       w + p * plane + (long long)(k0 + r) * n +
-                           (ok ? n0 + cc : 0),
-                       ok);
+            for (int i = 0; i < EK * EN / 4 / ET; ++i) {
+                const int q = tid + i * ET;
+                const int r = q / (EN / 4), cc = (q % (EN / 4)) * 4;
+                const bool ok = n0 + cc < n;
+                cp_async16(W + r * EN + cc,
+                           w + (long long)(k0 + r) * n + (ok ? n0 + cc : 0),
+                           ok);
+            }
+        } else {
+            const __nv_bfloat16* const w =
+                static_cast<const __nv_bfloat16*>(w_any);
+            __nv_bfloat16* const W =
+                reinterpret_cast<__nv_bfloat16*>(stage_w(chunk));
+#pragma unroll
+            for (int i = 0; i < 2 * EK * EN / 8 / ET; ++i) {
+                const int q = tid + i * ET;
+                const int p = q / (EK * EN / 8), r = (q / (EN / 8)) % EK;
+                const int cc = (q % (EN / 8)) * 8;
+                const bool ok = n0 + cc < n;
+                cp_async16(W + p * E_B_PLANE + r * E_LDB + cc,
+                           w + p * plane + (long long)(k0 + r) * n +
+                               (ok ? n0 + cc : 0),
+                           ok);
+            }
         }
     };
-    // chunk k's activations split once into the A tile's hi and lo planes
+    // chunk k's activations (and an f32 weight) split once into the A (and
+    // W) tile's hi and lo planes of split buffer k % NBUF
     auto split = [&](int chunk) {
         const float* const A = stage_a(chunk);
+        __nv_bfloat16* const As = split_base + (chunk % L::NBUF) * L::BUF;
+        __nv_bfloat16* const Ws = As + 2 * E_A_PLANE;
 #pragma unroll
         for (int i = 0; i < EM * EK / 4 / ET; ++i) {
             const int q = tid + i * ET;
@@ -636,12 +688,24 @@ dot_hilo_mma_kernel(const float* __restrict__ a,
             split_hi_lo(lds4(A + r * EK + cc), As + r * E_LDA + cc,
                         As + E_A_PLANE + r * E_LDA + cc);
         }
+        if constexpr (F32_W) {
+            const float* const W = reinterpret_cast<const float*>(
+                stage_w(chunk));
+#pragma unroll
+            for (int i = 0; i < EK * EN / 4 / ET; ++i) {
+                const int q = tid + i * ET;
+                const int r = q / (EN / 4), cc = (q % (EN / 4)) * 4;
+                split_hi_lo(lds4(W + r * EN + cc), Ws + r * E_LDB + cc,
+                            Ws + E_B_PLANE + r * E_LDB + cc);
+            }
+        }
     };
 
-    // acc[0]: a_hi * w_hi; acc[1]: a_hi * w_lo + a_lo * w_hi
-    float acc[2][2][4][4];
+    // ONE_ACC: acc[0] takes all three products; else acc[0]: a_hi * w_hi,
+    // acc[1]: a_hi * w_lo + a_lo * w_hi
+    float acc[NACC][2][4][4];
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
+    for (int p = 0; p < NACC; ++p)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -650,7 +714,11 @@ dot_hilo_mma_kernel(const float* __restrict__ a,
                 for (int e = 0; e < 4; ++e) acc[p][i][j][e] = 0.f;
 
     auto multiply = [&](int chunk) {
-        const __nv_bfloat16* const W = stage_w(chunk);
+        const __nv_bfloat16* const As =
+            split_base + (chunk % L::NBUF) * L::BUF;
+        const __nv_bfloat16* const W =
+            F32_W ? As + 2 * E_A_PLANE
+                  : reinterpret_cast<const __nv_bfloat16*>(stage_w(chunk));
 #pragma unroll
         for (int ks = 0; ks < EK; ks += 16) {
             uint32_t af[2][2][4], bf[2][4][2];
@@ -684,29 +752,52 @@ dot_hilo_mma_kernel(const float* __restrict__ a,
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
                     mma_bf16(acc[0][i][j], af[0][i], bf[0][j]);
-                    mma_bf16(acc[1][i][j], af[0][i], bf[1][j]);
-                    mma_bf16(acc[1][i][j], af[1][i], bf[0][j]);
+                    mma_bf16(acc[NACC - 1][i][j], af[0][i], bf[1][j]);
+                    mma_bf16(acc[NACC - 1][i][j], af[1][i], bf[0][j]);
                 }
         }
     };
 
-    // Chunk k's stage was committed as cp.async group k. The first barrier
-    // of iteration k follows the wait for it and ends chunk k-1's product,
-    // so stage (k-1) % ERING can be refilled and the A tile rewritten; the
-    // second makes the A tile whole before the product.
+    // Chunk k's stage was committed as cp.async group k.
+    if constexpr (F32_W) {
+        // Iteration k: the barrier follows the wait for chunk k+1 and ends
+        // chunk k-1's product and chunk k's split, so stage k % 2 can be
+        // refilled with chunk k+2 and split buffer (k+1) % 2 rewritten
+        // while chunk k's product runs.
+        load_chunk(0);
+        cp_async_commit();
+        if (n_chunks > 1) load_chunk(1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        split(0);
+        for (int kc = 0; kc < n_chunks; ++kc) {
+            cp_async_wait<0>();
+            __syncthreads();
+            if (kc + 2 < n_chunks) load_chunk(kc + 2);
+            cp_async_commit();
+            if (kc + 1 < n_chunks) split(kc + 1);
+            multiply(kc);
+        }
+    } else {
 #pragma unroll
-    for (int s = 0; s < ERING - 1; ++s) {
-        if (s < n_chunks) load_chunk(s);
-        cp_async_commit();
-    }
-    for (int kc = 0; kc < n_chunks; ++kc) {
-        cp_async_wait<ERING - 2>();
-        __syncthreads();
-        if (kc + ERING - 1 < n_chunks) load_chunk(kc + ERING - 1);
-        cp_async_commit();
-        split(kc);
-        __syncthreads();
-        multiply(kc);
+        for (int s = 0; s < ERING - 1; ++s) {
+            if (s < n_chunks) load_chunk(s);
+            cp_async_commit();
+        }
+        // The first barrier of iteration k follows the wait for chunk k and
+        // ends chunk k-1's product, so stage (k-1) % RING can be refilled
+        // and the split tiles rewritten; the second makes the split tiles
+        // whole before the product.
+        for (int kc = 0; kc < n_chunks; ++kc) {
+            cp_async_wait<ERING - 2>();
+            __syncthreads();
+            if (kc + ERING - 1 < n_chunks) load_chunk(kc + ERING - 1);
+            cp_async_commit();
+            split(kc);
+            __syncthreads();
+            multiply(kc);
+        }
     }
 
     // c0, c1 of an mma tile are row g's columns 2t, 2t+1 and c2, c3 row
@@ -721,7 +812,8 @@ dot_hilo_mma_kernel(const float* __restrict__ a,
             float v[4];
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                v[e] = acc[0][i][j][e] + acc[1][i][j][e];
+                v[e] = ONE_ACC ? acc[0][i][j][e]
+                               : acc[0][i][j][e] + acc[NACC - 1][i][j][e];
             const float s0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[2], 1);
             const float s1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : v[3], 1);
             const int row = m0 + wm * 32 + i * 16 + g + (odd ? 8 : 0);
@@ -733,88 +825,21 @@ dot_hilo_mma_kernel(const float* __restrict__ a,
         }
 }
 
-
-// --- the native-HIGH product on the tensor cores (wmma) -------------------------
-
-namespace wmma = nvcuda::wmma;
-
-constexpr int HM = 64, HN = 64, HK = 32;  // block tile; K chunk
-constexpr int HT = 128;                   // threads: 4 warps, 2 x 2
-constexpr int LDA = HK + 8;               // bf16; a multiple of 8
-constexpr int LDB = HN + 8;               // bf16; a multiple of 8
-constexpr int LDC = HN + 4;               // f32; a multiple of 4
-
-__global__ void __launch_bounds__(HT)
-dot_high_kernel(const float* __restrict__ a, const float* __restrict__ w,
-                float* __restrict__ c, int m, int n, int k) {
-    __shared__ __align__(32) __nv_bfloat16 As[2][HM][LDA];  // hi, lo
-    __shared__ __align__(32) __nv_bfloat16 Ws[2][HK][LDB];  // hi, lo
-    __shared__ __align__(32) float Cs[HM][LDC];
-    const int tid = threadIdx.x, warp = tid / 32;
-    const int wm = warp / 2, wn = warp % 2;  // the warp's 32 x 32 sub-tile
-    const int m0 = blockIdx.x * HM, n0 = blockIdx.y * HN;
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    for (int k0 = 0; k0 < k; k0 += HK) {
-        for (int q = tid; q < HM * HK / 4; q += HT) {
-            const int r = q / (HK / 4), cc = (q % (HK / 4)) * 4;
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);  // masked rows: 0
-            if (m0 + r < m)
-                v = *reinterpret_cast<const float4*>(
-                    a + (long long)(m0 + r) * k + k0 + cc);
-            split_hi_lo(v, &As[0][r][cc], &As[1][r][cc]);
-        }
-        for (int q = tid; q < HK * HN / 4; q += HT) {
-            const int r = q / (HN / 4), cc = (q % (HN / 4)) * 4;
-            const float4 v = *reinterpret_cast<const float4*>(
-                w + (long long)(k0 + r) * n + n0 + cc);
-            split_hi_lo(v, &Ws[0][r][cc], &Ws[1][r][cc]);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < HK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fa[2][2];  // [plane][i]
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> fb[2][2];  // [plane][j]
-#pragma unroll
-            for (int p = 0; p < 2; ++p)
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    wmma::load_matrix_sync(fa[p][i],
-                                           &As[p][wm * 32 + i * 16][kk], LDA);
-                    wmma::load_matrix_sync(fb[p][i],
-                                           &Ws[p][kk][wn * 32 + i * 16], LDB);
-                }
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    wmma::mma_sync(acc[i][j], fa[0][i], fb[0][j], acc[i][j]);
-                    wmma::mma_sync(acc[i][j], fa[0][i], fb[1][j], acc[i][j]);
-                    wmma::mma_sync(acc[i][j], fa[1][i], fb[0][j], acc[i][j]);
-                }
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16],
-                                    acc[i][j], LDC, wmma::mem_row_major);
-    __syncthreads();
-    for (int q = tid; q < HM * HN / 4; q += HT) {
-        const int r = q / (HN / 4), cc = (q % (HN / 4)) * 4;
-        if (m0 + r < m)
-            *reinterpret_cast<float4*>(c + (long long)(m0 + r) * n + n0 + cc) =
-                *reinterpret_cast<const float4*>(&Cs[r][cc]);
-    }
+// one HIGH product: the kernel's instance for the weight's form and the
+// accumulators, after the opt-in to its shared memory
+template <bool F32_W, bool ONE_ACC>
+int launch_hilo(const float* a, const void* w, float* c, int m, int n, int k,
+                cudaStream_t stream) {
+    static std::atomic<bool> ready[MAX_DEVICES];
+    int device = 0;
+    cudaGetDevice(&device);
+    const cudaError_t err =
+        opt_in_smem(dot_hilo_mma_kernel<F32_W, ONE_ACC>, device, ready);
+    if (err != cudaSuccess) return (int)err;
+    dot_hilo_mma_kernel<F32_W, ONE_ACC>
+        <<<dim3((m + EM - 1) / EM, (n + EN - 1) / EN), ET,
+           HiloSmem<F32_W>::BYTES, stream>>>(a, w, c, m, n, k);
+    return (int)cudaGetLastError();
 }
 
 // --- the FMA chain ----------------------------------------------------------------
@@ -939,9 +964,8 @@ int bz_probe_dot_f32(const float* a, const float* w, float* c, int m, int n,
 int bz_probe_dot_high(const float* a, const float* w, float* c, int m, int n,
                       int k, void* stream) {
     if (!dot_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
-    dot_high_kernel<<<dim3((m + HM - 1) / HM, n / HN), HT, 0,
-                      static_cast<cudaStream_t>(stream)>>>(a, w, c, m, n, k);
-    return (int)cudaGetLastError();
+    return launch_hilo<true, true>(a, w, c, m, n, k,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // c = a @ w at emulated HIGH on the tensor cores: w_hilo (2, k, n) bf16 hi
@@ -949,15 +973,8 @@ int bz_probe_dot_high(const float* a, const float* w, float* c, int m, int n,
 int bz_probe_dot_high_emulated(const float* a, const void* w_hilo, float* c,
                                int m, int n, int k, void* stream) {
     if (!dot_shape_ok(m, n, k)) return (int)cudaErrorInvalidValue;
-    static std::atomic<bool> ready[MAX_DEVICES];
-    int device = 0;
-    cudaGetDevice(&device);
-    const cudaError_t err = opt_in_smem(dot_hilo_mma_kernel, device, ready);
-    if (err != cudaSuccess) return (int)err;
-    dot_hilo_mma_kernel<<<dim3((m + EM - 1) / EM, (n + EN - 1) / EN), ET,
-                          E_SMEM, static_cast<cudaStream_t>(stream)>>>(
-        a, static_cast<const __nv_bfloat16*>(w_hilo), c, m, n, k);
-    return (int)cudaGetLastError();
+    return launch_hilo<false, false>(a, w_hilo, c, m, n, k,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // y = x after `steps` of v = fma(v, a, b); n a multiple of 4.

@@ -36,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from buzzdetect_torch.ops.sepconv import (
-    _count_launch, _pointwise_plain, _route, exact_f32, pack_pointwise)
+    _count_launch, _pointwise_plain, _route, device_scope, exact_f32,
+    pack_pointwise)
 
 # The 20 layout cases, in the order of csrc/probe.cu's case ids: name ->
 # the plain version, a torch expression of the input (and, for
@@ -221,9 +222,9 @@ def _call(name, device, *args, lib=None):
     ``lib``, another build of it) on ``device``'s current stream; raises on
     any CUDA error code."""
     lib = load_kernels() if lib is None else lib
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        code = getattr(lib, name)(*args, stream)
+    with device_scope(device):
+        code = getattr(lib, name)(*args,
+                                  torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f'{name} failed: CUDA error {code} '
                            f'({lib.bz_probe_error_string(code).decode()})')
@@ -326,23 +327,32 @@ def remap(case: str, x: torch.Tensor, w: torch.Tensor = None):
     return remap_batch([(case, x, w)])[0]
 
 
-def launch_dot_f32(a, w, lib=None):
-    """``bz_probe_dot_f32`` of this checkout's library (or of ``lib``,
-    another build of it) on CUDA operands; returns the new output."""
-    m, n, k = _check_dot(a, w, None)
+# the product kernels: name -> the weight's bf16 planes (None: f32)
+_DOT_PLANES = {'dot_f32': None, 'dot_high': None, 'dot_high_emulated': 2}
+
+
+def _launch_dot(name, a, w, m, n, k, lib=None):
     _contiguous(a, w)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _call('bz_probe_dot_f32', a.device, a.data_ptr(), w.data_ptr(),
+    _call(f'bz_probe_{name}', a.device, a.data_ptr(), w.data_ptr(),
           out.data_ptr(), m, n, k, lib=lib)
     return out
 
 
+def launch_dot(name, a, w, lib=None):
+    """Product kernel ``name`` (``dot_f32``, ``dot_high`` or
+    ``dot_high_emulated``) of this checkout's library (or of ``lib``,
+    another build of it) on CUDA operands; returns the new output."""
+    m, n, k = _check_dot(a, w, _DOT_PLANES[name])
+    return _launch_dot(name, a, w, m, n, k, lib)
+
+
 def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) in exact f32."""
-    _check_dot(a, w, None)
+    m, n, k = _check_dot(a, w, None)
     if _route(a) == 'cpu':
         return dot_f32_plain(a, w)
-    out = launch_dot_f32(a, w)
+    out = _launch_dot('dot_f32', a, w, m, n, k)
     _count_launch(dot_f32)
     return out
 
@@ -352,10 +362,7 @@ def dot_high(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m, n, k = _check_dot(a, w, None)
     if _route(a) == 'cpu':
         return dot_high_plain(a, w)
-    _contiguous(a, w)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _call('bz_probe_dot_high', a.device, a.data_ptr(), w.data_ptr(),
-          out.data_ptr(), m, n, k)
+    out = _launch_dot('dot_high', a, w, m, n, k)
     _count_launch(dot_high)
     return out
 
@@ -366,10 +373,7 @@ def dot_high_emulated(a: torch.Tensor, w_hilo: torch.Tensor) -> torch.Tensor:
     m, n, k = _check_dot(a, w_hilo, 2)
     if _route(a) == 'cpu':
         return dot_high_emulated_plain(a, w_hilo)
-    _contiguous(a, w_hilo)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _call('bz_probe_dot_high_emulated', a.device, a.data_ptr(),
-          w_hilo.data_ptr(), out.data_ptr(), m, n, k)
+    out = _launch_dot('dot_high_emulated', a, w_hilo, m, n, k)
     _count_launch(dot_high_emulated)
     return out
 

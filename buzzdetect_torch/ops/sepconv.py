@@ -33,6 +33,7 @@ biases. ``pack_params`` adds each mode's pointwise operand beside them
 ``...[high]``: (2, C, F) bf16 hi, lo), so a caller packs once, not per call.
 """
 
+import contextlib
 import ctypes
 import threading
 from dataclasses import dataclass
@@ -386,6 +387,14 @@ def _route(x):
     if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {x.device}')
     return x.device.type
+
+
+def device_scope(device):
+    """A context that makes CUDA ``device`` current: a no-op where it is
+    current already, which spares a launch the switch there and back."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def fused_front(params, x, *, start_layer: int = 2, stop_layer: int = 8,

@@ -15,18 +15,28 @@ other; the median of 15 CUDA-event timings each, the better of each pair
 kept), so that a layer the redesign made slower shows on the same card in
 the same run.
 
-``--against-probe probe.cu``: ``dot_f32`` at the probe's shape (1024 x 128
-x 128, its seeded operands) and the conv tail's two pointwise shapes
-(5016 x 512 x 512 with layer 8's weight, 1254 x 1024 x 1024 with layer
-14's, seeded activations), and the 20 layout cases: the other build's
+``--against-probe probe.cu``: the three products (``dot_f32``,
+``dot_high``, ``dot_high_emulated``) at the probe's shape (1024 x 128 x
+128, its seeded operands) and the conv tail's two pointwise shapes (5016 x
+512 x 512 with layer 8's weight, 1254 x 1024 x 1024 with layer 14's,
+seeded activations), and the 20 layout cases: the other build's
 ``bz_probe_remap`` one case at a time against this build's
-``bz_probe_remap_batch`` over all 20. Then it times each ``dot_f32`` shape
-and the 20 layout cases through both libraries in the same turns, by CUDA
-events and by device time alone (``torch.profiler``).
+``bz_probe_remap_batch`` over all 20. Then it times each product at each
+shape and the 20 layout cases through both libraries in the same turns,
+by CUDA events and by device time alone (``torch.profiler``).
+
+``--against-logmel logmel.cu``: the fused log-mel at B = 209 and B = 5
+(20,064 and 480 frames of one seeded waveform) and on a batch of two
+seeded waveforms whose length is no whole number of hops (1,001 frames
+each), then the same three timed through both libraries in the same
+turns, by CUDA events and by device time. An older build (one fixed
+geometry, no ``bz_logmel_clusters``) is called through its own
+interface.
 
     python -m buzzdetect_torch.tools.compare_builds \\
         [--against OTHER_CHECKOUT/buzzdetect_torch/csrc/sepconv.cu] \\
-        [--against-probe OTHER_CHECKOUT/buzzdetect_torch/csrc/probe.cu]
+        [--against-probe OTHER_CHECKOUT/buzzdetect_torch/csrc/probe.cu] \\
+        [--against-logmel OTHER_CHECKOUT/buzzdetect_torch/csrc/logmel.cu]
 
 One line per case and per timed item; exit code 0 only when every case
 is equal.
@@ -42,7 +52,7 @@ import sys
 import numpy as np
 import torch
 
-from buzzdetect_torch.ops import _build, probe, sepconv
+from buzzdetect_torch.ops import _build, logmel, probe, sepconv
 
 # name -> (layers, gap, modes)
 CASES = {'fused_front': (dict(start_layer=2, stop_layer=8), False,
@@ -52,17 +62,21 @@ CASES = {'fused_front': (dict(start_layer=2, stop_layer=8), False,
          'fused_tail[4:8]': (dict(start_layer=4, stop_layer=8), False,
                              ('highest',))}
 BATCHES = (209, 5)
-# dot_f32's cases: label -> (M, K, N, the bundle's pointwise weight or None
-# for the probe's own seeded one)
+# the product kernels' cases: label -> (M, K, N, the bundle's pointwise
+# weight or None for the probe's own seeded one)
 DOT_SHAPES = {'probe': (1024, 128, 128, None),
               'layers 8-12': (5016, 512, 512, 'layer8'),
               'layer 14': (1254, 1024, 1024, 'layer14')}
+PRODUCTS = ('dot_f32', 'dot_high', 'dot_high_emulated')
+# the fused log-mel's cases: label -> (batch, frames per waveform)
+LOGMEL_CASES = {'B=209': (1, 20064), 'B=5': (1, 480),
+                'ragged batch of 2': (2, 1001)}
 
 
 def build_other(path, bind=sepconv.bind):
     """Compile ``path`` (another copy of a ``csrc/*.cu``, its headers beside
-    it) into ``csrc/build/`` and load it, bound by ``bind`` (``sepconv.bind``
-    or ``probe.bind``) as this checkout's library is."""
+    it) into ``csrc/build/`` and load it, bound by ``bind`` (``sepconv.bind``,
+    ``probe.bind`` or ``logmel.bind``) as this checkout's library is."""
     digest = hashlib.sha256(' '.join(_build.NVCC_FLAGS).encode())
     folder = os.path.dirname(os.path.abspath(path))
     for f in [path] + sorted(os.path.join(folder, h) for h in
@@ -204,20 +218,29 @@ def remap_one(lib, case, x, w):
     return out
 
 
+def _product_operand(name, w):
+    """The weight as product ``name`` takes it."""
+    return sepconv.pack_pointwise(w, 'high') if name == 'dot_high_emulated' \
+        else w
+
+
 def compare_probe(other, device):
-    """{case: equal}: ``dot_f32`` at ``DOT_SHAPES`` and the 20 layout cases,
-    this checkout's library against ``other``."""
+    """{case: equal}: the three products at ``DOT_SHAPES`` and the 20 layout
+    cases, this checkout's library against ``other``."""
     from buzzdetect_torch.tools.capability_probe import layout_items
     sepconv.exact_f32()
     results = {}
     with torch.inference_mode():
         for label, (a, w) in dot_operands(device).items():
-            ours = probe.launch_dot_f32(a, w)
-            theirs = probe.launch_dot_f32(a, w, lib=other)
-            torch.cuda.synchronize(device)
             m, k = a.shape
-            results['dot_f32', label] = _report(
-                f'dot_f32 {label} ({m}x{k} @ {k}x{w.shape[1]})', ours, theirs)
+            for name in PRODUCTS:
+                w_op = _product_operand(name, w)
+                ours = probe.launch_dot(name, a, w_op)
+                theirs = probe.launch_dot(name, a, w_op, lib=other)
+                torch.cuda.synchronize(device)
+                results[name, label] = _report(
+                    f'{name} {label} ({m}x{k} @ {k}x{w.shape[1]})', ours,
+                    theirs)
         items = layout_items(device)
         ours = probe.remap_batch(items)
         theirs = [remap_one(other, *item) for item in items]
@@ -231,29 +254,85 @@ def compare_probe(other, device):
 
 def time_probe(other, device):
     """{item: ((this, other) CUDA-event ms, (this, other) device ms)} of
-    ``dot_f32`` at each shape and of the 20 layout cases (this build: one
+    each product at each shape and of the 20 layout cases (this build: one
     batch; other: one launch per case), in turns."""
     from buzzdetect_torch.tools.capability_probe import layout_items
-    from buzzdetect_torch.utils import cuda_device_ms
-    times = {}
     with torch.inference_mode():
-        runs = {f'dot_f32 {label}':
-                lambda lib, a=a, w=w: probe.launch_dot_f32(a, w, lib=lib)
-                for label, (a, w) in dot_operands(device).items()}
+        runs = {f'{name} {label}':
+                lambda lib, name=name, a=a, w=_product_operand(name, w):
+                probe.launch_dot(name, a, w, lib=lib)
+                for label, (a, w) in dot_operands(device).items()
+                for name in PRODUCTS}
         items = layout_items(device)
         runs['remap, 20 layout cases'] = lambda lib: (
             probe.remap_batch(items) if lib is None
             else [remap_one(lib, *item) for item in items])
-        for name, run in runs.items():
-            events = _in_turns(run, other)
-            device_time = _in_turns(run, other, cuda_device_ms)
-            times[name] = events, device_time
-            print(f'{name}: this {events[0]:.4f} ms, other {events[1]:.4f} '
-                  f'ms by CUDA events (this / other '
-                  f'{events[0] / events[1]:.2f}x); device time this '
-                  f'{device_time[0]:.4f} ms, other {device_time[1]:.4f} ms '
-                  f'({device_time[0] / device_time[1]:.2f}x)', flush=True)
+        return _time_runs(runs, other)
+
+
+def _time_runs(runs, other):
+    """{name: ((this, other) CUDA-event ms, (this, other) device ms)} of
+    each ``run(lib)`` in ``runs``, in turns; one line each."""
+    from buzzdetect_torch.utils import cuda_device_ms
+    times = {}
+    for name, run in runs.items():
+        events = _in_turns(run, other)
+        device_time = _in_turns(run, other, cuda_device_ms)
+        times[name] = events, device_time
+        print(f'{name}: this {events[0]:.4f} ms, other {events[1]:.4f} '
+              f'ms by CUDA events (this / other '
+              f'{events[0] / events[1]:.2f}x); device time this '
+              f'{device_time[0]:.4f} ms, other {device_time[1]:.4f} ms '
+              f'({device_time[0] / device_time[1]:.2f}x)', flush=True)
     return times
+
+
+def logmel_inputs(device, seed=0):
+    """{label: (B, n) waveforms} of ``LOGMEL_CASES``: B = 209 and B = 5 are
+    the first 20,064 and 480 frames of one seeded waveform, the ragged
+    batch two more seeded waveforms with 97 samples past their last
+    frame."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    wav = 0.1 * torch.randn(logmel.WINDOW + logmel.HOP * (20064 - 1),
+                            device=device, generator=gen)
+    out = {}
+    for label, (b, frames) in LOGMEL_CASES.items():
+        n = logmel.WINDOW + logmel.HOP * (frames - 1)
+        if b == 1:
+            out[label] = wav[:n].reshape(1, n).contiguous()
+        else:
+            out[label] = 0.1 * torch.randn((b, n + 97), device=device,
+                                           generator=gen)
+    return out
+
+
+def compare_logmel(other, device):
+    """{('log_mel', label): equal} over ``LOGMEL_CASES``, this checkout's
+    library against ``other``."""
+    from buzzdetect_torch.ops.frontend import FrontendConfig
+    cfg = FrontendConfig()
+    results = {}
+    with torch.inference_mode():
+        for label, x in logmel_inputs(device).items():
+            ours = logmel._launch(x, cfg)
+            theirs = logmel._launch(x, cfg, lib=other)
+            torch.cuda.synchronize(device)
+            results['log_mel', label] = _report(
+                f'log_mel {label} {tuple(x.shape)} -> {tuple(ours.shape)}',
+                ours, theirs)
+    return results
+
+
+def time_logmel(other, device):
+    """{item: ((this, other) CUDA-event ms, (this, other) device ms)} of the
+    fused log-mel over ``LOGMEL_CASES``, in turns."""
+    from buzzdetect_torch.ops.frontend import FrontendConfig
+    cfg = FrontendConfig()
+    with torch.inference_mode():
+        return _time_runs(
+            {f'log_mel {label}':
+             lambda lib, x=x: logmel._launch(x, cfg, lib=lib)
+             for label, x in logmel_inputs(device).items()}, other)
 
 
 def _weights(device):
@@ -267,18 +346,21 @@ def _weights(device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description='Run the conv stacks and/or the probe\'s dot_f32 and '
-                    'layout cases through this checkout\'s kernels and '
-                    'another build of them, and check that their outputs '
-                    'are equal bit for bit.')
+        description='Run the conv stacks, the probe\'s products and layout '
+                    'cases and/or the fused log-mel through this checkout\'s '
+                    'kernels and another build of them, and check that '
+                    'their outputs are equal bit for bit.')
     ap.add_argument('--against', help='path of the other sepconv.cu')
     ap.add_argument('--against-probe', help='path of the other probe.cu')
+    ap.add_argument('--against-logmel', help='path of the other logmel.cu')
     args = ap.parse_args(argv)
-    if not (args.against or args.against_probe):
-        ap.error('give --against, --against-probe or both')
+    if not (args.against or args.against_probe or args.against_logmel):
+        ap.error('give one or more of --against, --against-probe and '
+                 '--against-logmel')
     from buzzdetect_torch.models.classifier import resolve_device
     device = resolve_device('cuda')
-    others = [p for p in (args.against, args.against_probe) if p]
+    others = [p for p in (args.against, args.against_probe,
+                          args.against_logmel) if p]
     print(f'device: {torch.cuda.get_device_name(device)}; this checkout '
           f'against {", ".join(others)}', flush=True)
     results = {}
@@ -288,6 +370,9 @@ def main(argv=None):
     if args.against_probe:
         other_probe = build_other(args.against_probe, probe.bind)
         results.update(compare_probe(other_probe, device))
+    if args.against_logmel:
+        other_logmel = build_other(args.against_logmel, logmel.bind)
+        results.update(compare_logmel(other_logmel, device))
     bad = [k for k, same in results.items() if not same]
     print(f'{len(results) - len(bad)} of {len(results)} cases '
           f'bit-identical', flush=True)
@@ -295,6 +380,8 @@ def main(argv=None):
         time_layers(other, device)
     if args.against_probe:
         time_probe(other_probe, device)
+    if args.against_logmel:
+        time_logmel(other_logmel, device)
     return 1 if bad else 0
 
 

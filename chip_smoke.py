@@ -14,9 +14,11 @@ Phases, each printed before the last line:
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (B = 209 patches, one default 200 s chunk; and B = 5), with
    the weights of ``models/model_general_v3/model.npz``: the conv kernels in
-   their three modes (exact f32, bf16, emulated HIGH) and the fused log-mel.
-   Each row gives max |kernel - plain| against the mode's tolerance, checks
-   that two launches agree bit for bit and that the B = 5 rows equal the
+   their three modes (exact f32, bf16, emulated HIGH) and the fused log-mel
+   (with the geometry each of its launches takes: frames per cluster,
+   cluster size, blocks, and ``cudaOccupancyMaxActiveClusters``). Each row
+   gives max |kernel - plain| against the mode's tolerance, checks that two
+   launches agree bit for bit and that the B = 5 rows equal the
    same rows inside B = 209, and gives the median times of the kernel, the
    plain version and one library call for the same function (cuDNN
    ``F.conv2d`` stacks; the matmul frontend for the log-mel), their ratio,
@@ -57,7 +59,9 @@ Phases, each printed before the last line:
    and ``torch.matmul``'s device time alone (``torch.profiler``); then the
    two HIGH
    routes against float64 on standard-normal operands at the tail's two
-   shapes, within a bound that one bf16 pass would exceed; (c) ``analyze(
+   shapes, within a bound that one bf16 pass would exceed; and each
+   product's, ``torch.matmul``'s and the log-mel's host launch work (CUDA
+   events less device time); (c) ``analyze(
    profile_dir=)`` on one 60 s recording, beside one run without the
    profiler: the trace must name the conv kernels; its five longest device
    operations and the CPU ops per thread;
@@ -368,6 +372,11 @@ def run(torch, tmp):
     all_params = params_from_numpy(arrays, dev)
     cfg = frontend.FrontendConfig().with_framehop(1.0)
     rows, outputs = {}, {}
+    # CUDA events less device time, per call: the host's launch work
+    host_ms = {}
+    sms, clusters = logmel._card(dev, logmel.load_kernels())
+    print(f'log_mel: cudaOccupancyMaxActiveClusters per (FT, CS): '
+          f'{clusters} on {sms} SMs', flush=True)
 
     def check_row(name, b, got, ref, again, run_kernel, run_plain,
                   run_library, work, tol, product=None):
@@ -413,6 +422,10 @@ def run(torch, tmp):
         if not ok:
             fail(f'{name} B={b} disagrees with its plain version: max |d| '
                  f'{err:.3g}')
+        if name == 'log_mel':
+            host_ms[f'log_mel B={b}'] = row['ms'] - row['device_ms']
+            host_ms[f'matmul frontend B={b}'] = (
+                row['library_ms'] - row['library_device_ms'])
         if b == BATCHES[0]:
             outputs[name] = got
             rows[name] = row
@@ -444,6 +457,13 @@ def run(torch, tmp):
             flops = n_frames * 2 * (400 * 2 * 257 + 257 * 64)
             n_bytes = 4 * (w.shape[0] + n_frames * 64
                            + 400 * 2 * 257 + 257 * 64)
+            g = logmel.geometry_on(w.device, n_frames, 1)
+            print(f'log_mel B={b} ({n_frames} frames) geometry: FT {g.ft} '
+                  f'frames per cluster of {g.cs} blocks, {g.blocks} blocks of '
+                  f'{g.threads} threads, grid {g.grid}; busiest SM '
+                  f'{g.busiest} (frame, bin-chunk) pairs against a mean of '
+                  f'{g.mean:.1f} ({g.busiest / g.mean:.3f}x); '
+                  f'cudaOccupancyMaxActiveClusters {g.clusters}', flush=True)
             got = logmel.log_mel_spectrogram_fused(w, cfg)
             torch.cuda.synchronize()
             check_row('log_mel', b, got,
@@ -802,6 +822,14 @@ def run(torch, tmp):
                          f'max |d| {err:.3g}')
                 if label == 'layers 8-12':
                     rows[name] = row
+                if label != 'probe':
+                    host_ms[f'{name} {label}'] = (row['ms']
+                                                  - row['device_ms'])
+            if label != 'probe':
+                host_ms[f'torch.matmul {label}'] = library_ms - library_device
+        print('host launch work (CUDA events - device time), ms per call: '
+              + ', '.join(f'{k} {v:.4f}' for k, v in host_ms.items()),
+              flush=True)
 
         # the two HIGH routes against float64 of their common function
         # (a_hi w_hi + a_hi w_lo + a_lo w_hi), on seeded standard-normal

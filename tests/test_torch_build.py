@@ -84,6 +84,48 @@ def test_compare_builds_asks_for_the_card_with_the_probe_flag():
             _build.DIR_CSRC, 'probe.cu')])
 
 
+def test_compare_builds_asks_for_the_card_with_the_logmel_flag():
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        compare_builds.main(['--against-logmel', os.path.join(
+            _build.DIR_CSRC, 'logmel.cu')])
+
+
+def test_compare_builds_logmel_cases_are_both_batches_and_a_ragged_batch():
+    """B = 209 and B = 5 are the first 20,064 and 480 frames of one
+    waveform; the ragged batch is two waveforms with samples past their
+    last frame."""
+    from buzzdetect_torch.ops import logmel
+    xs = compare_builds.logmel_inputs(torch.device('cpu'))
+    assert list(xs) == list(compare_builds.LOGMEL_CASES)
+    frames = {k: (x.shape[0], 1 + (x.shape[1] - 400) // 160)
+              for k, x in xs.items()}
+    assert frames == compare_builds.LOGMEL_CASES == {
+        'B=209': (1, 20064), 'B=5': (1, 480), 'ragged batch of 2': (2, 1001)}
+    assert torch.equal(xs['B=5'][0], xs['B=209'][0, :xs['B=5'].shape[1]])
+    ragged = xs['ragged batch of 2']
+    assert (ragged.shape[1] - logmel.WINDOW) % logmel.HOP == 97
+    assert not torch.equal(ragged[0], ragged[1])
+
+
+def test_compare_builds_probe_covers_the_three_products():
+    from buzzdetect_torch.ops import probe
+    assert compare_builds.PRODUCTS == ('dot_f32', 'dot_high',
+                                       'dot_high_emulated')
+    assert set(compare_builds.PRODUCTS) == set(probe._DOT_PLANES)
+    w = torch.randn(64, 128)
+    assert compare_builds._product_operand('dot_high', w) is w
+    assert tuple(compare_builds._product_operand(
+        'dot_high_emulated', w).shape) == (2, 64, 128)
+
+
+def test_logmel_geometries_asks_for_the_card():
+    from buzzdetect_torch.tools import logmel_geometries
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        logmel_geometries.main([])
+
+
 def test_compare_builds_needs_a_source_to_compare():
     with pytest.raises(SystemExit):
         compare_builds.main([])
@@ -120,3 +162,27 @@ def test_probe_bind_declares_what_a_build_has():
         'bz_probe_dot_f32']
     assert lib.bz_probe_remap.restype is probe._I32
     assert not hasattr(lib, 'bz_probe_remap_batch')
+
+
+@pytest.mark.parametrize('new', [True, False])
+def test_logmel_bind_takes_the_geometry_where_the_build_has_it(new):
+    """A build with bz_logmel_clusters takes (ft, cs) before the stream; an
+    older build of csrc/logmel.cu (one fixed geometry) does not."""
+    import ctypes
+    from buzzdetect_torch.ops import logmel
+
+    class Lib:
+        pass
+    lib = Lib()
+    names = ['bz_logmel', 'bz_logmel_error_string'] + (
+        ['bz_logmel_clusters'] if new else [])
+    for name in names:
+        setattr(lib, name, Lib())
+    assert logmel.bind(lib) is lib
+    args = lib.bz_logmel.argtypes
+    assert len(args) == (12 if new else 10)
+    assert args[-1] is ctypes.c_void_p
+    if new:
+        assert lib.bz_logmel_clusters.argtypes[:2] == [ctypes.c_int] * 2
+    else:
+        assert not hasattr(lib, 'bz_logmel_clusters')

@@ -100,6 +100,85 @@ def test_kernel_operands_rebuild_the_dft():
     np.testing.assert_array_equal(mel, ops['mel'].numpy())
 
 
+# (frames per waveform, batch): one 200 s chunk (B = 209 patches), a file's
+# ragged last chunk (B = 5), and ragged counts around the frame tiles
+GEOMETRY_CASES = [(20064, 1), (480, 1)] + [
+    (frames, batch) for frames in (1, 63, 65, 4097) for batch in (1, 3)]
+
+
+@pytest.mark.parametrize('sms', [132, 8])
+@pytest.mark.parametrize('frames,batch', GEOMETRY_CASES)
+def test_launch_geometry_covers_every_frame_once(frames, batch, sms):
+    """Every (batch row, frame) is one cluster's: each of its 4 bin chunks
+    owned by one rank of that cluster, each of its 64 mel bands by one
+    block, and the grid holds whole clusters."""
+    g = logmel.launch_geometry(frames, batch, sms)
+    assert g.ft in logmel.FRAME_TILES and g.cs in logmel.CLUSTER_SIZES
+    assert g.grid[0] % g.cs == 0 and g.grid[1] == batch
+    assert g.blocks == g.grid[0] * g.grid[1]
+    chunks = np.zeros((batch, frames, logmel.N_CHUNKS), int)
+    bands = np.zeros((batch, frames, logmel.MELS), int)
+    cluster_of = np.full((batch, frames), -1)
+    for by in range(g.grid[1]):
+        for bx in range(g.grid[0]):
+            row, fr, ch, bd = logmel.block_work(g, frames, bx, by)
+            assert row == by
+            assert len(ch) == logmel.N_CHUNKS // g.cs
+            assert len(bd) == logmel.MELS // g.cs
+            for f in fr:
+                chunks[row, f, ch.start:ch.stop] += 1
+                bands[row, f, bd.start:bd.stop] += 1
+                assert cluster_of[row, f] in (-1, bx // g.cs)
+                cluster_of[row, f] = bx // g.cs
+    assert (chunks == 1).all() and (bands == 1).all()
+    assert (cluster_of >= 0).all()
+
+
+def test_launch_geometry_fills_the_card_for_a_ragged_last_chunk():
+    """B = 5 (480 frames) was 8 blocks on 132 SMs; now at least 60."""
+    g = logmel.launch_geometry(480, 1, 132)
+    assert g.blocks >= 60
+    print(f'B=5: FT {g.ft}, CS {g.cs}, {g.blocks} blocks')
+
+
+def test_launch_geometry_balances_a_whole_chunk():
+    """B = 209: the busiest SM gets at most 1.10x the mean share of
+    (frame, bin-chunk) pairs, counted from the grid itself."""
+    frames, sms = 20064, 132
+    g = logmel.launch_geometry(frames, 1, sms)
+    pairs = [len(fr) * len(ch) for _row, fr, ch, _bd in
+             (logmel.block_work(g, frames, bx, 0) for bx in range(g.grid[0]))]
+    # blocks dealt to the SMs in turn, as the card fills a wave
+    per_sm = [sum(pairs[i::sms]) for i in range(sms)]
+    mean = frames * logmel.N_CHUNKS / sms
+    assert mean == g.mean and max(per_sm) <= g.busiest
+    print(f'B=209: FT {g.ft}, CS {g.cs}, {g.blocks} blocks, busiest SM '
+          f'{max(per_sm)} against a mean of {mean:.1f}')
+    assert max(per_sm) <= 1.10 * mean
+
+
+def test_launch_geometry_takes_clusters_of_two_where_four_fill_fewer_sms():
+    """When the card runs few clusters of 4 at once (SMs of a GPC left
+    over), clusters of 2 fill more SMs and are taken; a geometry the card
+    cannot run at all (0 clusters) never is."""
+    few_fours = {(ft, cs): 16 if cs == 4 else 66
+                 for ft in logmel.FRAME_TILES for cs in logmel.CLUSTER_SIZES}
+    g = logmel.launch_geometry(20064, 1, 132, few_fours)
+    assert g.cs == 2 and g.clusters == 66
+    only_small = {(ft, cs): 0 if ft > 32 else 66
+                  for ft in logmel.FRAME_TILES for cs in logmel.CLUSTER_SIZES}
+    assert logmel.launch_geometry(20064, 1, 132, only_small).ft == 32
+    with pytest.raises(RuntimeError, match='fits'):
+        logmel.launch_geometry(20064, 1, 132, dict.fromkeys(few_fours, 0))
+
+
+@pytest.mark.parametrize('frames,batch,sms', [(0, 1, 132), (10, 0, 132),
+                                              (10, 1, 0)])
+def test_launch_geometry_refuses_an_empty_launch(frames, batch, sms):
+    with pytest.raises(ValueError, match='no launch'):
+        logmel.launch_geometry(frames, batch, sms)
+
+
 def test_wrapper_on_cpu_takes_the_plain_path():
     cfg = tfe.FrontendConfig()
     w = torch.from_numpy(_wave(16000, 7))
