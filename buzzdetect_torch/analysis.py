@@ -19,7 +19,7 @@ import time
 import warnings
 
 from buzzdetect_torch import config as cfg
-from buzzdetect_torch.audio import driver_map
+from buzzdetect_torch.audio import decoder_choice, driver_map
 from buzzdetect_torch.manifest import build_manifest, check_or_write_manifest
 from buzzdetect_torch.models.registry import load_model
 from buzzdetect_torch.runtime.assignments import AssignFile, AssignLog
@@ -32,16 +32,13 @@ from buzzdetect_torch.utils import Timer, get_ext, pid_alive, search_dir
 from buzzdetect_torch.write.thresholds import calculate_threshold
 
 
-def _refuse_unported(mesh=None, devices=None, host_shard=None,
-                     resample_on_device=False):
+def _refuse_unported(mesh=None, devices=None, host_shard=None):
     """Raise for an argument whose code is outside this slice of the port,
     naming the ROADMAP item that brings it."""
     later = (
         ('mesh', mesh is not None, 'Multi-GPU layouts'),
         ('devices', devices is not None, 'Multi-GPU layouts'),
         ('host_shard', host_shard is not None, 'Multi-GPU layouts'),
-        ('resample_on_device', bool(resample_on_device),
-         'The libav decode stage and resampling'),
     )
     for name, given, item in later:
         if given:
@@ -209,8 +206,7 @@ class Analyzer:
         # lock forever, both believing they own the folder.
         self.session_lock = session_lock
 
-        _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard,
-                         resample_on_device=resample_on_device)
+        _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard)
         if model is not None:
             # watch cycles share one model so device params upload once,
             # not once per polling cycle
@@ -220,7 +216,13 @@ class Analyzer:
                 modelname, framehop_prop, compute_dtype, transfer_dtype,
                 device=device,
                 conv_precision='highest' if strict_f32 else None)['model']
-        self.resample_on_device = False
+        if resample_on_device and not getattr(
+                self.model, 'supports_device_resample', False):
+            raise ValueError(
+                f'model {modelname} cannot resample on-device '
+                f'(plugin models receive model-rate samples); drop '
+                f'resample_on_device')
+        self.resample_on_device = resample_on_device
         self.host_shard = None
 
         self.precision = precision
@@ -450,7 +452,9 @@ class Analyzer:
             f'Analyzers: {self.coordinator.analyzers_total}\n'
             f'Chunk length: {self.chunklength}s\n'
             f'Streamers: {self.coordinator.streamers_total}\n'
-            f'Queue depth: {self.coordinator.queue_depth}\n'),
+            f'Queue depth: {self.coordinator.queue_depth}\n'
+            f'Resample on device: {bool(self.resample_on_device)}\n'
+            f'{decoder_choice()}\n'),
             level_str='INFO'))
 
     def _launch_streamers(self):
@@ -584,7 +588,7 @@ class Analyzer:
             # directories (`src/analyze.py:273-289`); this is a deliberate
             # quality-of-life superset — without it, a file path would
             # "complete" silently with an empty output directory.
-            if get_ext(self.dir_audio) not in driver_map:
+            if get_ext(self.dir_audio) not in driver_map():
                 # a fatal configuration error, not a 'no files yet' state:
                 # the end_reason must NOT be in the watch loop's healthy
                 # set — an unsupported extension can never heal, so a
@@ -592,14 +596,14 @@ class Analyzer:
                 self.coordinator.exit_analysis(ExitSignal(
                     message=(f'{self.dir_audio} is not a supported audio '
                              f'format; must be one of: '
-                             f'{", ".join(driver_map.keys())}'),
+                             f'{", ".join(driver_map())}'),
                     level='ERROR', end_reason='unsupported input'))
                 return False
             root = os.path.dirname(os.path.abspath(self.dir_audio))
             found = [os.path.abspath(self.dir_audio)]
         else:
             root = self.dir_audio
-            found = search_dir(self.dir_audio, list(driver_map.keys()))
+            found = search_dir(self.dir_audio, list(driver_map()))
         assignments = [
             AssignFile(path_audio=p, dir_audio=root,
                        dir_results=self.dir_out)
@@ -610,7 +614,7 @@ class Analyzer:
             self.coordinator.exit_analysis(ExitSignal(
                 message=(f'Exiting analysis: no compatible audio files found '
                          f'in raw directory {self.dir_audio}.\naudio format '
-                         f'must be one of: \n{", ".join(driver_map.keys())}'),
+                         f'must be one of: \n{", ".join(driver_map())}'),
                 # in watch mode an empty directory is the normal state while
                 # waiting for a recorder to start writing — don't warn
                 level='DEBUG' if watching else 'WARNING',
@@ -668,6 +672,24 @@ class Analyzer:
                 level='DEBUG' if watching else 'INFO',
                 end_reason='fully analyzed'))
             return False
+
+        if self.resample_on_device and unfinished:
+            # probe the first file's native rate so warmup runs the
+            # resampling path this run will dispatch (a mixed-rate corpus
+            # meets each further rate at its first chunk)
+            try:
+                from buzzdetect_torch.audio import build_track
+                track = build_track(unfinished[0].path_audio, target_rate=0)
+                try:
+                    rate = track.samplerate
+                finally:
+                    track.close()
+                if rate != self.model.embedder.samplerate:
+                    self.warmup_rate = rate
+            except (ValueError, RuntimeError, OSError):
+                # UnsupportedFormat, DecodeError, a vanished file: a corrupt
+                # first file fails loudly later, in its streamer
+                pass
 
         for a_file in unfinished:
             self.coordinator.q_stream.put(a_file)
@@ -1348,9 +1370,16 @@ def analyze(modelname: str,
         this directory (``<host>_<pid>.<time>.pt.trace.json``, for TensorBoard
         or Perfetto): the CPU ops of every thread and, on the card, its
         kernels and copies.
-    mesh, devices, host_shard, resample_on_device : not ported yet; passing
-        them raises NotImplementedError naming the ROADMAP item (see
+    mesh, devices, host_shard : not ported yet; passing them raises
+        NotImplementedError naming the ROADMAP item (see
         ``buzzdetect_tpu.analyze`` for what they do there).
+    resample_on_device : decode at each file's NATIVE rate and resample to
+        the model rate on the model's device (``ops/resample.py``,
+        polyphase as one strided convolution) instead of in the host
+        decode pass: the host ships native-rate int16 and does no per-sample
+        resampling, at the cost of proportionally more wire bytes for rates
+        above 16 kHz. Where the native libav stage is unavailable this reads
+        PCM16 WAV at any rate (``audio.WavDriver``).
     batch_chunks : stack up to this many ready chunks (possibly from
         different files) into one device dispatch — larger device batches and
         fewer round trips; 1 disables batching.
@@ -1412,8 +1441,7 @@ def analyze(modelname: str,
         kernels) or ``'cpu'`` (every op runs its plain PyTorch version).
         Asking for CUDA without a CUDA device raises RuntimeError.
     """
-    _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard,
-                     resample_on_device=resample_on_device)
+    _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard)
     if backend_timeout is not None:
         backend_timeout = float(backend_timeout)
         if backend_timeout <= 0:
@@ -1450,6 +1478,7 @@ def analyze(modelname: str,
                             transfer_dtype=transfer_dtype,
                             strict_f32=strict_f32,
                             profile=profile,
+                            resample_on_device=resample_on_device,
                             alert_classes=alert_classes,
                             alert_command=alert_command,
                             alert_threshold=alert_threshold,

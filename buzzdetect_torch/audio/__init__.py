@@ -1,34 +1,91 @@
 """Audio dispatch: extension -> driver map, track construction, duration.
 
 Copy of ``buzzdetect_tpu/audio/__init__.py`` (parity with reference
-`src/stream/audio.py:22-65`) with one change: this package reads 16 kHz
-PCM16 WAV through :class:`WavDriver`, built on the standard library's
-``wave`` module, in place of the native libav stage. Per-extension driver
-modules under ``drivers/`` may add formats exactly like the reference's
-plugin directory.
+`src/stream/audio.py:22-65`): the native libav stage
+(``audio/ffi.py``, ``csrc/buzz_decode.cpp``) reads every format in
+``NATIVE_EXTENSIONS``, and per-extension driver modules under ``drivers/``
+may override entries exactly like the reference's plugin directory. One
+change: where the native stage is unavailable (no FFmpeg development
+libraries, or its build failed; ``ffi.native_status``), the map holds
+:class:`WavDriver`, on the standard library's ``wave`` module, for PCM16
+WAV only, and every other extension raises UnsupportedFormat naming the
+reason. The choice is logged once per process at WARNING level, and
+``analyze()`` writes it to its log.
 """
 
 import importlib.util
+import logging
 import os
+import threading
 import wave
 
 import numpy as np
 
+from buzzdetect_torch.audio import ffi
 from buzzdetect_torch.audio.driver import AudioDriver
+from buzzdetect_torch.audio.ffi import NativeStream, DecodeError  # noqa: F401 (DecodeError re-exported)
 from buzzdetect_torch.utils import quantize_int16, encode_mulaw
+
+_log = logging.getLogger(__name__)
 
 
 class UnsupportedFormat(ValueError):
     pass
 
 
-_LATER = ('other formats, rates and sample types need the libav decode '
-          'stage, which a later slice of the port brings (ROADMAP "Modules '
-          'to port": the libav decode stage and resampling)')
+# Formats the native libav stage demuxes+decodes. Mirrors the union of the
+# reference's libsndfile formats and its PyAV drivers (mp4/wma/mts), plus the
+# containers libav gives us for free.
+NATIVE_EXTENSIONS = [
+    'wav', 'wave', 'flac', 'ogg', 'oga', 'opus', 'mp3', 'mp2',
+    'aiff', 'aif', 'aifc', 'au', 'snd', 'caf', 'w64', 'wv',
+    'mp4', 'm4a', 'm4b', 'aac', 'wma', 'asf',
+    'mts', 'm2ts', 'ts', 'ac3', 'eac3', 'mkv', 'mka', 'webm', 'avi', 'mov',
+]
+
+
+class NativeDriver(AudioDriver):
+    """Default driver: the C++ libav stage decoding straight to the model
+    rate (mono float32), or at the file's own rate with ``target_rate=0``."""
+
+    def __init__(self, path, target_rate=16000):
+        self._s = NativeStream(path, target_rate)
+        self.samplerate = self._s.samplerate
+        self.native_samplerate = self._s.native_samplerate
+        # output is already mono; expose channels=1 so downmix is a no-op
+        self.channels = 1
+        self.source_channels = self._s.channels
+        self.frames = self._s.frames
+        self.codec = self._s.codec
+
+    def read(self, n, dtype=None):
+        # honor the AudioDriver contract's dtype (NativeStream dispatches
+        # int16 to the fused native path; anything else converts)
+        return self._s.read(n, dtype=dtype or np.float32)
+
+    def read_s16(self, n):
+        # decode straight to the int16 wire format (fused in the C stage) —
+        # the streamer prefers this when the model transfers int16
+        return self._s.read_s16(n)
+
+    def read_mulaw(self, n):
+        # mu-law int8 wire format, likewise fused into the decode pass
+        return self._s.read_mulaw(n)
+
+    def seek(self, sample):
+        return self._s.seek(sample)
+
+    def tell(self):
+        return self._s.tell()
+
+    def close(self):
+        self._s.close()
 
 
 class WavDriver(AudioDriver):
-    """16-bit PCM WAV at the model rate, downmixed to mono float32.
+    """16-bit PCM WAV, downmixed to mono float32, at ``target_rate`` (which
+    must be the file's rate) or at the file's own rate (``target_rate=0``,
+    the streamer's decode rate under ``resample_on_device``).
 
     Gives the same wire samples as the native stage: each channel decodes to
     ``int16 / 32768``, channels average with equal weights, and the int16
@@ -41,17 +98,18 @@ class WavDriver(AudioDriver):
             self._w = wave.open(str(path), 'rb')
         except (wave.Error, EOFError) as e:
             raise UnsupportedFormat(f'{path}: not a PCM WAV file ({e}); '
-                                    f'{_LATER}') from None
+                                    f'{decoder_choice()}') from None
         try:
             rate = self._w.getframerate()
             if self._w.getsampwidth() != 2:
                 raise UnsupportedFormat(
                     f'{path}: {8 * self._w.getsampwidth()}-bit samples; '
-                    f'this driver reads 16-bit PCM only; {_LATER}')
-            if rate != target_rate:
+                    f'this driver reads 16-bit PCM only; {decoder_choice()}')
+            if target_rate and rate != target_rate:
                 raise UnsupportedFormat(
-                    f'{path}: {rate} Hz; this driver reads {target_rate} Hz '
-                    f'only; {_LATER}')
+                    f'{path}: {rate} Hz; this driver reads at the file\'s '
+                    f'own rate only (asked for {target_rate} Hz); '
+                    f'{decoder_choice()}')
         except UnsupportedFormat:
             self._w.close()
             raise
@@ -117,21 +175,47 @@ def _discover_plugin_drivers():
     return plugins
 
 
+def decoder_choice() -> str:
+    """One line naming the decoder this process reads audio with, and why."""
+    ok, why = ffi.native_status()
+    if ok:
+        return (f'audio decode: the native libav stage ({why}), '
+                f'{len(NATIVE_EXTENSIONS)} extensions')
+    return (f'audio decode: PCM16 WAV only (WavDriver), since the native '
+            f'libav stage is unavailable: {why}')
+
+
 def _build_driver_map():
-    m = {'wav': WavDriver, 'wave': WavDriver}
+    if ffi.native_status()[0]:
+        m = {ext: NativeDriver for ext in NATIVE_EXTENSIONS}
+    else:
+        m = {'wav': WavDriver, 'wave': WavDriver}
     m.update(_discover_plugin_drivers())
     return m
 
 
-driver_map = _build_driver_map()
+_map = None
+_map_lock = threading.Lock()
+
+
+def driver_map() -> dict:
+    """Extension -> driver class. Built on first call (which builds the
+    native stage, or finds why it cannot), when the choice is logged."""
+    global _map
+    with _map_lock:
+        if _map is None:
+            _map = _build_driver_map()
+            _log.warning(decoder_choice())
+        return _map
 
 
 def build_track(path_audio: str, target_rate: int = 16000) -> AudioDriver:
     ext = os.path.splitext(path_audio)[1].lower().lstrip('.')
-    if ext not in driver_map:
+    drivers = driver_map()
+    if ext not in drivers:
         raise UnsupportedFormat(f'unsupported audio format: .{ext}; '
-                                f'{_LATER}')
-    return driver_map[ext](path_audio, target_rate)
+                                f'{decoder_choice()}')
+    return drivers[ext](path_audio, target_rate)
 
 
 def get_duration(track: AudioDriver) -> float:

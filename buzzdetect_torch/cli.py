@@ -10,8 +10,8 @@ prompt on resume conflicts). Edits:
 * ``--bf16`` maps to ``torch.bfloat16``: the CUDA conv kernels' bf16 mode;
 * ``--device {cuda,cpu}`` (new; default ``cuda``): the counterpart of running
   the JAX CLI under ``JAX_PLATFORMS=cpu``;
-* flags that reach code outside the port (``--devices``, ``--host_shard``,
-  ``--resample_on_device``), and a model config that asks for one
+* flags that reach code outside the port (``--devices``, ``--host_shard``),
+  and a model config that asks for one
   (``"conv": "xla"``), exit with status 2 and the NotImplementedError
   message that names the ROADMAP item;
 * ``main`` returns the finished Analyzer (the JAX CLI returns None), so an
@@ -160,7 +160,7 @@ def build_parser():
                              'deviation, inside the 1e-3 parity budget')
     parser.add_argument('--resample_on_device', action='store_true',
                         help='Decode at native rate and resample on the '
-                             'accelerator inside the model graph (frees '
+                             'model\'s device ahead of the frontend (frees '
                              'host CPU; more wire bytes for rates >16kHz)')
     parser.add_argument('--devices', required=False, default=None,
                         help="Per-chip replica data parallelism: an int N "

@@ -11,9 +11,11 @@ the same exit codes (0 = all checks passed, 1 = a check failed, 2 = an
 unknown flag). The checks follow the port: the CUDA device through
 ``utils.backend_preflight`` (a watched subprocess, so a hung card cannot
 hang the doctor; ``BUZZDETECT_DOCTOR_TIMEOUT`` seconds, default 60),
-the ``nvcc`` build and load of every CUDA library, and a WAV write/read
-round trip in place of the libav one. Without a card the CUDA check fails,
-the inference is skipped, and the host-side checks still run.
+the ``nvcc`` build and load of every CUDA library, a WAV write/read round
+trip, and the native libav decoder with its codec round trip, both skipped
+with the reason where ``pkg-config`` finds no FFmpeg. Without a card the
+CUDA check fails, the inference is skipped, and the host-side checks still
+run.
 """
 
 import json
@@ -31,6 +33,12 @@ def _backend_reachable(timeout: float):
     """(ok, why_not): dispatch one matmul on the card in a watched
     subprocess."""
     return backend_preflight(timeout, code=_PREFLIGHT_CODE)
+
+
+# the codec round-trip's codecs, in order of preference: mp3 first, as the
+# JAX package's doctor, else the first this machine's FFmpeg encodes
+ROUNDTRIP_CODECS = (('libmp3lame', 'mp3'), ('flac', 'flac'),
+                    ('libvorbis', 'ogg'), ('pcm_s16le', 'wav'))
 
 
 def _check(name, fn, results, quiet=False):
@@ -152,6 +160,47 @@ def main(modelname: str = None, json_mode: bool = False):
                                f'{err:.3g}')
         return f'16 kHz PCM16 WAV write/read round-trip ({len(y)} samples)'
     ok &= _check('WAV round-trip', check_wav_roundtrip, results, json_mode)
+
+    # the native libav stage: skipped where pkg-config finds no FFmpeg (the
+    # package then reads PCM16 WAV only), failed where FFmpeg is there and
+    # the stage does not build or load
+    from buzzdetect_torch.audio import ffi
+    try:
+        versions = ffi.ffmpeg_versions()
+    except ffi.FFmpegNotFound as e:
+        versions = None
+        for name in ('native decoder (libav)', 'codec round-trip'):
+            _skip(name, f'{e}; this machine reads PCM16 WAV only', results,
+                  json_mode)
+
+    def check_decoder():
+        ffi.get_lib()
+        return (f'built and loaded from audio/csrc/buzz_decode.cpp '
+                f'(libavcodec {versions["libavcodec"]})')
+
+    def check_decode_roundtrip():
+        import tempfile
+        from buzzdetect_torch.audio import build_track
+        with tempfile.TemporaryDirectory() as d:
+            refused = []
+            for codec, ext in ROUNDTRIP_CODECS:
+                p = os.path.join(d, f'probe.{ext}')
+                try:
+                    ffi.encode_fixture(p, codec, 16000, 1, 0.5)
+                except ffi.DecodeError as e:
+                    refused.append(str(e))
+                    continue
+                t = build_track(p, target_rate=16000)
+                n = len(t.read(16000))
+                t.close()
+                return f'{codec} encode/decode round-trip ({n} samples)'
+        raise RuntimeError('this FFmpeg encodes none of '
+                           f'{[c for c, _ in ROUNDTRIP_CODECS]}: {refused}')
+    if versions is not None:
+        ok &= _check('native decoder (libav)', check_decoder, results,
+                     json_mode)
+        ok &= _check('codec round-trip', check_decode_roundtrip, results,
+                     json_mode)
 
     # metadata only: device='cpu' loads no weights anywhere, so these checks
     # run whether or not the card answers

@@ -7,7 +7,9 @@ Counterpart of ``buzzdetect_tpu/models/classifier.py`` with the same surface
 semantics: each waveform is zero-padded to ``padded_length`` and the patch
 rows past the chunk's true patch count are discarded by the caller. Zero
 padding matches the reference's pad_waveform, so those rows are the only
-difference. PyTorch runs eagerly, so there is no shape bucketing.
+difference. PyTorch runs eagerly, so there is no shape bucketing. With
+``input_rate``, chunks ship at their native rate and are resampled on the
+device (``ops/resample.py``) ahead of the frontend.
 
 On a CUDA device the conv stack runs through the hand-written kernels of
 ``ops/sepconv.py`` (and the log-mel through ``ops/logmel.py`` with
@@ -42,6 +44,7 @@ from buzzdetect_torch.models import yamnet as yamnet_lib
 from buzzdetect_torch.models.heads import apply_head
 from buzzdetect_torch.models.weights import params_from_numpy
 from buzzdetect_torch.ops import logmel, sepconv
+from buzzdetect_torch.ops.resample import resample
 from buzzdetect_torch.ops.frontend import (
     FrontendConfig, padded_length, num_patches, log_mel_patches,
     patches_from_log_mel)
@@ -101,11 +104,40 @@ def _patches(wavs: torch.Tensor, cfg: FrontendConfig, frontend: str):
     return log_mel_patches(wavs, cfg)
 
 
+def _resample_in_graph(wav: torch.Tensor, cfg: FrontendConfig,
+                       resample_from: int, resample_to: int, valid_len):
+    """Rational-resample the float waveform to the model rate on its device
+    (``ops/resample.py``: polyphase as one strided conv), then fix its
+    length to ``resample_to``, the model-rate padded length the caller
+    planned for.
+
+    ``valid_len`` (an int, or a (B, 1) tensor for a batch) is the chunk's
+    true model-rate sample count: samples past it are forced to exact
+    zero, matching the host path's zero padding. The anti-aliasing filter
+    otherwise rings about half a filter width of low-level energy into the
+    padding, which the log-mel of near-silent frames amplifies."""
+    wav = resample(wav, resample_from, cfg.sample_rate)
+    n = wav.shape[-1]
+    if n < resample_to:
+        wav = torch.nn.functional.pad(wav, (0, resample_to - n))
+    else:
+        wav = wav[..., :resample_to]
+    keep = torch.arange(resample_to, device=wav.device) < valid_len
+    return torch.where(keep, wav, 0.0)
+
+
 def _classify(params, wavs: torch.Tensor, cfg: FrontendConfig,
               frontend: str = 'xla', compute_dtype=torch.float32,
-              conv_precision: str = 'highest'):
-    """(..., L) padded wire waveforms -> (..., n_patches, n_classes)."""
-    patches = _patches(_to_float(wavs), cfg, frontend)   # (..., P, 96, 64)
+              conv_precision: str = 'highest', resample_args=None):
+    """(..., L) padded wire waveforms -> (..., n_patches, n_classes).
+
+    With ``resample_args`` = ``(input_rate, resample_to, valid_len)`` the
+    waveforms arrive at their native rate and are resampled on the device
+    first (``_resample_in_graph``)."""
+    wav = _to_float(wavs)
+    if resample_args is not None:
+        wav = _resample_in_graph(wav, cfg, *resample_args)
+    patches = _patches(wav, cfg, frontend)               # (..., P, 96, 64)
     lead = patches.shape[:-2]
     emb = yamnet_lib.embed(params['yamnet'], patches.reshape(-1, 96, 64),
                            compute_dtype, conv_precision)
@@ -192,12 +224,21 @@ class ChunkClassifier:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _check_rate(self, input_rate):
-        if input_rate and input_rate != self.cfg.sample_rate:
-            raise NotImplementedError(
-                f'input_rate={input_rate}: on-device resampling is not '
-                f'ported yet (ROADMAP "Modules to port"); decode at '
-                f'{self.cfg.sample_rate} Hz')
+    def _plan_native(self, n_native: int, input_rate: int):
+        """Shape plan for a native-rate chunk resampled on the device: the
+        valid patch count and padded target in the MODEL-rate domain, plus
+        the native-rate length the host pads the wire buffer to so the
+        resampler produces at least ``target_model`` samples."""
+        sr = self.cfg.sample_rate
+        n_model = -(-n_native * sr // input_rate)  # ceil
+        n_valid = num_patches(n_model, self.cfg)
+        target_model = padded_length(n_model, self.cfg)
+        target_native = -(-target_model * input_rate // sr)
+        return n_valid, n_model, target_model, target_native
+
+    def _native_rate(self, input_rate):
+        """True when chunks at ``input_rate`` need resampling here."""
+        return bool(input_rate) and input_rate != self.cfg.sample_rate
 
     def _need_head(self):
         if 'head' not in self.params:
@@ -206,7 +247,10 @@ class ChunkClassifier:
     # --- public API ------------------------------------------------------------
     def predict(self, samples: np.ndarray,
                 input_rate: int = None) -> np.ndarray:
-        """Mono 16 kHz samples -> (n_patches, n_classes) activations."""
+        """Mono samples -> (n_patches, n_classes) activations.
+
+        Samples are 16 kHz unless ``input_rate`` says otherwise, in which
+        case they ship at that rate and are resampled on the device."""
         out, n_valid = self.predict_async(samples, input_rate=input_rate)
         return out.cpu().numpy()[:n_valid]
 
@@ -219,8 +263,13 @@ class ChunkClassifier:
         writer waits for it, so host decode overlaps device compute.
         """
         self._need_head()
-        self._check_rate(input_rate)
         samples = np.asarray(samples)
+        if self._native_rate(input_rate):
+            n_valid, n_model, t_model, t_native = self._plan_native(
+                len(samples), input_rate)
+            wav = self._upload(self._pad_to(samples, t_native))
+            return self._classify(
+                wav, (int(input_rate), t_model, n_model)), n_valid
         n_valid = num_patches(len(samples), self.cfg)
         wav = self._pad_to(samples, padded_length(len(samples), self.cfg))
         return self.classify_resident(self._upload(wav)), n_valid
@@ -228,10 +277,21 @@ class ChunkClassifier:
     @torch.inference_mode()
     def predict_async_batch(self, samples_list, input_rate: int = None):
         """Dispatch several chunks as ONE batched call. All chunks pad to the
-        largest needed length. Returns (scores (B, P, C), [n_valid each])."""
+        largest needed length and, with ``input_rate``, share that native
+        rate. Returns (scores (B, P, C), [n_valid each])."""
         self._need_head()
-        self._check_rate(input_rate)
         arrs = [np.asarray(s) for s in samples_list]
+        if self._native_rate(input_rate):
+            sr = self.cfg.sample_rate
+            n_models = [-(-len(a) * sr // input_rate) for a in arrs]
+            n_valids = [num_patches(n, self.cfg) for n in n_models]
+            t_model = padded_length(max(n_models), self.cfg)
+            t_native = -(-t_model * input_rate // sr)
+            batch = self._upload(
+                np.stack([self._pad_to(a, t_native) for a in arrs]))
+            valid = torch.tensor(n_models, device=self.device)[:, None]
+            return self._classify(
+                batch, (int(input_rate), t_model, valid)), n_valids
         n_valids = [num_patches(len(a), self.cfg) for a in arrs]
         target = padded_length(max(len(a) for a in arrs), self.cfg)
         batch = np.stack([self._pad_to(a, target) for a in arrs])
@@ -244,9 +304,11 @@ class ChunkClassifier:
         self._need_head()
         return self._classify(wav_device)
 
-    def _classify(self, wavs: torch.Tensor) -> torch.Tensor:
+    def _classify(self, wavs: torch.Tensor,
+                  resample_args=None) -> torch.Tensor:
         return _classify(self.params, wavs, self.cfg, self.frontend,
-                         self.compute_dtype, self.conv_precision)
+                         self.compute_dtype, self.conv_precision,
+                         resample_args)
 
     @torch.inference_mode()
     def embed(self, samples: np.ndarray) -> np.ndarray:

@@ -229,6 +229,10 @@ class BundleModel(BaseModel):
             self.embedder._classifier = classifier
             self.classifier = classifier
 
+    # the classifier can ingest native-rate wire samples and resample
+    # on-device (analyze(resample_on_device=True))
+    supports_device_resample = True
+
     def predict(self, samples, input_rate=None):
         return self.classifier.predict(samples, input_rate=input_rate)
 

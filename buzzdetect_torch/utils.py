@@ -2,9 +2,11 @@
 search, result idents, the CUDA-event and profiler timers of the tools.
 
 Copy of ``buzzdetect_tpu/utils.py`` (parity: reference `src/utils.py:8-62`)
-with the numpy paths of the wire encoders, a device preflight that probes
-torch.cuda, ``cuda_time_ms`` in place of ``dispatch_slope``, and
-``cuda_device_ms`` (device time alone, from ``torch.profiler``).
+with a device preflight that probes torch.cuda, ``cuda_time_ms`` in place
+of ``dispatch_slope``, and ``cuda_device_ms`` (device time alone, from
+``torch.profiler``). The wire encoders take the native decode stage's
+one-pass kernels where that stage is available (``audio.ffi``), and their
+numpy expressions only where it is not.
 """
 
 import os
@@ -14,11 +16,26 @@ from datetime import datetime
 import numpy as np
 
 
+def _native_encoders(samples):
+    """The native decode stage's module where it can encode ``samples``
+    (1-D float32, and the stage available here), else None."""
+    if samples.dtype != np.float32 or samples.ndim != 1:
+        return None
+    # imported here: audio/__init__.py imports this module
+    from buzzdetect_torch.audio import ffi
+    return ffi if ffi.native_status()[0] else None
+
+
 def quantize_int16(samples):
     """float [-1, 1] samples -> int16 wire format (the pipeline's transfer
     dtype; see ChunkClassifier.transfer_dtype): x32767, round half to even,
-    clip — the same values as the native decode stage's fused quantizer."""
+    clip. Through the native one-pass kernel where the decode stage is
+    available (the numpy expression makes four full-array passes, the C
+    loop one, outside the GIL); both give the same values."""
     samples = np.asarray(samples)
+    native = _native_encoders(samples)
+    if native is not None:
+        return native.quantize_s16(samples)
     return (np.clip(samples, -1.0, 1.0) * 32767.0).round().astype(np.int16)
 
 
@@ -31,10 +48,15 @@ def encode_mulaw(samples):
     The 8-bit wire format: halves host->device bytes vs int16 at ~38 dB
     SNR (constant *relative* quantization error — safer than linear int8
     for quiet passages). The device inverts it
-    (models/classifier.py _to_float). Agrees with the native decode
-    stage's fused companding within ±1 code (float32 log1pf vs float64
-    log1p round half-way cases differently).
+    (models/classifier.py _to_float). Through the native one-pass kernel
+    where the decode stage is available; the numpy expression agrees with
+    it within ±1 code (float32 log1pf vs float64 log1p round half-way
+    cases differently).
     """
+    samples = np.asarray(samples)
+    native = _native_encoders(samples)
+    if native is not None:
+        return native.mulaw_s8(samples)
     x = np.clip(samples, -1.0, 1.0)
     m = np.round(np.log1p(255.0 * np.abs(x)) * (127.0 / _LN256))
     return (np.sign(x) * m).astype(np.int8)

@@ -10,7 +10,10 @@ Phases, each printed before the last line:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of the three CUDA libraries from ``buzzdetect_torch/csrc``
    (``sepconv``, ``logmel``, ``probe``; one ``nvcc`` per source, started
-   together);
+   together); then the ``decoder:`` line: the FFmpeg libraries that
+   ``pkg-config`` finds, or their absence, and ``audio.ffi.native_status()``
+   (a native stage that fails to build where FFmpeg is present fails the
+   run);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (B = 209 patches, one default 200 s chunk; and B = 5), with
    the weights of ``models/model_general_v3/model.npz``: the conv kernels in
@@ -69,7 +72,21 @@ Phases, each printed before the last line:
    ``analyze()`` of phase 3's recordings; (e) ``tools/roofline.py`` for one
    200 s chunk with peaks measured on the card, then its FMA chain kernel
    against its plain version;
-5. one JSON line with every kernel's numbers.
+5. native rates: the on-device resampler (``ops/resample.py``) on one
+   200 s chunk at 44.1 and 48 kHz against the port's CPU resample (atol
+   1e-5), with its CUDA-event time, its device time and its conv's alone
+   (``torch.profiler``), each beside its bounds from the shapes (the
+   function's nonzero taps, and every tap of the kernel as laid out); then
+   ``analyze(resample_on_device=True)`` in exact f32 on two 600 s PCM16
+   WAVs, 48 kHz stereo and 44.1 kHz mono: end reason, CSV rows, the conv
+   kernels' launch counts, one 200 s chunk of each file on the card against
+   the CPU, and the run again under the stack sampler. Where the native
+   libav stage is present, also the same files
+   through host resampling under the stack sampler (quantize and read
+   shares), a FLAC made by ``encode_fixture`` at 48 kHz, and
+   ``decode_rate_probe`` for pcm, flac and mp3; where it is absent, one
+   line saying why those did not run;
+6. one JSON line with every kernel's numbers.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero with a message, and without a CUDA device the script exits
@@ -140,6 +157,22 @@ VARIANTS = {'model_general_v3_pallas': ({'frontend': 'pallas'}, ['--bf16'],
                                         'bf16'),
             'model_general_v3_high': ({'conv_precision': 'high'}, [],
                                       'high')}
+
+# the native-rate phase: its recordings, (rate, channels) each, PCM16 WAV of
+# NATIVE_SECONDS; the FLAC of the native stage's part, and the seconds of
+# each decode_rate_probe fixture
+NATIVE_RECORDINGS = ((48000, 2), (44100, 1))
+NATIVE_SECONDS = 600.0
+FLAC_SECONDS = 120.0
+PROBE_CODECS = ('pcm_s16le', 'flac', 'libmp3lame')
+PROBE_SECONDS = 60.0
+# the resampler on the card against the port's CPU resample: the same f32
+# products summed in another order (tests/test_torch_resample.py reads
+# ~1e-6 against the JAX resampler)
+RESAMPLE_ATOL = 1e-5
+# the resampler's timed input: one default chunk at each native rate
+RESAMPLE_RATES = (44100, 48000)
+RESAMPLE_SECONDS = 200.0
 
 
 def fail(msg):
@@ -222,20 +255,24 @@ def bound(t_ops, t_bytes):
                 bound_by='operations' if t_ops >= t_bytes else 'bytes')
 
 
-def write_recording(path, seconds, seed):
-    """A 16 kHz mono PCM16 recording: a buzz-like harmonic tone that comes
-    and goes, over noise."""
+def write_recording(path, seconds, seed, rate=16000, channels=1):
+    """A PCM16 recording (16 kHz mono unless asked otherwise): a buzz-like
+    harmonic tone that comes and goes, over noise, independent in each
+    channel."""
     rng = np.random.default_rng(seed)
-    t = np.arange(int(seconds * 16000)) / 16000.0
+    t = np.arange(int(seconds * rate)) / rate
     f0 = 180 + 40 * seed
     tone = sum(0.15 / k * np.sin(2 * np.pi * f0 * k * t) for k in (1, 2, 3))
     gate = (np.sin(2 * np.pi * t / 37.0) > 0.3)
-    x = tone * gate + rng.standard_normal(len(t)) * 0.02
+    noise = rng.standard_normal(len(t) if channels == 1
+                                else (len(t), channels))
+    x = ((tone * gate)[:, None] if channels > 1 else tone * gate) \
+        + noise * 0.02
     ints = np.clip(np.round(x * 32768), -32768, 32767).astype('<i2')
     with wave.open(path, 'wb') as w:
-        w.setnchannels(1)
+        w.setnchannels(channels)
         w.setsampwidth(2)
-        w.setframerate(16000)
+        w.setframerate(rate)
         w.writeframes(ints.tobytes())
 
 
@@ -258,14 +295,16 @@ def make_models_dir(root):
     return models
 
 
-def check_csvs(dir_out, names, seconds, chunk_s, cfg):
+def check_csvs(dir_out, names, seconds, chunk_s, cfg, rate=16000):
     """Every recording has a complete CSV: the expected rows, 13 finite
-    scores each, the time column 0, 0.96, ..."""
+    scores each, the time column 0, 0.96, ... A recording at another
+    ``rate`` is cut into chunks at that rate, each resampled to 16 kHz."""
     from buzzdetect_torch.ops import frontend
     from buzzdetect_torch.write.coverage import gaps_to_chunklist
     chunks = gaps_to_chunklist([(0.0, seconds)], chunk_s)
     expected = sum(frontend.num_patches(
-        int(c1 * 16000) - int(c0 * 16000), cfg) for c0, c1 in chunks)
+        -(-(int(c1 * rate) - int(c0 * rate)) * 16000 // rate), cfg)
+        for c0, c1 in chunks)
     for n in names:
         path = os.path.join(dir_out, f'{n}_buzzdetect.csv')
         if not os.path.exists(path):
@@ -284,21 +323,25 @@ def check_csvs(dir_out, names, seconds, chunk_s, cfg):
           f'finite; {len(chunks)} chunks of {chunk_s} s per file', flush=True)
 
 
-def check_chunk_on_cpu(analyzer, arrays, path_audio, path_csv, mode, **kw):
+def check_chunk_on_cpu(analyzer, arrays, path_audio, path_csv, mode,
+                       input_rate=None, **kw):
     """One chunk's scores on the card against the same chunk through the
     plain versions on the CPU in the same mode, and the CSV against the
-    card's scores."""
+    card's scores. With ``input_rate`` the chunk is read at that native
+    rate and resampled on each device."""
     from buzzdetect_torch.audio import build_track
     from buzzdetect_torch.models.classifier import ChunkClassifier
-    track = build_track(path_audio)
-    samples = track.read_s16(int(analyzer.chunklength * 16000))
+    track = build_track(path_audio, target_rate=0 if input_rate else 16000)
+    samples = track.read_s16(int(analyzer.chunklength
+                                 * (input_rate or 16000)))
     track.close()
-    card = analyzer.model.classifier.predict(samples)
+    card = analyzer.model.classifier.predict(samples, input_rate=input_rate)
     cpu = ChunkClassifier(arrays, device='cpu', transfer_dtype='int16',
-                          **kw).predict(samples)
+                          **kw).predict(samples, input_rate=input_rate)
     d = float(np.abs(card - cpu).max())
-    print(f'[{mode}] one {analyzer.chunklength} s chunk, card vs CPU: '
-          f'{card.shape}, max |dscore| = {d:.3g} (budget '
+    print(f'[{mode}] one {analyzer.chunklength} s chunk'
+          + (f' at {input_rate} Hz' if input_rate else '')
+          + f', card vs CPU: {card.shape}, max |dscore| = {d:.3g} (budget '
           f'{SCORE_ATOL[mode]})', flush=True)
     if card.shape != cpu.shape or d > SCORE_ATOL[mode]:
         fail(f'[{mode}] card and CPU scores differ by {d:.3g}')
@@ -307,6 +350,185 @@ def check_chunk_on_cpu(analyzer, arrays, path_audio, path_csv, mode, **kw):
                           f.read().splitlines()[1:]], float)
     if np.abs(first[:len(card), 1:] - np.round(card, 2)).max() > 0.0101:
         fail(f'[{mode}] the CSV does not hold the card\'s scores for chunk 1')
+
+
+def decoder_line():
+    """Print what decodes audio here: the FFmpeg that pkg-config finds (or
+    its absence) and ``native_status()``. A native stage that does not
+    build where FFmpeg is present fails the run. Returns native_status()."""
+    from buzzdetect_torch.audio import ffi
+    try:
+        found = ', '.join(f'{k} {v}' for k, v in
+                          ffi.ffmpeg_versions().items())
+    except ffi.FFmpegNotFound as e:
+        found = None
+        absent = str(e)
+    ok, why = ffi.native_status()
+    print(f'decoder: pkg-config FFmpeg: {found or "absent: " + absent}; '
+          f'native_status() = ({ok}, {why.splitlines()[0]!r})', flush=True)
+    if found and not ok:
+        fail(f'FFmpeg is present but the native decode stage does not '
+             f'build:\n{why}')
+    return ok, why
+
+
+def sampler_shares(sampler):
+    """Percent of all stack samples (wall x threads) in the streamers'
+    wire quantizer and in their audio reads (the rest of a read)."""
+    def share(match):
+        hits = sum(n for (role, ours, leaf), n in sampler.busy.items()
+                   if role == 'streamer' and match(ours, leaf))
+        return 100 * hits / max(1, sampler.total)
+    return (share(lambda ours, leaf: 'quantize' in ours + leaf),
+            share(lambda ours, leaf: 'quantize' not in ours + leaf
+                  and ours.split(':')[-1].startswith('read')))
+
+
+def resampler_phase(torch, dev, f32_peak, bytes_peak, time_ms, device_ms,
+                    seconds=RESAMPLE_SECONDS):
+    """The on-device resampler on one chunk at each of RESAMPLE_RATES:
+    card against the port's CPU resample, its CUDA-event time and device
+    time, the conv's device time alone, each beside its bounds: the
+    function's (its nonzero taps) and the layout's (every tap of the
+    (up, 1, W) kernel), with the bytes of the f32 input and output."""
+    import importlib
+    from math import gcd
+    import torch.nn.functional as F
+    rs = importlib.import_module('buzzdetect_torch.ops.resample')
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for rate in RESAMPLE_RATES:
+        n = int(seconds * rate)
+        x = torch.randn(n, device=dev, generator=gen) * 0.1
+        with torch.inference_mode():
+            got = rs.resample(x, rate, 16000)
+            ref = rs.resample(x.cpu(), rate, 16000)
+        err = float((got.cpu() - ref).abs().max())
+        g = gcd(rate, 16000)
+        up, down = 16000 // g, rate // g
+        K, i0_min, width = rs._polyphase_kernel(up, down, 16)
+        n_out = got.numel()
+        n_m = -(-n_out // up)
+        macs, useful = n_m * up * width, n_m * int(np.count_nonzero(K))
+        n_bytes = 4 * (n + n_out)
+        b_fn = bound(2 * useful / f32_peak, n_bytes / bytes_peak)
+        b_lay = bound(2 * macs / f32_peak, n_bytes / bytes_peak)
+        pad_hi = max(0, (n_m - 1) * down + width - (n - i0_min))
+        lhs = F.pad(x.reshape(1, 1, n), (-i0_min, pad_hi))
+        kd = rs._device_kernel(up, down, 16, dev)
+
+        def run():
+            return rs.resample(x, rate, 16000)
+
+        def conv():
+            with rs._no_tf32():
+                return F.conv1d(lhs, kd, stride=down)
+        print(f'resample {rate} -> 16000 Hz, one {seconds:g} s chunk ({n} '
+              f'samples; kernel {up}x1x{width}, stride {down}, '
+              f'{macs / 1e9:.3f} G MAC as laid out, {useful / 1e9:.3f} G '
+              f'useful, {n_bytes / 1e6:.1f} MB): max |card - CPU| = '
+              f'{err:.3g} (atol {RESAMPLE_ATOL}); CUDA events '
+              f'{time_ms(run):.4f} ms, device time {device_ms(run):.4f} ms '
+              f'(the conv alone {device_ms(conv):.4f} ms); bound '
+              f'{b_fn["bound_ms"]:.4f} ms ({b_fn["bound_by"]}) for the '
+              f'useful taps, {b_lay["bound_ms"]:.4f} ms '
+              f'({b_lay["bound_by"]}) as laid out', flush=True)
+        if not err <= RESAMPLE_ATOL:
+            fail(f'resample {rate} Hz: card and CPU differ by {err:.3g}')
+
+
+def native_rate_phase(tmp, arrays, cfg, native, reset_counts, read_counts,
+                      seconds=NATIVE_SECONDS, device='cuda'):
+    """This slice's path: analyze(resample_on_device=True) on native-rate
+    PCM16 WAVs (NATIVE_RECORDINGS), in exact f32 on ``device``: end reason,
+    CSV rows, the conv kernels' launch counts (set to 0 just before and
+    read just after), one chunk of each file on the card against the CPU;
+    then the same run again under the stack sampler (quantize and read
+    shares). Where the native stage is present (``native`` = native_status()),
+    also the same files through host resampling (same CSV shapes, under
+    the stack sampler), a FLAC made by encode_fixture, and
+    decode_rate_probe; else one line saying why those did not run."""
+    import buzzdetect_torch
+    from buzzdetect_torch.tools import profile_pipeline
+    dir_audio = os.path.join(tmp, 'native_audio')
+    os.makedirs(dir_audio)
+    names = {}
+    for i, (rate, channels) in enumerate(NATIVE_RECORDINGS):
+        name = f'native{rate // 1000}k{channels}'
+        names[name] = rate
+        write_recording(os.path.join(dir_audio, f'{name}.wav'), seconds,
+                        6 + i, rate=rate, channels=channels)
+    audio_s = seconds * len(names)
+
+    def analyze(out, on_device, where=dir_audio):
+        t0 = time.perf_counter()
+        result = buzzdetect_torch.analyze(
+            modelname=MODEL, dir_audio=where, dir_out=out, device=device,
+            verbosity_print='WARNING', resample_on_device=on_device)
+        wall = time.perf_counter() - t0
+        if result.coordinator.end_reason != 'completed':
+            fail(f'analyze(resample_on_device={on_device}) on {where} ended '
+                 f'{result.coordinator.end_reason!r}')
+        return result, wall
+
+    out_dev = os.path.join(tmp, 'out_native_dev')
+    reset_counts()
+    analyzer, wall = analyze(out_dev, True)
+    counts = read_counts()
+    print(f'analyze(resample_on_device=True) on {len(names)} native-rate '
+          f'WAVs ({", ".join(f"{r} Hz {c} ch" for r, c in NATIVE_RECORDINGS)}'
+          f', {seconds:g} s each): end reason '
+          f'{analyzer.coordinator.end_reason!r}, {wall:.2f} s wall, '
+          f'{audio_s / wall:.1f} audio s per wall s, kernel launches '
+          f'{counts}', flush=True)
+    for name in ('fused_front', 'fused_tail'):
+        if counts[name] <= 0:
+            fail(f'the native-rate path never launched {name}')
+    for name, rate in names.items():
+        check_csvs(out_dev, [name], seconds, analyzer.chunklength, cfg,
+                   rate=rate)
+        check_chunk_on_cpu(analyzer, arrays,
+                           os.path.join(dir_audio, f'{name}.wav'),
+                           os.path.join(out_dev, f'{name}_buzzdetect.csv'),
+                           'highest', input_rate=rate)
+    # the same run again under the stack sampler: where the host's time
+    # goes on this path (the run above is the one timed)
+    with profile_pipeline.Sampler() as sampler:
+        analyze(os.path.join(tmp, 'out_native_sampled'), True)
+    print('sampled analyze(resample_on_device=True): quantize {:.1f}%, '
+          'audio reads {:.1f}% of all stack samples\n'.format(
+              *sampler_shares(sampler))
+          + '\n'.join(profile_pipeline.report(sampler, 12)), flush=True)
+    ok, why = native
+    if not ok:
+        print(f'native stage absent, so host resampling of these files, '
+              f'the FLAC, decode_rate_probe and the sampled native-stage '
+              f'analyze() did not run: {why.splitlines()[0]}', flush=True)
+        return
+    from buzzdetect_torch.audio.ffi import encode_fixture
+    from buzzdetect_torch.tools import decode_rate_probe
+    out_host = os.path.join(tmp, 'out_native_host')
+    with profile_pipeline.Sampler() as sampler:
+        result, wall = analyze(out_host, False)
+    quant, reads = sampler_shares(sampler)
+    print(f'analyze() with host resampling (the native stage) on the same '
+          f'files: {wall:.2f} s wall, {audio_s / wall:.1f} audio s per wall '
+          f's; sampler: quantize {quant:.1f}%, audio reads {reads:.1f}% of '
+          f'all stack samples\n'
+          + '\n'.join(profile_pipeline.report(sampler, 12)), flush=True)
+    for name in names:
+        check_csvs(out_host, [name], seconds, result.chunklength, cfg)
+    flac_dir = os.path.join(tmp, 'flac_audio')
+    os.makedirs(flac_dir)
+    encode_fixture(os.path.join(flac_dir, 'fixture.flac'), 'flac', 48000, 1,
+                   FLAC_SECONDS)
+    out_flac = os.path.join(tmp, 'out_flac')
+    result, wall = analyze(out_flac, True, where=flac_dir)
+    check_csvs(out_flac, ['fixture'], FLAC_SECONDS, result.chunklength, cfg,
+               rate=48000)
+    for row in decode_rate_probe.probe(
+            [f for f in decode_rate_probe.FAMILIES if f[0] in PROBE_CODECS],
+            seconds=PROBE_SECONDS, trials=1):
+        print(f'decode_rate_probe: {json.dumps(row)}', flush=True)
 
 
 def main():
@@ -363,6 +585,7 @@ def run(torch, tmp):
     print(f'built and loaded {", ".join(SOURCES.values())} in '
           f'{time.perf_counter() - t0:.1f} s (one nvcc per source, in '
           f'parallel)', flush=True)
+    native = decoder_line()
 
     # --- 2. kernels against their plain versions -----------------------
     sepconv.exact_f32()
@@ -924,6 +1147,8 @@ def run(torch, tmp):
         fail(f'the sampled analyze() ended {result.coordinator.end_reason!r}')
     print(f'sampled analyze(): {wall:.2f} s wall; '
           + '\n'.join(profile_pipeline.report(sampler, 12)), flush=True)
+    print('sampled analyze(): quantize {:.1f}%, audio reads {:.1f}% of all '
+          'stack samples'.format(*sampler_shares(sampler)), flush=True)
 
     # (e) the roofline of one 200 s chunk with peaks measured on the card
     probe.fma_chain.launches = 0
@@ -959,7 +1184,11 @@ def run(torch, tmp):
                      <= FMA_RTOL * x.abs().clamp(min=1.0)).all()):
             fail(f'fma_chain disagrees with its plain version: {err:.3g}')
 
-    # --- 5. the kernels line ------------------------------------------
+    # --- 5. native rates: on-device resampling and the decode stage ----
+    resampler_phase(torch, dev, f32_peak, bytes_peak, time_ms, device_ms)
+    native_rate_phase(tmp, arrays, cfg, native, reset_counts, read_counts)
+
+    # --- 6. the kernels line ------------------------------------------
     order = ('fused_front', 'fused_tail', 'fused_front[bf16]',
              'fused_tail[bf16]', 'fused_front[high]', 'fused_tail[high]',
              'log_mel', 'remap') + DOTS + ('fma_chain',)

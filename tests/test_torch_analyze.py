@@ -15,7 +15,7 @@ import pytest
 import buzzdetect_tpu
 import buzzdetect_torch
 from buzzdetect_tpu.audio import build_track as jax_build_track
-from buzzdetect_torch.audio import UnsupportedFormat, build_track
+from buzzdetect_torch.audio import UnsupportedFormat, WavDriver
 from tests.audio_fixtures import make_tone, write_wav
 
 MODEL = 'model_general_v3'
@@ -121,7 +121,7 @@ def test_wav_driver_gives_the_native_stage_wire(tmp_path, channels):
     data[50:100] = -1.0
     path = tmp_path / f'c{channels}.wav'
     write_wav(path, data.astype(np.float32), 16000)
-    ours, native = build_track(str(path)), jax_build_track(str(path))
+    ours, native = WavDriver(str(path)), jax_build_track(str(path))
     try:
         assert ours.frames == native.frames == 40000
         assert ours.source_channels == native.source_channels == channels
@@ -140,4 +140,4 @@ def test_wav_driver_refuses_other_rates(tmp_path):
     path = tmp_path / 'fast.wav'
     write_wav(path, np.zeros(44100, np.float32), 44100)
     with pytest.raises(UnsupportedFormat, match='libav'):
-        build_track(str(path))
+        WavDriver(str(path))

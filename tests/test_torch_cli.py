@@ -92,7 +92,6 @@ def test_cli_cpu_run_matches_jax_analyze(audio, tmp_path):
 @pytest.mark.parametrize('flags,item', [
     (['--devices', '2'], 'Multi-GPU layouts'),
     (['--host_shard', '0/2'], 'Multi-GPU layouts'),
-    (['--resample_on_device'], 'The libav decode stage and resampling'),
 ])
 def test_cli_unported_flags_exit_2_naming_the_roadmap_item(tmp_path, capsys,
                                                            flags, item):

@@ -48,7 +48,11 @@ def test_no_jax_or_reference_package_imports():
     'buzzdetect_torch.api', 'buzzdetect_torch.doctor',
     'buzzdetect_torch.ops.probe', 'buzzdetect_torch.tools.capability_probe',
     'buzzdetect_torch.tools.roofline',
-    'buzzdetect_torch.tools.profile_pipeline'])
+    'buzzdetect_torch.tools.profile_pipeline',
+    'buzzdetect_torch.audio.ffi', 'buzzdetect_torch.ops.resample',
+    'buzzdetect_torch.tools.decode_rate_probe',
+    'buzzdetect_torch.tools.fuzz_decode',
+    'buzzdetect_torch.tools.soak_resume'])
 def test_importing_the_port_loads_no_jax(first):
     """Each module imports first without an import cycle, and the package
     with its orchestrator pulls in no JAX. A subprocess: tests/conftest.py
@@ -96,7 +100,6 @@ def test_cuda_without_a_card_raises(tmp_path):
 
 @pytest.mark.parametrize('kw', [
     {'mesh': object()}, {'devices': 2}, {'host_shard': (0, 2)},
-    {'resample_on_device': True},
     {'devices': 'all'},
 ])
 def test_unported_analyze_options_raise(tmp_path, kw):

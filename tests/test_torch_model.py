@@ -160,10 +160,11 @@ def test_classifier_embed_and_wire_formats(classifiers, bundle):
         assert err <= ATOL_SCORE
 
 
-def test_unported_options_raise(bundle):
+def test_unported_options_raise(bundle, classifiers):
     """conv='xla' is the one classifier option left unported; the modes
     ported since (bf16, emulated HIGH, the fused log-mel) construct and
-    resolve as the JAX package's conv='pallas' resolves them."""
+    resolve as the JAX package's conv='pallas' resolves them, and
+    ``input_rate`` (on-device resampling) scores as the JAX package's."""
     with pytest.raises(NotImplementedError, match="The XLA conv path"):
         ChunkClassifier(bundle, device='cpu', conv='xla')
     for kw, knobs in (
@@ -173,6 +174,12 @@ def test_unported_options_raise(bundle):
         clf = ChunkClassifier(bundle, device='cpu', **kw)
         assert (clf.frontend, clf.conv_precision, clf.mode) == knobs
         assert clf.conv == 'pallas'
-    clf = ChunkClassifier(bundle, device='cpu')
-    with pytest.raises(NotImplementedError, match='resampling'):
-        clf.predict_async(np.zeros(16000, np.float32), input_rate=44100)
+    jclf, tclf = classifiers
+    native = (np.random.default_rng(44).standard_normal(int(3.3 * 44100))
+              * 0.1).astype(np.float32)
+    ref = jclf.predict(native, input_rate=44100)
+    got = tclf.predict(native, input_rate=44100)
+    assert got.shape == ref.shape
+    err = float(np.abs(got - ref).max())
+    print(f'predict input_rate=44100: {got.shape}, max |dscore| = {err:.3g}')
+    assert err <= ATOL_SCORE
