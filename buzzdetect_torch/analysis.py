@@ -7,9 +7,11 @@ ident-conflict and already-complete filtering, worker thread lifecycle, and
 the end-of-run wall-time report.
 
 Copy of ``buzzdetect_tpu/analysis.py`` with ``device`` threaded through
-(``'cuda'`` unless the caller asks for ``'cpu'``). Arguments that need code
-outside this slice of the port raise NotImplementedError naming the ROADMAP
-item that brings them (see :func:`_refuse_unported`).
+(``'cuda'`` unless the caller asks for ``'cpu'``; in replica mode it names
+the device type that ``devices=N`` or ``'all'`` counts). ``host_shard=True``
+takes its rank from ``torch.distributed`` (``parallel.process_rank``).
+``mesh=`` is not ported and raises NotImplementedError naming its ROADMAP
+item (see :func:`_refuse_unported`).
 """
 
 import os
@@ -32,33 +34,40 @@ from buzzdetect_torch.utils import Timer, get_ext, pid_alive, search_dir
 from buzzdetect_torch.write.thresholds import calculate_threshold
 
 
-def _refuse_unported(mesh=None, devices=None, host_shard=None):
-    """Raise for an argument whose code is outside this slice of the port,
-    naming the ROADMAP item that brings it."""
-    later = (
-        ('mesh', mesh is not None, 'Multi-GPU layouts'),
-        ('devices', devices is not None, 'Multi-GPU layouts'),
-        ('host_shard', host_shard is not None, 'Multi-GPU layouts'),
-    )
-    for name, given, item in later:
-        if given:
-            raise NotImplementedError(
-                f'{name}= is not ported to buzzdetect_torch yet (ROADMAP, '
-                f'"{item}")')
+_MSG_DEVICES_MESH_EXCLUSIVE = (
+    'devices= (independent per-device replicas) and mesh= (sharding one '
+    'chunk across devices) are mutually exclusive — pick one scale-out '
+    'layout')
+
+
+def _refuse_unported(mesh=None):
+    """Raise for ``mesh=``, whose code is outside the port so far, naming
+    the ROADMAP item that brings it."""
+    if mesh is not None:
+        raise NotImplementedError(
+            'mesh= is not ported to buzzdetect_torch yet (ROADMAP, '
+            '"Multi-GPU layouts, part 2")')
 
 
 def _load_serving_models(modelname, framehop_prop, compute_dtype,
                          transfer_dtype, *, device='cuda',
-                         conv_precision=None):
-    """The ONE place a run's serving model is constructed.
+                         replica_devices=None, conv_precision=None):
+    """The ONE place a run's serving model(s) are constructed.
 
     Analyzer.__init__ (single-pass runs) and analyze()'s watch-mode
-    shared block (model built once, reused every polling cycle) must
-    configure models identically. Returns ``{'model': m}``.
+    shared block (models built once, reused every polling cycle) must
+    configure models identically. Returns ``{'replica_models': [...]}``
+    when ``replica_devices`` is given (one model per listed device, which
+    may repeat), else ``{'model': m}`` on ``device``.
     """
     kw = {'transfer_dtype': transfer_dtype} if transfer_dtype else {}
     if conv_precision:
         kw['conv_precision'] = conv_precision
+    if replica_devices:
+        return {'replica_models': [
+            load_model(modelname, framehop_prop=framehop_prop,
+                       initialize=False, compute_dtype=compute_dtype,
+                       device=d, **kw) for d in replica_devices]}
     return {'model': load_model(modelname, framehop_prop=framehop_prop,
                                 initialize=False,
                                 compute_dtype=compute_dtype,
@@ -149,6 +158,7 @@ class Analyzer:
                  devices=None,
                  host_shard=None,
                  model=None,
+                 replica_models=None,
                  device='cuda',
                  watch_state: dict = None,
                  watch_cycle: int = None,
@@ -206,8 +216,48 @@ class Analyzer:
         # lock forever, both believing they own the folder.
         self.session_lock = session_lock
 
-        _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard)
-        if model is not None:
+        if devices is not None and mesh is not None:
+            raise ValueError(_MSG_DEVICES_MESH_EXCLUSIVE)
+        _refuse_unported(mesh)
+        self.replica_models = None
+        if devices is not None:
+            # per-device replica data parallelism: one classifier replica
+            # on each listed device, each with its own dispatch thread, fed
+            # independent chunks from the shared prefetch ring — the
+            # reference's "multiple GPU analyzers" (docs/source/
+            # tuning.rst:110-117). Zero collectives.
+            from buzzdetect_torch.parallel import resolve_replica_devices
+            devs = resolve_replica_devices(devices, device)
+            if replica_models is not None:
+                models = replica_models  # watch cycles share the replicas
+            else:
+                models = _load_serving_models(
+                    modelname, framehop_prop, compute_dtype, transfer_dtype,
+                    replica_devices=devs,
+                    conv_precision='highest' if strict_f32 else None
+                    )['replica_models']
+            for m in models:
+                if not hasattr(m, '_device'):
+                    raise ValueError(
+                        f'model {modelname} is a python plugin and cannot '
+                        f'be pinned to a device; devices= requires a bundle '
+                        f'model')
+            # the coordinator may run SEVERAL dispatch threads per replica
+            # (the per-device version of the reference's "multiple GPU
+            # analyzers +~10%" knob, docs/source/tuning.rst:110-117); the
+            # classifier is thread-safe, so threads i*k..(i+1)*k-1 share
+            # replica i
+            total = self.coordinator.analyzers_total
+            if total % len(models) != 0:
+                raise ValueError(
+                    f'replica mode needs a whole number of dispatch '
+                    f'threads per device: coordinator has {total} analyzers '
+                    f'for {len(models)} replicas (call analyze(devices=...) '
+                    f'which sizes it as replicas x analyzers_cpu)')
+            per = total // len(models)
+            self.model = models[0]
+            self.replica_models = [m for m in models for _ in range(per)]
+        elif model is not None:
             # watch cycles share one model so device params upload once,
             # not once per polling cycle
             self.model = model
@@ -223,7 +273,27 @@ class Analyzer:
                 f'(plugin models receive model-rate samples); drop '
                 f'resample_on_device')
         self.resample_on_device = resample_on_device
-        self.host_shard = None
+
+        # multi-host data parallelism: this process analyzes only its stable
+        # hash-assigned shard of the corpus (parallel.shard_files); hosts
+        # share one output directory and need no communication — completion
+        # state IS the filesystem
+        if host_shard is True:
+            from buzzdetect_torch.parallel import process_rank
+            host_shard = process_rank()
+        if host_shard is not None:
+            # shape-check BEFORE unpacking: host_shard=1 or '0/4' must hit
+            # this message, not a raw unpack TypeError
+            if not (isinstance(host_shard, (tuple, list))
+                    and len(host_shard) == 2
+                    and all(isinstance(v, int) and not isinstance(v, bool)
+                            for v in host_shard)
+                    and 0 <= host_shard[0] < host_shard[1]):
+                raise ValueError(
+                    f'host_shard must be (host_id, n_hosts) with '
+                    f'0 <= host_id < n_hosts, got {host_shard!r}')
+            host_shard = (host_shard[0], host_shard[1])
+        self.host_shard = host_shard
 
         self.precision = precision
         # bf16 guardrail: measured max activation deviation vs f32 is ~0.006
@@ -475,12 +545,15 @@ class Analyzer:
             self._started['streamers'] += 1
 
     def _launch_analyzers(self):
-        # every dispatch thread shares one model
+        # replica mode: thread a gets replica a (its own device's
+        # classifier); otherwise every dispatch thread shares one model
+        models = (self.replica_models if self.replica_models is not None
+                  else [self.model] * self.coordinator.analyzers_total)
         for a in range(self.coordinator.analyzers_total):
             t = threading.Thread(
                 target=run_worker, name=f'analyzer_{a}', daemon=True,
                 kwargs=dict(workerclass=WorkerInferer, id_analyzer=a,
-                            model=self.model, coordinator=self.coordinator,
+                            model=models[a], coordinator=self.coordinator,
                             batch_chunks=self.batch_chunks,
                             warmup_rate=self.warmup_rate,
                             warmup_samples=int(
@@ -621,7 +694,17 @@ class Analyzer:
                 end_reason='no files'))
             return False
 
-        mine = None
+        if self.host_shard is not None:
+            # conflict detection below stays GLOBAL (every host sees the
+            # same listing and drops the same colliding idents); only the
+            # work partition is sharded
+            from buzzdetect_torch.parallel import shard_files
+            mine = set(shard_files([a.path_audio for a in assignments],
+                                   host_id=self.host_shard[0],
+                                   n_hosts=self.host_shard[1],
+                                   root=root))
+        else:
+            mine = None
 
         # files whose idents collide (same name, different extension) would
         # interleave rows in one result file; drop them with a warning
@@ -1357,8 +1440,9 @@ def analyze(modelname: str,
     stream_buffer_depth : bounded prefetch ring depth (default: streamers*2).
     dir_audio / dir_out : input tree and output directory. ``dir_audio``
         may also be a single audio FILE (superset of the reference:
-        analyze one recording without staging a directory). This slice of
-        the port reads 16 kHz PCM16 WAV (audio/__init__.WavDriver).
+        analyze one recording without staging a directory). Where the
+        native libav stage is unavailable the port reads PCM16 WAV only
+        (audio/__init__.WavDriver).
     verbosity_print / verbosity_log / log_progress : logging controls.
     q_gui / event_stopanalysis : GUI integration hooks.
     compute_dtype : None or float32 (exact f32, the 1e-3 parity budget), or
@@ -1370,9 +1454,28 @@ def analyze(modelname: str,
         this directory (``<host>_<pid>.<time>.pt.trace.json``, for TensorBoard
         or Perfetto): the CPU ops of every thread and, on the card, its
         kernels and copies.
-    mesh, devices, host_shard : not ported yet; passing them raises
-        NotImplementedError naming the ROADMAP item (see
-        ``buzzdetect_tpu.analyze`` for what they do there).
+    mesh : not ported yet; passing it raises NotImplementedError naming
+        the ROADMAP item (see ``buzzdetect_tpu.analyze`` for what it does
+        there).
+    devices : per-device replica data parallelism — an int N (the first N
+        devices of ``device``'s type), 'all', or an explicit list of
+        ``'cuda:i'``, ``'cpu'`` or ``torch.device``, which may name one
+        device more than once (two replicas on one card). Each entry gets
+        its OWN classifier replica and dispatch thread, with a CUDA stream
+        of its own, fed independent chunks from the shared prefetch ring:
+        zero collectives, the reference's "multiple GPU analyzers" row
+        (docs/source/tuning.rst:110-117). Mutually exclusive with ``mesh``.
+        In this mode ``analyzers_cpu + analyzers_gpu`` becomes the number
+        of dispatch threads PER replica (default 1). Results are
+        byte-identical to a single-device run.
+    host_shard : multi-host data parallelism — ``(host_id, n_hosts)``, or
+        ``True`` to take both from ``torch.distributed`` (rank and world
+        size where a process group is initialized, else ``(0, 1)``). This
+        process analyzes only its stable hash-assigned shard of the corpus
+        (``parallel.shard_files``); point every host at the same output
+        directory and they divide the corpus with NO coordination —
+        completion state is the filesystem (partials + manifest), exactly
+        like single-host resume. Composes with ``devices``.
     resample_on_device : decode at each file's NATIVE rate and resample to
         the model rate on the model's device (``ops/resample.py``,
         polyphase as one strided convolution) instead of in the host
@@ -1441,7 +1544,13 @@ def analyze(modelname: str,
         kernels) or ``'cpu'`` (every op runs its plain PyTorch version).
         Asking for CUDA without a CUDA device raises RuntimeError.
     """
-    _refuse_unported(mesh=mesh, devices=devices, host_shard=host_shard)
+    if devices is not None and mesh is not None:
+        raise ValueError(_MSG_DEVICES_MESH_EXCLUSIVE)
+    _refuse_unported(mesh)
+    replica_devices = None
+    if devices is not None:
+        from buzzdetect_torch.parallel import resolve_replica_devices
+        replica_devices = resolve_replica_devices(devices, device)
     if backend_timeout is not None:
         backend_timeout = float(backend_timeout)
         if backend_timeout <= 0:
@@ -1459,8 +1568,15 @@ def analyze(modelname: str,
                     f"nvidia-smi, or run on the CPU with device='cpu'")
 
     def one_pass(event=event_stopanalysis, **extra):
-        coordinator = Coordinator(analyzers_cpu=analyzers_cpu,
-                                  analyzers_gpu=analyzers_gpu,
+        # replica mode: analyzers_cpu/analyzers_gpu become dispatch threads
+        # PER replica (default 1 each -> one thread per device)
+        per_replica = max(1, analyzers_cpu + analyzers_gpu)
+        coordinator = Coordinator(analyzers_cpu=(len(replica_devices)
+                                                 * per_replica
+                                                 if replica_devices
+                                                 else analyzers_cpu),
+                                  analyzers_gpu=(0 if replica_devices
+                                                 else analyzers_gpu),
                                   streamers_total=n_streamers,
                                   depth=stream_buffer_depth,
                                   q_gui=q_gui,
@@ -1474,6 +1590,8 @@ def analyze(modelname: str,
                             coordinator=coordinator,
                             compute_dtype=compute_dtype,
                             profile_dir=profile_dir,
+                            devices=replica_devices,
+                            host_shard=host_shard,
                             batch_chunks=batch_chunks,
                             transfer_dtype=transfer_dtype,
                             strict_f32=strict_f32,
@@ -1482,7 +1600,8 @@ def analyze(modelname: str,
                             alert_classes=alert_classes,
                             alert_command=alert_command,
                             alert_threshold=alert_threshold,
-                            stall_timeout=stall_timeout, **extra)
+                            stall_timeout=stall_timeout, device=device,
+                            **extra)
         _current_pass['coordinator'] = analyzer.coordinator
         analyzer.run()
         return analyzer
@@ -1490,17 +1609,18 @@ def analyze(modelname: str,
     _current_pass = {}
 
     if not watch:
-        return one_pass(device=device)
+        return one_pass()
 
-    # watch cycles share the model so its device params upload once, not
-    # once per polling cycle; built by the same helper Analyzer.__init__
-    # uses so the two sites cannot drift apart. The shared model must see
+    # watch cycles share the model(s) so each device's params upload once,
+    # not once per polling cycle; built by the same helper Analyzer.__init__
+    # uses so the two sites cannot drift apart. The shared models must see
     # the PROFILE-resolved knobs (the Analyzer resolves them from the
-    # originals each pass, but watch mode loads the model here, once)
+    # originals each pass, but watch mode loads the models here, once)
     r_transfer, r_strict, _note = cfg.resolve_profile(
         profile, transfer_dtype, strict_f32)
     shared = _load_serving_models(modelname, framehop_prop, compute_dtype,
                                   r_transfer, device=device,
+                                  replica_devices=replica_devices,
                                   conv_precision=('highest' if r_strict
                                                   else None))
     stop = watch_stop if watch_stop is not None else threading.Event()

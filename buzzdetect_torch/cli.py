@@ -10,10 +10,10 @@ prompt on resume conflicts). Edits:
 * ``--bf16`` maps to ``torch.bfloat16``: the CUDA conv kernels' bf16 mode;
 * ``--device {cuda,cpu}`` (new; default ``cuda``): the counterpart of running
   the JAX CLI under ``JAX_PLATFORMS=cpu``;
-* flags that reach code outside the port (``--devices``, ``--host_shard``),
-  and a model config that asks for one
-  (``"conv": "xla"``), exit with status 2 and the NotImplementedError
-  message that names the ROADMAP item;
+* ``--devices`` counts the devices of ``--device``'s type (CUDA cards, or
+  the one CPU); ``--host_shard I/N`` shards the corpus as the JAX CLI does;
+* ``--strict_f32`` pins the conv kernels to exact f32 over a bundle's
+  ``"conv_precision": "high"``;
 * ``main`` returns the finished Analyzer (the JAX CLI returns None), so an
   in-process caller can read its end reason.
 """
@@ -151,24 +151,23 @@ def build_parser():
                              "conv precision). Explicit knobs still win. "
                              "See docs/tuning.md 'Profiles'")
     parser.add_argument('--strict_f32', action='store_true',
-                        help='Pin every conv dot to exact-f32 MXU precision '
-                             '(6-pass HIGHEST). The single-chip fused path '
-                             'already runs HIGHEST by default; this '
-                             'additionally pins the XLA conv path (mesh '
-                             'runs, fallbacks), which defaults to 3-pass '
-                             'HIGH — 1.166x faster at a 7-9e-4 score '
-                             'deviation, inside the 1e-3 parity budget')
+                        help='Pin the conv products to exact f32 '
+                             "(conv_precision 'highest'): on the CUDA conv "
+                             "kernels it overrides a bundle's 'high' (the "
+                             'emulated-HIGH mode); the XLA conv path '
+                             "(\"conv\": \"xla\") runs exact f32 either way. "
+                             'Ignored with --bf16')
     parser.add_argument('--resample_on_device', action='store_true',
                         help='Decode at native rate and resample on the '
                              'model\'s device ahead of the frontend (frees '
                              'host CPU; more wire bytes for rates >16kHz)')
     parser.add_argument('--devices', required=False, default=None,
-                        help="Per-chip replica data parallelism: an int N "
-                             "(first N local accelerator chips) or 'all'. "
-                             "Each chip runs its own model replica with its "
-                             "own dispatch thread on independent chunks — "
-                             "the throughput-max multi-chip layout; results "
-                             "are identical to a single-chip run")
+                        help="Per-device replica data parallelism: an int N "
+                             "(the first N devices of --device's type) or "
+                             "'all'. Each device runs its own model replica "
+                             "with its own dispatch thread on independent "
+                             "chunks; results are identical to a "
+                             "single-device run")
     parser.add_argument('--host_shard', required=False, default=None,
                         help="Multi-host run: 'I/N' (e.g. 0/4) analyzes only "
                              "this host's stable hash-assigned shard of the "
@@ -308,38 +307,35 @@ def main(argv=None):
             parser.error('--host_shard needs 0 <= I < N')
 
     from buzzdetect_torch.analysis import analyze
-    try:
-        result = analyze(modelname=modelname,
-                         classes_out=classes_out,
-                         precision=precision,
-                         framehop_prop=framehop_prop,
-                         chunklength=args.chunklength,
-                         analyzers_cpu=args.analyzers_cpu,
-                         analyzers_gpu=args.analyzers_gpu,
-                         n_streamers=args.n_streamers,
-                         stream_buffer_depth=args.stream_buffer_depth,
-                         dir_audio=args.dir_audio,
-                         dir_out=dir_out,
-                         verbosity_print=args.verbosity_print,
-                         verbosity_log=args.verbosity_log,
-                         log_progress=args.log_progress,
-                         compute_dtype=compute_dtype,
-                         devices=devices,
-                         host_shard=host_shard,
-                         transfer_dtype=args.transfer_dtype,
-                         strict_f32=args.strict_f32,
-                         profile=args.profile,
-                         resample_on_device=args.resample_on_device,
-                         watch=args.watch,
-                         watch_interval=args.watch_interval,
-                         alert_classes=args.alert_classes,
-                         alert_threshold=args.alert_threshold,
-                         alert_command=args.alert_command,
-                         backend_timeout=args.backend_timeout,
-                         stall_timeout=args.stall_timeout,
-                         device=args.device)
-    except NotImplementedError as e:
-        parser.exit(2, f'{parser.prog}: not ported: {e}\n')
+    result = analyze(modelname=modelname,
+                     classes_out=classes_out,
+                     precision=precision,
+                     framehop_prop=framehop_prop,
+                     chunklength=args.chunklength,
+                     analyzers_cpu=args.analyzers_cpu,
+                     analyzers_gpu=args.analyzers_gpu,
+                     n_streamers=args.n_streamers,
+                     stream_buffer_depth=args.stream_buffer_depth,
+                     dir_audio=args.dir_audio,
+                     dir_out=dir_out,
+                     verbosity_print=args.verbosity_print,
+                     verbosity_log=args.verbosity_log,
+                     log_progress=args.log_progress,
+                     compute_dtype=compute_dtype,
+                     devices=devices,
+                     host_shard=host_shard,
+                     transfer_dtype=args.transfer_dtype,
+                     strict_f32=args.strict_f32,
+                     profile=args.profile,
+                     resample_on_device=args.resample_on_device,
+                     watch=args.watch,
+                     watch_interval=args.watch_interval,
+                     alert_classes=args.alert_classes,
+                     alert_threshold=args.alert_threshold,
+                     alert_command=args.alert_command,
+                     backend_timeout=args.backend_timeout,
+                     stall_timeout=args.stall_timeout,
+                     device=args.device)
 
     # scripting contract: abnormal endings (fatal worker failure, device
     # stall, manifest mismatch, interrupts) must not exit 0 — field

@@ -12,12 +12,11 @@ difference. PyTorch runs eagerly, so there is no shape bucketing. With
 device (``ops/resample.py``) ahead of the frontend.
 
 On a CUDA device the conv stack runs through the hand-written kernels of
-``ops/sepconv.py`` (and the log-mel through ``ops/logmel.py`` with
-``frontend='pallas'``), and results stay on the card until the pipeline
-copies them back (runtime/inferer.py). On the CPU every op runs its plain
-version. Nothing falls back: an option the port computes runs its kernel or
-raises, and an option it does not compute raises NotImplementedError naming
-the ROADMAP item that brings it.
+``ops/sepconv.py`` (or, with ``conv='xla'``, through cuDNN), the log-mel
+through ``ops/logmel.py`` with ``frontend='pallas'``, and results stay on
+the card until the pipeline copies them back (runtime/inferer.py). On the
+CPU every op runs its plain version. Nothing falls back: an option runs its
+kernel or raises.
 
 The knobs, and how they resolve here:
 
@@ -29,10 +28,15 @@ The knobs, and how they resolve here:
   to its XLA conv, because Mosaic cannot rotate 16-bit vectors and the f32
   depthwise work then dominates on a TPU; the card has no such limit, so
   the port's bf16 computes the JAX package's ``conv='pallas'`` bf16
-  function. ``'xla'`` (the XLA conv path) is not ported and raises.
-* ``conv_precision``: ``'auto'`` resolves to ``'highest'`` on the kernels,
-  as the JAX package resolves it for ``conv='pallas'``; ``'high'`` selects
-  the emulated-HIGH mode. bf16 compute ignores it (one bf16 product).
+  function. ``'xla'`` is the XLA conv path (``yamnet.embed_xla``: every
+  conv a library ``F.conv2d``, TF32 off; no hand conv kernel launches), at
+  every compute dtype, independent of ``frontend``.
+* ``conv_precision``: ``'auto'`` resolves per path, as the JAX package
+  resolves it: ``'highest'`` on the kernels, ``'high'`` on ``'xla'``. On
+  the kernels ``'high'`` selects the emulated-HIGH mode; on ``'xla'`` both
+  ``'high'`` and ``'highest'`` run exact f32 (cuDNN has no three-pass bf16
+  convolution, and TF32 is refused). bf16 compute ignores it (one bf16
+  product).
 * ``compute_dtype``: float32 (``None``, ``torch.float32``, ``'float32'``)
   or bfloat16 (``torch.bfloat16``, ``'bfloat16'``).
 """
@@ -69,16 +73,11 @@ def resolve_device(device) -> torch.device:
 
 def resolve_conv(conv) -> str:
     """'auto' and 'pallas' -> 'pallas' (the CUDA conv kernels, at every
-    compute dtype); 'xla' raises NotImplementedError naming its ROADMAP
-    item; anything else raises ValueError."""
+    compute dtype); 'xla' -> 'xla' (the XLA conv path); anything else
+    raises ValueError."""
     if conv not in ('auto', 'xla', 'pallas'):
         raise ValueError("conv must be 'auto', 'xla' or 'pallas'")
-    if conv == 'xla':
-        raise NotImplementedError(
-            "conv='xla': the XLA conv path is not ported to "
-            "buzzdetect_torch yet (ROADMAP, \"The XLA conv path "
-            "(conv='xla')\"); 'auto' and 'pallas' run the CUDA conv kernels")
-    return 'pallas'
+    return 'xla' if conv == 'xla' else 'pallas'
 
 
 def _to_float(waveform: torch.Tensor) -> torch.Tensor:
@@ -128,19 +127,21 @@ def _resample_in_graph(wav: torch.Tensor, cfg: FrontendConfig,
 
 def _classify(params, wavs: torch.Tensor, cfg: FrontendConfig,
               frontend: str = 'xla', compute_dtype=torch.float32,
-              conv_precision: str = 'highest', resample_args=None):
+              conv_precision: str = 'highest', resample_args=None,
+              conv: str = 'pallas'):
     """(..., L) padded wire waveforms -> (..., n_patches, n_classes).
 
     With ``resample_args`` = ``(input_rate, resample_to, valid_len)`` the
     waveforms arrive at their native rate and are resampled on the device
-    first (``_resample_in_graph``)."""
+    first (``_resample_in_graph``). ``conv`` picks the embed's path
+    (``yamnet.embed``)."""
     wav = _to_float(wavs)
     if resample_args is not None:
         wav = _resample_in_graph(wav, cfg, *resample_args)
     patches = _patches(wav, cfg, frontend)               # (..., P, 96, 64)
     lead = patches.shape[:-2]
     emb = yamnet_lib.embed(params['yamnet'], patches.reshape(-1, 96, 64),
-                           compute_dtype, conv_precision)
+                           compute_dtype, conv_precision, conv)
     return apply_head(params['head'], emb).reshape(*lead, -1)
 
 
@@ -165,12 +166,16 @@ class ChunkClassifier:
         if conv_precision not in ('auto', 'high', 'highest'):
             raise ValueError(
                 "conv_precision must be 'auto', 'high' or 'highest'")
-        self.conv_precision = ('highest' if conv_precision == 'auto'
-                               else conv_precision)
-        # the conv kernels' mode ('highest' | 'bf16' | 'high')
-        self.mode = sepconv.resolve_mode(
-            self.compute_dtype, yamnet_lib.conv_mxu_precision(
-                self.compute_dtype, self.conv_precision))
+        if conv_precision == 'auto':
+            conv_precision = 'high' if self.conv == 'xla' else 'highest'
+        self.conv_precision = conv_precision
+        # what the conv products compute ('highest' | 'bf16' | 'high'): on
+        # the kernels their mode; on 'xla' exact f32 or bf16 operands
+        precision = yamnet_lib.conv_mxu_precision(self.compute_dtype,
+                                                  self.conv_precision)
+        self.mode = (sepconv.resolve_mode(self.compute_dtype, precision)
+                     if self.conv == 'pallas' else
+                     'bf16' if precision == 'default' else 'highest')
         # 'mulaw' rides int8 on the wire; linear int8 is not offered
         self.transfer_name = str(transfer_dtype)
         if self.transfer_name not in ('float32', 'int16', 'mulaw'):
@@ -180,13 +185,16 @@ class ChunkClassifier:
         self.device = resolve_device(device)
         sepconv.exact_f32()
         if self.device.type == 'cuda':
-            sepconv.load_kernels()
+            if self.conv == 'pallas':
+                sepconv.load_kernels()
             if self.frontend == 'pallas':
                 logmel.load_kernels()
         self.params = params_from_numpy(arrays, self.device)
-        # the mode's pointwise operands, packed once beside the f32 params
-        self.params['yamnet'] = sepconv.pack_params(self.params['yamnet'],
-                                                    self.mode)
+        # the path's conv operands, packed once beside the f32 params
+        self.params['yamnet'] = (
+            sepconv.pack_params(self.params['yamnet'], self.mode)
+            if self.conv == 'pallas' else
+            yamnet_lib.pack_xla(self.params['yamnet'], self.compute_dtype))
 
     def to_wire(self, samples: np.ndarray) -> np.ndarray:
         """Convert host samples to this classifier's wire dtype (no-op when
@@ -308,7 +316,7 @@ class ChunkClassifier:
                   resample_args=None) -> torch.Tensor:
         return _classify(self.params, wavs, self.cfg, self.frontend,
                          self.compute_dtype, self.conv_precision,
-                         resample_args)
+                         resample_args, self.conv)
 
     @torch.inference_mode()
     def embed(self, samples: np.ndarray) -> np.ndarray:
@@ -319,7 +327,8 @@ class ChunkClassifier:
                                         padded_length(len(samples), self.cfg)))
         patches = _patches(_to_float(wav), self.cfg, self.frontend)
         out = yamnet_lib.embed(self.params['yamnet'], patches,
-                               self.compute_dtype, self.conv_precision)
+                               self.compute_dtype, self.conv_precision,
+                               self.conv)
         return out.cpu().numpy()[:n_valid]
 
     def warmup(self, chunk_samples: int):

@@ -185,12 +185,14 @@ class BundleModel(BaseModel):
         # matmul frontend, 'pallas' the fused log-mel kernel
         self._frontend = frontend or self.config.get('frontend') or 'auto'
         # conv stack implementation: 'auto' (default) and 'pallas' run the
-        # CUDA conv kernels at every compute dtype; 'xla' is not ported and
-        # raises here, in the caller's thread (ChunkClassifier has the rules)
+        # CUDA conv kernels at every compute dtype, 'xla' the XLA conv path;
+        # a bad value raises here, in the caller's thread (ChunkClassifier
+        # has the rules)
         self._conv = conv or self.config.get('conv') or 'auto'
         resolve_conv(self._conv)
-        # conv-dot precision: 'auto' (default) and 'highest' run exact f32,
-        # 'high' the emulated-HIGH mode of the conv kernels
+        # conv-dot precision: 'auto' (default) resolves per conv path;
+        # 'highest' runs exact f32, 'high' the emulated-HIGH mode of the
+        # conv kernels (exact f32 on the XLA conv path)
         self._conv_precision = (conv_precision
                                 or self.config.get('conv_precision')
                                 or 'auto')

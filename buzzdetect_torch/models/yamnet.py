@@ -6,12 +6,18 @@ stride-2 full conv to 32 channels, then 13 depthwise-separable blocks up to
 1024 channels, each conv followed by BatchNorm (center only, eps 1e-4) and
 ReLU, ending in global average pooling to a 1024-d embedding per patch.
 
-Inference runs on BatchNorm-folded weights. Layer 1 is a plain ``F.conv2d``
-(the JAX package leaves it to XLA); layers 2-7 and 8-14 + pooling go through
-the hand-written kernels in ``ops/sepconv.py``, in the mode that
-``compute_dtype`` and ``conv_precision`` select (``conv_mxu_precision``,
-copied from ``buzzdetect_tpu/models/yamnet.py``, then
-``sepconv.resolve_mode``).
+Inference runs on BatchNorm-folded weights, along one of two paths:
+
+* the kernels (``embed``, the JAX package's ``conv='pallas'``): layer 1 is
+  a plain ``F.conv2d`` (the JAX package leaves it to XLA); layers 2-7 and
+  8-14 + pooling go through the hand-written kernels in ``ops/sepconv.py``,
+  in the mode that ``compute_dtype`` and ``conv_precision`` select
+  (``conv_mxu_precision``, copied from ``buzzdetect_tpu/models/yamnet.py``,
+  then ``sepconv.resolve_mode``);
+* the XLA conv path (``embed_xla``, the JAX package's ``conv='xla'``):
+  every one of the 27 convs is a library ``F.conv2d`` (cuDNN on the card,
+  TF32 off), with no kernel of its own, as the JAX package runs it outside
+  any Pallas kernel.
 """
 
 import numpy as np
@@ -155,16 +161,22 @@ def layer1(params: dict, patches: torch.Tensor,
 
 
 def embed(params: dict, patches: torch.Tensor, compute_dtype=torch.float32,
-          conv_precision: str = 'highest') -> torch.Tensor:
+          conv_precision: str = 'highest', conv: str = 'pallas'
+          ) -> torch.Tensor:
     """Log-mel patches (B, 96, 64) or (B, 96, 64, 1) -> (B, 1024) embeddings
     (pre-head, post-pooling), f32.
 
-    ``params`` is the ``yamnet`` dict of ``models/weights.params_from_numpy``,
-    with ``sepconv.pack_params`` applied for the mode (the f32 'highest'
-    mode needs nothing packed). ``compute_dtype`` and
-    ``conv_precision`` select the kernels' mode, as in the JAX package's
-    ``embed(..., conv='pallas')``.
+    ``conv='xla'`` runs ``embed_xla`` (``params`` packed by ``pack_xla``).
+    ``conv='pallas'`` runs the kernels: ``params`` is the ``yamnet`` dict of
+    ``models/weights.params_from_numpy``, with ``sepconv.pack_params``
+    applied for the mode (the f32 'highest' mode needs nothing packed);
+    ``compute_dtype`` and ``conv_precision`` select the kernels' mode, as in
+    the JAX package's ``embed(..., conv='pallas')``.
     """
+    if conv == 'xla':
+        return embed_xla(params, patches, compute_dtype, conv_precision)
+    if conv != 'pallas':
+        raise ValueError(f"conv must be 'xla' or 'pallas', got {conv!r}")
     mode = resolve_mode(compute_dtype,
                         conv_mxu_precision(compute_dtype, conv_precision))
     x = layer1(params, patches, mode)
@@ -173,3 +185,89 @@ def embed(params: dict, patches: torch.Tensor, compute_dtype=torch.float32,
     s = tail_specs(2, TAIL_START)[-1]
     y = y.reshape(y.shape[0], s.h_out, s.w_out, s.c_out)
     return fused_tail(params, y, start_layer=TAIL_START, gap=True, mode=mode)
+
+
+# --- the XLA conv path ----------------------------------------------------------
+
+def _xla_key(key: str, compute_dtype) -> str:
+    bf16 = resolve_compute_dtype(compute_dtype) == torch.bfloat16
+    return f'{key}/kernel[xla-bf16]' if bf16 else f'{key}/kernel[xla]'
+
+
+def pack_xla(params: dict, compute_dtype=torch.float32) -> dict:
+    """``params`` plus every conv's kernel in ``F.conv2d``'s OIHW layout for
+    ``embed_xla`` (a new dict; the tensors already there are shared):
+    layer 1 as it is, a depthwise (9, C) as (C, 1, 3, 3), a pointwise
+    (C, F) as (F, C, 1, 1); under bf16 compute each rounded to bf16 (held
+    in f32), as the JAX package casts the kernels to the compute dtype."""
+    bf16 = resolve_compute_dtype(compute_dtype) == torch.bfloat16
+    out = dict(params)
+    for key, kind, _stride, shape in _conv_shapes():
+        k = params[f'{key}/kernel']
+        if kind == 'depthwise':
+            k = k.t().reshape(shape[3], 1, 3, 3)
+        elif shape[0] == 1:
+            k = k.t().reshape(shape[3], shape[2], 1, 1)
+        k = k.contiguous()
+        out[_xla_key(key, compute_dtype)] = round_bf16(k) if bf16 else k
+    return out
+
+
+def _conv_same(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+               groups: int) -> torch.Tensor:
+    """NCHW ``x`` convolved with OIHW ``kernel`` under TF-SAME padding: a
+    symmetric pad rides the convolution, an asymmetric one (stride 2:
+    bottom/right only) is a pad ahead of it."""
+    k = kernel.shape[-1]
+    ph = same_pad(x.shape[2], stride, k)
+    pw = same_pad(x.shape[3], stride, k)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, kernel, stride=stride, padding=(ph[0], pw[0]),
+                        groups=groups)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, kernel, stride=stride, groups=groups)
+
+
+def embed_xla(params: dict, patches: torch.Tensor,
+              compute_dtype=torch.float32, conv_precision: str = 'highest'
+              ) -> torch.Tensor:
+    """Log-mel patches (B, 96, 64) or (B, 96, 64, 1) -> (B, 1024) f32
+    embeddings through the XLA conv path: the counterpart of
+    ``buzzdetect_tpu.models.yamnet.embed(..., conv='xla')``.
+
+    All 27 convs of ``_conv_shapes()`` in order, each an ``F.conv2d`` with
+    TF-SAME padding (``groups=C`` for a depthwise one), then the bias in
+    f32, ReLU, and the result rounded to the compute dtype; global average
+    pooling in f32 at the end. ``params`` is packed by ``pack_xla`` for
+    ``compute_dtype``.
+
+    Under bf16 compute the patches, the kernels and every layer's output
+    are rounded to bf16, and each convolution runs in f32 (TF32 off): a
+    product of two bf16 values is exact in f32, so this computes what the
+    JAX package's bf16 operands with ``preferred_element_type=float32``
+    compute, up to the order of the sums. ``F.conv2d`` on bf16 tensors
+    would round each output to bf16 before the bias, a different function.
+    It costs about what the f32 path costs.
+
+    ``conv_precision`` is validated but selects nothing: ``'high'`` and
+    ``'highest'`` both run exact f32. The TPU's ``'high'`` is a three-pass
+    bf16 product; cuDNN has none, and TF32 (one reduced pass) is refused
+    for f32. Exact f32 is also what XLA computes for both on the CPU.
+    """
+    conv_mxu_precision(compute_dtype, conv_precision)
+    bf16 = resolve_compute_dtype(compute_dtype) == torch.bfloat16
+    exact_f32()
+    x = patches.to(torch.float32)
+    if x.dim() == 4:
+        x = x[..., 0]
+    x = x[:, None]                                      # (B, 1, 96, 64)
+    if bf16:
+        x = round_bf16(x)
+    for key, kind, stride, _shape in _conv_shapes():
+        groups = x.shape[1] if kind == 'depthwise' else 1
+        y = _conv_same(x, params[_xla_key(key, compute_dtype)], stride,
+                       groups)
+        x = torch.relu(y + params[f'{key}/bias'][:, None, None])
+        if bf16:
+            x = round_bf16(x)
+    return x.mean(dim=(2, 3))

@@ -10,8 +10,15 @@ and the result rides the queue to the writer as a device->host copy in
 flight (:class:`HostCopy`), so the device computes chunk N while this thread
 dequeues and dispatches chunk N+1 and the writer formats chunk N-1 — a
 three-stage pipeline without a scheduler.
+
+On a CUDA device each worker dispatches on a CUDA stream of its own
+(:func:`_dispatch_scope`): the upload, the kernels and the copy back of a
+chunk are ordered on it, and two replicas on one card (``analyze(devices=
+['cuda:0', 'cuda:0'])``) or two dispatch threads of one replica run side
+by side instead of sharing the device's default stream.
 """
 
+import contextlib
 import queue
 
 import numpy as np
@@ -31,7 +38,8 @@ def _is_empty(a_chunk: AssignChunk) -> bool:
 
 class HostCopy:
     """A device->host copy in flight: a pinned host tensor filled by a
-    non-blocking copy, and the CUDA event recorded after it on the same
+    non-blocking copy on the current stream of the result's device (the
+    stream that computed it), and the CUDA event recorded after it on that
     stream. ``wait()`` blocks on the event and returns the host array —
     ``np.asarray`` on the CUDA tensor itself would raise."""
 
@@ -40,7 +48,7 @@ class HostCopy:
                                 pin_memory=True)
         self.host.copy_(results, non_blocking=True)
         self.event = torch.cuda.Event()
-        self.event.record()
+        self.event.record(torch.cuda.current_stream(results.device))
 
     def wait(self) -> np.ndarray:
         self.event.synchronize()
@@ -58,6 +66,30 @@ def _start_host_copy(results):
     return results
 
 
+def _model_device(model):
+    """The torch device of the model's classifier, or None (plugin
+    models)."""
+    target = getattr(model, 'classifier', None) or model
+    return getattr(target, 'device', None)
+
+
+def _dispatch_scope(model):
+    """A context in which this thread dispatches on a CUDA stream of its
+    own on the model's card, made current with its device: the wire upload,
+    the kernels and the copy back all queue on it. The stream first waits
+    for the work the card's current stream already holds (the classifier's
+    weights, packed at initialize()). A no-op off CUDA."""
+    device = _model_device(model)
+    if not (isinstance(device, torch.device) and device.type == 'cuda'):
+        return contextlib.nullcontext()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    scope = contextlib.ExitStack()
+    scope.enter_context(torch.cuda.device(device))
+    scope.enter_context(torch.cuda.stream(stream))
+    return scope
+
+
 def _describe_execution_target(model) -> str:
     """Name where this worker's dispatches actually execute: the torch
     device of the model's classifier (with the card's name on CUDA).
@@ -66,8 +98,7 @@ def _describe_execution_target(model) -> str:
     Runs after ``model.initialize()``, so the built-in bundle's device is
     read off its (now-built) ``.classifier``. Plugin models may expose the
     same name directly."""
-    target = getattr(model, 'classifier', None) or model
-    device = getattr(target, 'device', None)
+    device = _model_device(model)
     if device is None:
         return 'plugin model'
     if isinstance(device, torch.device) and device.type == 'cuda':
@@ -251,6 +282,12 @@ class WorkerInferer:
         self.log(f'processing on '
                  f'{self.processor or _describe_execution_target(self.model)}',
                  'INFO')
+        with _dispatch_scope(self.model):
+            self._serve()
+        self.log('terminating', 'DEBUG')
+
+    def _serve(self):
+        """Warm up, then dispatch chunks until the exit sentinel."""
         self._warmup()
 
         batching = (self.batch_chunks > 1
@@ -307,4 +344,3 @@ class WorkerInferer:
             if exit_seen:
                 break
             self.timer_bottleneck.restart()
-        self.log('terminating', 'DEBUG')

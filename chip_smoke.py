@@ -86,7 +86,24 @@ Phases, each printed before the last line:
    shares), a FLAC made by ``encode_fixture`` at 48 kHz, and
    ``decode_rate_probe`` for pcm, flac and mp3; where it is absent, one
    line saying why those did not run;
-6. one JSON line with every kernel's numbers.
+6. the XLA conv path and the layouts that need no collective: (a)
+   ``ChunkClassifier(conv='xla')`` on one 200 s chunk of phase 3's first
+   recording, at its 'auto' precision ('high', exact f32 here) and in bf16:
+   card against CPU, the hand conv kernels' launch counts over the call
+   (all must be 0), and at B = 209 the conv stack's CUDA-event and device
+   time beside the hand kernels' (layer 1 + ``fused_front`` +
+   ``fused_tail``) and the whole classify beside the kernel path's; (b) the
+   CLI on a bundle variant whose config says ``"conv": "xla"`` and on
+   ``model_general_v3``, on phase 3's two CLI recordings: end reasons,
+   realtime factor, no hand-kernel launch on the XLA run, one chunk card
+   against CPU, the two runs' CSVs equal after 2-digit rounding; (c)
+   ``analyze(devices=['cuda:0', 'cuda:0'])`` (two replicas, each with its
+   own dispatch thread and CUDA stream) on phase 3's recordings: CSVs
+   byte-identical to phase 3's, realtime factor; (d) two concurrent
+   ``python -m buzzdetect_torch --host_shard I/2`` processes on one shared
+   output folder: both exit 0 and the union of their CSVs is
+   byte-identical to phase 3's;
+7. one JSON line with every kernel's numbers.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero with a message, and without a CUDA device the script exits
@@ -173,6 +190,15 @@ RESAMPLE_ATOL = 1e-5
 # the resampler's timed input: one default chunk at each native rate
 RESAMPLE_RATES = (44100, 48000)
 RESAMPLE_SECONDS = 200.0
+# the XLA conv path (conv='xla'): the bundle variant whose config asks for
+# it, and the modes phase 6 runs it in: 'auto' precision (-> 'high', exact
+# f32 on the card) and bf16, each with its classifier keywords
+XLA_BUNDLE = ('model_general_v3_xla', {'conv': 'xla'})
+XLA_MODES = {'high': {}, 'bf16': {'compute_dtype': 'bfloat16'}}
+# two replicas on the one card (analyze(devices=...)), and the time limit of
+# each host_shard child process
+REPLICA_DEVICES = ['cuda:0', 'cuda:0']
+HOST_TIMEOUT = 600
 
 
 def fail(msg):
@@ -277,12 +303,13 @@ def write_recording(path, seconds, seed, rate=16000, channels=1):
 
 
 def make_models_dir(root):
-    """``root/models``: model_general_v3 (its bundle linked, not copied) and
-    the VARIANTS, each a copy whose config_model.json differs in one key."""
+    """``root/models``: model_general_v3 (its bundle linked, not copied),
+    the XLA_BUNDLE and the VARIANTS, each a copy whose config_model.json
+    differs in one key."""
     src = os.path.join(ROOT, 'models', MODEL)
     models = os.path.join(root, 'models')
-    for name, extra in [(MODEL, {})] + [(n, v[0]) for n, v in
-                                        VARIANTS.items()]:
+    for name, extra in [(MODEL, {}), XLA_BUNDLE] + [
+            (n, v[0]) for n, v in VARIANTS.items()]:
         dst = os.path.join(models, name)
         shutil.copytree(src, dst, ignore=shutil.ignore_patterns('model.npz'))
         os.symlink(os.path.join(src, 'model.npz'),
@@ -529,6 +556,227 @@ def native_rate_phase(tmp, arrays, cfg, native, reset_counts, read_counts,
             [f for f in decode_rate_probe.FAMILIES if f[0] in PROBE_CODECS],
             seconds=PROBE_SECONDS, trials=1):
         print(f'decode_rate_probe: {json.dumps(row)}', flush=True)
+
+
+def xla_conv_phase(torch, dev, arrays, cfg, wire, path_audio, chunk_s,
+                   kernel_classify_ms, reset_counts, read_counts, time_ms,
+                   device_ms):
+    """(a) The XLA conv path (``conv='xla'``) on the card at full width, in
+    each of XLA_MODES: one chunk of ``path_audio`` on the card against the
+    same chunk on the CPU; the hand conv kernels' launch counts over that
+    call (set to 0 just before, read just after), which must all be 0; then,
+    on the B=209 ``wire`` of phase 2, the conv stack's CUDA-event and device
+    time (``torch.profiler``) beside the hand kernels' (layer 1 +
+    fused_front + fused_tail) in the same mode, and the whole classify
+    beside the kernel path's. Returns {mode: row}."""
+    from buzzdetect_torch.audio import build_track
+    from buzzdetect_torch.models import yamnet
+    from buzzdetect_torch.models.classifier import (
+        ChunkClassifier, _classify, _to_float)
+    from buzzdetect_torch.ops import frontend, sepconv
+    track = build_track(path_audio, target_rate=16000)
+    samples = track.read_s16(int(chunk_s * 16000))
+    track.close()
+    rows = {}
+    with torch.inference_mode():
+        patches = frontend.log_mel_patches(_to_float(wire), cfg)
+        b = patches.shape[0]
+        for mode, kw in XLA_MODES.items():
+            card = ChunkClassifier(arrays, device=dev, conv='xla',
+                                   transfer_dtype='int16', **kw)
+            if (card.conv, card.conv_precision) != ('xla', 'high'):
+                fail(f'[xla {mode}] resolved to conv={card.conv!r}, '
+                     f'conv_precision={card.conv_precision!r}')
+            reset_counts()
+            got = card.predict(samples)
+            counts = read_counts()
+            cpu = ChunkClassifier(arrays, device='cpu', conv='xla',
+                                  transfer_dtype='int16', **kw
+                                  ).predict(samples)
+            d = float(np.abs(got - cpu).max())
+            print(f'[xla {mode}] one {chunk_s:g} s chunk ({got.shape[0]} '
+                  f'patches), card vs CPU: max |dscore| = {d:.3g} (budget '
+                  f'{SCORE_ATOL[mode]}); hand kernel launches {counts}',
+                  flush=True)
+            if got.shape != cpu.shape or d > SCORE_ATOL[mode]:
+                fail(f'[xla {mode}] card and CPU scores differ by {d:.3g}')
+            if any(counts.values()):
+                fail(f'[xla {mode}] launched hand kernels: {counts}')
+            dtype = card.compute_dtype
+            xla_params = card.params
+            kernel_params = dict(xla_params, yamnet=sepconv.pack_params(
+                xla_params['yamnet'], card.mode))
+            stack = {
+                'xla': lambda: yamnet.embed_xla(xla_params['yamnet'],
+                                                patches, dtype, 'high'),
+                'kernels': lambda: yamnet.embed(kernel_params['yamnet'],
+                                                patches, dtype, 'highest')}
+            classify = {
+                'xla': lambda: _classify(xla_params, wire, cfg, 'xla', dtype,
+                                         'high', conv='xla'),
+                'kernels': lambda: _classify(kernel_params, wire, cfg, 'xla',
+                                             dtype, 'highest')}
+            row = {}
+            for what, table in (('stack', stack), ('classify', classify)):
+                for k, fn in table.items():
+                    row[f'{k}_{what}'] = time_ms(fn)
+                    row[f'{k}_{what}_device'] = device_ms(fn)
+            emb = stack['xla']() - stack['kernels']()
+            row['xla_vs_kernels_emb'] = float(emb.abs().max())
+            row['ratio'] = (row['xla_stack_device']
+                            / row['kernels_stack_device'])
+            rows[mode] = row
+            print(f'[xla {mode}] B={b}: conv stack (27 cuDNN convs + pool) '
+                  f'{row["xla_stack"]:.4f} ms, device '
+                  f'{row["xla_stack_device"]:.4f} ms; hand kernels (layer 1 '
+                  f'+ fused_front + fused_tail) {row["kernels_stack"]:.4f} '
+                  f'ms, device {row["kernels_stack_device"]:.4f} ms (xla / '
+                  f'kernels {row["ratio"]:.2f}x by device time); whole '
+                  f'classify {row["xla_classify"]:.4f} ms (device '
+                  f'{row["xla_classify_device"]:.4f}) against the kernel '
+                  f'path\'s {row["kernels_classify"]:.4f} ms (device '
+                  f'{row["kernels_classify_device"]:.4f}; phase 2 read '
+                  f'{kernel_classify_ms:.4f} ms in f32); max |xla - kernels| '
+                  f'over the embeddings {row["xla_vs_kernels_emb"]:.3g}',
+                  flush=True)
+    ratio = rows['bf16']['xla_stack_device'] / rows['high']['xla_stack_device']
+    print(f'[xla] bf16 / f32 device time of the conv stack: {ratio:.2f}x',
+          flush=True)
+    return rows
+
+
+def xla_cli_phase(tmp, arrays, cfg, cli_audio, cli_names, cli_seconds,
+                  reset_counts, read_counts, device='cuda'):
+    """(b) The CLI (``cli.main``, in process) on the XLA_BUNDLE, whose
+    config says ``"conv": "xla"``, and on model_general_v3 (the kernel
+    path), on phase 3's CLI recordings: end reasons, the XLA run's realtime
+    factor and hand-kernel launches (which must be 0), complete CSVs, one
+    chunk on the card against the CPU, and every score of the two runs'
+    CSVs equal after their 2-digit rounding (one unit of the last digit:
+    a value within f32 rounding of a rounding edge may print the other
+    way)."""
+    from buzzdetect_torch import cli
+    runs = {}
+    for name in (MODEL, XLA_BUNDLE[0]):
+        out = os.path.join(tmp, f'out_cli_{name}')
+        reset_counts()
+        t0 = time.perf_counter()
+        result = cli.main(['--modelname', name, '--dir_audio', cli_audio,
+                           '--dir_out', out, '--verbosity_print', 'WARNING',
+                           '--device', device])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        reason = result.coordinator.end_reason
+        audio_s = result.coordinator.audio_seconds_done
+        print(f'CLI --modelname {name}: end reason {reason!r}, {wall:.2f} s '
+              f'wall, {audio_s / wall:.1f} audio s per wall s, kernel '
+              f'launches {counts}', flush=True)
+        if reason != 'completed':
+            fail(f'the CLI run of {name} ended {reason!r}')
+        check_csvs(out, cli_names, cli_seconds, result.chunklength, cfg)
+        runs[name] = (result, out, counts)
+    result, out, counts = runs[XLA_BUNDLE[0]]
+    if result.model.classifier.conv != 'xla' or any(counts.values()):
+        fail(f'the "conv": "xla" bundle ran conv='
+             f'{result.model.classifier.conv!r} with launches {counts}')
+    check_chunk_on_cpu(result, arrays, os.path.join(cli_audio, 'site0.wav'),
+                       os.path.join(out, 'site0_buzzdetect.csv'), 'high',
+                       conv='xla')
+    worst = 0.0
+    for n in cli_names:
+        tables = []
+        for _result, d, _c in runs.values():
+            with open(os.path.join(d, f'{n}_buzzdetect.csv')) as f:
+                tables.append(np.array([ln.split(',') for ln in
+                                        f.read().splitlines()[1:]], float))
+        worst = max(worst, float(np.abs(tables[0] - tables[1]).max()))
+    print(f'CSVs of "conv": "xla" against the kernel path: max |d| = '
+          f'{worst:.3g} after 2-digit rounding (one unit of the last digit '
+          f'allowed)', flush=True)
+    if worst > 0.0101:
+        fail(f'the XLA conv path\'s CSVs differ from the kernel path\'s by '
+             f'{worst:.3g}')
+
+
+def same_csvs(got_dir, want_dir, names, what):
+    """Every recording's CSV in ``got_dir`` is byte-identical to its CSV in
+    ``want_dir``."""
+    for n in names:
+        paths = [os.path.join(d, f'{n}_buzzdetect.csv')
+                 for d in (got_dir, want_dir)]
+        if not os.path.exists(paths[0]):
+            fail(f'{what}: no complete CSV for {n}')
+        with open(paths[0], 'rb') as a, open(paths[1], 'rb') as b:
+            if a.read() != b.read():
+                fail(f'{what}: {n}_buzzdetect.csv differs from the '
+                     f'one-device, one-host run\'s')
+    print(f'{what}: {len(names)} CSVs byte-identical to the one-device, '
+          f'one-host run', flush=True)
+
+
+def replica_phase(tmp, dir_audio, dir_out, names, reset_counts, read_counts,
+                  devices=None):
+    """(c) analyze(devices=REPLICA_DEVICES) on phase 3's recordings: two
+    replicas, each with its own dispatch thread and CUDA stream; CSVs
+    byte-identical to phase 3's one-device run in ``dir_out``; its realtime
+    factor and launch counts."""
+    import buzzdetect_torch
+    devices = REPLICA_DEVICES if devices is None else devices
+    out = os.path.join(tmp, 'out_replicas')
+    reset_counts()
+    t0 = time.perf_counter()
+    result = buzzdetect_torch.analyze(
+        modelname=MODEL, dir_audio=dir_audio, dir_out=out,
+        verbosity_print='WARNING', devices=devices)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    reason = result.coordinator.end_reason
+    audio_s = result.coordinator.audio_seconds_done
+    print(f'analyze(devices={devices}): end reason {reason!r}, '
+          f'{result.coordinator.analyzers_total} dispatch threads over '
+          f'{len({id(m) for m in result.replica_models})} replicas, '
+          f'{wall:.2f} s wall, {audio_s / wall:.1f} audio s per wall s, '
+          f'kernel launches {counts}', flush=True)
+    if reason != 'completed':
+        fail(f'analyze(devices={devices}) ended {reason!r}')
+    if len({id(m) for m in result.replica_models}) != len(devices):
+        fail('the replicas share a model')
+    if counts['fused_front'] <= 0 or counts['fused_tail'] <= 0:
+        fail('the replicas never launched the conv kernels')
+    same_csvs(out, dir_out, names, f'analyze(devices={devices})')
+
+
+def host_shard_phase(tmp, dir_audio, dir_out, names, device='cuda'):
+    """(d) Two concurrent ``python -m buzzdetect_torch --host_shard I/2``
+    processes on one shared output folder: each exits 0, and the union of
+    their CSVs is byte-identical to phase 3's one-host run in ``dir_out``.
+    Every process started here is stopped before this returns."""
+    from buzzdetect_torch.parallel import shard_files
+    shared = os.path.join(tmp, 'out_host_shard')
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'buzzdetect_torch', '--modelname', MODEL,
+         '--dir_audio', dir_audio, '--dir_out', shared, '--verbosity_print',
+         'WARNING', '--device', device, '--host_shard', f'{i}/2'],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=HOST_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    files = sorted(f'{n}.wav' for n in names)
+    for i, (p, (_out, err)) in enumerate(zip(procs, outs)):
+        print(f'host {i}/2: exit {p.returncode}, took '
+              f'{shard_files(files, i, 2)}', flush=True)
+        if p.returncode != 0:
+            fail(f'host {i}/2 exited {p.returncode}: '
+                 f'{err.decode()[-2000:]}')
+    print(f'host_shard: two concurrent processes in {wall:.2f} s wall '
+          f'(process start, kernel load and analysis)', flush=True)
+    same_csvs(shared, dir_out, names, 'host_shard 0/2 + 1/2')
 
 
 def main():
@@ -1188,7 +1436,19 @@ def run(torch, tmp):
     resampler_phase(torch, dev, f32_peak, bytes_peak, time_ms, device_ms)
     native_rate_phase(tmp, arrays, cfg, native, reset_counts, read_counts)
 
-    # --- 6. the kernels line ------------------------------------------
+    # --- 6. the XLA conv path and the layouts without a collective -----
+    xla_conv_phase(torch, dev, arrays, cfg, wire,
+                   os.path.join(dir_audio, 'rec0.wav'), analyzer.chunklength,
+                   classify_ms, reset_counts, read_counts, time_ms, device_ms)
+    xla_cli_phase(tmp, arrays, cfg, cli_audio, cli_names, cli_seconds,
+                  reset_counts, read_counts)
+    replica_phase(tmp, dir_audio, dir_out, names, reset_counts, read_counts)
+    host_shard_phase(tmp, dir_audio, dir_out, names)
+
+    # --- 7. the kernels line ------------------------------------------
+    print(f'torch.profiler sessions that recorded no device time on any '
+          f'attempt, timed by CUDA events instead: {device_ms.fallbacks}',
+          flush=True)
     order = ('fused_front', 'fused_tail', 'fused_front[bf16]',
              'fused_tail[bf16]', 'fused_front[high]', 'fused_tail[high]',
              'log_mel', 'remap') + DOTS + ('fma_chain',)

@@ -90,19 +90,40 @@ def test_cli_cpu_run_matches_jax_analyze(audio, tmp_path):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--devices', '2'], 'Multi-GPU layouts'),
+    (['--devices', '1'], 'Multi-GPU layouts'),
     (['--host_shard', '0/2'], 'Multi-GPU layouts'),
 ])
-def test_cli_unported_flags_exit_2_naming_the_roadmap_item(tmp_path, capsys,
-                                                           flags, item):
+def test_cli_unported_flags_exit_2_naming_the_roadmap_item(audio, tmp_path,
+                                                           capsys, flags,
+                                                           item):
+    """The flags of ROADMAP's "Multi-GPU layouts" that exited 2 while
+    unported now parse and reach analyze(): the run completes (a one-replica
+    run, or host 0's shard of the fixture). A malformed value of the same
+    flag still exits 2, before any work, with the JAX CLI's message."""
+    dir_out = tmp_path / 'out'
+    result = tcli.main(['--modelname', MODEL, '--dir_audio', str(audio),
+                        '--dir_out', str(dir_out), '--device', 'cpu',
+                        '--chunklength', '5', '--verbosity_print', 'ERROR',
+                        *flags])
+    mine = True
+    if flags[0] == '--devices':
+        assert len(result.replica_models) == 1
+        assert result.replica_models[0].device.type == 'cpu'
+    else:
+        from buzzdetect_torch.parallel import shard_files
+        assert result.host_shard == (0, 2)
+        mine = shard_files(['rec.wav'], 0, 2, root='') == ['rec.wav']
+    assert result.coordinator.end_reason == ('completed' if mine
+                                             else 'fully analyzed')
+    assert (dir_out / 'rec_buzzdetect.csv').exists() == mine
+    bad = {'--devices': '0', '--host_shard': '2/2'}[flags[0]]
     with pytest.raises(SystemExit) as e:
-        tcli.main(['--modelname', MODEL, '--dir_audio', str(tmp_path),
-                   '--dir_out', str(tmp_path / 'out'), '--device', 'cpu',
-                   *flags])
+        tcli.main(['--modelname', MODEL, '--dir_audio', str(audio),
+                   '--dir_out', str(tmp_path / 'bad'), '--device', 'cpu',
+                   flags[0], bad])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert 'ROADMAP' in err and item in err
-    assert not (tmp_path / 'out').exists()
+    assert flags[0] in capsys.readouterr().err
+    assert not (tmp_path / 'bad').exists()
 
 
 @pytest.mark.parametrize('reason,code', [
@@ -188,20 +209,38 @@ def models_dir(tmp_path, monkeypatch):
     return root
 
 
-def test_conv_config_key_is_honoured(models_dir, tmp_path, capsys):
+def test_conv_config_key_is_honoured(models_dir, audio, tmp_path):
     """The bundle's "conv" key reaches the classifier: 'pallas' runs the
-    conv kernels; 'xla' is not ported and raises at model load, in the
-    caller's thread, so the CLI exits 2 before any work."""
+    conv kernels, 'xla' the XLA conv path (its 'auto' precision resolved
+    to 'high'); the CLI runs the 'xla' bundle to a CSV that matches the
+    JAX package's analyze() of the same bundle (its conv='xla')."""
     model = load_model('v3_conv_pallas', initialize=True, device='cpu')
     assert model.classifier.conv == 'pallas'
-    with pytest.raises(NotImplementedError, match="The XLA conv path"):
-        load_model('v3_conv_xla', device='cpu')
-    with pytest.raises(SystemExit) as e:
-        tcli.main(['--modelname', 'v3_conv_xla', '--dir_audio',
-                   str(tmp_path), '--dir_out', str(tmp_path / 'out'),
-                   '--device', 'cpu'])
-    assert e.value.code == 2
-    assert "conv='xla'" in capsys.readouterr().err
+    model = load_model('v3_conv_xla', initialize=True, device='cpu')
+    assert (model.classifier.conv, model.classifier.conv_precision) == (
+        'xla', 'high')
+    dir_out = tmp_path / 'out'
+    result = tcli.main(['--modelname', 'v3_conv_xla', '--dir_audio',
+                        str(audio), '--dir_out', str(dir_out), '--device',
+                        'cpu', '--chunklength', '5', '--verbosity_print',
+                        'ERROR'])
+    assert result.coordinator.end_reason == 'completed'
+    from buzzdetect_tpu import config as jcfg
+    jdir = jcfg.DIR_MODELS
+    try:
+        jcfg.DIR_MODELS = str(models_dir)
+        buzzdetect_tpu.analyze(modelname='v3_conv_xla', dir_audio=str(audio),
+                               dir_out=str(tmp_path / 'jax'), chunklength=5,
+                               verbosity_print='ERROR')
+    finally:
+        jcfg.DIR_MODELS = jdir
+    port = np.array(_csv(dir_out / 'rec_buzzdetect.csv')[1:], float)
+    ref = np.array(_csv(tmp_path / 'jax' / 'rec_buzzdetect.csv')[1:], float)
+    assert port.shape == ref.shape == (13, 14)
+    err = float(np.abs(port - ref).max())
+    print(f'CLI "conv": "xla" vs JAX analyze: max |d| over the CSV = '
+          f'{err:.3g}')
+    assert err <= ATOL_CSV
 
 
 @pytest.mark.parametrize('precision', [None, 0.9])

@@ -52,7 +52,8 @@ def test_no_jax_or_reference_package_imports():
     'buzzdetect_torch.audio.ffi', 'buzzdetect_torch.ops.resample',
     'buzzdetect_torch.tools.decode_rate_probe',
     'buzzdetect_torch.tools.fuzz_decode',
-    'buzzdetect_torch.tools.soak_resume'])
+    'buzzdetect_torch.tools.soak_resume', 'buzzdetect_torch.parallel',
+    'buzzdetect_torch.tools.soak_watch'])
 def test_importing_the_port_loads_no_jax(first):
     """Each module imports first without an import cycle, and the package
     with its orchestrator pulls in no JAX. A subprocess: tests/conftest.py
@@ -103,8 +104,26 @@ def test_cuda_without_a_card_raises(tmp_path):
     {'devices': 'all'},
 ])
 def test_unported_analyze_options_raise(tmp_path, kw):
+    """mesh= is the one layout left unported and raises naming its ROADMAP
+    item; devices= counts the devices of ``device``'s type, so 2 CPUs, or
+    every CUDA card of a machine without one, is a ValueError before any
+    model loads; host_shard= runs."""
     import buzzdetect_torch
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        buzzdetect_torch.analyze(modelname='model_general_v3',
-                                 dir_audio=str(tmp_path), device='cpu',
-                                 dir_out=str(tmp_path / 'out'), **kw)
+    run = dict(modelname='model_general_v3', dir_audio=str(tmp_path),
+               dir_out=str(tmp_path / 'out'))
+    if 'mesh' in kw:
+        with pytest.raises(NotImplementedError,
+                           match='ROADMAP, "Multi-GPU layouts, part 2"'):
+            buzzdetect_torch.analyze(device='cpu', **run, **kw)
+    elif kw.get('devices') == 2:
+        with pytest.raises(ValueError, match='only 1 local cpu device'):
+            buzzdetect_torch.analyze(device='cpu', **run, **kw)
+    elif 'devices' in kw:
+        with pytest.raises(ValueError, match='no cuda device is attached'):
+            buzzdetect_torch.analyze(**run, **kw)
+    else:
+        result = buzzdetect_torch.analyze(device='cpu',
+                                          verbosity_print='ERROR', **run,
+                                          **kw)
+        assert result.host_shard == (0, 2)
+        assert result.coordinator.end_reason == 'no files'

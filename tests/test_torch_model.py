@@ -161,12 +161,15 @@ def test_classifier_embed_and_wire_formats(classifiers, bundle):
 
 
 def test_unported_options_raise(bundle, classifiers):
-    """conv='xla' is the one classifier option left unported; the modes
-    ported since (bf16, emulated HIGH, the fused log-mel) construct and
-    resolve as the JAX package's conv='pallas' resolves them, and
-    ``input_rate`` (on-device resampling) scores as the JAX package's."""
-    with pytest.raises(NotImplementedError, match="The XLA conv path"):
-        ChunkClassifier(bundle, device='cpu', conv='xla')
+    """Every classifier option is ported: conv='xla' constructs and its
+    'auto' precision resolves to 'high' (exact f32 here: the product runs
+    in f32), as the JAX package resolves it per path; the kernel modes
+    (bf16, emulated HIGH, the fused log-mel) resolve as the JAX package's
+    conv='pallas' resolves them, and ``input_rate`` (on-device resampling)
+    scores as the JAX package's."""
+    clf = ChunkClassifier(bundle, device='cpu', conv='xla')
+    assert (clf.conv, clf.conv_precision, clf.mode) == ('xla', 'high',
+                                                        'highest')
     for kw, knobs in (
             ({'conv_precision': 'high'}, ('xla', 'high', 'high')),
             ({'frontend': 'pallas'}, ('pallas', 'highest', 'highest')),

@@ -89,6 +89,42 @@ def test_roofline_measures_only_on_the_card():
         cuda_time_ms(lambda: None)
 
 
+def _fake_card(monkeypatch, device_us):
+    """``utils.cuda_device_ms`` on the CPU: a card that torch reports,
+    and profiler sessions that record ``device_us`` in turn."""
+    from buzzdetect_torch import utils
+    sessions = iter(device_us)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    monkeypatch.setattr(utils, '_profiled_device_us',
+                        lambda fn, reps: next(sessions))
+    monkeypatch.setattr(utils.cuda_device_ms, 'fallbacks', 0)
+    return utils
+
+
+def test_cuda_device_ms_profiles_again_when_no_device_time(monkeypatch,
+                                                           capsys):
+    utils = _fake_card(monkeypatch, [0.0, 0.0, 2500.0])
+    calls = []
+    assert utils.cuda_device_ms(lambda: calls.append(1), reps=5,
+                                warmup=2) == 0.5
+    err = capsys.readouterr().err
+    assert len(calls) == 2   # the warmup; the sessions are faked
+    assert 'session 1 of 3' in err and 'session 2 of 3' in err
+    assert 'session 3' not in err and utils.cuda_device_ms.fallbacks == 0
+
+
+def test_cuda_device_ms_falls_back_to_cuda_events(monkeypatch, capsys):
+    utils = _fake_card(monkeypatch, [0.0] * 3)
+    monkeypatch.setattr(utils, 'cuda_time_ms',
+                        lambda fn, reps, warmup: 1.25)
+    assert utils.cuda_device_ms(lambda: None) == 1.25
+    assert utils.cuda_device_ms.fallbacks == 1
+    err = capsys.readouterr().err
+    assert 'session 3 of 3' in err
+    assert 'returning the CUDA-event time' in err
+
+
 def test_fma_chain_plain_matches_the_jax_loop():
     """tools/roofline.py's FMA chain (``y = y * a + b``, 256 steps) in JAX,
     on the port's constants, against the kernel's plain version. The map
