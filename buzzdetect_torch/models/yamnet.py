@@ -271,3 +271,47 @@ def embed_xla(params: dict, patches: torch.Tensor,
         if bf16:
             x = round_bf16(x)
     return x.mean(dim=(2, 3))
+
+
+# --- training ---------------------------------------------------------------------
+
+def embed_train(raw_params: dict, patches: torch.Tensor, *,
+                momentum: float = 0.99):
+    """Training-mode forward pass with live BatchNorm: the counterpart of
+    ``buzzdetect_tpu.models.yamnet.embed_train``.
+
+    ``raw_params`` holds the raw (unfolded) parameters as tensors in the
+    JAX package's layout (HWIO kernels, per-channel ``bn_*``): the kernels
+    and ``bn_beta`` may require grad, ``bn_mean`` and ``bn_var`` are state.
+    Each conv is ``_conv_same`` (TF-SAME padding; the kernel permuted to
+    OIHW inside the graph, so gradients come back in HWIO); BatchNorm takes
+    the batch mean and biased variance over (N, H, W), has no scale, and
+    is followed by ReLU. ``F.batch_norm`` is not used: its running variance
+    is the unbiased one and its momentum weights the batch, not the old
+    value.
+
+    Returns ``(embeddings (B, 1024), new_stats)``, ``new_stats`` holding
+    every layer's ``bn_mean`` and ``bn_var`` as ``momentum * old + (1 -
+    momentum) * batch``, detached from the graph.
+    """
+    x = patches.to(torch.float32)
+    if x.dim() == 4:
+        x = x[..., 0]
+    x = x[:, None]                                      # (B, 1, 96, 64)
+    new_stats = {}
+    for key, kind, stride, _shape in _conv_shapes():
+        kernel = raw_params[f'{key}/kernel'].permute(3, 2, 0, 1)
+        groups = x.shape[1] if kind == 'depthwise' else 1
+        x = _conv_same(x, kernel, stride, groups)
+        mean = x.mean(dim=(0, 2, 3))
+        var = x.var(dim=(0, 2, 3), correction=0)
+        beta = raw_params[f'{key}/bn_beta']
+        x = ((x - mean[:, None, None]) * torch.rsqrt(var + BN_EPSILON)[
+            :, None, None] + beta[:, None, None])
+        x = torch.relu(x)
+        with torch.no_grad():
+            for stat, batch in (('bn_mean', mean), ('bn_var', var)):
+                new_stats[f'{key}/{stat}'] = (
+                    momentum * raw_params[f'{key}/{stat}']
+                    + (1 - momentum) * batch)
+    return x.mean(dim=(2, 3)), new_stats

@@ -3,8 +3,11 @@
 Parity with reference `src/write/thresholds.py:29-41`: pick the mean threshold
 of all rows in the model's evaluation metrics whose precision lies within
 ± tolerance/2 of the requested precision. The metrics table itself is produced
-by the evaluation harness (`buzzdetect_tpu.train.evaluate`) — a capability the
+by the evaluation harness (`buzzdetect_torch.train.evaluate`) — a capability the
 reference ships only as a data artifact.
+
+Copy of ``buzzdetect_tpu/write/thresholds.py``, the import prefix and the
+evaluation module it names changed.
 """
 
 import os
@@ -48,7 +51,7 @@ def load_metrics(modelname: str):
                 }
     raise FileNotFoundError(
         f'metrics not available for model "{modelname}"; run '
-        f'buzzdetect_tpu.train.evaluate on a labeled test set to generate them')
+        f'buzzdetect_torch.train.evaluate on a labeled test set to generate them')
 
 
 def _bracket(metrics: dict, precision_requested: float):

@@ -103,7 +103,27 @@ Phases, each printed before the last line:
    ``python -m buzzdetect_torch --host_shard I/2`` processes on one shared
    output folder: both exit 0 and the union of their CSVs is
    byte-identical to phase 3's;
-7. one JSON line with every kernel's numbers.
+7. training and writers, at the full width of ``model_general_v3`` on a
+   seeded corpus (4 x 120 s 16 kHz PCM16 WAVs named as AudioMoth-style
+   stations, tone-burst ``ins_buzz`` and noise-only ``ambient_noise``
+   events, their annotation CSV), in the temporary models folder, with
+   ``--no-report``: (a) ``buzzdetect_torch.tools.train_model`` head-only
+   for 5 epochs: the conv kernels' launches over it, which must equal one
+   ``fused_front`` and one ``fused_tail`` per chunk embedded, one file's
+   embeddings card against CPU, the losses and stage times (the tool's
+   own lines) and the bundle's metrics table; (b) ``train_model --full``
+   (batch 32 of 0.975 s clips, 2 epochs): one train step's CUDA-event and
+   device time beside its bound from its operations, the first step's
+   loss and per-leaf gradients card against CPU from one state, each
+   held leaf by leaf to float64 along its own run's ReLU branches, the
+   resume test (1 epoch, then a resume to 2, against the tool's 2
+   straight, bit for bit) and one ``--augment`` step's loss; (c)
+   ``analyze()`` with both trained bundles on one recording, on the card
+   and on the CPU, then ``call_detections`` (CSV, Audacity, Raven, event
+   clips), ``activity_report`` and ``trim_results`` on each run's CSVs,
+   here and in a process without a card: their outputs byte-identical
+   between the processes, and card against CPU where the CSVs are;
+8. one JSON line with every kernel's numbers.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero with a message, and without a CUDA device the script exits
@@ -199,6 +219,31 @@ XLA_MODES = {'high': {}, 'bf16': {'compute_dtype': 'bfloat16'}}
 # each host_shard child process
 REPLICA_DEVICES = ['cuda:0', 'cuda:0']
 HOST_TIMEOUT = 600
+# phase 7, training and writers: the seeded corpus (CORPUS_FILES PCM16 WAVs
+# of CORPUS_SECONDS at 16 kHz, each with CORPUS_EVENTS tone bursts), its
+# classes, and the fine-tune's batch and epochs
+CORPUS_FILES = 4
+CORPUS_SECONDS = 120.0
+CORPUS_EVENTS = 8
+TRAIN_CLASSES = ['ins_buzz', 'ambient_noise']
+FULL_BATCH = 32
+FULL_EPOCHS = 2
+HEAD_EPOCHS = 5
+# embeddings, card against CPU: exact f32 on both sides in another summation
+# order (tests/test_torch_train.py reads the port's CPU embeddings within
+# 1.1e-6 of a float64 evaluation), held to 1e-5 of the largest |embedding|
+EMB_RTOL = 1e-5
+# first-step gradients, as a share of each leaf's max |g|, against a float64
+# evaluation that takes the same ReLU branches as the f32 run it referees:
+# f32 rounding (the CPU port: 2.1e-5 largest, 5.1e-6 median over the 56
+# leaves on this corpus). Against float64's own branches an f32 gradient
+# differs wherever a pre-activation within rounding of 0 takes the other
+# branch (the CPU port: 8 such elements, all at |z| <= 8.2e-6, and one of
+# them, layer10/depthwise_conv's channel 222, puts 7.4e-2 on
+# layer9/pointwise_conv/kernel's column 222); so each branch the f32 run
+# takes against float64's lies within BRANCH_EDGE of 0
+GRAD_RTOL = 1e-4
+BRANCH_EDGE = 1e-4
 
 
 def fail(msg):
@@ -777,6 +822,483 @@ def host_shard_phase(tmp, dir_audio, dir_out, names, device='cuda'):
     print(f'host_shard: two concurrent processes in {wall:.2f} s wall '
           f'(process start, kernel load and analysis)', flush=True)
     same_csvs(shared, dir_out, names, 'host_shard 0/2 + 1/2')
+
+
+def write_corpus(root, seed=0):
+    """Phase 7's corpus under ``root``: CORPUS_FILES recordings named as
+    AudioMoth-style stations (``HIVE<i>_20240601_<hh>0000.wav``, one hour
+    apart) of noise with CORPUS_EVENTS harmonic tone bursts each, and the
+    annotation CSV (``ident,start,end,label``): every burst ``ins_buzz``,
+    and as many noise-only stretches ``ambient_noise``. Returns (the audio
+    directory, the CSV's path, the idents)."""
+    rng = np.random.default_rng(seed)
+    audio = os.path.join(root, 'corpus')
+    os.makedirs(audio)
+    rate = 16000
+    t = np.arange(int(CORPUS_SECONDS * rate)) / rate
+    rows, idents = ['ident,start,end,label'], []
+    for i in range(CORPUS_FILES):
+        ident = f'HIVE{i}_20240601_{10 + i:02d}0000'
+        x = rng.standard_normal(len(t)) * 0.02
+        slots = rng.permutation(int(CORPUS_SECONDS // 6))[:2 * CORPUS_EVENTS]
+        for j, slot in enumerate(sorted(slots)):
+            start = slot * 6.0 + rng.uniform(0, 2)
+            end = start + rng.uniform(1.5, 3.5)
+            if j % 2:
+                rows.append(f'{ident},{start:.3f},{end:.3f},ambient_noise')
+                continue
+            sel = (t >= start) & (t < end)
+            f0 = rng.uniform(180, 260)
+            x[sel] += sum(0.2 / k * np.sin(2 * np.pi * f0 * k * t[sel])
+                          for k in (1, 2, 3))
+            rows.append(f'{ident},{start:.3f},{end:.3f},ins_buzz')
+        ints = np.clip(np.round(x * 32768), -32768, 32767).astype('<i2')
+        with wave.open(os.path.join(audio, f'{ident}.wav'), 'wb') as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(ints.tobytes())
+        idents.append(ident)
+    path_ann = os.path.join(root, 'events.csv')
+    with open(path_ann, 'w') as f:
+        f.write('\n'.join(rows) + '\n')
+    return audio, path_ann, idents
+
+
+def train_step_flops(b):
+    """Operations of one full train step on b patches: every conv's
+    multiply-adds counted twice, forward once and backward twice (the
+    input's and the weight's gradients); BatchNorm, the frontend and the
+    head are left out (under 1% of it)."""
+    from buzzdetect_torch.models import yamnet
+    h, w, flops = 96, 64, 0
+    for _key, kind, stride, shape in yamnet._conv_shapes():
+        h, w = -(-h // stride), -(-w // stride)
+        fan = shape[0] * shape[1] * (1 if kind == 'depthwise' else shape[2])
+        flops += 2 * h * w * fan * shape[3]
+    return 3 * flops * b
+
+
+def embed_train_f64(raw, patches, masks=None):
+    """``yamnet.embed_train`` written out in float64 with plain
+    ``F.conv2d`` on (B, 96, 64) patches: the referee for the f32 gradients
+    of the card and the CPU. With ``masks`` (one per layer, from
+    ``ReluBranches``) each ReLU takes the recorded branch. Returns (the
+    embeddings, every layer's pre-activation)."""
+    import torch
+    import torch.nn.functional as F
+    from buzzdetect_torch.models import yamnet
+    from buzzdetect_torch.ops.sepconv import same_pad
+    x, zs = patches[:, None], []
+    for i, (key, kind, stride, _shape) in enumerate(yamnet._conv_shapes()):
+        k = raw[f'{key}/kernel'].permute(3, 2, 0, 1)
+        ph = same_pad(x.shape[2], stride, k.shape[-1])
+        pw = same_pad(x.shape[3], stride, k.shape[-1])
+        x = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), k,
+                     stride=stride,
+                     groups=x.shape[1] if kind == 'depthwise' else 1)
+        mean = x.mean(dim=(0, 2, 3))[:, None, None]
+        var = x.var(dim=(0, 2, 3), correction=0)[:, None, None]
+        z = (x - mean) / torch.sqrt(var + yamnet.BN_EPSILON) \
+            + raw[f'{key}/bn_beta'][:, None, None]
+        zs.append(z.detach().numpy())
+        x = torch.relu(z) if masks is None else z * masks[i].double()
+    return x.mean(dim=(2, 3)), zs
+
+
+def relu_branches():
+    """A ``TorchFunctionMode`` that records the branch (output > 0, on the
+    CPU) of every ``torch.relu`` run inside it, in ``.masks``."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class ReluBranches(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.masks = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.relu:
+                self.masks.append((out > 0).detach().cpu())
+            return out
+
+    return ReluBranches()
+
+
+def first_step_f64(state, patches, labels, masks=None):
+    """The first step's float64 gradients from ``state`` (``{path:
+    grad}``, the paths of ``trainer.trainable_leaves``) and pre-activations,
+    along ``masks`` if given."""
+    import torch
+    from buzzdetect_torch.train import trainer
+    p64 = {g: {k: torch.from_numpy(v.astype(np.float64)).requires_grad_()
+               for k, v in leaves.items()} for g, leaves in state.items()}
+    emb, zs = embed_train_f64(p64['yamnet_raw'], patches, masks)
+    trainer.bce_with_logits_loss(
+        emb @ p64['head']['head/kernel'] + p64['head']['head/bias'],
+        labels).backward()
+    return {f'{g}.{k}': t.grad.numpy() for g, leaves in p64.items()
+            for k, t in leaves.items() if t.grad is not None}, zs
+
+
+def head_phase(tmp, audio, ann, idents, reset_counts, read_counts,
+               device='cuda'):
+    """(a) ``buzzdetect_torch.tools.train_model`` head-only (HEAD_EPOCHS
+    epochs) on the corpus: the conv kernels' launches over it (all of them
+    in the embedding stage: one ``fused_front`` and one ``fused_tail`` per
+    chunk embedded), one file's embeddings on the card against the same
+    file on the CPU port, and the bundle's metrics table. Returns the
+    bundle's name."""
+    from buzzdetect_torch import config as cfg_mod
+    from buzzdetect_torch.models.registry import load_model
+    from buzzdetect_torch.tools import train_model
+    from buzzdetect_torch.train.embed_corpus import embed_file
+    from buzzdetect_torch.write.coverage import gaps_to_chunklist
+    name, work = 'trained_head', os.path.join(tmp, 'work_head')
+    reset_counts()
+    t0 = time.perf_counter()
+    train_model.main(['--name', name, '--dir-audio', audio, '--annotations',
+                      ann, '--classes', *TRAIN_CLASSES, '--epochs',
+                      str(HEAD_EPOCHS), '--dir-work', work, '--no-report',
+                      '--device', device])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    chunk = max(round(200.0 / 0.96) * 0.96, 0.96)
+    want = CORPUS_FILES * len(gaps_to_chunklist([(0.0, CORPUS_SECONDS)],
+                                                chunk))
+    print(f'(a) train_model head-only: {wall:.2f} s wall; kernel launches '
+          f'{counts}, {want} predicted for the embedding stage '
+          f'({CORPUS_FILES} files x one {chunk:.2f} s chunk each)',
+          flush=True)
+    others = {k: v for k, v in counts.items()
+              if k not in ('fused_front', 'fused_tail') and v}
+    if counts['fused_front'] != want or counts['fused_tail'] != want \
+            or others:
+        fail(f'the embedding stage launched {counts}, not {want} '
+             f'fused_front and fused_tail')
+    with np.load(os.path.join(work, f'{idents[0]}_embeddings.npz')) as z:
+        starts, card = z['starts'], z['embeddings']
+    cpu_model = load_model(MODEL, initialize=True, device='cpu')
+    s_cpu, cpu = embed_file(cpu_model.classifier,
+                            os.path.join(audio, f'{idents[0]}.wav'))
+    d = float(np.abs(card - cpu).max())
+    tol = EMB_RTOL * float(np.abs(cpu).max())
+    print(f'(a) {idents[0]}: {card.shape} embeddings, card vs CPU max '
+          f'|d| = {d:.3g} (tolerance {tol:.3g}: {EMB_RTOL} of the largest '
+          f'|embedding|)', flush=True)
+    if card.shape != cpu.shape or not np.array_equal(starts, s_cpu) \
+            or d > tol:
+        fail(f'card and CPU embeddings differ by {d:.3g}')
+    with np.load(os.path.join(cfg_mod.resolve_dir(cfg_mod.DIR_MODELS),
+                              name, 'model.npz')) as z:
+        table = {k[len('metrics_'):]: z[k] for k in z.files
+                 if k.startswith('metrics_')}
+    if not table:
+        fail('the head-only bundle has no metrics table')
+    n = len(table['threshold'])
+    rows = sorted({int(i) for i in np.linspace(0, n - 1, min(n, 6))})
+    print(f'(a) metrics table: {n} rows; threshold, precision, '
+          f'sensitivity, fpr of rows {rows}:', flush=True)
+    for i in rows:
+        print('      ' + ', '.join(f'{table[k][i]:.4g}' for k in
+                                   ('threshold', 'precision', 'sensitivity',
+                                    'fpr')), flush=True)
+    return name
+
+
+def full_phase(tmp, audio, ann, time_ms, device_ms, f32_peak, reset_counts,
+               read_counts, device='cuda'):
+    """(b) ``train_model --full`` (batch FULL_BATCH of 0.975 s clips,
+    FULL_EPOCHS epochs); one train step's CUDA-event median and device
+    time beside its bound from its operations; the first step's loss and
+    per-leaf gradients against the CPU port from the same state; the
+    resume test (the tool's run against FULL_EPOCHS - 1 epochs, then a
+    resume to FULL_EPOCHS, bit for bit); one augmented step's loss.
+    Returns the bundle's name."""
+    import torch
+    from buzzdetect_torch import config as cfg_mod
+    from buzzdetect_torch.models import yamnet
+    from buzzdetect_torch.models.heads import init_head
+    from buzzdetect_torch.models.weights import train_state_from_numpy
+    from buzzdetect_torch.ops.frontend import FrontendConfig, log_mel_patches
+    from buzzdetect_torch.tools import train_model
+    from buzzdetect_torch.train import trainer
+    from buzzdetect_torch.train.annotations import load_events
+    from buzzdetect_torch.train.clips import (build_clip_dataset,
+                                              train_full_model)
+    name, work = 'trained_full', os.path.join(tmp, 'work_full')
+    reset_counts()
+    t0 = time.perf_counter()
+    train_model.main(['--name', name, '--dir-audio', audio, '--annotations',
+                      ann, '--classes', *TRAIN_CLASSES, '--full', '--epochs',
+                      str(FULL_EPOCHS), '--dir-work', work, '--no-report',
+                      '--device', device])
+    print(f'(b) train_model --full: {time.perf_counter() - t0:.2f} s wall; '
+          f'kernel launches {read_counts()} (the fine-tune runs cuDNN '
+          f'F.conv2d with autograd, no hand kernel)', flush=True)
+    clips, labels = build_clip_dataset(audio, load_events(ann),
+                                       TRAIN_CLASSES, log=lambda *_: None)
+    print(f'(b) {len(clips)} clips of {clips.shape[1]} samples, '
+          f'{int(labels.sum())} positive labels', flush=True)
+
+    # the first step from the seeded state, card against CPU
+    state = {'yamnet_raw': yamnet.init_raw_params(0),
+             'head': init_head(yamnet.N_EMBEDDINGS, len(TRAIN_CLASSES))}
+    w, y = clips[:FULL_BATCH], labels[:FULL_BATCH]
+    steps = {}
+    for dev in (device, 'cpu'):
+        params, opt = train_state_from_numpy(state, learning_rate=1e-3,
+                                             device=dev)
+        branches = relu_branches()
+        with trainer.training_flags():
+            with branches:
+                loss, _ = trainer.full_loss(
+                    params, torch.from_numpy(w).to(dev),
+                    torch.from_numpy(y).to(dev), FrontendConfig())
+            loss.backward()
+        grads = {p: t.grad.cpu().numpy()
+                 for p, t in trainer.trainable_leaves(params)}
+        steps[dev] = (float(loss.detach()), grads, branches.masks)
+    patches = log_mel_patches(torch.from_numpy(w), FrontendConfig()).reshape(
+        len(w), 96, 64).double()
+    y64 = torch.from_numpy(y).double()
+    g64, z64 = first_step_f64(state, patches, y64)
+    (card_loss, card_g, card_m), (cpu_loss, cpu_g, cpu_m) = (
+        steps[device], steps['cpu'])
+
+    def shares(a, b, scale):
+        return {p: float(np.abs(a[p] - b[p]).max())
+                / float(np.abs(scale[p]).max()) for p in scale}
+
+    def off_branches(masks):
+        off = [(z > 0) != m.numpy() for z, m in zip(z64, masks)]
+        return (int(sum(o.sum() for o in off)),
+                max(float(np.abs(z[o]).max(initial=0.0))
+                    for z, o in zip(z64, off)))
+
+    rows = {'card - CPU': shares(card_g, cpu_g, g64),
+            'card - float64': shares(card_g, g64, g64),
+            'CPU - float64': shares(cpu_g, g64, g64)}
+    for role, grads, masks in (('card', card_g, card_m),
+                               ('CPU', cpu_g, cpu_m)):
+        same, _z = first_step_f64(state, patches, y64, masks)
+        rows[f'{role} - float64 on its branches'] = shares(grads, same,
+                                                           same)
+        rows[f'{role} branches off float64\'s'] = off_branches(masks)
+    print(f'(b) first step at B={len(w)}: loss card {card_loss:.7g}, CPU '
+          f'{cpu_loss:.7g}; per-leaf gradient max |d| / max |g64|, largest '
+          f'(leaf) and median over {len(g64)} leaves:', flush=True)
+    for k, v in rows.items():
+        if isinstance(v, tuple):
+            print(f'      {k}: {v[0]}, all at |z| <= {v[1]:.3g} (bound '
+                  f'{BRANCH_EDGE})', flush=True)
+            continue
+        top = max(v, key=v.get)
+        print(f'      {k}: {v[top]:.3g} ({top}), median '
+              f'{float(np.median(list(v.values()))):.3g}', flush=True)
+    bad = {role: [p for p, e in rows[f'{role} - float64 on its '
+                                     f'branches'].items() if e > GRAD_RTOL]
+           for role in ('card', 'CPU')}
+    if abs(card_loss - cpu_loss) > 1e-5 * abs(cpu_loss) or any(
+            bad.values()) or any(
+            rows[f'{role} branches off float64\'s'][1] > BRANCH_EDGE
+            for role in ('card', 'CPU')):
+        fail(f'the first step\'s gradients are not float64\'s on their own '
+             f'ReLU branches within {GRAD_RTOL} of each leaf\'s max |g| '
+             f'(leaves {bad}), or a branch is taken off 0')
+
+    # one step's time
+    params, opt = train_state_from_numpy(state, learning_rate=1e-3,
+                                         device=device)
+    step = trainer.make_full_train_step(opt, params)
+    wd, yd = torch.from_numpy(w).to(device), torch.from_numpy(y).to(device)
+    ms, dev_ms = time_ms(lambda: step(wd, yd)), device_ms(
+        lambda: step(wd, yd))
+    flops = train_step_flops(len(w))
+    bound_ms = 1e3 * flops / f32_peak
+    print(f'(b) one train step, B={len(w)} clips: {ms:.4f} ms (CUDA events, '
+          f'median), device {dev_ms:.4f} ms; bound {bound_ms:.4f} ms '
+          f'(operations: {flops / 1e9:.2f} GFLOP at f32 peak; device / '
+          f'bound {dev_ms / bound_ms:.1f}x)', flush=True)
+
+    # resume: the tool's uninterrupted run against one epoch, then a resume
+    resumed_dir = os.path.join(tmp, 'work_resume')
+    kw = dict(learning_rate=1e-3, checkpoint_dir=resumed_dir,
+              log=lambda *_: None, device=device)
+    train_full_model(clips, labels, epochs=FULL_EPOCHS - 1, **kw)
+    raw, head, _losses = train_full_model(clips, labels, epochs=FULL_EPOCHS,
+                                          **kw)
+    with np.load(os.path.join(cfg_mod.resolve_dir(cfg_mod.DIR_MODELS), name,
+                              'model.npz')) as z:
+        same = all(np.array_equal(z[f'yamnet_raw/{k}'], v)
+                   for k, v in raw.items()) and all(
+            np.array_equal(z[k], v) for k, v in head.items())
+    print(f'(b) resume: {FULL_EPOCHS - 1} epoch, then a resume to '
+          f'{FULL_EPOCHS}, against {FULL_EPOCHS} straight: '
+          f'{"bit-identical" if same else "DIFFERENT"} over '
+          f'{len(raw) + len(head)} arrays', flush=True)
+    if not same:
+        fail('the resumed fine-tune differs from the uninterrupted one')
+
+    # one augmented step
+    params, opt = train_state_from_numpy(state, learning_rate=1e-3,
+                                         device=device)
+    loss = float(trainer.make_full_train_step(opt, params, augment=True)(
+        wd, yd, np.random.default_rng((0, 0))))
+    print(f'(b) one --augment step: loss {loss:.7g}', flush=True)
+    if not np.isfinite(loss):
+        fail('the augmented step\'s loss is not finite')
+    return name
+
+
+def run_writers(dir_results, dir_writers, thr, dir_audio):
+    """``call_detections`` (events CSV, Audacity, Raven, event clips at
+    threshold ``thr``), ``activity_report`` and ``trim_results`` on the
+    CSVs in ``dir_results`` (which trimming adds its archives to), their
+    outputs under ``dir_writers``."""
+    from buzzdetect_torch.tools import (activity_report, call_detections,
+                                        trim_results)
+    os.makedirs(dir_writers)
+    calib = ['--dir_results', dir_results, '--threshold', f'{thr:.6f}']
+    call_detections.main(calib + ['--out',
+                                  os.path.join(dir_writers, 'events.csv')])
+    for fmt in ('audacity', 'raven'):
+        call_detections.main(calib + ['--format', fmt, '--out',
+                                      os.path.join(dir_writers, fmt)])
+    call_detections.main(calib + ['--format', 'clips', '--out',
+                                  os.path.join(dir_writers, 'clips'),
+                                  '--dir_audio', dir_audio])
+    activity_report.main(calib + ['--out',
+                                  os.path.join(dir_writers, 'activity.csv')])
+    trim_results.main(['--dir_results', dir_results])
+
+
+def writer_outputs(dir_results, dir_writers):
+    """{relative path: bytes} of ``run_writers``' outputs, the trimmed
+    archives under ``trim/``."""
+    out = _tree_bytes(dir_writers)
+    out.update({f'trim/{k}': v for k, v in _tree_bytes(dir_results).items()
+                if k.endswith('.npz')})
+    return out
+
+
+def writers_phase(tmp, audio, ident, bundles, reset_counts, read_counts,
+                  device='cuda'):
+    """(c) analyze() with each trained bundle on one recording, on the card
+    and on the CPU port; then ``run_writers`` on each run's CSVs, once in
+    this process and once in a process that sees no card. The card's
+    CSVs and the CPU's may differ only by one unit of their last digit (a
+    score within f32 rounding of a rounding edge; the cells are printed).
+    Each CSV's writer outputs must be byte-identical between the two
+    processes (a trimmed archive member by member), and, where the card's
+    CSVs equal the CPU's, between the card's run and the CPU's."""
+    import buzzdetect_torch
+    one = os.path.join(tmp, 'one_recording')
+    os.makedirs(one)
+    os.symlink(os.path.join(audio, f'{ident}.wav'),
+               os.path.join(one, f'{ident}.wav'))
+    jobs, checks = [], []
+    for name in bundles:
+        runs = {}
+        for role, dev in (('card', device), ('cpu', 'cpu')):
+            out = os.path.join(tmp, f'res_{name}_{role}')
+            reset_counts()
+            result = buzzdetect_torch.analyze(
+                modelname=name, dir_audio=one, dir_out=out,
+                verbosity_print='WARNING', device=dev)
+            counts = read_counts()
+            with open(os.path.join(out, f'{ident}_buzzdetect.csv')) as f:
+                rows = f.read().splitlines()
+            print(f'(c) analyze({name}, device={dev!r}): end reason '
+                  f'{result.coordinator.end_reason!r}, {len(rows) - 1} CSV '
+                  f'rows, kernel launches {counts}', flush=True)
+            if result.coordinator.end_reason != 'completed':
+                fail(f'analyze of {name} on {dev} ended '
+                     f'{result.coordinator.end_reason!r}')
+            if role == 'card' and (counts['fused_front'] <= 0
+                                   or counts['fused_tail'] <= 0):
+                fail(f'analyze of {name} never launched the conv kernels')
+            runs[role] = (out, np.array([r.split(',') for r in rows[1:]],
+                                        float))
+        card_t, cpu_t = runs['card'][1], runs['cpu'][1]
+        d = np.abs(card_t - cpu_t)
+        flips = [(int(i), int(j), float(card_t[i, j]), float(cpu_t[i, j]))
+                 for i, j in np.argwhere(d > 0)]
+        if d.max() > 0.0101:
+            fail(f'{name}: card and CPU CSVs differ by {d.max():.3g}')
+        # a threshold inside the card run's ins_buzz range, so events exist
+        thr = float(np.quantile(card_t[:, 1], 0.8))
+        dirs = {}
+        for role, (out, _t) in runs.items():
+            for where in ('here', 'nocard'):
+                key = f'{name}_{role}_{where}'
+                dirs[role, where] = (os.path.join(tmp, f'csv_{key}'),
+                                     os.path.join(tmp, f'writers_{key}'))
+                shutil.copytree(out, dirs[role, where][0])
+            run_writers(*dirs[role, 'here'], thr, one)
+            jobs.append((*dirs[role, 'nocard'], thr, one))
+        checks.append((name, thr, flips, dirs))
+    # the same writers in a process that sees no card
+    code = (f'import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; '
+            f'[chip_smoke.run_writers(*job) for job in {jobs!r}]')
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
+    proc = subprocess.run([sys.executable, '-c', code], env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        fail(f'the writers without a card exited {proc.returncode}: '
+             f'{proc.stderr[-2000:]}')
+    for name, thr, flips, dirs in checks:
+        got = {k: writer_outputs(*v) for k, v in dirs.items()}
+        kinds = collections.Counter(k.split('/')[0] for k in
+                                    got['cpu', 'here'])
+        same_process = {role: got[role, 'here'] == got[role, 'nocard']
+                        for role in ('card', 'cpu')}
+        same_run = got['card', 'here'] == got['cpu', 'here']
+        print(f'(c) {name}: threshold {thr:.4f}; writer outputs '
+              f'{dict(sorted(kinds.items()))}; each CSV\'s outputs here '
+              f'and in a process without a card: {same_process}; card\'s '
+              f'run vs CPU\'s: {"byte-identical" if same_run else "differ"};'
+              f' CSV cells that differ (row, column, card, CPU): {flips}',
+              flush=True)
+        if not all(same_process.values()) or (not flips and not same_run):
+            fail(f'{name}: the writers\' outputs differ on the same CSVs')
+
+
+def _tree_bytes(root):
+    """{relative path: bytes} under ``root``; an npz as its members'
+    bytes (the zip container stamps the time of writing)."""
+    import zipfile
+    out = {}
+    for base, _dirs, files in os.walk(root):
+        for f in files:
+            path = os.path.join(base, f)
+            rel = os.path.relpath(path, root)
+            if f.endswith('.npz'):
+                with zipfile.ZipFile(path) as z:
+                    out[rel] = [z.read(n) for n in sorted(z.namelist())]
+            else:
+                with open(path, 'rb') as fh:
+                    out[rel] = fh.read()
+    return out
+
+
+def training_phase(tmp, time_ms, device_ms, f32_peak, reset_counts,
+                   read_counts, device='cuda'):
+    """Phase 7: the corpus, then (a) head-only training, (b) the full
+    fine-tune, (c) analysis with both bundles and the writers."""
+    t0 = time.perf_counter()
+    audio, ann, idents = write_corpus(tmp)
+    print(f'7. training and writers: {CORPUS_FILES} x {CORPUS_SECONDS:g} s '
+          f'corpus with {CORPUS_EVENTS} ins_buzz and {CORPUS_EVENTS} '
+          f'ambient_noise events each', flush=True)
+    bundles = [head_phase(tmp, audio, ann, idents, reset_counts, read_counts,
+                          device),
+               full_phase(tmp, audio, ann, time_ms, device_ms, f32_peak,
+                          reset_counts, read_counts, device)]
+    writers_phase(tmp, audio, idents[0], bundles, reset_counts, read_counts,
+                  device)
+    print(f'7. done in {time.perf_counter() - t0:.1f} s', flush=True)
 
 
 def main():
@@ -1445,7 +1967,11 @@ def run(torch, tmp):
     replica_phase(tmp, dir_audio, dir_out, names, reset_counts, read_counts)
     host_shard_phase(tmp, dir_audio, dir_out, names)
 
-    # --- 7. the kernels line ------------------------------------------
+    # --- 7. training and writers ---------------------------------------
+    training_phase(tmp, time_ms, device_ms, f32_peak, reset_counts,
+                   read_counts)
+
+    # --- 8. the kernels line ------------------------------------------
     print(f'torch.profiler sessions that recorded no device time on any '
           f'attempt, timed by CUDA events instead: {device_ms.fallbacks}',
           flush=True)

@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, nothing of buzzdetect_tpu, and no quiet
-fallback from CUDA to the CPU."""
+"""The port stands alone: no JAX (nor optax, which would bring it),
+nothing of buzzdetect_tpu, and no quiet fallback from CUDA to the CPU."""
 
 import ast
 import os
@@ -9,7 +9,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ('jax', 'jaxlib', 'buzzdetect_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'optax', 'buzzdetect_tpu')
 
 
 def _port_sources():
@@ -53,7 +53,19 @@ def test_no_jax_or_reference_package_imports():
     'buzzdetect_torch.tools.decode_rate_probe',
     'buzzdetect_torch.tools.fuzz_decode',
     'buzzdetect_torch.tools.soak_resume', 'buzzdetect_torch.parallel',
-    'buzzdetect_torch.tools.soak_watch'])
+    'buzzdetect_torch.tools.soak_watch', 'buzzdetect_torch.train',
+    'buzzdetect_torch.train.clips', 'buzzdetect_torch.train.embed_corpus',
+    'buzzdetect_torch.train.checkpoint', 'buzzdetect_torch.train.augment',
+    'buzzdetect_torch.models.convert', 'buzzdetect_torch.write.detections',
+    'buzzdetect_torch.write.activity', 'buzzdetect_torch.write.trim',
+    'buzzdetect_torch.tools.call_detections',
+    'buzzdetect_torch.tools.trim_results',
+    'buzzdetect_torch.tools.activity_report',
+    'buzzdetect_torch.tools.score_embeddings',
+    'buzzdetect_torch.tools.embed_corpus',
+    'buzzdetect_torch.tools.train_model',
+    'buzzdetect_torch.tools.build_ensemble',
+    'buzzdetect_torch.tools.import_reference_model'])
 def test_importing_the_port_loads_no_jax(first):
     """Each module imports first without an import cycle, and the package
     with its orchestrator pulls in no JAX. A subprocess: tests/conftest.py
