@@ -609,9 +609,9 @@ class Analyzer:
                     self.coordinator.log(
                         f'no results in {cfg.STALL_WARNING_S:.0f}s — a '
                         f'first-time kernel build can take a while, but an '
-                        f'unreachable device hangs exactly like this; check '
-                        f'the card with nvidia-smi in another shell',
-                        'WARNING')
+                        f'unreachable device hangs exactly like this; '
+                        f'triage with `python -m buzzdetect_torch.doctor` '
+                        f'(or nvidia-smi) in another shell', 'WARNING')
                     return
 
         def watch_hard(timeout=self.stall_timeout):

@@ -166,6 +166,10 @@ class ChunkClassifier:
         if conv_precision not in ('auto', 'high', 'highest'):
             raise ValueError(
                 "conv_precision must be 'auto', 'high' or 'highest'")
+        # whether the precision was left to the per-path rule: an export
+        # applies the rule to its own conv path, but keeps a bundle's pin
+        # (models/export.py), as the JAX classifier records it
+        self._conv_precision_auto = conv_precision == 'auto'
         if conv_precision == 'auto':
             conv_precision = 'high' if self.conv == 'xla' else 'highest'
         self.conv_precision = conv_precision

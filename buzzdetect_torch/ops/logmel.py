@@ -4,9 +4,11 @@ Counterpart of ``buzzdetect_tpu/ops/pallas_frontend.py``
 (``log_mel_spectrogram_pallas``), selected with ``frontend='pallas'``: a
 padded f32 waveform ``(n,)``, or a batch ``(B, n)``, becomes its
 ``(n_frames, 64)`` (or ``(B, n_frames, 64)``) log-mel spectrogram, with
-``n_frames = 1 + (n - 400) // 160``. On a CUDA tensor the wrapper launches
-the kernel of ``csrc/logmel.cu`` (exact f32 FFMA; see the note at the top of
-that file) and counts the launch in ``log_mel_spectrogram_fused.launches``;
+``n_frames = 1 + (n - 400) // 160``. On a CUDA tensor the wrapper calls
+the ``buzzdetect::log_mel`` custom operator (``ops/library.py``), which
+launches the kernel of ``csrc/logmel.cu`` (exact f32 FFMA; see the note at
+the top of that file) and counts the launch in
+``log_mel_spectrogram_fused.launches``;
 on a CPU tensor it computes the plain PyTorch version. There is no other
 path. The launch's geometry (frames per thread-block cluster, blocks per
 cluster) is chosen here, by ``launch_geometry``, and passed to the kernel.
@@ -24,8 +26,7 @@ import numpy as np
 import torch
 
 from buzzdetect_torch.ops import mel as mel_lib
-from buzzdetect_torch.ops.sepconv import (
-    _count_launch, _route, device_scope, exact_f32)
+from buzzdetect_torch.ops.sepconv import _route, device_scope, exact_f32
 
 # the frame geometry and bin split the kernel is written for
 WINDOW, HOP, MELS = 400, 160, 64
@@ -232,15 +233,27 @@ def _launch(waveform, cfg, lib=None):
     """(B, n) contiguous f32 CUDA waveforms -> (B, n_frames, 64) through
     ``bz_logmel`` of this checkout's library, or of ``lib`` (another build
     of ``csrc/logmel.cu``, bound by ``bind``)."""
+    ops = _operands(cfg, waveform.device)
+    return _launch_operands(waveform, ops['chunks'], ops['nyq'], ops['mel'],
+                            cfg.log_offset, lib)
+
+
+def _launch_operands(waveform, chunks, nyq, mel, log_offset, lib=None):
+    """``_launch`` on the constants of ``_operands`` as given: the CUDA
+    implementation of the ``buzzdetect::log_mel`` operator."""
     lib = load_kernels() if lib is None else lib
     b, n = waveform.shape
     n_frames = 1 + (n - WINDOW) // HOP
     device = waveform.device
-    ops = _operands(cfg, device)
+    for name, t in (('waveform', waveform), ('chunks', chunks), ('nyq', nyq),
+                    ('mel', mel)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(f'{name}: expected a contiguous float32 tensor '
+                             f'on {device}, got {t.dtype} on {t.device}')
     out = torch.empty((b, n_frames, MELS), dtype=torch.float32, device=device)
-    args = [waveform.data_ptr(), out.data_ptr(), ops['chunks'].data_ptr(),
-            ops['nyq'].data_ptr(), ops['mel'].data_ptr(), b, n, n_frames,
-            cfg.log_offset]
+    args = [waveform.data_ptr(), out.data_ptr(), chunks.data_ptr(),
+            nyq.data_ptr(), mel.data_ptr(), b, n, n_frames, float(log_offset)]
     if hasattr(lib, 'bz_logmel_clusters'):
         g = geometry_on(device, n_frames, b, lib)
         args += [g.ft, g.cs]
@@ -263,9 +276,13 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor, cfg) -> torch.Tensor:
                          f'{tuple(waveform.shape)}')
     if _route(waveform) == 'cpu':
         return log_mel_spectrogram_fused_plain(waveform, cfg)
+    from buzzdetect_torch.ops import library
     x = waveform.to(torch.float32).contiguous()
-    out = _launch(x.reshape(-1, x.shape[-1]), cfg)
-    _count_launch(log_mel_spectrogram_fused)
+    ops = _operands(cfg, x.device)
+    out = library.log_mel(x.reshape(-1, x.shape[-1]),
+                          [ops['chunks'], ops['nyq'], ops['mel']],
+                          cfg.window_samples, cfg.hop_samples,
+                          cfg.log_offset)
     return out if waveform.dim() == 2 else out[0]
 
 

@@ -2,10 +2,12 @@
 
 Counterpart of ``buzzdetect_tpu/ops/pallas_conv.py``: ``fused_front`` runs
 layers 2-7 and ``fused_tail`` layers 8-14 plus global average pooling (or
-any sep-layer range without pooling). On a CUDA tensor each wrapper launches
-its kernels from ``csrc/sepconv.cu`` (see the note at the top of that file)
-and counts the launch in ``<wrapper>.launches[mode]``; on a CPU tensor it
-computes the plain PyTorch version. There is no other path. The pointwise
+any sep-layer range without pooling). On a CUDA tensor each wrapper calls
+its custom operator (``buzzdetect::fused_front`` / ``fused_tail``,
+``ops/library.py``), which launches the kernels of ``csrc/sepconv.cu`` (see
+the note at the top of that file) and counts the launch in
+``<wrapper>.launches[mode]``; on a CPU tensor it computes the plain PyTorch
+version. There is no other path. The pointwise
 product runs on FFMA in exact f32 ('highest') and on the tensor cores
 ('bf16', 'high'; ``layer_route``).
 
@@ -66,9 +68,11 @@ class SepSpec:
         return -(-self.w // self.stride)
 
 
+@lru_cache(maxsize=None)
 def tail_specs(start_layer: int = 8, stop_layer: int = None):
     """SepSpecs for LAYER_DEFS[start_layer-1:stop_layer-1] with their input
-    spatial sizes (stop_layer is exclusive; None runs to the end)."""
+    spatial sizes (stop_layer is exclusive; None runs to the end); cached,
+    since every launch asks for its range."""
     # here, not at the top: importing the models package imports the
     # classifier, which imports this module
     from buzzdetect_torch.models.yamnet import LAYER_DEFS
@@ -382,6 +386,12 @@ def _count_launch(wrapper, mode=None):
             wrapper.launches[mode] += 1
 
 
+def _flat(operands):
+    """``_check``'s per-layer tuples as the one ``Tensor[]`` the custom
+    operators take (``ops/library.py``)."""
+    return [t for layer in operands for t in layer]
+
+
 def _route(x):
     """'cpu' -> plain version; 'cuda' -> kernel. Anything else raises."""
     if x.device.type not in ('cpu', 'cuda'):
@@ -407,9 +417,9 @@ def fused_front(params, x, *, start_layer: int = 2, stop_layer: int = 8,
     if _route(x) == 'cpu':
         return fused_front_plain(params, x, start_layer=start_layer,
                                  stop_layer=stop_layer, mode=mode)
-    out = _launch(operands, x, specs, False, mode)
-    _count_launch(fused_front, mode)
-    return out
+    from buzzdetect_torch.ops import library
+    return library.fused_front(x, _flat(operands), specs[0].index,
+                               specs[-1].index + 1, mode)
 
 
 def fused_tail(params, x, *, start_layer: int = 8, stop_layer: int = None,
@@ -422,9 +432,9 @@ def fused_tail(params, x, *, start_layer: int = 8, stop_layer: int = None,
     if _route(x) == 'cpu':
         return fused_tail_plain(params, x, start_layer=start_layer,
                                 stop_layer=stop_layer, gap=gap, mode=mode)
-    out = _launch(operands, x, specs, gap, mode)
-    _count_launch(fused_tail, mode)
-    return out
+    from buzzdetect_torch.ops import library
+    return library.fused_tail(x, _flat(operands), specs[0].index,
+                              specs[-1].index + 1, gap, mode)
 
 
 _count_lock = threading.Lock()

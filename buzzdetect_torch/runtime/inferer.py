@@ -93,14 +93,15 @@ def _dispatch_scope(model):
 def _describe_execution_target(model) -> str:
     """Name where this worker's dispatches actually execute: the torch
     device of the model's classifier (with the card's name on CUDA).
-    Plugin models without a ``device`` report 'plugin model'.
+    Plugin models without a ``device`` run on the ambient device, torch's
+    default (as the JAX copy reports the ambient backend).
 
     Runs after ``model.initialize()``, so the built-in bundle's device is
     read off its (now-built) ``.classifier``. Plugin models may expose the
     same name directly."""
     device = _model_device(model)
     if device is None:
-        return 'plugin model'
+        device = torch.get_default_device()
     if isinstance(device, torch.device) and device.type == 'cuda':
         return f'{device} ({torch.cuda.get_device_name(device)})'
     return str(device)

@@ -241,10 +241,17 @@ def cuda_time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
 
 def _profiled_device_us(fn, reps: int) -> float:
     """Device microseconds that ``torch.profiler`` records over ``reps``
-    calls of ``fn()``: the CUDA kernels' durations, summed."""
+    calls of ``fn()``: the CUDA kernels' durations, summed.
+
+    Each session is a fresh profiler object with one cycle.
+    ``acc_events=True`` changes nothing for it but the warning: torch 2.11's
+    ``prepare_trace`` warns that "Profiler clears events at the end of each
+    cycle" right after it creates the session's profiler, so every process
+    warned at its first session although no object ever ran two cycles."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()

@@ -9,6 +9,10 @@ precision must sit in (0, 1) and warns below 0.9; framehop must be positive
 and warns above 1 (gaps read as missing data); worker counts are
 non-negative ints; verbosities must name a known log level. Implemented as
 a small rule toolkit rather than one function per field.
+
+Copy of ``buzzdetect_tpu/validation.py``, import prefix changed. Edit:
+``validate_device`` checks the port's ``analyze(device=)`` field
+(``'cuda'``, ``'cuda:N'`` or ``'cpu'``).
 """
 
 import os
@@ -216,6 +220,19 @@ def validate_devices(value):
     return numeric_rule(kind=int, minimum=1)(value)
 
 
+def validate_device(value):
+    """The torch device a run uses: 'cuda', 'cuda:N' or 'cpu'. Whether
+    that card exists is checked at launch, not per keystroke (importing
+    torch here would stall the form)."""
+    text = str(value).strip() if value is not None else ''
+    kind, _, index = text.partition(':')
+    if kind == 'cpu' and not index:
+        return OK
+    if kind == 'cuda' and (not _ or index.isdigit()):
+        return OK
+    return ArgValid(False, "must be 'cuda', 'cuda:N' or 'cpu'")
+
+
 def validate_alert_command(alert_command):
     """None, blank, or a command string. Blank/whitespace means "no hook"
     everywhere the engine reads it (Analyzer/WorkerWriter treat it as
@@ -248,6 +265,7 @@ validate_map = {
     'transfer_dtype': validate_transfer_dtype,
     'profile': validate_profile,
     'devices': validate_devices,
+    'device': validate_device,
     'resample_on_device': numeric_rule(kind=int, minimum=0, maximum=1),
     'watch': numeric_rule(kind=int, minimum=0, maximum=1),
     'watch_interval': numeric_rule(kind=float, exclusive_min=0),

@@ -123,7 +123,28 @@ Phases, each printed before the last line:
    clips), ``activity_report`` and ``trim_results`` on each run's CSVs,
    here and in a process without a card: their outputs byte-identical
    between the processes, and card against CPU where the CSVs are;
-8. one JSON line with every kernel's numbers.
+8. the serving export (``models/export.py``), the GUI's analysis child and
+   the custom operators' dispatch, at the full width of
+   ``model_general_v3`` on one 200.64 s chunk (209 patches) of phase 3's
+   first recording: (a) a ``conv='xla'`` artifact for ``('cpu', 'cuda')``,
+   traced on the CPU and loaded on the card; (b) a ``conv='pallas'``
+   artifact for ``('cuda',)``, traced on the card; (c) the same for the
+   ``"frontend": "pallas"`` bundle variant; (d) a ``conv='xla'`` artifact at
+   ``framehop_prop=2.0``. Each: its bytes, export and load times, its
+   kernel launches over 1 and 3 calls (launch counts set to 0 just before,
+   read just after: ``fused_front`` and ``fused_tail`` once per call on
+   (b) and (c), the log-mel too on (c), nothing on (a) and (d)), its scores
+   against the live model built with the artifact's ``conv`` and
+   ``conv_precision`` (1e-4), its rows against ``n_patches``, and its
+   per-call time beside the live classify's (phases 2 and 6a); (e) the
+   GUI's ``run_analysis`` in a ``spawn`` child on phase 3's recordings,
+   with a queue for ``q_gui`` (through ``tests/tk_stub.py`` where tkinter
+   does not import): exit 0 and CSVs byte-identical to phase 3's; (f) the
+   conv kernels' host work per call now that the wrappers launch through
+   the custom operators (``ops/library.py``): phase 2's CUDA-event time
+   less device time, and the host time to enqueue one call at B = 5
+   through the wrapper, the operator and the launcher alone;
+9. one JSON line with every kernel's numbers.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero with a message, and without a CUDA device the script exits
@@ -1301,6 +1322,232 @@ def training_phase(tmp, time_ms, device_ms, f32_peak, reset_counts,
     print(f'7. done in {time.perf_counter() - t0:.1f} s', flush=True)
 
 
+# phase 8, the serving export: its cases, (label, modelname, export keywords,
+# platforms) each; the launches each call of the loaded program must add
+# (read_counts' names); and the artifact held against the live model
+EXPORT_CASES = (
+    ('xla', MODEL, {'conv': 'xla'}, ('cpu', 'cuda'), {}),
+    ('pallas', MODEL, {'conv': 'pallas'}, ('cuda',),
+     {'fused_front': 1, 'fused_tail': 1}),
+    ('pallas, "frontend": "pallas"', 'model_general_v3_pallas',
+     {'conv': 'pallas'}, ('cuda',),
+     {'fused_front': 1, 'fused_tail': 1, 'log_mel': 1}),
+    ('xla, framehop_prop=2.0', MODEL, {'conv': 'xla', 'framehop_prop': 2.0},
+     ('cpu', 'cuda'), {}),
+)
+EXPORT_ATOL = 1e-4
+EXPORT_CALLS = 3
+# (f) host time to enqueue one call: calls per round, rounds (median)
+DISPATCH_CALLS = 50
+DISPATCH_ROUNDS = 7
+
+
+def export_phase(torch, tmp, path_audio, chunk_s, ref_ms, reset_counts,
+                 read_counts, time_ms, device='cuda'):
+    """(a)-(d) Each of EXPORT_CASES: ``export_classifier`` for one
+    ``chunk_s`` chunk, saved, loaded with ``load_exported`` on ``device``;
+    the artifact's bytes, export and load times; its launch counts over
+    EXPORT_CALLS calls (set to 0 just before, read just after), which must
+    grow by the case's launches per call and by nothing else; its scores on
+    one chunk of ``path_audio`` against the live model built with the
+    artifact's ``conv`` and ``conv_precision`` (EXPORT_ATOL), rows equal to
+    ``n_patches``; and its per-call time (whole call, numpy in and out, and
+    the program alone on a resident wire) beside ``ref_ms[label]``, the
+    live classify's. Returns {label: row}."""
+    from buzzdetect_torch.audio import build_track
+    from buzzdetect_torch.models.export import (
+        export_classifier, load_exported, save_exported)
+    from buzzdetect_torch.models.registry import load_model
+    track = build_track(path_audio, target_rate=16000)
+    samples = track.read_s16(int(round(chunk_s * 16000)))
+    track.close()
+    rows = {}
+    for label, modelname, kw, platforms, per_call in EXPORT_CASES:
+        t0 = time.perf_counter()
+        blob, meta = export_classifier(modelname, chunk_seconds=chunk_s,
+                                       platforms=platforms, **kw)
+        export_s = time.perf_counter() - t0
+        d = save_exported(os.path.join(tmp, 'export', label.split(',')[0]
+                                       + str(len(rows))), blob, meta)
+        t0 = time.perf_counter()
+        call, meta = load_exported(d, device=device)
+        load_s = time.perf_counter() - t0
+        live = load_model(modelname, initialize=True, device=device,
+                          framehop_prop=kw.get('framehop_prop', 1.0),
+                          conv=meta['conv'],
+                          conv_precision=meta['conv_precision']).classifier
+        want = live.predict(samples)
+        wire = live._pad_to(samples, meta['input_samples'])
+        reset_counts()
+        got = call(wire)
+        first = read_counts()
+        for _ in range(EXPORT_CALLS - 1):
+            call(wire)
+        counts = read_counts()
+        diff = float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float('inf')
+        with torch.inference_mode():
+            resident = torch.from_numpy(wire).to(device)
+            row = dict(bytes=len(blob), export_s=export_s, load_s=load_s,
+                       max_abs_diff=diff, n_patches=meta['n_patches'],
+                       ms=time_ms(lambda: call(wire)),
+                       program_ms=time_ms(lambda: call.program(resident)))
+        rows[label] = row
+        print(f'export [{label}] ({meta["conv"]}, {meta["conv_precision"]}, '
+              f'platforms {meta["platforms"]}, traced on '
+              f'{"cpu" if "cpu" in platforms else device}): '
+              f'{row["bytes"]} bytes, export {export_s:.2f} s, load '
+              f'{load_s:.2f} s; {got.shape[0]} score rows for n_patches '
+              f'{meta["n_patches"]}; max |artifact - live| = {diff:.3g} '
+              f'(atol {EXPORT_ATOL}); kernel launches after one call '
+              f'{first}, after {EXPORT_CALLS} {counts}; per call '
+              f'{row["ms"]:.4f} ms (numpy in and out), the program on a '
+              f'resident wire {row["program_ms"]:.4f} ms'
+              + (f', beside the live classify\'s {ref_ms[label]:.4f} ms'
+                 if label in ref_ms else ''), flush=True)
+        if got.shape != (meta['n_patches'], len(meta['classes'])) \
+                or got.shape != want.shape:
+            fail(f'export [{label}]: {got.shape} score rows, live '
+                 f'{want.shape}, n_patches {meta["n_patches"]}')
+        if diff > EXPORT_ATOL:
+            fail(f'export [{label}]: the artifact is {diff:.3g} from the live '
+                 f'model')
+        for n, calls in ((first, 1), (counts, EXPORT_CALLS)):
+            expect = {k: calls * per_call.get(k, 0) for k in n}
+            if n != expect:
+                fail(f'export [{label}]: after {calls} calls the kernels '
+                     f'launched {n}, expected {expect}')
+    return rows
+
+
+def gui_child(kwargs, q_gui, event_stop, stub):
+    """The GUI's analysis child: ``gui.analysis.run_analysis`` in a spawn
+    process, through ``tests/tk_stub.py`` where the machine has no tkinter
+    (``gui.analysis`` imports it at import)."""
+    sys.path.insert(0, ROOT)
+    if stub:
+        # by path: the checkout's tests/ has no __init__.py, so any
+        # installed package named tests would shadow it
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            'tk_stub', os.path.join(ROOT, 'tests', 'tk_stub.py'))
+        tk_stub = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tk_stub)
+        tk_stub.install()
+    from buzzdetect_torch.gui.analysis import run_analysis
+    run_analysis(kwargs, q_gui, event_stop)
+
+
+def gui_phase(tmp, dir_audio, dir_out, names, device='cuda'):
+    """(e) The GUI's ``run_analysis`` in a ``spawn`` child (as the analysis
+    window starts it) on phase 3's recordings, with a queue for ``q_gui``:
+    it exits 0, its records reach the queue, and its CSVs are
+    byte-identical to phase 3's in ``dir_out``. Every process started here
+    is stopped before this returns."""
+    import multiprocessing
+    import queue as queue_mod
+    tk = subprocess.run([sys.executable, '-c', 'import tkinter'],
+                        capture_output=True, text=True, timeout=120)
+    stub = tk.returncode != 0
+    print('GUI: tkinter ' + ('imports here' if not stub else
+                             'does not import here ('
+                             + (tk.stderr.strip().splitlines() or ['?'])[-1]
+                             + '); the child installs tests/tk_stub.py '
+                             'before it imports gui.analysis'), flush=True)
+    ctx = multiprocessing.get_context('spawn')
+    q_gui, event_stop = ctx.Queue(), ctx.Event()
+    out = os.path.join(tmp, 'out_gui')
+    kwargs = dict(modelname=MODEL, dir_audio=dir_audio, dir_out=out,
+                  verbosity_print='INFO', device=device)
+    records = []
+    t0 = time.perf_counter()
+    child = ctx.Process(target=gui_child,
+                        args=(kwargs, q_gui, event_stop, stub), daemon=True)
+    child.start()
+    try:
+        deadline = time.monotonic() + HOST_TIMEOUT
+        # drain while waiting: a child with an undrained log backlog blocks
+        # on the queue's pipe at exit
+        while time.monotonic() < deadline:
+            try:
+                records.append(q_gui.get(timeout=0.2))
+            except queue_mod.Empty:
+                if not child.is_alive():
+                    break
+        child.join(timeout=30)
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join()
+    wall = time.perf_counter() - t0
+    levels = collections.Counter(r.level_str for r in records)
+    print(f'GUI run_analysis child: exit {child.exitcode}, {wall:.2f} s wall '
+          f'(spawn, imports, kernel load and analysis), {len(records)} '
+          f'records on q_gui {dict(levels)}', flush=True)
+    failed = [r.message for r in records if 'analysis failed' in r.message]
+    if child.exitcode != 0 or failed:
+        fail(f'the GUI child exited {child.exitcode}: '
+             f'{failed[-1][-2000:] if failed else ""}')
+    if not any('Analysis complete' in r.message for r in records):
+        fail('the GUI child sent no completion record on q_gui')
+    same_csvs(out, dir_out, names, 'GUI run_analysis child')
+
+
+def dispatch_phase(torch, params, x_front, x_tail, rows):
+    """(f) The conv kernels' host work per call, now that the wrappers
+    launch through the custom operators: phase 2's CUDA-event time less
+    device time at B=209 (``rows``), and the host time to enqueue one call
+    at ``x_front``/``x_tail``'s batch through the wrapper (checks, operator,
+    launch), through the operator alone and through the launcher alone
+    (``sepconv._launch``, no operator): the operator less the launcher is
+    what the dispatcher adds. Medians of DISPATCH_ROUNDS rounds of
+    DISPATCH_CALLS calls on the host clock, the card synchronized between
+    rounds."""
+    import statistics
+    from buzzdetect_torch.ops import library, sepconv
+    b = x_front.shape[0]
+    print('host launch work per call (phase 2, CUDA events - device time, '
+          'B=209, through the operators): ' + ', '.join(
+              f'{k} {rows[k]["ms"] - rows[k]["device_ms"]:.4f} ms'
+              for k in ('fused_front', 'fused_tail')), flush=True)
+    out = {}
+    for name, x, first, last, gap in (
+            ('fused_front', x_front, 2, 8, False),
+            ('fused_tail', x_tail, 8, 15, True)):
+        specs = sepconv.tail_specs(first, last)
+        operands = sepconv._check(params, x, specs, 'highest')
+        flat = sepconv._flat(operands)
+        op = getattr(library, name)
+        wrapper = getattr(sepconv, name)
+        extra = (gap,) if name == 'fused_tail' else ()
+        routes = {
+            'wrapper': lambda: wrapper(params, x, start_layer=first,
+                                       stop_layer=last, mode='highest',
+                                       **({'gap': gap} if extra else {})),
+            'operator': lambda: op(x, flat, first, last, *extra, 'highest'),
+            'launcher': lambda: sepconv._launch(operands, x, specs, gap,
+                                                'highest')}
+        for route, fn in routes.items():
+            for _ in range(3):
+                fn()
+            per = []
+            for _ in range(DISPATCH_ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DISPATCH_CALLS):
+                    fn()
+                per.append((time.perf_counter() - t0) / DISPATCH_CALLS * 1e3)
+                torch.cuda.synchronize()
+            out[name, route] = statistics.median(per)
+        print(f'{name} B={b}, host ms to enqueue one call: wrapper '
+              f'{out[name, "wrapper"]:.4f}, operator '
+              f'{out[name, "operator"]:.4f}, launcher '
+              f'{out[name, "launcher"]:.4f}; the dispatcher adds '
+              f'{out[name, "operator"] - out[name, "launcher"]:.4f} ms',
+              flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1959,9 +2206,10 @@ def run(torch, tmp):
     native_rate_phase(tmp, arrays, cfg, native, reset_counts, read_counts)
 
     # --- 6. the XLA conv path and the layouts without a collective -----
-    xla_conv_phase(torch, dev, arrays, cfg, wire,
-                   os.path.join(dir_audio, 'rec0.wav'), analyzer.chunklength,
-                   classify_ms, reset_counts, read_counts, time_ms, device_ms)
+    xla_rows = xla_conv_phase(torch, dev, arrays, cfg, wire,
+                              os.path.join(dir_audio, 'rec0.wav'),
+                              analyzer.chunklength, classify_ms, reset_counts,
+                              read_counts, time_ms, device_ms)
     xla_cli_phase(tmp, arrays, cfg, cli_audio, cli_names, cli_seconds,
                   reset_counts, read_counts)
     replica_phase(tmp, dir_audio, dir_out, names, reset_counts, read_counts)
@@ -1971,7 +2219,21 @@ def run(torch, tmp):
     training_phase(tmp, time_ms, device_ms, f32_peak, reset_counts,
                    read_counts)
 
-    # --- 8. the kernels line ------------------------------------------
+    # --- 8. the serving export, the GUI and the operators' dispatch ----
+    print('8. the serving export, the GUI child and the custom operators\' '
+          'dispatch', flush=True)
+    export_phase(torch, tmp, os.path.join(dir_audio, 'rec0.wav'),
+                 BATCHES[0] * 0.96,
+                 {'xla': xla_rows['high']['xla_classify'],
+                  'pallas': classify_ms,
+                  'pallas, "frontend": "pallas"': pallas_ms},
+                 reset_counts, read_counts, time_ms)
+    gui_phase(tmp, dir_audio, dir_out, names)
+    with torch.inference_mode():
+        dispatch_phase(torch, all_params['yamnet'], l1[:5].contiguous(),
+                       mid[:5].contiguous(), rows)
+
+    # --- 9. the kernels line ------------------------------------------
     print(f'torch.profiler sessions that recorded no device time on any '
           f'attempt, timed by CUDA events instead: {device_ms.fallbacks}',
           flush=True)

@@ -65,7 +65,13 @@ def test_no_jax_or_reference_package_imports():
     'buzzdetect_torch.tools.embed_corpus',
     'buzzdetect_torch.tools.train_model',
     'buzzdetect_torch.tools.build_ensemble',
-    'buzzdetect_torch.tools.import_reference_model'])
+    'buzzdetect_torch.tools.import_reference_model',
+    'buzzdetect_torch.ops.library', 'buzzdetect_torch.models.export',
+    'buzzdetect_torch.tools.aot_probe', 'buzzdetect_torch.examples.serve_aot',
+    'buzzdetect_torch.gui', 'buzzdetect_torch.gui.config',
+    'buzzdetect_torch.gui.viewmodel', 'buzzdetect_torch.gui.widgets',
+    'buzzdetect_torch.gui.splash', 'buzzdetect_torch.gui.settings',
+    'buzzdetect_torch.gui.analysis'])
 def test_importing_the_port_loads_no_jax(first):
     """Each module imports first without an import cycle, and the package
     with its orchestrator pulls in no JAX. A subprocess: tests/conftest.py
@@ -139,3 +145,35 @@ def test_unported_analyze_options_raise(tmp_path, kw):
                                           **kw)
         assert result.host_shard == (0, 2)
         assert result.coordinator.end_reason == 'no files'
+
+
+def test_load_exported_in_a_fresh_interpreter_imports_no_jax(tmp_path):
+    """A serving process that loads and calls an exported artifact
+    (``models/export.load_exported``) imports no JAX and nothing of
+    buzzdetect_tpu. The artifact is built in a child too: tests/conftest.py
+    imports jax into this process."""
+    build = ('from buzzdetect_torch import config\n'
+             'from buzzdetect_torch.models.convert import build_model_bundle\n'
+             'from buzzdetect_torch.models.export import (export_classifier,\n'
+             '                                            save_exported)\n'
+             f'build_model_bundle({str(tmp_path / "m" / "t")!r},\n'
+             '                   classes=["a", "b"], seed=1)\n'
+             f'config.DIR_MODELS = {str(tmp_path / "m")!r}\n'
+             'blob, meta = export_classifier("t", chunk_seconds=2.0,\n'
+             '                               platforms=("cpu",))\n'
+             f'save_exported({str(tmp_path / "s")!r}, blob, meta)\n')
+    serve = ('import sys, numpy as np\n'
+             'from buzzdetect_torch.models.export import load_exported\n'
+             f'call, meta = load_exported({str(tmp_path / "s")!r}, '
+             'device="cpu")\n'
+             'out = call(np.zeros(meta["input_samples"], np.int16))\n'
+             'assert out.shape == (meta["n_patches"], 2), out.shape\n'
+             'bad = sorted(m for m in sys.modules\n'
+             f'             if m.split(".")[0] in {FORBIDDEN!r})\n'
+             'print(bad)\n'
+             'assert not bad, bad\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    for code in (build, serve):
+        out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stdout + out.stderr
