@@ -10,8 +10,8 @@ Copy of ``buzzdetect_tpu/analysis.py`` with ``device`` threaded through
 (``'cuda'`` unless the caller asks for ``'cpu'``; in replica mode it names
 the device type that ``devices=N`` or ``'all'`` counts). ``host_shard=True``
 takes its rank from ``torch.distributed`` (``parallel.process_rank``).
-``mesh=`` is not ported and raises NotImplementedError naming its ROADMAP
-item (see :func:`_refuse_unported`).
+``mesh=`` splits each chunk over a ``parallel.Mesh`` of ``device``'s type
+(``models/classifier.py``); a ``device=`` of another type raises.
 """
 
 import os
@@ -40,17 +40,8 @@ _MSG_DEVICES_MESH_EXCLUSIVE = (
     'layout')
 
 
-def _refuse_unported(mesh=None):
-    """Raise for ``mesh=``, whose code is outside the port so far, naming
-    the ROADMAP item that brings it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh= is not ported to buzzdetect_torch yet (ROADMAP, '
-            '"Multi-GPU layouts, part 2")')
-
-
 def _load_serving_models(modelname, framehop_prop, compute_dtype,
-                         transfer_dtype, *, device='cuda',
+                         transfer_dtype, *, device='cuda', mesh=None,
                          replica_devices=None, conv_precision=None):
     """The ONE place a run's serving model(s) are constructed.
 
@@ -58,7 +49,7 @@ def _load_serving_models(modelname, framehop_prop, compute_dtype,
     shared block (models built once, reused every polling cycle) must
     configure models identically. Returns ``{'replica_models': [...]}``
     when ``replica_devices`` is given (one model per listed device, which
-    may repeat), else ``{'model': m}`` on ``device``.
+    may repeat), else ``{'model': m}`` on ``device`` or over ``mesh``.
     """
     kw = {'transfer_dtype': transfer_dtype} if transfer_dtype else {}
     if conv_precision:
@@ -71,7 +62,7 @@ def _load_serving_models(modelname, framehop_prop, compute_dtype,
     return {'model': load_model(modelname, framehop_prop=framehop_prop,
                                 initialize=False,
                                 compute_dtype=compute_dtype,
-                                device=device, **kw)}
+                                device=device, mesh=mesh, **kw)}
 
 
 def run_worker(workerclass, **kwargs):
@@ -218,7 +209,6 @@ class Analyzer:
 
         if devices is not None and mesh is not None:
             raise ValueError(_MSG_DEVICES_MESH_EXCLUSIVE)
-        _refuse_unported(mesh)
         self.replica_models = None
         if devices is not None:
             # per-device replica data parallelism: one classifier replica
@@ -264,7 +254,7 @@ class Analyzer:
         else:
             self.model = _load_serving_models(
                 modelname, framehop_prop, compute_dtype, transfer_dtype,
-                device=device,
+                device=device, mesh=mesh,
                 conv_precision='highest' if strict_f32 else None)['model']
         if resample_on_device and not getattr(
                 self.model, 'supports_device_resample', False):
@@ -1454,9 +1444,12 @@ def analyze(modelname: str,
         this directory (``<host>_<pid>.<time>.pt.trace.json``, for TensorBoard
         or Perfetto): the CPU ops of every thread and, on the card, its
         kernels and copies.
-    mesh : not ported yet; passing it raises NotImplementedError naming
-        the ROADMAP item (see ``buzzdetect_tpu.analyze`` for what it does
-        there).
+    mesh : optional ``parallel.Mesh`` with a 'data' axis, of ``device``'s
+        type (``parallel.make_mesh``, e.g. ``make_mesh(devices=['cuda:0',
+        'cuda:1'])``, or ``['cpu'] * 4`` with ``device='cpu'``): each
+        chunk's patches split across the mesh's devices (one chunk at a
+        time uses every device — the latency-min layout), on the XLA conv
+        path. A ``device`` of another type than the mesh's raises.
     devices : per-device replica data parallelism — an int N (the first N
         devices of ``device``'s type), 'all', or an explicit list of
         ``'cuda:i'``, ``'cpu'`` or ``torch.device``, which may name one
@@ -1546,7 +1539,9 @@ def analyze(modelname: str,
     """
     if devices is not None and mesh is not None:
         raise ValueError(_MSG_DEVICES_MESH_EXCLUSIVE)
-    _refuse_unported(mesh)
+    if mesh is not None:
+        from buzzdetect_torch.parallel import mesh_device
+        mesh_device(mesh, device)
     replica_devices = None
     if devices is not None:
         from buzzdetect_torch.parallel import resolve_replica_devices
@@ -1589,7 +1584,7 @@ def analyze(modelname: str,
                             log_progress=log_progress,
                             coordinator=coordinator,
                             compute_dtype=compute_dtype,
-                            profile_dir=profile_dir,
+                            profile_dir=profile_dir, mesh=mesh,
                             devices=replica_devices,
                             host_shard=host_shard,
                             batch_chunks=batch_chunks,
@@ -1619,7 +1614,7 @@ def analyze(modelname: str,
     r_transfer, r_strict, _note = cfg.resolve_profile(
         profile, transfer_dtype, strict_f32)
     shared = _load_serving_models(modelname, framehop_prop, compute_dtype,
-                                  r_transfer, device=device,
+                                  r_transfer, device=device, mesh=mesh,
                                   replica_devices=replica_devices,
                                   conv_precision=('highest' if r_strict
                                                   else None))

@@ -1,5 +1,5 @@
 """The end-to-end chunk classifier: waveform -> log-mel patches -> embed ->
-head, on one torch device.
+head, on one torch device or split over a device mesh.
 
 Counterpart of ``buzzdetect_tpu/models/classifier.py`` with the same surface
 (``predict``, ``predict_async``, ``predict_async_batch``, ``embed``,
@@ -39,6 +39,18 @@ The knobs, and how they resolve here:
   product).
 * ``compute_dtype``: float32 (``None``, ``torch.float32``, ``'float32'``)
   or bfloat16 (``torch.bfloat16``, ``'bfloat16'``).
+* ``mesh`` (``parallel.make_mesh``): each call's patch axis (the flattened
+  B x P axis of a batch) splits over the mesh's ``'data'`` axis
+  (``parallel.split``), each data device runs the embed and the head on
+  its slice with its own copy of the parameters, and the rows come back
+  in order to the mesh's first device (``parallel.gather``). The wire,
+  the resampler and the frontend stay on the first device, once per call,
+  as the JAX package keeps them replicated. A 2-D mesh's other axes are
+  replicated. ``conv`` ``'auto'`` then resolves to ``'xla'`` and its
+  ``'auto'`` precision to ``'high'``, as in the JAX package, whose GSPMD
+  cannot split a ``pallas_call``; an explicit ``'pallas'`` raises.
+  ``sharding`` (``parallel.data_sharding``) runs exactly as
+  ``mesh=sharding.mesh``.
 """
 
 import numpy as np
@@ -49,6 +61,7 @@ from buzzdetect_torch.models.heads import apply_head
 from buzzdetect_torch.models.weights import params_from_numpy
 from buzzdetect_torch.ops import logmel, sepconv
 from buzzdetect_torch.ops.resample import resample
+from buzzdetect_torch.parallel.mesh import gather, mesh_device, split
 from buzzdetect_torch.ops.frontend import (
     FrontendConfig, padded_length, num_patches, log_mel_patches,
     patches_from_log_mel)
@@ -71,12 +84,20 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def resolve_conv(conv) -> str:
+def resolve_conv(conv, mesh=None) -> str:
     """'auto' and 'pallas' -> 'pallas' (the CUDA conv kernels, at every
     compute dtype); 'xla' -> 'xla' (the XLA conv path); anything else
-    raises ValueError."""
+    raises ValueError. With a mesh 'auto' -> 'xla', and 'pallas' raises,
+    as the JAX package's ``resolve_conv_auto`` rules."""
     if conv not in ('auto', 'xla', 'pallas'):
         raise ValueError("conv must be 'auto', 'xla' or 'pallas'")
+    if mesh is not None:
+        if conv == 'pallas':
+            raise ValueError(
+                "conv='pallas' does not compose with mesh/sharding (the "
+                "JAX package's GSPMD cannot partition the fused kernel); "
+                "use conv='xla'")
+        return 'xla'
     return 'xla' if conv == 'xla' else 'pallas'
 
 
@@ -125,24 +146,40 @@ def _resample_in_graph(wav: torch.Tensor, cfg: FrontendConfig,
     return torch.where(keep, wav, 0.0)
 
 
+def _over_data(fn, params, x: torch.Tensor, mesh=None, replicas=None):
+    """``fn(params, x)``; with a mesh, ``fn`` of each data device's
+    ``replicas[device]`` on its slice of ``x``'s leading axis (empty slices
+    skipped), rows gathered back in order to ``x``'s device."""
+    if mesh is None:
+        return fn(params, x)
+    return gather([fn(replicas[part.device], part)
+                   for part in split(x, mesh, 'data', 0) if len(part)],
+                  0, x.device)
+
+
 def _classify(params, wavs: torch.Tensor, cfg: FrontendConfig,
               frontend: str = 'xla', compute_dtype=torch.float32,
               conv_precision: str = 'highest', resample_args=None,
-              conv: str = 'pallas'):
+              conv: str = 'pallas', mesh=None, replicas=None):
     """(..., L) padded wire waveforms -> (..., n_patches, n_classes).
 
     With ``resample_args`` = ``(input_rate, resample_to, valid_len)`` the
     waveforms arrive at their native rate and are resampled on the device
     first (``_resample_in_graph``). ``conv`` picks the embed's path
-    (``yamnet.embed``)."""
+    (``yamnet.embed``). With a mesh, the flattened patch axis splits over
+    its ``'data'`` axis (``_over_data``; ``replicas`` maps each data device
+    to its copy of ``params``)."""
     wav = _to_float(wavs)
     if resample_args is not None:
         wav = _resample_in_graph(wav, cfg, *resample_args)
     patches = _patches(wav, cfg, frontend)               # (..., P, 96, 64)
     lead = patches.shape[:-2]
-    emb = yamnet_lib.embed(params['yamnet'], patches.reshape(-1, 96, 64),
-                           compute_dtype, conv_precision, conv)
-    return apply_head(params['head'], emb).reshape(*lead, -1)
+
+    def embed_head(p, x):
+        return apply_head(p['head'], yamnet_lib.embed(
+            p['yamnet'], x, compute_dtype, conv_precision, conv))
+    return _over_data(embed_head, params, patches.reshape(-1, 96, 64), mesh,
+                      replicas).reshape(*lead, -1)
 
 
 class ChunkClassifier:
@@ -151,18 +188,28 @@ class ChunkClassifier:
     ``arrays`` are numpy parameters as a bundle holds them (see
     ``models/weights.params_from_numpy``). ``device`` is ``'cuda'`` unless
     the caller asks for ``'cpu'``; on CUDA the kernels are built and loaded
-    here, at construction, not at the first dispatch.
+    here, at construction, not at the first dispatch. With ``mesh`` (or
+    ``sharding``, which runs as ``mesh=sharding.mesh``) ``device`` names
+    the mesh's device type, and the classifier's ``device`` is the mesh's
+    first device; each further data device gets its own parameter copy
+    here.
     """
 
     def __init__(self, arrays: dict, framehop_prop: float = 1.0,
                  compute_dtype=None, device='cuda', transfer_dtype='float32',
-                 frontend='auto', conv='auto', conv_precision='auto'):
+                 frontend='auto', conv='auto', conv_precision='auto',
+                 sharding=None, mesh=None):
         self.cfg = FrontendConfig().with_framehop(framehop_prop)
         self.compute_dtype = sepconv.resolve_compute_dtype(compute_dtype)
         if frontend not in ('auto', 'xla', 'pallas'):
             raise ValueError("frontend must be 'auto', 'xla' or 'pallas'")
         self.frontend = 'xla' if frontend == 'auto' else frontend
-        self.conv = resolve_conv(conv)
+        if sharding is not None:
+            if mesh is not None and mesh is not sharding.mesh:
+                raise ValueError('mesh and sharding name different meshes')
+            mesh = sharding.mesh
+        self.mesh, self.sharding = mesh, sharding
+        self.conv = resolve_conv(conv, mesh)
         if conv_precision not in ('auto', 'high', 'highest'):
             raise ValueError(
                 "conv_precision must be 'auto', 'high' or 'highest'")
@@ -186,7 +233,8 @@ class ChunkClassifier:
             raise ValueError('transfer_dtype must be float32, int16 or mulaw')
         self.transfer_dtype = np.dtype(
             'int8' if self.transfer_name == 'mulaw' else self.transfer_name)
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if mesh is None else mesh_device(mesh, device))
         sepconv.exact_f32()
         if self.device.type == 'cuda':
             if self.conv == 'pallas':
@@ -199,6 +247,12 @@ class ChunkClassifier:
             sepconv.pack_params(self.params['yamnet'], self.mode)
             if self.conv == 'pallas' else
             yamnet_lib.pack_xla(self.params['yamnet'], self.compute_dtype))
+        # one parameter copy per distinct data device of the mesh
+        self._replicas = None if mesh is None else {
+            d: self.params if d == self.device else
+            {g: {k: v.to(d) for k, v in group.items()}
+             for g, group in self.params.items()}
+            for d in mesh.axis_devices('data')}
 
     def to_wire(self, samples: np.ndarray) -> np.ndarray:
         """Convert host samples to this classifier's wire dtype (no-op when
@@ -320,7 +374,7 @@ class ChunkClassifier:
                   resample_args=None) -> torch.Tensor:
         return _classify(self.params, wavs, self.cfg, self.frontend,
                          self.compute_dtype, self.conv_precision,
-                         resample_args, self.conv)
+                         resample_args, self.conv, self.mesh, self._replicas)
 
     @torch.inference_mode()
     def embed(self, samples: np.ndarray) -> np.ndarray:
@@ -330,9 +384,10 @@ class ChunkClassifier:
         wav = self._upload(self._pad_to(samples,
                                         padded_length(len(samples), self.cfg)))
         patches = _patches(_to_float(wav), self.cfg, self.frontend)
-        out = yamnet_lib.embed(self.params['yamnet'], patches,
-                               self.compute_dtype, self.conv_precision,
-                               self.conv)
+        out = _over_data(
+            lambda p, x: yamnet_lib.embed(p['yamnet'], x, self.compute_dtype,
+                                          self.conv_precision, self.conv),
+            self.params, patches, self.mesh, self._replicas)
         return out.cpu().numpy()[:n_valid]
 
     def warmup(self, chunk_samples: int):

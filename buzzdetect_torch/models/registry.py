@@ -8,7 +8,8 @@ imported and its Base subclass instantiated, so users can drop in custom
 models without touching the framework. Additionally (superset), a model
 directory containing a ``model.npz`` bundle needs *no* Python plugin — the
 built-in :class:`BundleModel` runs it on one torch device (``'cuda'`` unless
-the caller asks for ``'cpu'``).
+the caller asks for ``'cpu'``), or split over a device mesh (``mesh=``,
+``sharding=``).
 
 Counterpart of ``buzzdetect_tpu/models/registry.py``.
 """
@@ -22,6 +23,7 @@ from buzzdetect_torch import config as cfg
 from buzzdetect_torch.models.classifier import (
     ChunkClassifier, resolve_conv, resolve_device)
 from buzzdetect_torch.ops.frontend import FrontendConfig
+from buzzdetect_torch.parallel.mesh import mesh_device
 
 
 class BaseEmbedder:
@@ -157,11 +159,13 @@ BUILTIN_EMBEDDERS = {
 
 class BundleModel(BaseModel):
     """Built-in model runner for ``model.npz`` bundles: the whole
-    waveform->scores path runs on one device via :class:`ChunkClassifier`."""
+    waveform->scores path runs on one device, or split over a mesh, via
+    :class:`ChunkClassifier`."""
 
     def __init__(self, dir_model: str, framehop_prop: float = 1.0,
-                 compute_dtype=None, transfer_dtype=None, frontend=None,
-                 conv=None, device='cuda', conv_precision=None):
+                 compute_dtype=None, sharding=None, mesh=None,
+                 transfer_dtype=None, frontend=None, conv=None, device='cuda',
+                 conv_precision=None):
         self.dir_model = dir_model
         self.framehop_prop = framehop_prop
         self.modelname = os.path.basename(dir_model.rstrip('/'))
@@ -170,9 +174,13 @@ class BundleModel(BaseModel):
         self.embeddername = self.config.get('embeddername', 'yamnet')
         self.digits_results = self.config.get('digits_results', 2)
         self._compute_dtype = compute_dtype
+        self._sharding = sharding
+        self._mesh = sharding.mesh if sharding is not None else mesh
         # resolved now, in the caller's thread: asking for CUDA without a
-        # CUDA device raises here instead of inside an inferer thread
-        self._device = resolve_device(device)
+        # CUDA device, or a device= of another type than the mesh's,
+        # raises here instead of inside an inferer thread
+        self._device = resolve_device(
+            device if self._mesh is None else mesh_device(self._mesh, device))
         # int16 wire format by default: source audio is 16-bit PCM, so this
         # is (near-)lossless and halves host->device traffic — the streaming
         # pipeline's bottleneck. An explicit per-run argument beats the
@@ -189,7 +197,7 @@ class BundleModel(BaseModel):
         # a bad value raises here, in the caller's thread (ChunkClassifier
         # has the rules)
         self._conv = conv or self.config.get('conv') or 'auto'
-        resolve_conv(self._conv)
+        resolve_conv(self._conv, self._mesh)
         # conv-dot precision: 'auto' (default) resolves per conv path;
         # 'highest' runs exact f32, 'high' the emulated-HIGH mode of the
         # conv kernels (exact f32 on the XLA conv path)
@@ -227,7 +235,8 @@ class BundleModel(BaseModel):
                 compute_dtype=self._compute_dtype,
                 transfer_dtype=self._transfer_dtype,
                 frontend=self._frontend, conv=self._conv,
-                device=self._device, conv_precision=self._conv_precision)
+                device=self._device, conv_precision=self._conv_precision,
+                sharding=self._sharding, mesh=self._mesh)
             self.embedder._classifier = classifier
             self.classifier = classifier
 
@@ -316,11 +325,13 @@ def load_embedder(embeddername: str, framehop_prop: float = 1.0) -> BaseEmbedder
 
 def load_model(modelname: str, framehop_prop: float = 1.0,
                initialize: bool = False, compute_dtype=None,
+               sharding=None, mesh=None,
                transfer_dtype=None, frontend=None, conv=None, device='cuda',
                conv_precision=None) -> BaseModel:
     """Resolve a model by directory name.
 
-    ``models/<name>/model.npz`` -> built-in BundleModel on ``device``;
+    ``models/<name>/model.npz`` -> built-in BundleModel on ``device``, or
+    over ``mesh`` (of ``device``'s type);
     otherwise ``models/<name>/model.py`` -> user plugin class.
     ``initialize=False`` loads metadata only (config, embedder attrs) — used
     by the orchestrator for chunk-length math before workers spin up.
@@ -331,8 +342,8 @@ def load_model(modelname: str, framehop_prop: float = 1.0,
 
     if os.path.exists(os.path.join(dir_model, 'model.npz')):
         model = BundleModel(dir_model, framehop_prop,
-                            compute_dtype=compute_dtype,
-                            transfer_dtype=transfer_dtype,
+                            compute_dtype=compute_dtype, sharding=sharding,
+                            mesh=mesh, transfer_dtype=transfer_dtype,
                             frontend=frontend, conv=conv, device=device,
                             conv_precision=conv_precision)
     elif os.path.exists(os.path.join(dir_model, 'model.py')):

@@ -275,8 +275,7 @@ def embed_xla(params: dict, patches: torch.Tensor,
 
 # --- training ---------------------------------------------------------------------
 
-def embed_train(raw_params: dict, patches: torch.Tensor, *,
-                momentum: float = 0.99):
+def embed_train(raw_params, patches, *, momentum: float = 0.99):
     """Training-mode forward pass with live BatchNorm: the counterpart of
     ``buzzdetect_tpu.models.yamnet.embed_train``.
 
@@ -290,28 +289,67 @@ def embed_train(raw_params: dict, patches: torch.Tensor, *,
     is the unbiased one and its momentum weights the batch, not the old
     value.
 
-    Returns ``(embeddings (B, 1024), new_stats)``, ``new_stats`` holding
-    every layer's ``bn_mean`` and ``bn_var`` as ``momentum * old + (1 -
-    momentum) * batch``, detached from the graph.
+    ``patches`` is one (B, 96, 64) tensor, or a list of data shards of one
+    batch (e.g. ``parallel.split``), each on its own device with
+    ``raw_params`` then a list of one parameter dict per shard on the
+    shard's device. One tensor is a list of one shard. Each BatchNorm takes
+    the statistics of the whole batch, as the JAX package's GSPMD keeps
+    them for a sharded batch: each shard's mean and biased variance over
+    (N, H, W), weighted by its count and combined on the first shard's
+    device in shard order (the mean of the shards' means, and the mean of
+    their variances plus the variance of their means), then copied back to
+    the shards. An empty shard adds nothing to the statistics or the
+    count.
+
+    Returns ``(embeddings, new_stats)``: the (B, 1024) embeddings (a list
+    of each shard's, for a list), and ``new_stats`` on the first shard's
+    device, holding every layer's ``bn_mean`` and ``bn_var`` as ``momentum
+    * old + (1 - momentum) * batch``, detached from the graph.
     """
-    x = patches.to(torch.float32)
-    if x.dim() == 4:
-        x = x[..., 0]
-    x = x[:, None]                                      # (B, 1, 96, 64)
+    sharded = isinstance(patches, (list, tuple))
+    shards = list(patches) if sharded else [patches]
+    params = list(raw_params) if sharded else [raw_params]
+    xs = []
+    for x in shards:
+        x = x.to(torch.float32)
+        if x.dim() == 4:
+            x = x[..., 0]
+        xs.append(x[:, None])                            # (b, 1, 96, 64)
+    live = [i for i, x in enumerate(xs) if len(x)]
+    home = xs[0].device
     new_stats = {}
     for key, kind, stride, _shape in _conv_shapes():
-        kernel = raw_params[f'{key}/kernel'].permute(3, 2, 0, 1)
-        groups = x.shape[1] if kind == 'depthwise' else 1
-        x = _conv_same(x, kernel, stride, groups)
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.var(dim=(0, 2, 3), correction=0)
-        beta = raw_params[f'{key}/bn_beta']
-        x = ((x - mean[:, None, None]) * torch.rsqrt(var + BN_EPSILON)[
-            :, None, None] + beta[:, None, None])
-        x = torch.relu(x)
+        for i in live:
+            kernel = params[i][f'{key}/kernel'].permute(3, 2, 0, 1)
+            groups = xs[i].shape[1] if kind == 'depthwise' else 1
+            xs[i] = _conv_same(xs[i], kernel, stride, groups)
+        # the batch's mean and biased variance, folded over the shards in
+        # order on the first device (Chan et al.'s pairwise update, which
+        # leaves one shard's own mean and variance as they are)
+        n = mean = var = None
+        for i in live:
+            n_i = xs[i].numel() // xs[i].shape[1]
+            mean_i = xs[i].mean(dim=(0, 2, 3)).to(home)
+            var_i = xs[i].var(dim=(0, 2, 3), correction=0).to(home)
+            if n is None:
+                n, mean, var = n_i, mean_i, var_i
+                continue
+            delta, total = mean_i - mean, n + n_i
+            mean = mean + delta * (n_i / total)
+            var = (var * (n / total) + var_i * (n_i / total)
+                   + delta ** 2 * (n * n_i / total ** 2))
+            n = total
+        for i in live:
+            m = mean.to(xs[i].device)[:, None, None]
+            scale = torch.rsqrt(var + BN_EPSILON).to(xs[i].device)
+            beta = params[i][f'{key}/bn_beta']
+            xs[i] = torch.relu((xs[i] - m) * scale[:, None, None]
+                               + beta[:, None, None])
         with torch.no_grad():
             for stat, batch in (('bn_mean', mean), ('bn_var', var)):
                 new_stats[f'{key}/{stat}'] = (
-                    momentum * raw_params[f'{key}/{stat}']
+                    momentum * params[0][f'{key}/{stat}']
                     + (1 - momentum) * batch)
-    return x.mean(dim=(2, 3)), new_stats
+    emb = [x.mean(dim=(2, 3)) if len(x) else
+           x.new_zeros(0, N_EMBEDDINGS) for x in xs]
+    return (emb if sharded else emb[0]), new_stats

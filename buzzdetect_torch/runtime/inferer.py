@@ -15,7 +15,8 @@ On a CUDA device each worker dispatches on a CUDA stream of its own
 (:func:`_dispatch_scope`): the upload, the kernels and the copy back of a
 chunk are ordered on it, and two replicas on one card (``analyze(devices=
 ['cuda:0', 'cuda:0'])``) or two dispatch threads of one replica run side
-by side instead of sharing the device's default stream.
+by side instead of sharing the device's default stream. Under ``mesh=``
+the worker has a stream of its own on every card of the mesh.
 """
 
 import contextlib
@@ -73,32 +74,57 @@ def _model_device(model):
     return getattr(target, 'device', None)
 
 
+def _model_mesh(model):
+    """The mesh the model's classifier splits over (``mesh`` or
+    ``sharding.mesh``), or None."""
+    target = getattr(model, 'classifier', None) or model
+    mesh = getattr(target, 'mesh', None)
+    if mesh is None:
+        mesh = getattr(getattr(target, 'sharding', None), 'mesh', None)
+    return mesh
+
+
 def _dispatch_scope(model):
-    """A context in which this thread dispatches on a CUDA stream of its
-    own on the model's card, made current with its device: the wire upload,
-    the kernels and the copy back all queue on it. The stream first waits
-    for the work the card's current stream already holds (the classifier's
-    weights, packed at initialize()). A no-op off CUDA."""
+    """A context in which this thread dispatches on CUDA streams of its
+    own, one on each card the model runs on (its device, and every card of
+    its mesh), with the model's device current: the wire upload, the
+    kernels and the copy back queue on them, and torch orders each copy
+    between two cards after the current streams of both. Each stream first
+    waits for the work its card's current stream already holds (the
+    classifier's weights, copied at initialize()). A no-op off CUDA."""
     device = _model_device(model)
     if not (isinstance(device, torch.device) and device.type == 'cuda'):
         return contextlib.nullcontext()
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(torch.cuda.current_stream(device))
+    mesh = _model_mesh(model)
+    cards = [] if mesh is None else [d for d in dict.fromkeys(
+        mesh.devices.flat) if d != device]
     scope = contextlib.ExitStack()
-    scope.enter_context(torch.cuda.device(device))
-    scope.enter_context(torch.cuda.stream(stream))
+    # the model's card last, so that it is the current device in the scope
+    for card in cards + [device]:
+        stream = torch.cuda.Stream(card)
+        stream.wait_stream(torch.cuda.current_stream(card))
+        scope.enter_context(torch.cuda.device(card))
+        scope.enter_context(torch.cuda.stream(stream))
     return scope
 
 
 def _describe_execution_target(model) -> str:
-    """Name where this worker's dispatches actually execute: the torch
-    device of the model's classifier (with the card's name on CUDA).
-    Plugin models without a ``device`` run on the ambient device, torch's
-    default (as the JAX copy reports the ambient backend).
+    """Name where this worker's dispatches actually execute: the mesh the
+    model's classifier splits over (``'N-device mesh (CPU)'``, with the
+    cards' names on CUDA), else its torch device (with the card's name on
+    CUDA). Plugin models without a ``device`` run on the ambient device,
+    torch's default (as the JAX copy reports the ambient backend).
 
-    Runs after ``model.initialize()``, so the built-in bundle's device is
-    read off its (now-built) ``.classifier``. Plugin models may expose the
-    same name directly."""
+    Runs after ``model.initialize()``, so the built-in bundle's device and
+    mesh are read off its (now-built) ``.classifier``. Plugin models may
+    expose the same names directly."""
+    mesh = _model_mesh(model)
+    if mesh is not None:
+        label = f'{mesh.devices.size}-device mesh ({mesh.device_type.upper()}'
+        if mesh.device_type == 'cuda':
+            label += ': ' + ', '.join(dict.fromkeys(
+                torch.cuda.get_device_name(d) for d in mesh.devices.flat))
+        return label + ')'
     device = _model_device(model)
     if device is None:
         device = torch.get_default_device()

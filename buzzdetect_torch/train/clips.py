@@ -9,8 +9,8 @@ needs.
 
 Copy of ``buzzdetect_tpu/train/clips.py`` with the import prefix changed,
 ``audio.driver_map()`` called, and ``train_full_model`` on one torch
-device (``trainer.make_full_train_step``; the state restored in place by
-``checkpoint.load_train_checkpoint``). Its per-step augmentation draws
+device or a ('data', 'model') mesh (``trainer.make_full_train_step``; the
+state restored in place by ``checkpoint.load_train_checkpoint``). Its per-step augmentation draws
 come from ``np.random.default_rng((seed, global step))`` where the JAX
 package folds the global step into ``PRNGKey(seed)``: reproducible, and
 a resumed run replays the same draws.
@@ -239,7 +239,9 @@ def train_full_model(clips, labels, *, epochs=10, batch_size=32,
                      seed=0, framehop_prop=1.0, log=print,
                      checkpoint_dir=None, checkpoint_every=1,
                      augment=False, device='cuda'):
-    """Fine-tune the whole embedder + head on labeled clips on ``device``.
+    """Fine-tune the whole embedder + head on labeled clips on ``device``,
+    or over ``mesh`` (of ``device``'s type; see ``trainer``), whose first
+    device holds the parameters, the optimizer and so the checkpoints.
 
     ``augment=True`` turns on the augmentation recipe (train/augment.py) —
     per-step draws come from a generator seeded with (seed, global step),
@@ -263,6 +265,9 @@ def train_full_model(clips, labels, *, epochs=10, batch_size=32,
                                                    save_train_checkpoint)
 
     n_classes = labels.shape[1]
+    if mesh is not None:
+        from buzzdetect_torch.parallel.mesh import mesh_device
+        device = mesh_device(mesh, device)
 
     def fresh():
         return init_full_train(n_classes, seed=seed,

@@ -71,7 +71,11 @@ Phases, each printed before the last line:
    (d) the stack sampler of ``tools/profile_pipeline.py`` around one
    ``analyze()`` of phase 3's recordings; (e) ``tools/roofline.py`` for one
    200 s chunk with peaks measured on the card, then its FMA chain kernel
-   against its plain version;
+   against its plain version; (f) ``tools/int8_probe.py`` at 1000 patches:
+   the embed in f32 and bf16 through the conv kernels and with int8
+   pointwise products (``torch._int_mm``, dynamic and static activation
+   scales), each one's deviation from f32, CUDA-event and device time and
+   bound from the data sheet, and the conv kernels' launches over it;
 5. native rates: the on-device resampler (``ops/resample.py``) on one
    200 s chunk at 44.1 and 48 kHz against the port's CPU resample (atol
    1e-5), with its CUDA-event time, its device time and its conv's alone
@@ -102,7 +106,23 @@ Phases, each printed before the last line:
    byte-identical to phase 3's, realtime factor; (d) two concurrent
    ``python -m buzzdetect_torch --host_shard I/2`` processes on one shared
    output folder: both exit 0 and the union of their CSVs is
-   byte-identical to phase 3's;
+   byte-identical to phase 3's; (e) ``mesh=`` over meshes that repeat the
+   card (``make_mesh(devices=['cuda:0'] * n)``): ``ChunkClassifier(mesh=)``
+   at full width on one 200.64 s chunk of phase 3's first recording (209
+   patches) on 2 and 4 devices, with the matmul frontend and with
+   ``frontend='pallas'``: scores against the same classifier without a
+   mesh (``conv='xla'``, which a mesh resolves to) within 1e-4, the
+   launches of one call (the log-mel once with ``frontend='pallas'``, no
+   conv kernel), the classify's CUDA-event and device time beside one
+   device's; ``analyze(mesh=)`` on phase 3's recordings: CSVs
+   byte-identical to one device's on the XLA conv path and equal after
+   2-digit rounding to phase 3's, realtime factor; on phase 7's corpus
+   over a 2 x 2 ('data', 'model') mesh, the head-only fine-tune (the
+   tool's embeddings, 5 epochs) against one device's, the first full
+   step's gradients held leaf by leaf as phase 7b holds them and against
+   one device's step, one step's time beside one device's, and the full
+   fine-tune resumed after one epoch against the uninterrupted mesh run,
+   bit for bit;
 7. training and writers, at the full width of ``model_general_v3`` on a
    seeded corpus (4 x 120 s 16 kHz PCM16 WAVs named as AudioMoth-style
    stations, tone-burst ``ins_buzz`` and noise-only ``ambient_noise``
@@ -143,7 +163,9 @@ Phases, each printed before the last line:
    conv kernels' host work per call now that the wrappers launch through
    the custom operators (``ops/library.py``): phase 2's CUDA-event time
    less device time, and the host time to enqueue one call at B = 5
-   through the wrapper, the operator and the launcher alone;
+   through the wrapper, the operator and the launcher alone; (g) the four
+   examples of ``buzzdetect_torch/examples`` (``quickstart``,
+   ``scale_out``, ``train_detector``, ``field_monitoring``) on the card;
 9. one JSON line with every kernel's numbers.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -748,14 +770,7 @@ def xla_cli_phase(tmp, arrays, cfg, cli_audio, cli_names, cli_seconds,
     check_chunk_on_cpu(result, arrays, os.path.join(cli_audio, 'site0.wav'),
                        os.path.join(out, 'site0_buzzdetect.csv'), 'high',
                        conv='xla')
-    worst = 0.0
-    for n in cli_names:
-        tables = []
-        for _result, d, _c in runs.values():
-            with open(os.path.join(d, f'{n}_buzzdetect.csv')) as f:
-                tables.append(np.array([ln.split(',') for ln in
-                                        f.read().splitlines()[1:]], float))
-        worst = max(worst, float(np.abs(tables[0] - tables[1]).max()))
+    worst = csv_gap(*(d for _result, d, _c in runs.values()), cli_names)
     print(f'CSVs of "conv": "xla" against the kernel path: max |d| = '
           f'{worst:.3g} after 2-digit rounding (one unit of the last digit '
           f'allowed)', flush=True)
@@ -843,6 +858,358 @@ def host_shard_phase(tmp, dir_audio, dir_out, names, device='cuda'):
     print(f'host_shard: two concurrent processes in {wall:.2f} s wall '
           f'(process start, kernel load and analysis)', flush=True)
     same_csvs(shared, dir_out, names, 'host_shard 0/2 + 1/2')
+
+
+# phase 6e, mesh=: the meshes of the classify (each repeats the one card),
+# the ('data', 'model') mesh of the training steps, and the scores of a
+# mesh against the same classifier on one device (tests/test_parallel.py's
+# bound; exact f32 on both sides)
+MESH_SIZES = (2, 4)
+TRAIN_MESH = (2, 2)
+MESH_ATOL = 1e-4
+
+
+def csv_gap(dir_a, dir_b, names):
+    """The largest |score difference| between the CSVs of ``names`` in two
+    output folders, after their 2-digit rounding."""
+    worst = 0.0
+    for n in names:
+        tables = []
+        for d in (dir_a, dir_b):
+            with open(os.path.join(d, f'{n}_buzzdetect.csv')) as f:
+                tables.append(np.array([ln.split(',') for ln in
+                                        f.read().splitlines()[1:]], float))
+        worst = max(worst, float(np.abs(tables[0] - tables[1]).max()))
+    return worst
+
+
+def mesh_devices(n, device):
+    """``n`` repeats of the first device of ``device``'s type."""
+    return [('cuda:0' if device == 'cuda' else device)] * n
+
+
+def mesh_classify_phase(arrays, cfg, path_audio, chunk_s, reset_counts,
+                        read_counts, time_ms, device_ms, device='cuda'):
+    """(e) ``ChunkClassifier(mesh=)`` at full width on one ``chunk_s`` chunk
+    of ``path_audio``, on meshes of MESH_SIZES repeats of the card, with
+    the matmul frontend and with ``frontend='pallas'``: the scores against
+    the same classifier without a mesh (``conv='xla'``, which a mesh
+    resolves to) within MESH_ATOL and against the default hand kernels;
+    the launches of one call (set to 0 just before, read just after: the
+    log-mel once with ``frontend='pallas'``, no conv kernel); the classify
+    of a device-resident wire by CUDA events and device time beside the
+    unmeshed XLA classify's. Returns {label: row}."""
+    import torch
+    from buzzdetect_torch.audio import build_track
+    from buzzdetect_torch.models.classifier import ChunkClassifier
+    from buzzdetect_torch.ops.frontend import padded_length
+    from buzzdetect_torch.parallel import make_mesh
+    track = build_track(path_audio, target_rate=16000)
+    samples = track.read_s16(int(chunk_s * 16000))
+    track.close()
+    kernels = ChunkClassifier(arrays, device=device,
+                              transfer_dtype='int16').predict(samples)
+    rows = {}
+    with torch.inference_mode():
+        for frontend in ('xla', 'pallas'):
+            kw = dict(device=device, transfer_dtype='int16',
+                      frontend=frontend)
+            one = ChunkClassifier(arrays, conv='xla', **kw)
+            ref = one.predict(samples)
+            wire = one._upload(one._pad_to(
+                samples, padded_length(len(samples), cfg)))
+            one_ms = time_ms(lambda: one.classify_resident(wire))
+            one_dev = device_ms(lambda: one.classify_resident(wire))
+            for n in MESH_SIZES:
+                mesh = make_mesh(devices=mesh_devices(n, device),
+                                 device=device)
+                clf = ChunkClassifier(arrays, mesh=mesh, **kw)
+                if (clf.conv, clf.conv_precision) != ('xla', 'high'):
+                    fail(f'a mesh resolved to conv={clf.conv!r}, '
+                         f'conv_precision={clf.conv_precision!r}')
+                reset_counts()
+                got = clf.predict(samples)
+                counts = read_counts()
+                want = {k: 0 for k in counts}
+                want['log_mel'] = int(frontend == 'pallas')
+                d = float(np.abs(got - ref).max())
+                d_kernels = float(np.abs(got - kernels).max())
+                row = dict(max_abs_err=d, ms=time_ms(
+                    lambda: clf.classify_resident(wire)),
+                    device_ms=device_ms(lambda: clf.classify_resident(wire)),
+                    one_ms=one_ms, one_device_ms=one_dev)
+                label = f'{n}-device mesh, frontend={frontend!r}'
+                rows[label] = row
+                print(f'(e) {label}: {got.shape[0]} patches, max |mesh - one '
+                      f'device| = {d:.3g} (bound {MESH_ATOL}), against the '
+                      f'hand kernels {d_kernels:.3g}; launches of one call '
+                      f'{counts}; classify {row["ms"]:.4f} ms (device '
+                      f'{row["device_ms"]:.4f}) against one device\'s '
+                      f'{one_ms:.4f} ms (device {one_dev:.4f})', flush=True)
+                if got.shape != ref.shape or d > MESH_ATOL:
+                    fail(f'{label}: scores differ from one device by {d:.3g}')
+                if counts != want:
+                    fail(f'{label}: one call launched {counts}, not {want}')
+    return rows
+
+
+def mesh_analyze_phase(tmp, dir_audio, dir_out, names, reset_counts,
+                       read_counts, device='cuda'):
+    """(e) ``analyze(mesh=)`` on phase 3's recordings over the largest of
+    MESH_SIZES: its CSVs byte-identical to one device's on the XLA conv
+    path (the XLA_BUNDLE), and equal after their 2-digit rounding to phase
+    3's in ``dir_out`` (one unit of the last digit); no hand conv kernel
+    launched; its realtime factor."""
+    import buzzdetect_torch
+    from buzzdetect_torch.parallel import make_mesh
+    single = os.path.join(tmp, 'out_mesh_single_xla')
+    result = buzzdetect_torch.analyze(
+        modelname=XLA_BUNDLE[0], dir_audio=dir_audio, dir_out=single,
+        verbosity_print='WARNING', device=device)
+    if result.coordinator.end_reason != 'completed':
+        fail(f'the one-device XLA run ended {result.coordinator.end_reason!r}')
+    n = MESH_SIZES[-1]
+    mesh = make_mesh(devices=mesh_devices(n, device), device=device)
+    out = os.path.join(tmp, 'out_mesh')
+    reset_counts()
+    t0 = time.perf_counter()
+    result = buzzdetect_torch.analyze(
+        modelname=MODEL, dir_audio=dir_audio, dir_out=out,
+        verbosity_print='WARNING', device=device, mesh=mesh)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    reason = result.coordinator.end_reason
+    audio_s = result.coordinator.audio_seconds_done
+    print(f'(e) analyze(mesh={n} x {mesh.first()}): end reason {reason!r}, '
+          f'{wall:.2f} s wall, {audio_s / wall:.1f} audio s per wall s, '
+          f'kernel launches {counts}', flush=True)
+    if reason != 'completed' or any(counts.values()):
+        fail(f'analyze(mesh=) ended {reason!r} with launches {counts}')
+    same_csvs(out, single, names, f'analyze(mesh={n} devices) against one '
+              f'device on the XLA conv path')
+    worst = csv_gap(out, dir_out, names)
+    print(f'(e) analyze(mesh=) CSVs against phase 3\'s (the hand kernels): '
+          f'max |d| = {worst:.3g} after 2-digit rounding (one unit of the '
+          f'last digit allowed)', flush=True)
+    if worst > 0.0101:
+        fail(f'analyze(mesh=) CSVs differ from phase 3\'s by {worst:.3g}')
+
+
+def mesh_train_phase(tmp, time_ms, device_ms, reset_counts, read_counts,
+                     device='cuda'):
+    """(e) Training on phase 7's corpus over a TRAIN_MESH ('data', 'model')
+    mesh of repeats of the card: the tool's head-only fine-tune (its
+    embeddings of the corpus, every frame labelled, HEAD_EPOCHS epochs) and
+    its full fine-tune (FULL_EPOCHS epochs, batch FULL_BATCH) against the
+    same on one device; the first full step's gradients held as phase 7b
+    holds them (each leaf within GRAD_RTOL of its max |g| of float64 along
+    the run's own ReLU branches, the mesh's recorded shard by shard and
+    joined in clip order) and against the one-device step's; the mesh
+    fine-tune resumed after one epoch against the uninterrupted mesh run,
+    bit for bit; one full step's time against one device's."""
+    import torch
+    from buzzdetect_torch.models import yamnet
+    from buzzdetect_torch.models.heads import init_head
+    from buzzdetect_torch.models.weights import train_state_from_numpy
+    from buzzdetect_torch.ops.frontend import FrontendConfig, log_mel_patches
+    from buzzdetect_torch.parallel import make_mesh
+    from buzzdetect_torch.train import trainer
+    from buzzdetect_torch.train.annotations import (frames_to_labels,
+                                                    load_events)
+    from buzzdetect_torch.train.clips import (build_clip_dataset,
+                                              train_full_model)
+    from buzzdetect_torch.train.embed_corpus import (embed_directory,
+                                                     load_embeddings)
+    root = os.path.join(tmp, 'mesh_train')
+    os.makedirs(root)
+    audio, ann, idents = write_corpus(root)
+    mesh = make_mesh(devices=mesh_devices(int(np.prod(TRAIN_MESH)), device),
+                     shape=TRAIN_MESH, axes=('data', 'model'), device=device)
+    events = load_events(ann)
+
+    # head-only, as the tool trains it
+    work = os.path.join(root, 'work')
+    embed_directory(audio, work, modelname=MODEL, log=lambda *_: None,
+                    device=device)
+    embs, labs = [], []
+    for ident in idents:
+        starts, emb = load_embeddings(os.path.join(
+            work, f'{ident}_embeddings.npz'))
+        embs.append(emb)
+        labs.append(frames_to_labels(starts, events.get(ident, []),
+                                     TRAIN_CLASSES, framelength=0.96))
+    emb, lab = np.concatenate(embs), np.concatenate(labs)
+    heads = {}
+    for name, m in (('mesh', mesh), ('one', None)):
+        reset_counts()
+        heads[name] = trainer.train_head(emb, lab, epochs=HEAD_EPOCHS,
+                                         batch_size=min(1024, len(emb)),
+                                         mesh=m, device=device)
+    k, lr = len(heads['one'][1]), 1e-3
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(heads['mesh'][1],
+                                                     heads['one'][1]))
+    d_params = max(float(np.abs(heads['mesh'][0][p] - v).max())
+                   for p, v in heads['one'][0].items())
+    print(f'(e) head-only on a {TRAIN_MESH} mesh, {len(emb)} frames, {k} '
+          f'steps: losses {heads["mesh"][1][0]:.6g} -> '
+          f'{heads["mesh"][1][-1]:.6g}, max relative |mesh - one device| '
+          f'{d_loss:.3g} (bound 1e-5); params max |d| {d_params:.3g} '
+          f'(bound {2 * k * 1e-5 * lr:.3g}: 2 k 1e-5 lr)', flush=True)
+    if d_loss > 1e-5 or d_params > 2 * k * 1e-5 * lr:
+        fail('the head-only fine-tune on a mesh differs from one device\'s')
+
+    # the first full step from the seeded state, mesh against one device
+    clips, labels = build_clip_dataset(audio, events, TRAIN_CLASSES,
+                                       log=lambda *_: None)
+    state = {'yamnet_raw': yamnet.init_raw_params(0),
+             'head': init_head(yamnet.N_EMBEDDINGS, len(TRAIN_CLASSES))}
+    w, y = clips[:FULL_BATCH], labels[:FULL_BATCH]
+    wd, yd = torch.from_numpy(w).to(device), torch.from_numpy(y).to(device)
+    steps = {}
+    for name, m in (('mesh', mesh), ('one', None)):
+        params, _opt = train_state_from_numpy(state, learning_rate=1e-3,
+                                              device=device)
+        branches = relu_branches()
+        with trainer.training_flags():
+            with branches:
+                loss, _stats = trainer.full_loss(params, wd, yd,
+                                                 FrontendConfig(), mesh=m)
+            loss.backward()
+        per_layer = len(branches.masks) // 27
+        masks = [torch.cat(branches.masks[i * per_layer:(i + 1) * per_layer])
+                 for i in range(27)]
+        steps[name] = (float(loss.detach()), masks, {
+            p: t.grad.cpu().numpy()
+            for p, t in trainer.trainable_leaves(params)})
+    patches = log_mel_patches(torch.from_numpy(w), FrontendConfig()).reshape(
+        len(w), 96, 64).double()
+    y64 = torch.from_numpy(y).double()
+    g64, z64 = first_step_f64(state, patches, y64)
+    shares, edges = {}, {}
+    for name, (_loss, masks, grads) in steps.items():
+        same, _z = first_step_f64(state, patches, y64, masks)
+        shares[name] = {p: float(np.abs(grads[p] - same[p]).max())
+                        / float(np.abs(same[p]).max()) for p in same}
+        off = [(z > 0) != m.numpy() for z, m in zip(z64, masks)]
+        edges[name] = (int(sum(o.sum() for o in off)), max(
+            float(np.abs(z[o]).max(initial=0.0)) for z, o in zip(z64, off)))
+    vs_one = {p: float(np.abs(steps['mesh'][2][p] - v).max())
+              / float(np.abs(g64[p]).max()) for p, v in steps['one'][2].items()}
+    agree = all(torch.equal(a, b) for a, b in zip(steps['mesh'][1],
+                                                  steps['one'][1]))
+    top = max(shares['mesh'], key=shares['mesh'].get)
+    print(f'(e) first full step at B={len(w)} on a {TRAIN_MESH} mesh: loss '
+          f'{steps["mesh"][0]:.7g}, one device {steps["one"][0]:.7g}; '
+          f'against float64 on its own branches {shares["mesh"][top]:.3g} '
+          f'({top}; one device: {max(shares["one"].values()):.3g}); '
+          f'branches off float64\'s: mesh {edges["mesh"][0]} at |z| <= '
+          f'{edges["mesh"][1]:.3g}, one device {edges["one"][0]} at |z| <= '
+          f'{edges["one"][1]:.3g}; mesh against one device '
+          f'{max(vs_one.values()):.3g} of max |g64| (branches '
+          f'{"equal" if agree else "differ"})', flush=True)
+    if abs(steps['mesh'][0] - steps['one'][0]) > 1e-5 * abs(steps['one'][0]) \
+            or max(shares['mesh'].values()) > GRAD_RTOL \
+            or edges['mesh'][1] > BRANCH_EDGE:
+        fail('the mesh step\'s gradients are not float64\'s on their own '
+             f'ReLU branches within {GRAD_RTOL} of each leaf\'s max |g|')
+
+    # one step's time, mesh against one device
+    times = {}
+    for name, m in (('mesh', mesh), ('one', None)):
+        params, opt = train_state_from_numpy(state, learning_rate=1e-3,
+                                             device=device)
+        step = trainer.make_full_train_step(opt, params, mesh=m)
+        times[name] = (time_ms(lambda: step(wd, yd)),
+                       device_ms(lambda: step(wd, yd)))
+    print(f'(e) one full step, B={len(w)}: mesh {times["mesh"][0]:.4f} ms '
+          f'(device {times["mesh"][1]:.4f}), one device '
+          f'{times["one"][0]:.4f} ms (device {times["one"][1]:.4f})',
+          flush=True)
+
+    # the full fine-tune on the mesh, straight and resumed, and one device's
+    kw = dict(learning_rate=1e-3, log=lambda *_: None, device=device)
+    gold_raw, gold_head, gold = train_full_model(
+        clips, labels, epochs=FULL_EPOCHS, mesh=mesh, **kw)
+    one = train_full_model(clips, labels, epochs=FULL_EPOCHS, **kw)[2]
+    ckpt = os.path.join(root, 'ckpt')
+    train_full_model(clips, labels, epochs=FULL_EPOCHS - 1, mesh=mesh,
+                     checkpoint_dir=ckpt, **kw)
+    raw, head, losses = train_full_model(clips, labels, epochs=FULL_EPOCHS,
+                                         mesh=mesh, checkpoint_dir=ckpt, **kw)
+    same = losses == gold and all(
+        np.array_equal(got[k], want[k]) for got, want in
+        ((raw, gold_raw), (head, gold_head)) for k in want)
+    print(f'(e) full fine-tune on the mesh, {len(clips)} clips, {len(gold)} '
+          f'steps: loss {gold[0]:.6g} -> {gold[-1]:.6g} (one device '
+          f'{one[0]:.6g} -> {one[-1]:.6g}); {FULL_EPOCHS - 1} epoch then a '
+          f'resume to {FULL_EPOCHS} against {FULL_EPOCHS} straight: '
+          f'{"bit-identical" if same else "DIFFERENT"} over '
+          f'{len(raw) + len(head)} arrays', flush=True)
+    if not same:
+        fail('the resumed mesh fine-tune differs from the uninterrupted one')
+    if not (np.isfinite(gold).all() and gold[-1] < gold[0]):
+        fail('the mesh fine-tune\'s losses are not finite and falling')
+
+
+def mesh_phase(tmp, arrays, cfg, dir_audio, dir_out, names, chunk_s,
+               reset_counts, read_counts, time_ms, device_ms, device='cuda'):
+    """Phase 6e, ``mesh=`` at full width: the classify, ``analyze()`` and
+    training, each over meshes that repeat the card."""
+    t0 = time.perf_counter()
+    print(f'6e. mesh=: meshes of {MESH_SIZES} x the card for the classify '
+          f'and analyze(), a {TRAIN_MESH} (data, model) mesh for training',
+          flush=True)
+    rows = mesh_classify_phase(arrays, cfg, os.path.join(dir_audio,
+                                                         'rec0.wav'),
+                               chunk_s, reset_counts, read_counts, time_ms,
+                               device_ms, device)
+    mesh_analyze_phase(tmp, dir_audio, dir_out, names, reset_counts,
+                       read_counts, device)
+    mesh_train_phase(tmp, time_ms, device_ms, reset_counts, read_counts,
+                     device)
+    print(f'6e. done in {time.perf_counter() - t0:.1f} s', flush=True)
+    return rows
+
+
+def int8_phase(reset_counts, read_counts, patches=1000, chunks=20,
+               device='cuda'):
+    """Phase 4f: ``tools/int8_probe.py`` at ``patches`` on the card: its
+    four rows (f32 and bf16 through the hand kernels, int8 dynamic and
+    static through ``torch._int_mm``), each's deviation from f32, time and
+    bound, and the conv kernels' launches over it (the f32 and bf16 rows'
+    embeds)."""
+    from buzzdetect_torch.tools import int8_probe
+    print(f'4f. the int8 probe at {patches} patches', flush=True)
+    reset_counts()
+    out = int8_probe.run(patches, chunks, device,
+                         log=lambda line: print(f'(f) {line}', flush=True))
+    counts = read_counts()
+    print(f'(f) kernel launches over the probe: {counts}', flush=True)
+    if counts['fused_front'] <= 0 or counts['fused_front[bf16]'] <= 0:
+        fail('the int8 probe\'s f32 and bf16 rows never launched the conv '
+             'kernels')
+    for name in ('bf16', 'int8-dynamic', 'int8-static'):
+        if not np.isfinite(out[name]['dev']) \
+                or out[name]['dev'] > 0.1 * out['scale']:
+            fail(f'the int8 probe\'s {name} row is {out[name]["dev"]:.3g} '
+                 f'from f32')
+    return out
+
+
+def examples_phase(device='cuda'):
+    """Phase 8g: the four examples of ``buzzdetect_torch/examples`` on the
+    card, each its ``main(['--device', device])``, with their wall times."""
+    from buzzdetect_torch.examples import (field_monitoring, quickstart,
+                                           scale_out, train_detector)
+    print('8g. the examples', flush=True)
+    for example in (quickstart, scale_out, train_detector,
+                    field_monitoring):
+        name = example.__name__.rsplit('.', 1)[1]
+        print(f'(g) python -m buzzdetect_torch.examples.{name}', flush=True)
+        t0 = time.perf_counter()
+        example.main(['--device', device])
+        print(f'(g) {name}: {time.perf_counter() - t0:.2f} s wall',
+              flush=True)
 
 
 def write_corpus(root, seed=0):
@@ -2201,6 +2568,9 @@ def run(torch, tmp):
                      <= FMA_RTOL * x.abs().clamp(min=1.0)).all()):
             fail(f'fma_chain disagrees with its plain version: {err:.3g}')
 
+    # (f) the int8 probe
+    int8_phase(reset_counts, read_counts)
+
     # --- 5. native rates: on-device resampling and the decode stage ----
     resampler_phase(torch, dev, f32_peak, bytes_peak, time_ms, device_ms)
     native_rate_phase(tmp, arrays, cfg, native, reset_counts, read_counts)
@@ -2214,6 +2584,9 @@ def run(torch, tmp):
                   reset_counts, read_counts)
     replica_phase(tmp, dir_audio, dir_out, names, reset_counts, read_counts)
     host_shard_phase(tmp, dir_audio, dir_out, names)
+    mesh_phase(tmp, arrays, cfg, dir_audio, dir_out, names,
+               BATCHES[0] * 0.96, reset_counts, read_counts, time_ms,
+               device_ms)
 
     # --- 7. training and writers ---------------------------------------
     training_phase(tmp, time_ms, device_ms, f32_peak, reset_counts,
@@ -2232,6 +2605,7 @@ def run(torch, tmp):
     with torch.inference_mode():
         dispatch_phase(torch, all_params['yamnet'], l1[:5].contiguous(),
                        mid[:5].contiguous(), rows)
+    examples_phase()
 
     # --- 9. the kernels line ------------------------------------------
     print(f'torch.profiler sessions that recorded no device time on any '

@@ -68,6 +68,11 @@ def test_no_jax_or_reference_package_imports():
     'buzzdetect_torch.tools.import_reference_model',
     'buzzdetect_torch.ops.library', 'buzzdetect_torch.models.export',
     'buzzdetect_torch.tools.aot_probe', 'buzzdetect_torch.examples.serve_aot',
+    'buzzdetect_torch.parallel.mesh', 'buzzdetect_torch.tools.int8_probe',
+    'buzzdetect_torch.examples.quickstart',
+    'buzzdetect_torch.examples.scale_out',
+    'buzzdetect_torch.examples.field_monitoring',
+    'buzzdetect_torch.examples.train_detector',
     'buzzdetect_torch.gui', 'buzzdetect_torch.gui.config',
     'buzzdetect_torch.gui.viewmodel', 'buzzdetect_torch.gui.widgets',
     'buzzdetect_torch.gui.splash', 'buzzdetect_torch.gui.settings',
@@ -118,21 +123,28 @@ def test_cuda_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize('kw', [
-    {'mesh': object()}, {'devices': 2}, {'host_shard': (0, 2)},
+    {'mesh': ['cpu', 'cpu']}, {'devices': 2}, {'host_shard': (0, 2)},
     {'devices': 'all'},
 ])
 def test_unported_analyze_options_raise(tmp_path, kw):
-    """mesh= is the one layout left unported and raises naming its ROADMAP
-    item; devices= counts the devices of ``device``'s type, so 2 CPUs, or
-    every CUDA card of a machine without one, is a ValueError before any
-    model loads; host_shard= runs."""
+    """No layout is left unported. mesh= is a mesh of ``device``'s type: a
+    CPU mesh under the default ``device='cuda'`` is a ValueError before any
+    model loads, and with ``device='cpu'`` it runs; devices= counts the
+    devices of ``device``'s type, so 2 CPUs, or every CUDA card of a
+    machine without one, is a ValueError before any model loads;
+    host_shard= runs."""
     import buzzdetect_torch
+    from buzzdetect_torch.parallel import make_mesh
     run = dict(modelname='model_general_v3', dir_audio=str(tmp_path),
                dir_out=str(tmp_path / 'out'))
     if 'mesh' in kw:
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP, "Multi-GPU layouts, part 2"'):
-            buzzdetect_torch.analyze(device='cpu', **run, **kw)
+        mesh = make_mesh(devices=kw['mesh'], device='cpu')
+        with pytest.raises(ValueError, match="pass device='cpu'"):
+            buzzdetect_torch.analyze(mesh=mesh, **run)
+        result = buzzdetect_torch.analyze(device='cpu', mesh=mesh,
+                                          verbosity_print='ERROR', **run)
+        assert result.model._mesh is mesh
+        assert result.coordinator.end_reason == 'no files'
     elif kw.get('devices') == 2:
         with pytest.raises(ValueError, match='only 1 local cpu device'):
             buzzdetect_torch.analyze(device='cpu', **run, **kw)

@@ -18,8 +18,8 @@ from buzzdetect_tpu.models.convert import build_model_bundle
 from buzzdetect_tpu.parallel import shard_files as jax_shard_files
 from buzzdetect_torch import config as tcfg
 from buzzdetect_torch.analysis import Analyzer, analyze
-from buzzdetect_torch.parallel import (process_rank, resolve_replica_devices,
-                                       shard_files)
+from buzzdetect_torch.parallel import (make_mesh, process_rank,
+                                       resolve_replica_devices, shard_files)
 from tests.audio_fixtures import make_tone, write_wav
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -225,14 +225,15 @@ def test_replicas_compose_with_mulaw_and_device_resample(corpus, tmp_path):
 
 def test_devices_and_mesh_are_mutually_exclusive(corpus, tmp_path):
     """Both layouts at once is a ValueError before any model loads, at
-    analyze() and at the Analyzer alike, though mesh= alone is unported."""
+    analyze() and at the Analyzer alike."""
     dir_audio = corpus(n_files=1)
+    mesh = make_mesh(devices=['cpu'] * 4, device='cpu')
     with pytest.raises(ValueError, match='mutually exclusive'):
         analyze(modelname='rm', dir_audio=dir_audio, device='cpu',
-                dir_out=str(tmp_path / 'out'), devices=1, mesh=object())
+                dir_out=str(tmp_path / 'out'), devices=1, mesh=mesh)
     with pytest.raises(ValueError, match='mutually exclusive'):
         Analyzer(modelname='rm', dir_audio=dir_audio, device='cpu',
-                 devices=1, mesh=object())
+                 devices=1, mesh=mesh)
     assert not (tmp_path / 'out').exists()
 
 

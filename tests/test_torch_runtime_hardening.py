@@ -4,7 +4,7 @@
 ``Analyzer(device='cpu')`` where a case builds one); ``devices=2`` and
 ``devices=4`` name the CPU two and four times (the JAX cases count 8 virtual
 CPU devices); the two execution-target cases read torch's default device and
-a ``torch.device`` pin, and hold ``mesh=`` to the port's refusal (their
+a ``torch.device`` pin, and build their meshes by repeating the CPU (their
 docstrings say so).
 
 The JAX package's docstring:
@@ -649,11 +649,11 @@ def test_execution_target_label_reports_real_backend():
 
     Port counterpart: the ambient device is torch's default device (the
     JAX case reads ``jax.default_backend()``), a pin is a ``torch.device``
-    (the JAX case pins ``jax.devices()[0]``), and the mesh half is the
-    port's refusal of ``mesh=`` (not ported; ROADMAP "Multi-GPU layouts,
-    part 2")."""
+    (the JAX case pins ``jax.devices()[0]``), and the mesh repeats the CPU
+    8 times (the JAX case spans its 8 virtual CPU devices)."""
     import torch
 
+    from buzzdetect_torch.parallel import data_sharding, make_mesh
     from buzzdetect_torch.runtime.inferer import _describe_execution_target
 
     class Bare:
@@ -668,9 +668,12 @@ def test_execution_target_label_reports_real_backend():
     pinned.device = torch.device('cpu')
     assert _describe_execution_target(pinned) == str(torch.device('cpu'))
 
-    from buzzdetect_torch.analysis import _refuse_unported
-    with pytest.raises(NotImplementedError, match='mesh= is not ported'):
-        _refuse_unported(mesh=object())
+    meshed = Bare()
+    mesh = make_mesh(devices=['cpu'] * 8, device='cpu')
+    meshed.device = None
+    meshed.sharding = data_sharding(mesh)
+    label = _describe_execution_target(meshed)
+    assert label == f'{mesh.devices.size}-device mesh (CPU)', label
 
 
 def test_execution_target_label_reads_the_built_classifier(tmp_path,
@@ -682,12 +685,13 @@ def test_execution_target_label_reads_the_built_classifier(tmp_path,
     test above cannot catch that).
 
     Port counterpart: the replica pin is ``device='cpu'`` (the JAX case
-    pins ``jax.devices()[1]`` of its 8 virtual CPU devices); the mesh half
-    asserts ``analyze(mesh=)`` refuses, as the port does until ``mesh=``
-    is ported."""
+    pins ``jax.devices()[1]`` of its 8 virtual CPU devices); the mesh
+    repeats the CPU 8 times (``make_mesh()`` spans the JAX case's 8
+    virtual CPU devices; the port's counts the one CPU)."""
     from buzzdetect_torch import config as cfg
     from buzzdetect_torch.models.convert import build_model_bundle
     from buzzdetect_torch.models.registry import load_model
+    from buzzdetect_torch.parallel import make_mesh
     from buzzdetect_torch.runtime.inferer import _describe_execution_target
 
     dir_models = tmp_path / 'models'
@@ -701,10 +705,12 @@ def test_execution_target_label_reads_the_built_classifier(tmp_path,
     assert pinned.classifier.device == pinned._device
     assert _describe_execution_target(pinned) == 'cpu'
 
-    # mesh mode: refused before any model is built
-    with pytest.raises(NotImplementedError, match='mesh= is not ported'):
-        analyze(modelname='xtm', dir_audio=str(tmp_path),
-                dir_out=str(tmp_path / 'out'), mesh=object())
+    # mesh mode: the classifier stores the Mesh itself
+    mesh = make_mesh(devices=['cpu'] * 8, device='cpu')
+    sharded = load_model('xtm', mesh=mesh, device='cpu')
+    sharded.initialize()
+    label = _describe_execution_target(sharded)
+    assert label == f'{mesh.devices.size}-device mesh (CPU)', label
 
 
 def test_poison_all_zero_launched_stage_returns_promptly():

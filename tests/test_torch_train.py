@@ -71,7 +71,6 @@ B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.adam's defaults
 # evaluation may take the other ReLU branch than float64: f32 rounding
 # through up to 27 layers is ~1e-5 of it
 Z_EDGE = 1e-4
-MULTI_GPU = 'Multi-GPU layouts, part 2'
 
 
 def _clips(n=4, seed=0):
@@ -621,24 +620,6 @@ def test_checkpoint_layout_matches_jax(tmp_path):
     assert any('resuming fine-tune' in line for line in log)
     print(f'{len(metas[0][0])} arrays in both layouts; max |port - '
           f'reference| = 0 (shapes and meta equal)')
-
-
-def test_mesh_is_refused():
-    from buzzdetect_torch.train.clips import train_full_model
-    emb, labels, _cw = _head_data(8)
-    params, opt = ttrainer.init_full_train(2, device='cpu')
-    calls = (lambda: ttrainer.train_head(emb, labels, mesh=object(),
-                                         device='cpu'),
-             lambda: ttrainer.make_full_train_step(opt, params,
-                                                   mesh=object()),
-             lambda: ttrainer.make_head_train_step(opt, params['head'],
-                                                   mesh=object()),
-             lambda: train_full_model(*_clips(2), mesh=object(),
-                                      device='cpu'))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=MULTI_GPU):
-            call()
-    print('max |port - reference| = n/a (refusals)')
 
 
 def test_training_on_cuda_without_a_card_raises():
