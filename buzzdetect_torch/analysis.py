@@ -651,7 +651,7 @@ class Analyzer:
             # directories (`src/analyze.py:273-289`); this is a deliberate
             # quality-of-life superset — without it, a file path would
             # "complete" silently with an empty output directory.
-            if get_ext(self.dir_audio) not in driver_map():
+            if get_ext(self.dir_audio) not in driver_map:
                 # a fatal configuration error, not a 'no files yet' state:
                 # the end_reason must NOT be in the watch loop's healthy
                 # set — an unsupported extension can never heal, so a
@@ -659,14 +659,14 @@ class Analyzer:
                 self.coordinator.exit_analysis(ExitSignal(
                     message=(f'{self.dir_audio} is not a supported audio '
                              f'format; must be one of: '
-                             f'{", ".join(driver_map())}'),
+                             f'{", ".join(driver_map)}'),
                     level='ERROR', end_reason='unsupported input'))
                 return False
             root = os.path.dirname(os.path.abspath(self.dir_audio))
             found = [os.path.abspath(self.dir_audio)]
         else:
             root = self.dir_audio
-            found = search_dir(self.dir_audio, list(driver_map()))
+            found = search_dir(self.dir_audio, list(driver_map))
         assignments = [
             AssignFile(path_audio=p, dir_audio=root,
                        dir_results=self.dir_out)
@@ -677,7 +677,7 @@ class Analyzer:
             self.coordinator.exit_analysis(ExitSignal(
                 message=(f'Exiting analysis: no compatible audio files found '
                          f'in raw directory {self.dir_audio}.\naudio format '
-                         f'must be one of: \n{", ".join(driver_map())}'),
+                         f'must be one of: \n{", ".join(driver_map)}'),
                 # in watch mode an empty directory is the normal state while
                 # waiting for a recorder to start writing — don't warn
                 level='DEBUG' if watching else 'WARNING',
@@ -1559,8 +1559,9 @@ def analyze(modelname: str,
             ok, why = backend_preflight(backend_timeout)
             if not ok:
                 raise RuntimeError(
-                    f'device preflight failed: {why}. Check the card with '
-                    f"nvidia-smi, or run on the CPU with device='cpu'")
+                    f'device backend preflight failed: {why}. Check the '
+                    f"card with nvidia-smi, or run on the CPU with "
+                    f"device='cpu'")
 
     def one_pass(event=event_stopanalysis, **extra):
         # replica mode: analyzers_cpu/analyzers_gpu become dispatch threads

@@ -9,8 +9,9 @@ change: where the native stage is unavailable (no FFmpeg development
 libraries, or its build failed; ``ffi.native_status``), the map holds
 :class:`WavDriver`, on the standard library's ``wave`` module, for PCM16
 WAV only, and every other extension raises UnsupportedFormat naming the
-reason. The choice is logged once per process at WARNING level, and
-``analyze()`` writes it to its log.
+reason. ``driver_map`` is a mapping, as the JAX package's dict, that
+builds itself at its first access. The choice is logged then, once per
+process at WARNING level, and ``analyze()`` writes it to its log.
 """
 
 import importlib.util
@@ -18,6 +19,7 @@ import logging
 import os
 import threading
 import wave
+from collections.abc import MutableMapping
 
 import numpy as np
 
@@ -198,8 +200,8 @@ _map = None
 _map_lock = threading.Lock()
 
 
-def driver_map() -> dict:
-    """Extension -> driver class. Built on first call (which builds the
+def _built_map() -> dict:
+    """The extension -> driver dict, built on first use (which builds the
     native stage, or finds why it cannot), when the choice is logged."""
     global _map
     with _map_lock:
@@ -209,13 +211,37 @@ def driver_map() -> dict:
         return _map
 
 
+class _DriverMap(MutableMapping):
+    """Extension -> driver class, the JAX package's ``driver_map`` dict as
+    a mapping that builds itself at its first access (``_built_map``), so
+    importing this module builds nothing. Plugins extend it as the dict:
+    ``driver_map['xyz'] = Driver``."""
+
+    def __getitem__(self, ext):
+        return _built_map()[ext]
+
+    def __setitem__(self, ext, driver):
+        _built_map()[ext] = driver
+
+    def __delitem__(self, ext):
+        del _built_map()[ext]
+
+    def __iter__(self):
+        return iter(_built_map())
+
+    def __len__(self):
+        return len(_built_map())
+
+
+driver_map = _DriverMap()
+
+
 def build_track(path_audio: str, target_rate: int = 16000) -> AudioDriver:
     ext = os.path.splitext(path_audio)[1].lower().lstrip('.')
-    drivers = driver_map()
-    if ext not in drivers:
+    if ext not in driver_map:
         raise UnsupportedFormat(f'unsupported audio format: .{ext}; '
                                 f'{decoder_choice()}')
-    return drivers[ext](path_audio, target_rate)
+    return driver_map[ext](path_audio, target_rate)
 
 
 def get_duration(track: AudioDriver) -> float:

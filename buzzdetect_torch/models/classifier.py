@@ -203,13 +203,19 @@ class ChunkClassifier:
         self.compute_dtype = sepconv.resolve_compute_dtype(compute_dtype)
         if frontend not in ('auto', 'xla', 'pallas'):
             raise ValueError("frontend must be 'auto', 'xla' or 'pallas'")
-        self.frontend = 'xla' if frontend == 'auto' else frontend
+        self._frontend_auto = frontend == 'auto'
+        self.frontend = 'xla' if self._frontend_auto else frontend
         if sharding is not None:
             if mesh is not None and mesh is not sharding.mesh:
                 raise ValueError('mesh and sharding name different meshes')
             mesh = sharding.mesh
         self.mesh, self.sharding = mesh, sharding
         self.conv = resolve_conv(conv, mesh)
+        if self.conv == 'pallas':
+            # the BUZZDETECT_PALLAS_FRONT override resolves now, so a
+            # malformed value fails at model init (its ValueError names the
+            # variable), not at import and not mid-dispatch
+            yamnet_lib.check_front(yamnet_lib.resolve_front())
         if conv_precision not in ('auto', 'high', 'highest'):
             raise ValueError(
                 "conv_precision must be 'auto', 'high' or 'highest'")

@@ -130,6 +130,18 @@ def num_stft_frames(n_padded: int, cfg: FrontendConfig) -> int:
     return 1 + (n_padded - cfg.window_samples) // cfg.hop_samples
 
 
+def pad_waveform(waveform, cfg: FrontendConfig) -> torch.Tensor:
+    """Zero-pad a waveform along its last axis to ``padded_length`` (an
+    integral patch count), as ``buzzdetect_tpu.ops.frontend.pad_waveform``
+    does. A tensor that needs no pad comes back as it is; an array is
+    taken as a tensor first (``torch.as_tensor``, no copy where it can)."""
+    waveform = torch.as_tensor(waveform)
+    pad = padded_length(waveform.shape[-1], cfg) - waveform.shape[-1]
+    if pad == 0:
+        return waveform
+    return torch.nn.functional.pad(waveform, (0, pad))
+
+
 # --- constant operands ------------------------------------------------------
 
 @lru_cache(maxsize=8)
@@ -208,14 +220,22 @@ def patches_from_log_mel(log_mel: torch.Tensor,
     mel_bands): overlapping patch framing, drop-remainder. At framehop 1.0
     patches tile the spectrogram, so framing is a trim + reshape."""
     pf, hop = cfg.patch_frames, cfg.patch_hop_frames
-    n_p = (log_mel.shape[-2] - pf) // hop + 1
     if hop == pf:
+        n_p = (log_mel.shape[-2] - pf) // hop + 1
         lead = log_mel.shape[:-2]
         return log_mel[..., :n_p * pf, :].reshape(*lead, n_p, pf,
                                                   log_mel.shape[-1])
-    idx = (torch.arange(n_p, device=log_mel.device)[:, None] * hop
-           + torch.arange(pf, device=log_mel.device)[None, :])
-    return log_mel[..., idx, :]
+    return log_mel[..., _frame_indices(log_mel.shape[-2], pf, hop,
+                                       log_mel.device), :]
+
+
+def _frame_indices(n_input: int, frame_length: int, hop: int,
+                   device='cpu') -> torch.Tensor:
+    """(n_frames, frame_length) gather index matrix on ``device``, as the
+    JAX package's."""
+    n_frames = 1 + (n_input - frame_length) // hop
+    return (torch.arange(n_frames, device=device)[:, None] * hop
+            + torch.arange(frame_length, device=device)[None, :])
 
 
 def log_mel_patches(waveform: torch.Tensor,

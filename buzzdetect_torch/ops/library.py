@@ -58,7 +58,8 @@ def fused_front(x: Tensor, operands: list[Tensor], start_layer: int,
     (B, H, W, C) NHWC f32 -> (B, Ho*Wo, F) in ``mode``."""
     specs = sepconv.tail_specs(start_layer, stop_layer)
     out = sepconv._launch(_layers(operands, specs), x, specs, False, mode)
-    sepconv._count_launch(sepconv.fused_front, mode)
+    sepconv._count_launch(sepconv.fused_front, mode,
+                          (start_layer, stop_layer))
     return out
 
 
@@ -76,7 +77,8 @@ def fused_tail(x: Tensor, operands: list[Tensor], start_layer: int,
     (B, F) pooled with ``gap``, else (B, Ho*Wo, F), in ``mode``."""
     specs = sepconv.tail_specs(start_layer, stop_layer)
     out = sepconv._launch(_layers(operands, specs), x, specs, gap, mode)
-    sepconv._count_launch(sepconv.fused_tail, mode)
+    sepconv._count_launch(sepconv.fused_tail, mode,
+                          (start_layer, stop_layer))
     return out
 
 

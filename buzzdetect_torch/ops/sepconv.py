@@ -6,8 +6,9 @@ any sep-layer range without pooling). On a CUDA tensor each wrapper calls
 its custom operator (``buzzdetect::fused_front`` / ``fused_tail``,
 ``ops/library.py``), which launches the kernels of ``csrc/sepconv.cu`` (see
 the note at the top of that file) and counts the launch in
-``<wrapper>.launches[mode]``; on a CPU tensor it computes the plain PyTorch
-version. There is no other path. The pointwise
+``<wrapper>.launches[mode]`` (and per layer range in
+``<wrapper>.ranges[(start, stop, mode)]``); on a CPU tensor it computes the
+plain PyTorch version. There is no other path. The pointwise
 product runs on FFMA in exact f32 ('highest') and on the tensor cores
 ('bf16', 'high'; ``layer_route``).
 
@@ -35,6 +36,7 @@ biases. ``pack_params`` adds each mode's pointwise operand beside them
 ``...[high]``: (2, C, F) bf16 hi, lo), so a caller packs once, not per call.
 """
 
+import collections
 import contextlib
 import ctypes
 import threading
@@ -88,6 +90,24 @@ def tail_specs(start_layer: int = 8, stop_layer: int = None):
     if not specs:
         raise ValueError(f'empty layer range [{start_layer}, {stop})')
     return tuple(specs)
+
+
+def front_pw_splits(groups: int, start_layer: int = 2, stop_layer: int = 4):
+    """Per-layer number of pointwise sub-dots of the TPU's packed front
+    (``buzzdetect_tpu.ops.pallas_conv.front_pw_splits``, the same rule and
+    message): ``groups`` patches share the lanes, and a layer of C input
+    channels contracts in ``groups / q`` dots of ``q = min(groups,
+    128 // C)`` groups. The card's kernels do not pack patches, so here it
+    only validates a ``PALLAS_FRONT`` config (``models/yamnet.check_front``).
+    """
+    splits = []
+    for s in tail_specs(start_layer, stop_layer):
+        q = max(1, min(groups, 128 // s.c_in))
+        if groups % q:
+            raise ValueError(f'groups={groups} not divisible by q={q} '
+                             f'at layer {s.index}')
+        splits.append(groups // q)
+    return tuple(splits)
 
 
 def same_pad(n: int, stride: int, k: int = 3):
@@ -376,14 +396,18 @@ def _launch(operands, x, specs, gap, mode, lib=None):
     return out
 
 
-def _count_launch(wrapper, mode=None):
-    """One more launch on ``wrapper.launches`` (or on its ``mode`` entry);
-    inferer threads share the wrappers, and ``+=`` is not atomic."""
+def _count_launch(wrapper, mode=None, layers=None):
+    """One more launch on ``wrapper.launches`` (or on its ``mode`` entry),
+    and with ``layers`` = (start, stop) on ``wrapper.ranges[(start, stop,
+    mode)]``, which tells the layer ranges of one wrapper apart; inferer
+    threads share the wrappers, and ``+=`` is not atomic."""
     with _count_lock:
         if mode is None:
             wrapper.launches += 1
         else:
             wrapper.launches[mode] += 1
+        if layers is not None:
+            wrapper.ranges[(*layers, mode)] += 1
 
 
 def _flat(operands):
@@ -440,3 +464,5 @@ def fused_tail(params, x, *, start_layer: int = 8, stop_layer: int = None,
 _count_lock = threading.Lock()
 fused_front.launches = dict.fromkeys(MODES, 0)
 fused_tail.launches = dict.fromkeys(MODES, 0)
+fused_front.ranges = collections.Counter()
+fused_tail.ranges = collections.Counter()

@@ -7,8 +7,8 @@ one-patch length, and samples negative clips from un-annotated stretches, so
 an event CSV plus the audio corpus is everything a from-scratch training run
 needs.
 
-Copy of ``buzzdetect_tpu/train/clips.py`` with the import prefix changed,
-``audio.driver_map()`` called, and ``train_full_model`` on one torch
+Copy of ``buzzdetect_tpu/train/clips.py`` with the import prefix changed
+and ``train_full_model`` on one torch
 device or a ('data', 'model') mesh (``trainer.make_full_train_step``; the
 state restored in place by ``checkpoint.load_train_checkpoint``). Its per-step augmentation draws
 come from ``np.random.default_rng((seed, global step))`` where the JAX
@@ -151,7 +151,7 @@ def build_clip_dataset(dir_audio: str, events_by_ident: dict, classes,
     # header parse; decode dominates the build, so the extra open is
     # accepted for the corpus-wide balance.)
     plan = []  # (path, ident, events, duration, n_pos, uncovered_s, cap)
-    for path in search_dir(dir_audio, list(driver_map())):
+    for path in search_dir(dir_audio, list(driver_map)):
         ident = build_ident(path, dir_audio)
         events = events_by_ident.get(ident, [])
         track = build_track(path, target_rate=cfg.sample_rate)

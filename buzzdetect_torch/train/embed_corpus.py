@@ -6,7 +6,7 @@ decode stage and the fused embed graph; output is one compressed npz per
 file with the frame-start grid, ready for ``train_head``.
 
 Copy of ``buzzdetect_tpu/train/embed_corpus.py`` with the import prefix
-changed, ``audio.driver_map()`` called, and ``embed_directory`` taking the
+changed and ``embed_directory`` taking the
 model's ``device`` (``'cuda'`` unless the caller asks for ``'cpu'``). On
 the card ``classifier.embed`` runs layer 1, then the hand kernels
 ``fused_front`` and ``fused_tail`` (``csrc/sepconv.cu``): one launch of
@@ -141,7 +141,7 @@ def embed_directory(dir_audio: str, dir_out: str, modelname: str = None,
         # directory into the ident (breaking parity with analyze())
         dir_audio = os.path.abspath(dir_audio)
         from buzzdetect_torch.utils import get_ext
-        if get_ext(dir_audio) not in driver_map():
+        if get_ext(dir_audio) not in driver_map:
             # fatal, not the per-file isolation below: an unsupported
             # extension can never heal, and the isolation path would
             # reduce it to a log line + "embedded 0 files"
@@ -152,7 +152,7 @@ def embed_directory(dir_audio: str, dir_out: str, modelname: str = None,
         paths = [dir_audio]
     else:
         root = dir_audio
-        paths = search_dir(dir_audio, list(driver_map()))
+        paths = search_dir(dir_audio, list(driver_map))
 
     written = []
     for path in paths:

@@ -10,8 +10,7 @@ activation), the unit field studies actually count. Reads both result
 CSVs and `trim`'s compressed `_buzztrim.npz` archives.
 
 Copy of ``buzzdetect_tpu/write/detections.py`` with the import prefix
-changed, ``audio.driver_map()`` called (the port builds the map on first
-use), and a float block from a plugin driver quantized by
+changed and a float block from a plugin driver quantized by
 ``utils.quantize_int16`` (the same values as the native stage's
 ``quantize_s16``, with or without that stage).
 """
@@ -316,7 +315,7 @@ def _audio_by_ident(dir_audio):
         found = [os.path.abspath(dir_audio)]
     else:
         root = dir_audio
-        found = search_dir(dir_audio, list(driver_map()))
+        found = search_dir(dir_audio, list(driver_map))
     return {build_ident(p, root): p for p in found}
 
 

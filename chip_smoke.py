@@ -166,7 +166,31 @@ Phases, each printed before the last line:
    through the wrapper, the operator and the launcher alone; (g) the four
    examples of ``buzzdetect_torch/examples`` (``quickstart``,
    ``scale_out``, ``train_detector``, ``field_monitoring``) on the card;
-9. one JSON line with every kernel's numbers.
+9. one JSON line with every kernel's numbers (printed after phase 10);
+10. the JAX package's kernel and pipeline suites on the card: (a) the grids
+   of ``tests/test_pallas_conv.py`` and ``tests/test_pallas.py``:
+   ``fused_front`` (layers 2-3 and 2-7) at B = 1, 3 and 8, ``fused_tail``
+   from layers 8 and 13 at B = 3 with and without pooling (and from 8 at
+   B = 1 and 8), the layer 4-7 block at B = 1, 3 and 8, bf16 and HIGH at
+   B = 3, and the fused log-mel on 1.0, 4.8 and 10.0 s: each against its
+   plain version at phase 2's tolerances, and its device time beside the
+   cuDNN layer stack's (the matmul frontend's); (b) the three
+   ``BUZZDETECT_PALLAS_FRONT`` routes (``models/yamnet.PALLAS_FRONT``:
+   layers 2-7 in one ``fused_front``; 2-3 and a ``fused_tail`` 4-7; layers
+   1-3 by cuDNN) through ``yamnet.embed`` on one 200.64 s chunk (209
+   patches) of phase 3's first recording: each route's launches by layer
+   range, embeddings against each other and the CPU, device time; then
+   ``analyze()`` on phase 3's recordings on the route with the 4-7 block,
+   whose launches the kernels line reports for it; (c) the modes of
+   ``tests/test_pipeline.py`` through ``analyze()``: framehop 0.5 and 0.3,
+   the mu-law wire and detections mode on a 300 s excerpt of phase 3's
+   first recording against the port's CPU run of the same mode, batched
+   dispatch (4 chunks per call) byte-identical to phase 3's CSVs, the batch
+   path with ``"frontend": "pallas"`` launching the log-mel once per call,
+   and a resume from a partial holding one chunk, byte-identical to phase
+   3's CSV; (d) phase 8's ``conv='pallas'`` artifact loaded in a ``spawn``
+   child with an empty build folder: it builds the kernels, and its scores
+   equal the live model's.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero with a message, and without a CUDA device the script exits
@@ -1759,7 +1783,7 @@ def export_phase(torch, tmp, path_audio, chunk_s, ref_ms, reset_counts,
                        max_abs_diff=diff, n_patches=meta['n_patches'],
                        ms=time_ms(lambda: call(wire)),
                        program_ms=time_ms(lambda: call.program(resident)))
-        rows[label] = row
+        rows[label] = dict(row, dir=d, wire=wire, want=want)
         print(f'export [{label}] ({meta["conv"]}, {meta["conv_precision"]}, '
               f'platforms {meta["platforms"]}, traced on '
               f'{"cpu" if "cpu" in platforms else device}): '
@@ -1915,6 +1939,455 @@ def dispatch_phase(torch, params, x_front, x_tail, rows):
     return out
 
 
+# phase 10, the JAX package's kernel and pipeline suites on the card. (a)
+# the kernel grids of tests/test_pallas_conv.py: (label, wrapper, start
+# layer, stop layer, gap, batches, modes) each, on phase 2's activations;
+# and the log-mel lengths of tests/test_pallas.py
+SUITE_CONV = (
+    ('fused_front(2, 4)', 'front', 2, 4, False, (1, 3, 8), ('highest',)),
+    ('fused_front(2, 8)', 'front', 2, 8, False, (1, 3, 8), ('highest',)),
+    ('fused_tail(8)', 'tail', 8, None, True, (1, 3, 8), ('highest',)),
+    ('fused_tail(8, gap=False)', 'tail', 8, None, False, (3,),
+     ('highest',)),
+    ('fused_tail(13)', 'tail', 13, None, True, (3,), ('highest',)),
+    ('fused_tail(13, gap=False)', 'tail', 13, None, False, (3,),
+     ('highest',)),
+    ('fused_tail(4, 8)', 'tail', 4, 8, False, (1, 3, 8), ('highest',)),
+    ('fused_front(2, 8)', 'front', 2, 8, False, (3,), ('bf16', 'high')),
+    ('fused_tail(8)', 'tail', 8, None, True, (3,), ('bf16', 'high')),
+    ('fused_tail(13)', 'tail', 13, None, True, (3,), ('bf16', 'high')),
+)
+SUITE_SECONDS = (1.0, 4.8, 10.0)
+# (b) BUZZDETECT_PALLAS_FRONT's three routes (models/yamnet.PALLAS_FRONT):
+# (label, config, launches of one embed by (start, stop) layer range of
+# fused_front, and of fused_tail)
+ROUTES = (
+    ('default', dict(groups=4, block_packed=1, fuse_mid=True),
+     {(2, 8): 1}, {(8, 15): 1}),
+    ('without mid', dict(groups=4, block_packed=1),
+     {(2, 4): 1}, {(4, 8): 1, (8, 15): 1}),
+    ("'off'", None, {}, {(4, 8): 1, (8, 15): 1}),
+)
+# (c) the pipeline suite's modes (tests/test_pipeline.py), each an
+# analyze() of an excerpt of phase 3's first recording on the card and on
+# the CPU; and the batched dispatch's chunks per batch
+PIPELINE_MODES = (
+    ('framehop 0.5', {'framehop_prop': 0.5}),
+    ('framehop 0.3', {'framehop_prop': 0.3}),
+    ('mu-law wire', {'transfer_dtype': 'mulaw'}),
+    ('detections', {'precision': 0.95}),
+)
+EXCERPT_SECONDS = 300.0
+BATCH_CHUNKS = 4
+# (d) the fresh process's time limit (it builds csrc/sepconv.cu itself)
+CHILD_TIMEOUT = 600
+
+
+def tolerance(mode, ref):
+    """(atol, rtol) of a kernel against its plain version, as phase 2
+    holds it: exact f32 (and HIGH, exact f32 in another order) at ATOL and
+    RTOL, bf16 at 4 ulps of the largest value plus 2 relative."""
+    if mode == 'bf16':
+        return 4 * ULP_BF16 * float(ref.abs().max()), 2 * ULP_BF16
+    return ATOL, RTOL
+
+
+def read_ranges():
+    """The conv kernels' launches since the last reset, by layer range:
+    ({(start, stop): n} of fused_front, the same of fused_tail), every
+    mode summed."""
+    from buzzdetect_torch.ops import sepconv
+    out = []
+    for fn in (sepconv.fused_front, sepconv.fused_tail):
+        ranges = collections.Counter()
+        for (start, stop, _mode), n in fn.ranges.items():
+            ranges[start, stop] += n
+        out.append(dict(ranges))
+    return tuple(out)
+
+
+def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms):
+    """(a) The kernel grids of the JAX package's kernel suites on the card:
+    each SUITE_CONV case on the first B rows of phase 2's activations (its
+    input from the plain stack), and the fused log-mel on SUITE_SECONDS of
+    phase 2's waveform padded by ``frontend.pad_waveform``: each against
+    its plain version at phase 2's tolerances, two launches bit-identical,
+    and its device time beside the cuDNN layer stack's (the matmul
+    frontend's for the log-mel). Returns {(label, mode, B): row}."""
+    from buzzdetect_torch.models import yamnet
+    from buzzdetect_torch.ops import frontend, logmel, sepconv
+    from buzzdetect_torch.tools.roofline import library_stack, library_weights
+    rows = {}
+
+    def hold(name, got, again, ref, mode, run_kernel, run_library):
+        err = float((got - ref).abs().max())
+        atol, rtol = tolerance(mode, ref)
+        row = dict(max_abs_err=err, device_ms=device_ms(run_kernel),
+                   library_device_ms=device_ms(run_library))
+        print(f'(a) {name}: max |kernel - plain| = {err:.3g} (atol '
+              f'{atol:.3g}, rtol {rtol:.3g}); device time kernel '
+              f'{row["device_ms"]:.4f} ms, library '
+              f'{row["library_device_ms"]:.4f} ms (kernel / library '
+              f'{row["device_ms"] / row["library_device_ms"]:.2f}x)',
+              flush=True)
+        if not torch.allclose(got, ref, atol=atol, rtol=rtol):
+            fail(f'{name} disagrees with its plain version: max |d| '
+                 f'{err:.3g}')
+        if not torch.equal(got, again):
+            fail(f'{name}: two launches on the same input differ')
+        return row
+
+    print('10a. the kernel grids of tests/test_pallas_conv.py and '
+          'tests/test_pallas.py', flush=True)
+    for label, which, start, stop, gap, batches, modes in SUITE_CONV:
+        for mode in modes:
+            params = sepconv.pack_params(all_params['yamnet'], mode)
+            x = yamnet.layer1(params, patches, mode)
+            if start > 2:
+                s0 = sepconv.tail_specs(start)[0]
+                x = sepconv.fused_tail_plain(
+                    params, x, start_layer=2, stop_layer=start, gap=False,
+                    mode=mode).reshape(-1, s0.h, s0.w, s0.c_in)
+            specs = sepconv.tail_specs(start, stop)
+            kw = dict(start_layer=start, stop_layer=stop, mode=mode)
+            if which == 'front':
+                wrapper, plain = (sepconv.fused_front,
+                                  sepconv.fused_front_plain)
+            else:
+                wrapper, plain = sepconv.fused_tail, sepconv.fused_tail_plain
+                kw['gap'] = gap
+            lib_dtype = torch.bfloat16 if mode == 'bf16' else torch.float32
+            lib_w = library_weights(params, specs, lib_dtype)
+            for b in batches:
+                xb = x[:b].contiguous()
+                x_nchw = xb.permute(0, 3, 1, 2).contiguous().to(lib_dtype)
+                got = wrapper(params, xb, **kw)
+                again = wrapper(params, xb, **kw)
+                torch.cuda.synchronize()
+                rows[label, mode, b] = hold(
+                    f'{label} [{mode}] B={b}', got, again,
+                    plain(params, xb, **kw), mode,
+                    lambda: wrapper(params, xb, **kw),
+                    lambda: library_stack(lib_w, x_nchw, specs, gap))
+    for seconds in SUITE_SECONDS:
+        w = frontend.pad_waveform(wav[:int(seconds * 16000)], cfg)
+        got = logmel.log_mel_spectrogram_fused(w, cfg)
+        again = logmel.log_mel_spectrogram_fused(w, cfg)
+        torch.cuda.synchronize()
+        rows['log_mel', seconds, 1] = hold(
+            f'log_mel {seconds} s ({got.shape[-2]} frames)', got, again,
+            logmel.log_mel_spectrogram_fused_plain(w, cfg), 'highest',
+            lambda: logmel.log_mel_spectrogram_fused(w, cfg),
+            lambda: frontend.log_mel_spectrogram(w, cfg))
+    return rows
+
+
+def routes_phase(torch, arrays, path_audio, cfg, reset_counts, device_ms,
+                 device='cuda'):
+    """(b) The three BUZZDETECT_PALLAS_FRONT routes (ROUTES, set on
+    ``yamnet.PALLAS_FRONT``, which wins over the variable) through
+    ``yamnet.embed`` on one 200.64 s chunk (209 patches) of ``path_audio``
+    on ``device``: each route's launches of one embed by layer range (set
+    to 0 just before, read just after), its embeddings against the first
+    route's and against the CPU's (the default route's plain versions)
+    within ATOL / RTOL, and its device time. Returns {label: row}."""
+    from buzzdetect_torch.audio import build_track
+    from buzzdetect_torch.models import yamnet
+    from buzzdetect_torch.models.classifier import _to_float
+    from buzzdetect_torch.models.weights import params_from_numpy
+    from buzzdetect_torch.ops import frontend
+    print('10b. the BUZZDETECT_PALLAS_FRONT routes', flush=True)
+    n = (frontend.min_waveform_samples(cfg)
+         + (BATCHES[0] - 1) * cfg.patch_hop_samples)
+    track = build_track(path_audio, target_rate=16000)
+    samples = track.read_s16(n)
+    track.close()
+    params = params_from_numpy(arrays, device)['yamnet']
+    saved = yamnet.resolve_front()
+    rows, first = {}, None
+    try:
+        with torch.inference_mode():
+            patches = frontend.log_mel_patches(
+                _to_float(torch.from_numpy(samples).to(device)), cfg)
+            yamnet.PALLAS_FRONT = ROUTES[0][1]
+            cpu = yamnet.embed(params_from_numpy(arrays, 'cpu')['yamnet'],
+                               patches.cpu())
+            for label, front, want_front, want_tail in ROUTES:
+                yamnet.PALLAS_FRONT = front
+                reset_counts()
+                emb = yamnet.embed(params, patches).cpu()
+                got = read_ranges()
+                first = emb if first is None else first
+                d_cpu = float((emb - cpu).abs().max())
+                d_first = float((emb - first).abs().max())
+                row = dict(launches=got, vs_cpu=d_cpu, vs_default=d_first,
+                           device_ms=device_ms(
+                               lambda: yamnet.embed(params, patches)))
+                rows[label] = row
+                print(f'(b) route {label} ({front}): {tuple(emb.shape)} '
+                      f'embeddings; launches of one embed, fused_front '
+                      f'{got[0]}, fused_tail {got[1]}; max |d| against the '
+                      f'default route {d_first:.3g}, against the CPU '
+                      f'{d_cpu:.3g} (atol {ATOL}, rtol {RTOL}); device time '
+                      f'{row["device_ms"]:.4f} ms', flush=True)
+                if got != (want_front, want_tail):
+                    fail(f'route {label}: launches {got}, expected '
+                         f'{(want_front, want_tail)}')
+                for ref, what in ((cpu, 'the CPU'), (first, 'the default')):
+                    if not torch.allclose(emb, ref, atol=ATOL, rtol=RTOL):
+                        fail(f'route {label}: embeddings differ from '
+                             f'{what}\'s')
+    finally:
+        yamnet.PALLAS_FRONT = saved
+    return rows
+
+
+def route_analyze_phase(tmp, dir_audio, dir_out, names, reset_counts,
+                        device='cuda'):
+    """(b) ``analyze()`` on phase 3's recordings on the route without mid
+    (ROUTES[1]): the layer 4-7 block's launches (one per chunk, as many as
+    fused_front(2, 4)'s and fused_tail(8)'s, and no fused_front(2, 8)), the
+    CSVs against phase 3's in ``dir_out`` (equal after 2-digit rounding;
+    whether byte-identical is printed). Returns the block's launches."""
+    import buzzdetect_torch
+    from buzzdetect_torch.models import yamnet
+    saved = yamnet.resolve_front()
+    out = os.path.join(tmp, 'out_route')
+    yamnet.PALLAS_FRONT = ROUTES[1][1]
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        result = buzzdetect_torch.analyze(
+            modelname=MODEL, dir_audio=dir_audio, dir_out=out,
+            verbosity_print='WARNING', device=device)
+        wall = time.perf_counter() - t0
+        front, tail = read_ranges()
+    finally:
+        yamnet.PALLAS_FRONT = saved
+    reason = result.coordinator.end_reason
+    audio_s = result.coordinator.audio_seconds_done
+    block = tail.get((4, 8), 0)
+    identical = all(file_bytes(out, n) == file_bytes(dir_out, n)
+                    for n in names)
+    worst = csv_gap(out, dir_out, names)
+    print(f'(b) analyze() on the route {ROUTES[1][0]}: end reason '
+          f'{reason!r}, {wall:.2f} s wall, {audio_s / wall:.1f} audio s per '
+          f'wall s; launches fused_front {front}, fused_tail {tail}; CSVs '
+          f'against phase 3\'s: max |d| = {worst:.3g} after 2-digit '
+          f'rounding, byte-identical: {identical}', flush=True)
+    if reason != 'completed':
+        fail(f'analyze() on the route {ROUTES[1][0]} ended {reason!r}')
+    if not (block > 0 and front == {(2, 4): block}
+            and tail == {(4, 8): block, (8, 15): block}):
+        fail(f'analyze() on the route {ROUTES[1][0]} launched fused_front '
+             f'{front}, fused_tail {tail}')
+    if worst > 0.0101:
+        fail(f'the route {ROUTES[1][0]}\'s CSVs differ from phase 3\'s by '
+             f'{worst:.3g}')
+    return block
+
+
+def file_bytes(dir_out, name):
+    with open(os.path.join(dir_out, f'{name}_buzzdetect.csv'), 'rb') as f:
+        return f.read()
+
+
+def write_excerpt(path_audio, path_out, seconds):
+    """The first ``seconds`` of a 16 kHz PCM16 WAV as its own WAV."""
+    with wave.open(path_audio, 'rb') as r:
+        params = r.getparams()
+        frames = r.readframes(int(seconds * params.framerate))
+    with wave.open(path_out, 'wb') as w:
+        w.setparams(params)
+        w.writeframes(frames)
+
+
+def pipeline_modes_phase(tmp, dir_audio, dir_out, names, seconds, chunk_s,
+                         reset_counts, read_counts, device='cuda'):
+    """(c) The pipeline suite's modes through ``analyze()`` on ``device``:
+    each of PIPELINE_MODES on an excerpt (EXCERPT_SECONDS) of phase 3's
+    first recording (phase 3's are ``seconds`` long), held against the port's CPU run of the same mode
+    (equal after 2-digit rounding; detections equal), with the framehop
+    modes' time grid; batched dispatch (BATCH_CHUNKS chunks per call) on
+    phase 3's recordings, byte-identical to phase 3's unbatched CSVs in
+    ``dir_out``; the batch path with the ``"frontend": "pallas"`` variant,
+    whose log-mel must launch once per batched call; and a resume from a
+    partial holding the second chunk of phase 3's first recording, which
+    must reproduce phase 3's CSV byte for byte."""
+    import buzzdetect_torch
+    from buzzdetect_torch.ops.frontend import FrontendConfig
+    from buzzdetect_torch.write.coverage import gaps_to_chunklist
+    print('10c. the pipeline suite\'s modes through analyze()', flush=True)
+
+    def run_analyze(out, what, **kw):
+        kw.setdefault('device', device)
+        kw.setdefault('modelname', MODEL)
+        reset_counts()
+        t0 = time.perf_counter()
+        result = buzzdetect_torch.analyze(dir_out=out,
+                                          verbosity_print='WARNING', **kw)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        reason = result.coordinator.end_reason
+        audio_s = result.coordinator.audio_seconds_done
+        print(f'(c) {what} on {kw["device"]}: end reason {reason!r}, '
+              f'{wall:.2f} s wall, {audio_s / wall:.1f} audio s per wall s, '
+              f'kernel launches {counts}', flush=True)
+        if reason != 'completed':
+            fail(f'{what} on {kw["device"]} ended {reason!r}')
+        return counts, audio_s
+
+    excerpt = os.path.join(tmp, 'excerpt')
+    os.makedirs(excerpt)
+    write_excerpt(os.path.join(dir_audio, f'{names[0]}.wav'),
+                  os.path.join(excerpt, f'{names[0]}.wav'), EXCERPT_SECONDS)
+    for i, (label, kw) in enumerate(PIPELINE_MODES):
+        outs = [os.path.join(tmp, f'out_mode{i}_{k}') for k in ('run',
+                                                                 'cpu')]
+        for out, d in zip(outs, (device, 'cpu')):
+            run_analyze(out, f'{label}, {EXCERPT_SECONDS:g} s excerpt',
+                        dir_audio=excerpt, device=d, **kw)
+        worst = csv_gap(*outs, names[:1])
+        with open(os.path.join(outs[0], f'{names[0]}_buzzdetect.csv')) as f:
+            lines = f.read().splitlines()
+        starts = [float(ln.split(',')[0]) for ln in lines[1:4]]
+        print(f'(c) {label}: header {lines[0][:60]}...; first starts '
+              f'{starts}; card against CPU max |d| = {worst:.3g} after '
+              f'2-digit rounding', flush=True)
+        if 'framehop_prop' in kw:
+            hop = FrontendConfig().with_framehop(
+                kw['framehop_prop']).patch_hop_seconds
+            if not np.allclose(starts, np.round(np.arange(3) * hop, 2)):
+                fail(f'{label}: the time grid starts {starts}, hop {hop}')
+        if 'precision' in kw and (lines[0] != 'start,detections_ins_buzz'
+                                  or worst != 0):
+            fail(f'{label}: header {lines[0]!r}, card against CPU {worst}')
+        if worst > 0.0101:
+            fail(f'{label}: card and CPU CSVs differ by {worst:.3g}')
+
+    chunks = len(gaps_to_chunklist([(0.0, seconds)], chunk_s))
+    out = os.path.join(tmp, 'out_batched')
+    counts, _ = run_analyze(out, f'batch_chunks={BATCH_CHUNKS}',
+                         dir_audio=dir_audio, batch_chunks=BATCH_CHUNKS,
+                         n_streamers=BATCH_CHUNKS)
+    if not 0 < counts['fused_front'] < len(names) * chunks:
+        fail(f'batch_chunks={BATCH_CHUNKS}: {counts["fused_front"]} calls '
+             f'for {len(names) * chunks} chunks')
+    same_csvs(out, dir_out, names, f'batch_chunks={BATCH_CHUNKS} against '
+              f'the unbatched run')
+    variant = 'model_general_v3_pallas'
+    out = os.path.join(tmp, 'out_batched_pallas')
+    counts, _ = run_analyze(out, f'{variant} ("frontend": "pallas"), '
+                         f'batch_chunks={BATCH_CHUNKS}', modelname=variant,
+                         dir_audio=dir_audio, batch_chunks=BATCH_CHUNKS,
+                         n_streamers=BATCH_CHUNKS)
+    calls = counts['fused_front']
+    worst = csv_gap(out, dir_out, names)
+    print(f'(c) the batch path with "frontend": "pallas": {calls} batched '
+          f'calls for {len(names) * chunks} chunks, log_mel launched '
+          f'{counts["log_mel"]} times; CSVs against phase 3\'s max |d| = '
+          f'{worst:.3g} after 2-digit rounding', flush=True)
+    if not (0 < calls < len(names) * chunks and counts['log_mel'] == calls):
+        fail(f'the batch path with "frontend": "pallas" launched log_mel '
+             f'{counts["log_mel"]} times in {calls} calls')
+    if worst > 0.0101:
+        fail(f'the pallas-frontend batch CSVs differ from phase 3\'s by '
+             f'{worst:.3g}')
+
+    resume_audio = os.path.join(tmp, 'resume_audio')
+    resume_out = os.path.join(tmp, 'out_resume')
+    os.makedirs(resume_audio)
+    os.makedirs(resume_out)
+    name = names[0]
+    os.symlink(os.path.join(dir_audio, f'{name}.wav'),
+               os.path.join(resume_audio, f'{name}.wav'))
+    with open(os.path.join(dir_out, f'{name}_buzzdetect.csv')) as f:
+        lines = f.read().splitlines(keepends=True)
+    per_chunk = int(round(chunk_s / 0.96))
+    with open(os.path.join(resume_out, f'{name}_buzzpart.csv'), 'w') as f:
+        f.write(lines[0])
+        f.writelines(lines[1 + per_chunk:1 + 2 * per_chunk])
+    shutil.copy(os.path.join(dir_out, 'buzzdetect_manifest.json'),
+                resume_out)
+    _, audio_s = run_analyze(resume_out, f'resume of {name} from a '
+                             f'partial holding its second chunk',
+                             dir_audio=resume_audio)
+    if abs(audio_s - (seconds - chunk_s)) > 0.01:
+        fail(f'the resume analyzed {audio_s} s of audio, expected all but '
+             f'the partial\'s {chunk_s} s of {seconds}')
+    if os.path.exists(os.path.join(resume_out, f'{name}_buzzpart.csv')):
+        fail('the resume left its partial behind')
+    same_csvs(resume_out, dir_out, names[:1], 'the resumed run')
+
+
+def artifact_child(path, wire, dir_build, q):
+    """A fresh process that loads the ``conv='pallas'`` artifact at
+    ``path`` on the card, building ``csrc/sepconv.cu`` into the empty
+    ``dir_build`` at its first call, and puts (scores, load s, first call s
+    with the build, the conv kernels' launches, the libraries built) on
+    ``q``."""
+    sys.path.insert(0, ROOT)
+    from buzzdetect_torch.ops import _build, sepconv
+    _build.DIR_BUILD = dir_build
+    from buzzdetect_torch.models.export import load_exported
+    t0 = time.perf_counter()
+    call, _meta = load_exported(path, device='cuda')
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = call(wire)
+    call_s = time.perf_counter() - t0
+    q.put((scores, load_s, call_s,
+           {'fused_front': dict(sepconv.fused_front.launches),
+            'fused_tail': dict(sepconv.fused_tail.launches)},
+           sorted(f for f in os.listdir(dir_build) if f.endswith('.so'))))
+
+
+def fresh_artifact_phase(tmp, row):
+    """(d) Phase 8's ``conv='pallas'`` artifact (``row``: its folder, the
+    wire it was called on and the live model's scores) loaded in a
+    ``spawn`` child that never built the kernels (an empty build folder):
+    it must build them, launch each conv kernel once, and give the live
+    model's scores exactly. The child is stopped before this returns."""
+    import multiprocessing
+    import queue as queue_mod
+    print('10d. the conv=\'pallas\' artifact in a fresh process',
+          flush=True)
+    ctx = multiprocessing.get_context('spawn')
+    q = ctx.Queue()
+    dir_build = os.path.join(tmp, 'fresh_build')
+    os.makedirs(dir_build)
+    child = ctx.Process(target=artifact_child,
+                        args=(row['dir'], row['wire'], dir_build, q),
+                        daemon=True)
+    t0 = time.perf_counter()
+    child.start()
+    try:
+        got = q.get(timeout=CHILD_TIMEOUT)
+        child.join(timeout=60)
+    except queue_mod.Empty:
+        fail(f'the fresh process gave no scores in {CHILD_TIMEOUT} s '
+             f'(exit {child.exitcode})')
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join()
+    scores, load_s, call_s, launches, built = got
+    diff = float(np.abs(scores - row['want']).max())
+    print(f'(d) fresh spawn child: exit {child.exitcode}, '
+          f'{time.perf_counter() - t0:.2f} s wall; load {load_s:.2f} s, '
+          f'first call {call_s:.2f} s (the build included); built {built}; '
+          f'launches {launches}; max |artifact - live| = {diff:.3g}',
+          flush=True)
+    if child.exitcode != 0 or not built:
+        fail(f'the fresh process exited {child.exitcode}, built {built}')
+    if (launches['fused_front']['highest'] != 1
+            or launches['fused_tail']['highest'] != 1):
+        fail(f'the fresh process launched {launches}')
+    if diff != 0:
+        fail(f'the fresh process\'s scores are {diff:.3g} from the live '
+             f'model\'s')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1986,13 +2459,13 @@ def run(torch, tmp):
           f'{clusters} on {sms} SMs', flush=True)
 
     def check_row(name, b, got, ref, again, run_kernel, run_plain,
-                  run_library, work, tol, product=None):
+                  run_library, work, mode, product=None):
         """Hold one kernel call against its plain version, time the three,
         give the kernel's and the library call's device time alone, print
         the row; keep it at B=209. A conv row also gives the unit that runs
         its layers' product ('mma' or 'ffma')."""
         err = float((got - ref).abs().max())
-        atol, rtol = tol(ref)
+        atol, rtol = tolerance(mode, ref)
         ok = torch.allclose(got, ref, atol=atol, rtol=rtol)
         if not torch.equal(got, again):
             fail(f'{name} B={b}: two launches on the same input differ')
@@ -2037,12 +2510,6 @@ def run(torch, tmp):
             outputs[name] = got
             rows[name] = row
 
-    def exact(ref):
-        return ATOL, RTOL
-
-    def bf16_scale(ref):
-        return 4 * ULP_BF16 * float(ref.abs().max()), 2 * ULP_BF16
-
     with torch.inference_mode():
         # realistic activations: log-mel patches of one chunk of audio
         # through layer 1 and the plain layers; B = 5 takes the first rows
@@ -2080,7 +2547,7 @@ def run(torch, tmp):
                       lambda: logmel.log_mel_spectrogram_fused_plain(w, cfg),
                       lambda: frontend.log_mel_spectrogram(w, cfg),
                       (flops / f32_peak, n_bytes / bytes_peak, flops,
-                       n_bytes), exact)
+                       n_bytes), 'highest')
 
         cases = (('fused_front', dict(start_layer=2, stop_layer=8), False),
                  ('fused_tail', dict(start_layer=8, stop_layer=None), True),
@@ -2127,7 +2594,7 @@ def run(torch, tmp):
                                                     gap),
                               (t_ops, n_bytes / bytes_peak, pw_f + dw_f,
                                n_bytes),
-                              bf16_scale if mode == 'bf16' else exact,
+                              mode,
                               sepconv.layer_route(mode))
 
         # each mode's device time layer by layer, at B = 209, each layer on
@@ -2199,6 +2666,8 @@ def run(torch, tmp):
     def reset_counts():
         sepconv.fused_front.launches = dict.fromkeys(sepconv.MODES, 0)
         sepconv.fused_tail.launches = dict.fromkeys(sepconv.MODES, 0)
+        sepconv.fused_front.ranges.clear()
+        sepconv.fused_tail.ranges.clear()
         logmel.log_mel_spectrogram_fused.launches = 0
 
     def read_counts():
@@ -2595,23 +3064,35 @@ def run(torch, tmp):
     # --- 8. the serving export, the GUI and the operators' dispatch ----
     print('8. the serving export, the GUI child and the custom operators\' '
           'dispatch', flush=True)
-    export_phase(torch, tmp, os.path.join(dir_audio, 'rec0.wav'),
-                 BATCHES[0] * 0.96,
-                 {'xla': xla_rows['high']['xla_classify'],
-                  'pallas': classify_ms,
-                  'pallas, "frontend": "pallas"': pallas_ms},
-                 reset_counts, read_counts, time_ms)
+    export_rows = export_phase(
+        torch, tmp, os.path.join(dir_audio, 'rec0.wav'), BATCHES[0] * 0.96,
+        {'xla': xla_rows['high']['xla_classify'], 'pallas': classify_ms,
+         'pallas, "frontend": "pallas"': pallas_ms},
+        reset_counts, read_counts, time_ms)
     gui_phase(tmp, dir_audio, dir_out, names)
     with torch.inference_mode():
         dispatch_phase(torch, all_params['yamnet'], l1[:5].contiguous(),
                        mid[:5].contiguous(), rows)
     examples_phase()
 
+    # --- 10. the JAX package's kernel and pipeline suites -------------
+    with torch.inference_mode():
+        suite_kernel_phase(torch, all_params, patches, wav_dev, cfg,
+                           device_ms)
+    routes_phase(torch, arrays, os.path.join(dir_audio, 'rec0.wav'), cfg,
+                 reset_counts, device_ms)
+    launches['fused_tail[4:8]'] = route_analyze_phase(
+        tmp, dir_audio, dir_out, names, reset_counts)
+    pipeline_modes_phase(tmp, dir_audio, dir_out, names, seconds,
+                         analyzer.chunklength, reset_counts, read_counts)
+    fresh_artifact_phase(tmp, export_rows['pallas'])
+
     # --- 9. the kernels line ------------------------------------------
     print(f'torch.profiler sessions that recorded no device time on any '
           f'attempt, timed by CUDA events instead: {device_ms.fallbacks}',
           flush=True)
-    order = ('fused_front', 'fused_tail', 'fused_front[bf16]',
+    order = ('fused_front', 'fused_tail', 'fused_tail[4:8]',
+             'fused_front[bf16]',
              'fused_tail[bf16]', 'fused_front[high]', 'fused_tail[high]',
              'log_mel', 'remap') + DOTS + ('fma_chain',)
     table = []

@@ -72,7 +72,7 @@ def test_native_stage_is_built_in_the_port_from_its_own_source():
     assert os.path.dirname(lib._name) == os.path.join(
         REPO, 'buzzdetect_torch', 'csrc', 'build')
     assert lib._name != jffi.get_lib()._name
-    assert driver_map()['mp3'] is NativeDriver
+    assert driver_map['mp3'] is NativeDriver
 
 
 @pytest.mark.parametrize('target', [16000, 0])
@@ -160,7 +160,7 @@ def test_unsupported_extension(tmp_path):
 
 def test_driver_map_covers_reference_formats():
     for ext in ['wav', 'flac', 'ogg', 'mp3', 'aiff', 'mp4', 'wma', 'mts']:
-        assert ext in driver_map(), ext
+        assert ext in driver_map, ext
 
 
 def test_file_vanishes_then_reappears(tmp_path):
@@ -345,7 +345,7 @@ def test_driver_map_without_the_native_stage(tmp_path, monkeypatch, caplog):
     monkeypatch.setattr(ffi, 'native_status', lambda: (False, reason))
     monkeypatch.setattr(audio, '_map', None)
     with caplog.at_level('WARNING', logger='buzzdetect_torch.audio'):
-        m = driver_map()
+        m = dict(driver_map)
     assert m == {'wav': WavDriver, 'wave': WavDriver}
     assert any('PCM16 WAV only' in r.message and reason in r.message
                and r.levelname == 'WARNING' for r in caplog.records)

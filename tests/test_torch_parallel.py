@@ -276,17 +276,23 @@ def test_cli_host_shard_concurrent_hosts(corpus, tmp_path):
             stderr=subprocess.PIPE)
 
     procs = [host(i) for i in range(2)]
+    children = []   # each child's exit code and the tail of its stderr
     try:
-        for p in procs:
+        for i, p in enumerate(procs):
             _out, err = p.communicate(timeout=CHILD_TIMEOUT)
-            assert p.returncode == 0, err.decode()[-2000:]
+            children.append(f'host {i}: exit {p.returncode}, stderr '
+                            f'{err.decode()[-2000:]!r}')
+            assert p.returncode == 0, children[-1]
     finally:
         for p in procs:
             p.kill()
     _run(dir_audio, tmp_path / 'oracle')
-    _same_csvs(dir_out, tmp_path / 'oracle', 6)
+    for i in range(6):
+        got = open(os.path.join(dir_out, f'r{i}_buzzdetect.csv')).read()
+        want = open(tmp_path / 'oracle' / f'r{i}_buzzdetect.csv').read()
+        assert got == want, f'r{i}: CSVs differ; {"; ".join(children)}'
     assert [f for f in os.listdir(dir_out)
-            if f.endswith('_buzzpart.csv')] == []
+            if f.endswith('_buzzpart.csv')] == [], '; '.join(children)
     mine = [shard_files(sorted(os.listdir(dir_audio)), h, 2) for h in (0, 1)]
     print(f'host 0 analyzed {mine[0]}, host 1 {mine[1]}')
 
@@ -294,10 +300,12 @@ def test_cli_host_shard_concurrent_hosts(corpus, tmp_path):
               for f in os.listdir(dir_out) if f.endswith('.csv')}
     p = host(0)
     try:
-        p.communicate(timeout=CHILD_TIMEOUT)
+        _out, err = p.communicate(timeout=CHILD_TIMEOUT)
     finally:
         p.kill()
-    assert p.returncode == 0
+    rerun = (f'host 0 rerun: exit {p.returncode}, stderr '
+             f'{err.decode()[-2000:]!r}')
+    assert p.returncode == 0, rerun
     after = {f: os.path.getmtime(os.path.join(dir_out, f))
              for f in os.listdir(dir_out) if f.endswith('.csv')}
-    assert before == after
+    assert before == after, rerun
