@@ -14,8 +14,10 @@ prompt on resume conflicts). Edits:
   the one CPU); ``--host_shard I/N`` shards the corpus as the JAX CLI does;
 * ``--strict_f32`` pins the conv kernels to exact f32 over a bundle's
   ``"conv_precision": "high"``;
-* ``main`` returns the finished Analyzer (the JAX CLI returns None), so an
-  in-process caller can read its end reason.
+* ``main`` returns None after a healthy end, as the JAX CLI does: the
+  installed ``buzzdetect-torch`` script runs ``sys.exit(main())``, which
+  exits 1 on any other value. An in-process caller that needs the
+  Analyzer wraps ``buzzdetect_torch.analysis.analyze``.
 """
 
 import argparse
@@ -347,7 +349,6 @@ def main(argv=None):
     if reason is not None and reason not in HEALTHY_END_REASONS:
         print(f'analysis ended abnormally: {reason}', file=sys.stderr)
         sys.exit(130 if reason == 'interrupted' else 1)
-    return result
 
 
 if __name__ == '__main__':

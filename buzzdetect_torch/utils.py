@@ -239,24 +239,52 @@ def cuda_time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _recorded_us(records, reps: int) -> float:
+    """The device microseconds of one profiler session's CUDA ``records``
+    (``(name, microseconds)`` each) over ``reps`` calls, summed; or 0.0 for
+    a partial record, said on stderr. Every kernel and copy of a call runs
+    a whole number of times per call, so a name recorded a number of times
+    that is not a multiple of ``reps`` lost some of its launches."""
+    import collections
+    import sys
+    counts = collections.Counter(name for name, _us in records)
+    short = {name: n for name, n in counts.items() if n % reps}
+    if short:
+        print(f'cuda_device_ms: torch.profiler recorded part of the '
+              f'launches over {reps} calls: {short}', file=sys.stderr,
+              flush=True)
+        return 0.0
+    return sum(us for _name, us in records)
+
+
 def _profiled_device_us(fn, reps: int) -> float:
     """Device microseconds that ``torch.profiler`` records over ``reps``
-    calls of ``fn()``: the CUDA kernels' durations, summed.
+    calls of ``fn()``: the CUDA kernels' durations, summed (0.0 for a
+    partial record, ``_recorded_us``).
 
-    Each session is a fresh profiler object with one cycle.
-    ``acc_events=True`` changes nothing for it but the warning: torch 2.11's
-    ``prepare_trace`` warns that "Profiler clears events at the end of each
-    cycle" right after it creates the session's profiler, so every process
-    warned at its first session although no object ever ran two cycles."""
+    Each session is a fresh profiler object with one cycle: a warmup step
+    of ``reps`` calls, traced and dropped, then the recorded step of
+    ``reps`` calls. On an H100 a session that recorded from its first call
+    lost the first launches of its trace, most often one call's, sometimes
+    all but the last two calls' (a tenth, or four fifths, of the time
+    read short). ``acc_events=True`` changes nothing for one cycle but the
+    warning: torch 2.11's ``prepare_trace`` warns that "Profiler clears
+    events at the end of each cycle" right after it creates the session's
+    profiler, so every process warned at its first session although no
+    object ever ran two cycles."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
                  acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+        for _step in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return _recorded_us([(e.name, e.device_time) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA],
+                        reps)
 
 
 def cuda_device_ms(fn, reps: int = 10, warmup: int = 3,
@@ -268,12 +296,13 @@ def cuda_device_ms(fn, reps: int = 10, warmup: int = 3,
     launch them, which can exceed the kernels' own: a run of many small
     launches is host-bound.
 
-    On an H100 the profiler has, rarely, recorded no device time for a
-    session whose kernels ran. Such a session is profiled again, up to
-    ``attempts`` sessions in all, each miss noted on stderr; if none
-    records device time, the CUDA-event time of ``cuda_time_ms`` is
-    returned instead, said so on stderr, and counted in
-    ``cuda_device_ms.fallbacks``."""
+    On an H100 the profiler has recorded no device time, or only part of
+    the launches, for a session whose kernels ran (``_profiled_device_us``
+    says how a session avoids the commonest loss). Such a session is
+    profiled again, up to ``attempts`` sessions in all, each miss noted on
+    stderr; if none records all of it, the CUDA-event time of
+    ``cuda_time_ms`` is returned instead, said so on stderr, and counted
+    in ``cuda_device_ms.fallbacks``."""
     import sys
 
     import torch
@@ -287,8 +316,9 @@ def cuda_device_ms(fn, reps: int = 10, warmup: int = 3,
         total = _profiled_device_us(fn, reps)
         if total > 0:
             return total / 1e3 / reps
-        print(f'cuda_device_ms: torch.profiler recorded no device time in '
-              f'session {attempt} of {attempts}', file=sys.stderr, flush=True)
+        print(f'cuda_device_ms: torch.profiler recorded no complete device '
+              f'time in session {attempt} of {attempts}', file=sys.stderr,
+              flush=True)
     cuda_device_ms.fallbacks += 1
     print('cuda_device_ms: returning the CUDA-event time (cuda_time_ms) '
           'instead', file=sys.stderr, flush=True)

@@ -37,7 +37,9 @@ Phases, each printed before the last line:
    the fused log-mel;
 3. the main paths end to end: ``buzzdetect_torch.analyze()`` on three
    30-minute 16 kHz WAV recordings (exact f32), then the CLI in process
-   (``buzzdetect_torch.cli.main``) on two 10-minute recordings through a
+   (``buzzdetect_torch.cli.main``, which must return None; the run's
+   Analyzer is read through a spy on ``analysis.analyze``) on two
+   10-minute recordings through a
    temporary models folder (``BUZZDETECT_DIR_MODELS``) that holds
    ``model_general_v3`` and two variants of it whose ``config_model.json``
    differ in one key each: (a) ``--bf16`` with ``"frontend": "pallas"``,
@@ -173,8 +175,9 @@ Phases, each printed before the last line:
    from layers 8 and 13 at B = 3 with and without pooling (and from 8 at
    B = 1 and 8), the layer 4-7 block at B = 1, 3 and 8, bf16 and HIGH at
    B = 3, and the fused log-mel on 1.0, 4.8 and 10.0 s: each against its
-   plain version at phase 2's tolerances, and its device time beside the
-   cuDNN layer stack's (the matmul frontend's); (b) the three
+   plain version at phase 2's tolerances, its device time beside the plain
+   version's and the cuDNN layer stack's (the matmul frontend's), and its
+   bound by phase 2's formula; (b) the three
    ``BUZZDETECT_PALLAS_FRONT`` routes (``models/yamnet.PALLAS_FRONT``:
    layers 2-7 in one ``fused_front``; 2-3 and a ``fused_tail`` 4-7; layers
    1-3 by cuDNN) through ``yamnet.embed`` on one 200.64 s chunk (209
@@ -190,7 +193,28 @@ Phases, each printed before the last line:
    and a resume from a partial holding one chunk, byte-identical to phase
    3's CSV; (d) phase 8's ``conv='pallas'`` artifact loaded in a ``spawn``
    child with an empty build folder: it builds the kernels, and its scores
-   equal the live model's.
+   equal the live model's;
+11. the paths of the last JAX suites given twins (``tests/test_profile.py``,
+   ``test_score_embeddings.py``, ``test_train.py``), at the full width of
+   ``model_general_v3`` on phase 10c's 300 s excerpt of phase 3's first
+   recording: (a) ``analyze(profile='field')``, ``analyze(profile=
+   'strict')`` and ``analyze(strict_f32=True)`` on the card and on the
+   CPU: end reason, the manifest's ``profile`` key, the resolved wire, the
+   field profile's note in the run's log, the conv kernels' launches (one
+   ``fused_front`` and one ``fused_tail`` per chunk, exact f32), card CSV
+   against CPU CSV after 2-digit rounding; (b) ``train.embed_corpus.
+   embed_directory`` of the excerpt on the card and on the CPU at the
+   default chunk length and at 2.0 s: the start grid on one 0.96 s stride
+   across chunk boundaries, the conv kernels' launches (one of each per
+   chunk), the embeddings card against CPU; then ``python -m
+   buzzdetect_torch.tools.score_embeddings`` on the card's embeddings of
+   both chunk lengths, and on the default ones with an ensemble bundle
+   made by ``tools/build_ensemble`` (two copies of ``model_general_v3``),
+   each CSV equal to ``analyze()``'s on the card after 2-digit rounding;
+   (c) the installed CLI's form, ``sys.exit(buzzdetect_torch.cli.
+   main([...]))``, in a child process on the card on phase 3's first
+   recording: exit status 0, no Analyzer on stderr, its CSV
+   byte-identical to phase 3's.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero with a message, and without a CUDA device the script exits
@@ -757,6 +781,29 @@ def xla_conv_phase(torch, dev, arrays, cfg, wire, path_audio, chunk_s,
     return rows
 
 
+def cli_run(argv):
+    """``buzzdetect_torch.cli.main(argv)`` in process. It must return None
+    (the installed ``buzzdetect-torch`` script runs ``sys.exit(main())``,
+    which exits 1 on any other value); the Analyzer of its run is kept by a
+    spy on ``buzzdetect_torch.analysis.analyze`` and returned."""
+    from buzzdetect_torch import analysis, cli
+    real, seen = analysis.analyze, []
+
+    def spy(**kw):
+        seen.append(real(**kw))
+        return seen[-1]
+
+    analysis.analyze = spy
+    try:
+        rc = cli.main(argv)
+    finally:
+        analysis.analyze = real
+    if rc is not None or len(seen) != 1:
+        fail(f'cli.main returned {rc!r} after {len(seen)} analyze() calls; '
+             f'the installed script would not exit 0')
+    return seen[0]
+
+
 def xla_cli_phase(tmp, arrays, cfg, cli_audio, cli_names, cli_seconds,
                   reset_counts, read_counts, device='cuda'):
     """(b) The CLI (``cli.main``, in process) on the XLA_BUNDLE, whose
@@ -767,15 +814,14 @@ def xla_cli_phase(tmp, arrays, cfg, cli_audio, cli_names, cli_seconds,
     CSVs equal after their 2-digit rounding (one unit of the last digit:
     a value within f32 rounding of a rounding edge may print the other
     way)."""
-    from buzzdetect_torch import cli
     runs = {}
     for name in (MODEL, XLA_BUNDLE[0]):
         out = os.path.join(tmp, f'out_cli_{name}')
         reset_counts()
         t0 = time.perf_counter()
-        result = cli.main(['--modelname', name, '--dir_audio', cli_audio,
-                           '--dir_out', out, '--verbosity_print', 'WARNING',
-                           '--device', device])
+        result = cli_run(['--modelname', name, '--dir_audio', cli_audio,
+                          '--dir_out', out, '--verbosity_print', 'WARNING',
+                          '--device', device])
         wall = time.perf_counter() - t0
         counts = read_counts()
         reason = result.coordinator.end_reason
@@ -1982,6 +2028,25 @@ BATCH_CHUNKS = 4
 # (d) the fresh process's time limit (it builds csrc/sepconv.cu itself)
 CHILD_TIMEOUT = 600
 
+# phase 11, the last JAX suites' paths on the card. (a) the profile runs:
+# (label, analyze keywords, the manifest's profile key (None: absent), the
+# wire the run must resolve)
+PROFILE_RUNS = (
+    ("profile='field'", {'profile': 'field'}, 'field', 'mulaw'),
+    ("profile='strict'", {'profile': 'strict'}, 'strict', 'float32'),
+    ('strict_f32=True', {'strict_f32': True}, None, 'int16'),
+)
+# (b) embed_directory's chunk lengths, and the ensemble's two members
+# (copies of model_general_v3) and its bundle
+EMBED_CHUNKS = (200.0, 2.0)
+ENSEMBLE = ('v3_member_a', 'v3_member_b', 'v3_duo')
+# (c) the installed script's form, run in a child process with the CLI's
+# arguments, and the time limit of each child of phase 11
+CONSOLE_SCRIPT = ('import sys\n'
+                  'from buzzdetect_torch.cli import main\n'
+                  'sys.exit(main(sys.argv[1:]))\n')
+PHASE11_TIMEOUT = 600
+
 
 def tolerance(mode, ref):
     """(atol, rtol) of a kernel against its plain version, as phase 2
@@ -2006,30 +2071,38 @@ def read_ranges():
     return tuple(out)
 
 
-def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms):
+def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms,
+                       peaks):
     """(a) The kernel grids of the JAX package's kernel suites on the card:
     each SUITE_CONV case on the first B rows of phase 2's activations (its
     input from the plain stack), and the fused log-mel on SUITE_SECONDS of
     phase 2's waveform padded by ``frontend.pad_waveform``: each against
     its plain version at phase 2's tolerances, two launches bit-identical,
-    and its device time beside the cuDNN layer stack's (the matmul
-    frontend's for the log-mel). Returns {(label, mode, B): row}."""
+    its device time beside the plain version's and the cuDNN layer
+    stack's (the matmul frontend's for the log-mel), and its bound by
+    phase 2's formula from ``peaks``
+    (f32, bf16 and memory rates). Returns {(label, mode, B): row}."""
     from buzzdetect_torch.models import yamnet
     from buzzdetect_torch.ops import frontend, logmel, sepconv
     from buzzdetect_torch.tools.roofline import library_stack, library_weights
     rows = {}
+    f32_peak, bf16_peak, bytes_peak = peaks
 
-    def hold(name, got, again, ref, mode, run_kernel, run_library):
+    def hold(name, got, again, ref, mode, run_kernel, run_plain, run_library,
+             work):
         err = float((got - ref).abs().max())
         atol, rtol = tolerance(mode, ref)
         row = dict(max_abs_err=err, device_ms=device_ms(run_kernel),
-                   library_device_ms=device_ms(run_library))
+                   plain_device_ms=device_ms(run_plain),
+                   library_device_ms=device_ms(run_library), **bound(*work))
         print(f'(a) {name}: max |kernel - plain| = {err:.3g} (atol '
               f'{atol:.3g}, rtol {rtol:.3g}); device time kernel '
-              f'{row["device_ms"]:.4f} ms, library '
+              f'{row["device_ms"]:.4f} ms, plain '
+              f'{row["plain_device_ms"]:.4f} ms, library '
               f'{row["library_device_ms"]:.4f} ms (kernel / library '
-              f'{row["device_ms"] / row["library_device_ms"]:.2f}x)',
-              flush=True)
+              f'{row["device_ms"] / row["library_device_ms"]:.2f}x); bound '
+              f'{row["bound_ms"]:.3g} ms ({row["bound_by"]}; kernel '
+              f'{row["device_ms"] / row["bound_ms"]:.1f}x)', flush=True)
         if not torch.allclose(got, ref, atol=atol, rtol=rtol):
             fail(f'{name} disagrees with its plain version: max |d| '
                  f'{err:.3g}')
@@ -2064,21 +2137,33 @@ def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms):
                 got = wrapper(params, xb, **kw)
                 again = wrapper(params, xb, **kw)
                 torch.cuda.synchronize()
+                pw_f, dw_f, n_bytes = stack_work(specs, b, gap, mode)
+                t_ops = ((pw_f + dw_f) / f32_peak if mode == 'highest'
+                         else max(pw_f / bf16_peak, dw_f / f32_peak))
                 rows[label, mode, b] = hold(
                     f'{label} [{mode}] B={b}', got, again,
                     plain(params, xb, **kw), mode,
                     lambda: wrapper(params, xb, **kw),
-                    lambda: library_stack(lib_w, x_nchw, specs, gap))
+                    lambda: plain(params, xb, **kw),
+                    lambda: library_stack(lib_w, x_nchw, specs, gap),
+                    (t_ops, n_bytes / bytes_peak))
     for seconds in SUITE_SECONDS:
         w = frontend.pad_waveform(wav[:int(seconds * 16000)], cfg)
         got = logmel.log_mel_spectrogram_fused(w, cfg)
         again = logmel.log_mel_spectrogram_fused(w, cfg)
         torch.cuda.synchronize()
+        # phase 2's count: the DFT and mel products of every frame, the
+        # waveform and the two matrices read once, the log-mel written once
+        n_frames = 1 + (w.shape[0] - 400) // 160
+        flops = n_frames * 2 * (400 * 2 * 257 + 257 * 64)
+        n_bytes = 4 * (w.shape[0] + n_frames * 64 + 400 * 2 * 257 + 257 * 64)
         rows['log_mel', seconds, 1] = hold(
             f'log_mel {seconds} s ({got.shape[-2]} frames)', got, again,
             logmel.log_mel_spectrogram_fused_plain(w, cfg), 'highest',
             lambda: logmel.log_mel_spectrogram_fused(w, cfg),
-            lambda: frontend.log_mel_spectrogram(w, cfg))
+            lambda: logmel.log_mel_spectrogram_fused_plain(w, cfg),
+            lambda: frontend.log_mel_spectrogram(w, cfg),
+            (flops / f32_peak, n_bytes / bytes_peak))
     return rows
 
 
@@ -2213,7 +2298,8 @@ def pipeline_modes_phase(tmp, dir_audio, dir_out, names, seconds, chunk_s,
     ``dir_out``; the batch path with the ``"frontend": "pallas"`` variant,
     whose log-mel must launch once per batched call; and a resume from a
     partial holding the second chunk of phase 3's first recording, which
-    must reproduce phase 3's CSV byte for byte."""
+    must reproduce phase 3's CSV byte for byte. Returns the excerpt's
+    folder."""
     import buzzdetect_torch
     from buzzdetect_torch.ops.frontend import FrontendConfig
     from buzzdetect_torch.write.coverage import gaps_to_chunklist
@@ -2318,6 +2404,7 @@ def pipeline_modes_phase(tmp, dir_audio, dir_out, names, seconds, chunk_s,
     if os.path.exists(os.path.join(resume_out, f'{name}_buzzpart.csv')):
         fail('the resume left its partial behind')
     same_csvs(resume_out, dir_out, names[:1], 'the resumed run')
+    return excerpt
 
 
 def artifact_child(path, wire, dir_build, q):
@@ -2388,6 +2475,290 @@ def fresh_artifact_phase(tmp, row):
              f'model\'s')
 
 
+def profile_phase(tmp, excerpt, name, chunk_s, reset_counts, read_counts,
+                  device='cuda'):
+    """(a) PROFILE_RUNS through ``analyze()`` on ``excerpt`` (phase 10c's
+    folder holding ``name``), on ``device`` and on the CPU: end reason, the
+    manifest's profile key, the resolved wire, the field note in the run's
+    log, the conv kernels' launches on ``device`` (exact f32, one of each
+    per ``chunk_s`` chunk and one per dispatch thread's warmup, a nominal
+    chunk at its start), and the two CSVs equal after their 2-digit
+    rounding (one unit of the last digit: a value within f32 rounding of a
+    rounding edge may print the other way)."""
+    import buzzdetect_torch
+    from buzzdetect_torch.write.coverage import gaps_to_chunklist
+    print('11a. the deployment profiles through analyze()', flush=True)
+    chunks = len(gaps_to_chunklist([(0.0, EXCERPT_SECONDS)], chunk_s))
+    for i, (label, kw, key, wire) in enumerate(PROFILE_RUNS):
+        outs = [os.path.join(tmp, f'out_profile{i}_{k}')
+                for k in ('run', 'cpu')]
+        for out, d in zip(outs, (device, 'cpu')):
+            reset_counts()
+            t0 = time.perf_counter()
+            result = buzzdetect_torch.analyze(
+                modelname=MODEL, dir_audio=excerpt, dir_out=out,
+                verbosity_print='WARNING', device=d, **kw)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            reason = result.coordinator.end_reason
+            with open(os.path.join(out, 'buzzdetect_manifest.json')) as f:
+                manifest = json.load(f)
+            logs = [p for p in os.listdir(out) if p.endswith('.log')]
+            text = ''.join(open(os.path.join(out, p)).read() for p in logs)
+            note = [ln.strip() for ln in text.splitlines()
+                    if "profile 'field'" in ln]
+            clf = result.model.classifier
+            print(f'(a) {label} on {d}: end reason {reason!r}, {wall:.2f} s '
+                  f'wall; manifest profile '
+                  f'{manifest.get("profile", "(absent)")!r}; wire '
+                  f'{result.model.transfer_dtype!r}; conv precision '
+                  f'{clf.conv_precision!r}; field note in the log: '
+                  f'{note[0][:90] + "..." if note else "none"}; kernel '
+                  f'launches {counts}', flush=True)
+            if reason != 'completed':
+                fail(f'{label} on {d} ended {reason!r}')
+            if manifest.get('profile') != key or (
+                    key is None and 'profile' in manifest):
+                fail(f'{label} on {d}: the manifest records profile '
+                     f'{manifest.get("profile")!r}, expected {key!r}')
+            if result.model.transfer_dtype != wire:
+                fail(f'{label} on {d}: wire {result.model.transfer_dtype!r}, '
+                     f'expected {wire!r}')
+            if bool(note) != (key == 'field') or (
+                    note and 'mu-law' not in text):
+                fail(f'{label} on {d}: the field note in the log is '
+                     f'{note!r}')
+            if clf.conv_precision != 'highest':
+                fail(f'{label} on {d}: conv precision '
+                     f'{clf.conv_precision!r}, expected exact f32')
+            if d == device:
+                warmups = result.coordinator.analyzers_total
+                want = dict.fromkeys(('fused_front', 'fused_tail'),
+                                     chunks + warmups)
+                launched = {k: v for k, v in counts.items() if v}
+                if launched != want:
+                    fail(f'{label}: the conv kernels launched {launched}, '
+                         f'expected {want} ({chunks} chunks and {warmups} '
+                         f'warmup)')
+        worst = csv_gap(*outs, [name])
+        identical = file_bytes(outs[0], name) == file_bytes(outs[1], name)
+        print(f'(a) {label}: {device} against CPU max |d| = {worst:.3g} '
+              f'after 2-digit rounding (byte-identical: {identical})',
+              flush=True)
+        if worst > 0.0101:
+            fail(f'{label}: {device} and CPU CSVs differ by {worst:.3g}')
+
+
+def score_tool(dir_embeddings, modelname, out, device):
+    """``python -m buzzdetect_torch.tools.score_embeddings`` as a started
+    child process (its output to a file beside ``out``)."""
+    log = open(out + '.log', 'w')
+    return subprocess.Popen(
+        [sys.executable, '-m', 'buzzdetect_torch.tools.score_embeddings',
+         '--dir_embeddings', dir_embeddings, '--modelname', modelname,
+         '--dir_out', out, '--device', device],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log
+
+
+def wait_children(children, what):
+    """Wait for each (label, process, log file); stop any that outlives
+    PHASE11_TIMEOUT; fail on a non-zero exit, showing its output."""
+    try:
+        for label, proc, log in children:
+            try:
+                rc = proc.wait(timeout=PHASE11_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                fail(f'{what} {label}: no exit in {PHASE11_TIMEOUT} s')
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    fail(f'{what} {label} exited {rc}: {f.read()[-2000:]}')
+    finally:
+        for _label, proc, log in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def ensemble_columns(path, members, classes):
+    """Each member's columns of an ensemble CSV, in ``classes`` order, as a
+    table with the start column first (an analyze() CSV's layout)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    header = lines[0].split(',')
+    table = np.array([ln.split(',') for ln in lines[1:]], float)
+    return {m: table[:, [0] + [header.index(f'activation_{m}.{c}')
+                               for c in classes]] for m in members}
+
+
+def embeddings_phase(tmp, excerpt, name, reset_counts, read_counts,
+                     device='cuda'):
+    """(b) ``embed_directory`` of ``excerpt`` at EMBED_CHUNKS on ``device``
+    and on the CPU (start grid, launches per chunk, embeddings against the
+    CPU's within EMB_RTOL of the largest), then ``score_embeddings`` on the
+    ``device`` embeddings of each chunk length with model_general_v3, and
+    on the default ones with the ENSEMBLE bundle that ``tools/
+    build_ensemble`` makes: every CSV, and every member's columns of the
+    ensemble's, equal to ``analyze()``'s on ``device`` after 2-digit
+    rounding. Embeddings made at another chunk length than ``analyze()``'s
+    differ from its run at the last frame of each of their chunks, in the
+    JAX package as here: that frame's patch reads 15 ms past its 0.96 s,
+    zero padding at a chunk's end and audio inside ``analyze()``'s chunk.
+    Those rows are reported apart and every other row is held. The
+    children are stopped before this returns."""
+    import buzzdetect_torch
+    from buzzdetect_torch import config as cfg
+    from buzzdetect_torch.tools import build_ensemble
+    from buzzdetect_torch.train.embed_corpus import (embed_directory,
+                                                     load_embeddings)
+    from buzzdetect_torch.write.coverage import gaps_to_chunklist
+    print('11b. embed_directory, then score_embeddings', flush=True)
+    golden = os.path.join(tmp, 'out_excerpt_default')
+    result = buzzdetect_torch.analyze(modelname=MODEL, dir_audio=excerpt,
+                                      dir_out=golden, device=device,
+                                      verbosity_print='WARNING')
+    if result.coordinator.end_reason != 'completed':
+        fail(f'analyze() of the excerpt ended '
+             f'{result.coordinator.end_reason!r}')
+    classes = list(result.model.config['classes'])
+    dirs = {}
+    for cl in EMBED_CHUNKS:
+        got = {}
+        for role, d in (('run', device), ('cpu', 'cpu')):
+            out = os.path.join(tmp, f'emb_{cl:g}_{role}')
+            reset_counts()
+            t0 = time.perf_counter()
+            written = embed_directory(excerpt, out, modelname=MODEL,
+                                      chunklength=cl, log=lambda *_: None,
+                                      device=d)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            if len(written) != 1:
+                fail(f'embed_directory at {cl:g} s on {d} wrote {written}')
+            got[role] = load_embeddings(written[0])
+            dirs[cl, role] = out
+            if role == 'cpu':
+                continue
+            rounded = max(round(cl / 0.96) * 0.96, 0.96)
+            chunks = len(gaps_to_chunklist([(0.0, EXCERPT_SECONDS)],
+                                           rounded))
+            starts = got[role][0]
+            steps = np.diff(starts)
+            print(f'(b) embed_directory at chunklength {cl:g} s ({rounded:g} '
+                  f's chunks) on {d}: {wall:.2f} s wall, {len(starts)} '
+                  f'frames, starts {starts[:3].tolist()} ... '
+                  f'{starts[-2:].tolist()}, stride {steps.min():.6f}-'
+                  f'{steps.max():.6f} s over {chunks} chunks; kernel '
+                  f'launches {counts}', flush=True)
+            if starts[0] != 0.0 or not np.allclose(steps, 0.96, atol=1e-6):
+                fail(f'the start grid at {cl:g} s is off the 0.96 s stride')
+            want = {'fused_front': chunks, 'fused_tail': chunks}
+            launched = {k: v for k, v in counts.items() if v}
+            if launched != want:
+                fail(f'embed_directory at {cl:g} s launched {launched}, '
+                     f'expected {want}')
+        (s_dev, e_dev), (s_cpu, e_cpu) = got['run'], got['cpu']
+        scale = float(np.abs(e_cpu).max())
+        diff = float(np.abs(e_dev - e_cpu).max())
+        print(f'(b) embeddings at {cl:g} s, {device} against CPU: shape '
+              f'{e_dev.shape}, max |d| = {diff:.3g} (budget '
+              f'{EMB_RTOL} x {scale:.3g})', flush=True)
+        if (e_dev.shape != e_cpu.shape or not np.array_equal(s_dev, s_cpu)
+                or diff > EMB_RTOL * scale):
+            fail(f'embeddings at {cl:g} s: {device} and CPU differ by '
+                 f'{diff:.3g}')
+
+    models = cfg.resolve_dir(cfg.DIR_MODELS)
+    src = os.path.join(ROOT, 'models', MODEL)
+    for member in ENSEMBLE[:2]:
+        dst = os.path.join(models, member)
+        shutil.copytree(src, dst, ignore=shutil.ignore_patterns('model.npz'))
+        os.symlink(os.path.join(src, 'model.npz'),
+                   os.path.join(dst, 'model.npz'))
+    build_ensemble.main([os.path.join(models, m) for m in ENSEMBLE[:2]]
+                        + ['--out', os.path.join(models, ENSEMBLE[2])])
+    runs = [(f'{MODEL}, {cl:g} s embeddings', dirs[cl, 'run'], MODEL,
+             os.path.join(tmp, f'scored_{cl:g}')) for cl in EMBED_CHUNKS]
+    runs.append((f'{ENSEMBLE[2]} (ensemble), {EMBED_CHUNKS[0]:g} s '
+                 f'embeddings', dirs[EMBED_CHUNKS[0], 'run'], ENSEMBLE[2],
+                 os.path.join(tmp, 'scored_ensemble')))
+    t0 = time.perf_counter()
+    children = [(label,) + score_tool(emb, model, out, device)
+                for label, emb, model, out in runs]
+    wait_children(children, 'score_embeddings')
+    print(f'(b) {len(children)} score_embeddings processes, run together: '
+          f'{time.perf_counter() - t0:.2f} s wall', flush=True)
+    with open(os.path.join(golden, f'{name}_buzzdetect.csv')) as f:
+        want = np.array([ln.split(',') for ln in f.read().splitlines()[1:]],
+                        float)
+    for cl, (label, _emb, model, out) in zip(EMBED_CHUNKS, runs):
+        with open(os.path.join(out, f'{name}_buzzdetect.csv')) as f:
+            table = np.array([ln.split(',') for ln in
+                              f.read().splitlines()[1:]], float)
+        if table.shape != want.shape:
+            fail(f'score_embeddings with {label}: shape {table.shape}, '
+                 f'analyze() {want.shape}')
+        gap = np.abs(table - want).max(axis=1)
+        per_chunk = round(max(round(cl / 0.96) * 0.96, 0.96) / 0.96)
+        edge = np.zeros(len(gap), bool)
+        if abs(per_chunk * 0.96 - result.chunklength) > 1e-6:
+            edge[per_chunk - 1::per_chunk] = True
+            edge[-1] = True
+        identical = file_bytes(out, name) == file_bytes(golden, name)
+        print(f'(b) score_embeddings with {label}: against analyze() on '
+              f'{device} max |d| = {gap[~edge].max():.3g} after 2-digit '
+              f'rounding over {int((~edge).sum())} rows'
+              + (f', {gap[edge].max():.3g} over the {int(edge.sum())} rows '
+                 f'that end a {per_chunk * 0.96:g} s chunk' if edge.any()
+                 else '') + f' (byte-identical: {identical})', flush=True)
+        if gap[~edge].max() > 0.0101:
+            fail(f'score_embeddings with {label} differs from analyze() by '
+                 f'{gap[~edge].max():.3g}')
+    label, _emb, _model, out = runs[-1]
+    members = ensemble_columns(os.path.join(out, f'{name}_buzzdetect.csv'),
+                               ENSEMBLE[:2], classes)
+    worst = max(float(np.abs(t - want).max()) if t.shape == want.shape
+                else np.inf for t in members.values())
+    print(f'(b) score_embeddings with {label}: each member\'s {len(classes)} '
+          f'columns against analyze() on {device} max |d| = {worst:.3g} '
+          f'after 2-digit rounding', flush=True)
+    if worst > 0.0101:
+        fail(f'the ensemble\'s member columns differ from analyze() by '
+             f'{worst:.3g}')
+
+
+def console_script_phase(tmp, dir_audio, dir_out, name, device='cuda'):
+    """(c) The installed script's form, ``sys.exit(main(argv))``, in a
+    child process on phase 3's recording ``name``: exit status 0, no
+    Analyzer on stderr, the CSV byte-identical to phase 3's in
+    ``dir_out``. The child is stopped before this returns."""
+    print('11c. the installed CLI\'s exit status', flush=True)
+    one = os.path.join(tmp, 'console_audio')
+    os.makedirs(one)
+    os.symlink(os.path.join(dir_audio, f'{name}.wav'),
+               os.path.join(one, f'{name}.wav'))
+    out = os.path.join(tmp, 'out_console')
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, '-c', CONSOLE_SCRIPT, '--modelname', MODEL,
+             '--dir_audio', one, '--dir_out', out, '--verbosity_print',
+             'WARNING', '--device', device],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=PHASE11_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f'the CLI child gave no exit in {PHASE11_TIMEOUT} s')
+    print(f'(c) sys.exit(buzzdetect_torch.cli.main([...])) in a child on '
+          f'{device}: exit status {proc.returncode}, '
+          f'{time.perf_counter() - t0:.2f} s wall; stderr names the '
+          f'Analyzer: {"Analyzer" in proc.stderr}', flush=True)
+    if proc.returncode != 0 or 'Analyzer' in proc.stderr:
+        fail(f'the CLI child exited {proc.returncode}: '
+             f'{proc.stderr[-2000:]}')
+    same_csvs(out, dir_out, [name], 'the CLI child')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2407,7 +2778,6 @@ def main():
 def run(torch, tmp):
     sys.path.insert(0, ROOT)
     import buzzdetect_torch
-    from buzzdetect_torch import cli
     from buzzdetect_torch.models import yamnet
     from buzzdetect_torch.models.classifier import _classify, _to_float
     from buzzdetect_torch.models.heads import apply_head
@@ -2731,7 +3101,7 @@ def run(torch, tmp):
                 '--dir_out', out, '--verbosity_print', 'WARNING', *flags]
         reset_counts()
         t0 = time.perf_counter()
-        result = cli.main(argv)
+        result = cli_run(argv)
         wall = time.perf_counter() - t0
         counts = read_counts()
         reason = result.coordinator.end_reason
@@ -3078,14 +3448,23 @@ def run(torch, tmp):
     # --- 10. the JAX package's kernel and pipeline suites -------------
     with torch.inference_mode():
         suite_kernel_phase(torch, all_params, patches, wav_dev, cfg,
-                           device_ms)
+                           device_ms, (f32_peak, bf16_peak, bytes_peak))
     routes_phase(torch, arrays, os.path.join(dir_audio, 'rec0.wav'), cfg,
                  reset_counts, device_ms)
     launches['fused_tail[4:8]'] = route_analyze_phase(
         tmp, dir_audio, dir_out, names, reset_counts)
-    pipeline_modes_phase(tmp, dir_audio, dir_out, names, seconds,
-                         analyzer.chunklength, reset_counts, read_counts)
+    excerpt = pipeline_modes_phase(tmp, dir_audio, dir_out, names, seconds,
+                                   analyzer.chunklength, reset_counts,
+                                   read_counts)
     fresh_artifact_phase(tmp, export_rows['pallas'])
+
+    # --- 11. the last JAX suites' paths --------------------------------
+    t0 = time.perf_counter()
+    profile_phase(tmp, excerpt, names[0], analyzer.chunklength, reset_counts,
+                  read_counts)
+    embeddings_phase(tmp, excerpt, names[0], reset_counts, read_counts)
+    console_script_phase(tmp, dir_audio, dir_out, names[0])
+    print(f'phase 11: {time.perf_counter() - t0:.2f} s wall', flush=True)
 
     # --- 9. the kernels line ------------------------------------------
     print(f'torch.profiler sessions that recorded no device time on any '

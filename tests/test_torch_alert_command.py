@@ -2,11 +2,10 @@
 alert_command``), on the CPU.
 
 Mirrors tests/test_alert_command.py test for test against
-``buzzdetect_torch``. Edits: ``analyze()`` runs with ``device='cpu'`` (the
-bundle is made by the JAX package's ``build_model_bundle``, which the port
-has not copied yet); the port has no GUI (ROADMAP §1, "The GUI"), so the
-cross-field rule that the JAX package tests on its GUI form is tested on
-the port's CLI, which applies it through ``analyze()``.
+``buzzdetect_torch``. Edits: ``analyze()`` runs with ``device='cpu'``; the
+bundle is made by the port's ``build_model_bundle``; the cross-field rule
+is tested on the port's GUI form (``buzzdetect_torch.gui.viewmodel.
+SettingsModel``), as the JAX case tests the JAX GUI's.
 
 The JAX package's docstring:
 
@@ -163,27 +162,24 @@ def test_analyze_requires_alert_classes():
                 device='cpu')
 
 
-def test_viewmodel_cross_field_rule(tmp_path):
-    """A command alone is refused, naming alert_classes, before any model
-    loads; with classes and a threshold the same command reaches the run's
-    Analyzer (the CLI is the port's form: it has no GUI)."""
-    from buzzdetect_torch import cli
-    argv = ['--modelname', 'model_general_v3', '--dir_audio',
-            str(tmp_path), '--dir_out', str(tmp_path / 'out'), '--device',
-            'cpu', '--verbosity_print', 'ERROR', '--alert_command',
-            'echo hi']
-    with pytest.raises(ValueError, match='alert_classes'):
-        cli.main(argv)
-    a = cli.main(argv + ['--alert_classes', 'ins_buzz',
-                         '--alert_threshold', '-2.0'])
-    assert a.alert_command == 'echo hi'
+def test_viewmodel_cross_field_rule():
+    from buzzdetect_torch.gui.viewmodel import SettingsModel
+    m = SettingsModel()
+    m.values['alert_command'] = 'echo hi'
+    v = m.validate_field('alert_command')
+    assert not v.valid and 'alert_classes' in v.message
+    m.values['alert_classes'] = 'ins_buzz'
+    m.values['alert_threshold'] = -2.0
+    assert m.validate_field('alert_command').valid
+    kwargs = m.analyze_kwargs()
+    assert kwargs['alert_command'] == 'echo hi'
 
 
 def test_pipeline_runs_alert_command(tmp_path):
     """End to end: analyze(alert_classes=..., alert_command=...) runs the
     hook with the event's data for a real detection."""
-    from buzzdetect_tpu.models.convert import build_model_bundle
     from buzzdetect_torch import config as cfg
+    from buzzdetect_torch.models.convert import build_model_bundle
     from buzzdetect_torch.analysis import analyze
     from tests.audio_fixtures import make_tone, write_wav
 

@@ -62,15 +62,35 @@ def _csv(path):
         return list(csv.reader(f))
 
 
+def _main(argv):
+    """``tcli.main(argv)``, which returns None after a healthy end, and the
+    Analyzer that its ``analyze()`` call returned, kept by a spy that wraps
+    ``buzzdetect_torch.analysis.analyze`` for the call."""
+    from buzzdetect_torch import analysis
+    real, seen = analysis.analyze, []
+
+    def spy(**kw):
+        seen.append(real(**kw))
+        return seen[-1]
+
+    analysis.analyze = spy
+    try:
+        assert tcli.main(argv) is None
+    finally:
+        analysis.analyze = real
+    return seen[-1]
+
+
 def test_cli_cpu_run_matches_jax_analyze(audio, tmp_path):
     """``--device cpu`` end to end: the CSV matches the JAX package's
-    analyze() on the same file; a finished run returns its Analyzer, and a
-    rerun over the finished folder ends 'fully analyzed' (both exit 0)."""
+    analyze() on the same file; a finished run returns None (its Analyzer,
+    read through a spy on analyze(), ended 'completed'), and a rerun over
+    the finished folder ends 'fully analyzed' (both exit 0)."""
     dir_out = tmp_path / 'torch'
     argv = ['--modelname', MODEL, '--dir_audio', str(audio), '--dir_out',
             str(dir_out), '--chunklength', '5', '--verbosity_print',
             'ERROR', '--device', 'cpu']
-    result = tcli.main(argv)
+    result = _main(argv)
     assert result.coordinator.end_reason == 'completed'
     buzzdetect_tpu.analyze(modelname=MODEL, dir_audio=str(audio),
                            dir_out=str(tmp_path / 'jax'), chunklength=5,
@@ -85,7 +105,7 @@ def test_cli_cpu_run_matches_jax_analyze(audio, tmp_path):
     print(f'CLI --device cpu vs JAX analyze: max |d| over CSV scores = '
           f'{err:.3g}')
     assert err <= ATOL_CSV
-    again = tcli.main(argv)
+    again = _main(argv)
     assert again.coordinator.end_reason == 'fully analyzed'
 
 
@@ -101,10 +121,10 @@ def test_cli_unported_flags_exit_2_naming_the_roadmap_item(audio, tmp_path,
     run, or host 0's shard of the fixture). A malformed value of the same
     flag still exits 2, before any work, with the JAX CLI's message."""
     dir_out = tmp_path / 'out'
-    result = tcli.main(['--modelname', MODEL, '--dir_audio', str(audio),
-                        '--dir_out', str(dir_out), '--device', 'cpu',
-                        '--chunklength', '5', '--verbosity_print', 'ERROR',
-                        *flags])
+    result = _main(['--modelname', MODEL, '--dir_audio', str(audio),
+                    '--dir_out', str(dir_out), '--device', 'cpu',
+                    '--chunklength', '5', '--verbosity_print', 'ERROR',
+                    *flags])
     mine = True
     if flags[0] == '--devices':
         assert len(result.replica_models) == 1
@@ -133,7 +153,8 @@ def test_cli_unported_flags_exit_2_naming_the_roadmap_item(audio, tmp_path,
 def test_cli_exit_codes_follow_the_end_reason(monkeypatch, tmp_path, reason,
                                               code):
     """The scripting contract of buzzdetect_tpu/cli.py: a healthy end exits
-    0, an abnormal one 1, an interrupt 130."""
+    0 (``main`` returns None, as the JAX CLI's does), an abnormal one 1, an
+    interrupt 130."""
     import types
     from buzzdetect_torch import analysis
     run = types.SimpleNamespace(
@@ -142,11 +163,52 @@ def test_cli_exit_codes_follow_the_end_reason(monkeypatch, tmp_path, reason,
     argv = ['--modelname', MODEL, '--dir_audio', str(tmp_path),
             '--dir_out', str(tmp_path / 'out'), '--device', 'cpu']
     if code is None:
-        assert tcli.main(argv) is run
+        assert tcli.main(argv) is None
     else:
         with pytest.raises(SystemExit) as e:
             tcli.main(argv)
         assert e.value.code == code
+
+
+CONSOLE_SCRIPT = """
+import sys
+from buzzdetect_torch import analysis
+from buzzdetect_torch.cli import main
+force = sys.argv.pop(1)
+if force:
+    real = analysis.analyze
+
+    def analyze(**kw):
+        run = real(**kw)
+        run.coordinator.end_reason = force
+        return run
+    analysis.analyze = analyze
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+@pytest.mark.parametrize('force,code', [('', 0), ('analyzer failure', 1)])
+def test_console_script_exit_status(audio, tmp_path, force, code):
+    """The installed ``buzzdetect-torch`` form, ``sys.exit(main(argv))``, in
+    a child process: a healthy run exits 0 and prints no Analyzer on
+    stderr; a run whose end reason the child patches to an abnormal one
+    exits 1 and says so."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dir_out = tmp_path / 'out'
+    proc = subprocess.run(
+        [sys.executable, '-c', CONSOLE_SCRIPT, force, '--modelname', MODEL,
+         '--dir_audio', str(audio), '--dir_out', str(dir_out),
+         '--chunklength', '5', '--verbosity_print', 'ERROR', '--device',
+         'cpu'],
+        capture_output=True, text=True, timeout=300, cwd=repo,
+        env={**os.environ, 'PYTHONPATH': repo})
+    assert proc.returncode == code, proc.stderr[-2000:]
+    assert 'Analyzer' not in proc.stderr
+    assert (dir_out / 'rec_buzzdetect.csv').exists()
+    if code:
+        assert 'analysis ended abnormally: analyzer failure' in proc.stderr
 
 
 def test_score_file_matches_jax(audio):
@@ -220,10 +282,10 @@ def test_conv_config_key_is_honoured(models_dir, audio, tmp_path):
     assert (model.classifier.conv, model.classifier.conv_precision) == (
         'xla', 'high')
     dir_out = tmp_path / 'out'
-    result = tcli.main(['--modelname', 'v3_conv_xla', '--dir_audio',
-                        str(audio), '--dir_out', str(dir_out), '--device',
-                        'cpu', '--chunklength', '5', '--verbosity_print',
-                        'ERROR'])
+    result = _main(['--modelname', 'v3_conv_xla', '--dir_audio',
+                    str(audio), '--dir_out', str(dir_out), '--device',
+                    'cpu', '--chunklength', '5', '--verbosity_print',
+                    'ERROR'])
     assert result.coordinator.end_reason == 'completed'
     from buzzdetect_tpu import config as jcfg
     jdir = jcfg.DIR_MODELS

@@ -21,10 +21,10 @@ import buzzdetect_torch
 from buzzdetect_tpu.models import yamnet as jyam
 from buzzdetect_tpu.models.classifier import ChunkClassifier as JaxClassifier
 from buzzdetect_tpu.models.heads import init_head
-from buzzdetect_torch import cli as tcli
 from buzzdetect_torch.audio import ffi
 from buzzdetect_torch.models.classifier import ChunkClassifier
 from tests.audio_fixtures import make_tone, write_wav
+from tests.test_torch_cli import _main
 
 MODEL = 'model_general_v3'
 CHUNK = 5.0       # 4.8 s: several chunks per file, with a ragged last one
@@ -207,11 +207,11 @@ def test_cli_resample_on_device_runs_to_fully_analyzed(audio, runs,
             str(tmp_path / 'out'), '--chunklength', str(CHUNK),
             '--device', 'cpu', '--resample_on_device',
             '--verbosity_print', 'ERROR']
-    assert tcli.main(argv).coordinator.end_reason == 'completed'
+    assert _main(argv).coordinator.end_reason == 'completed'
     got = (tmp_path / 'out' / 'tone44k_buzzdetect.csv').read_text()
     with open(os.path.join(api_out, 'tone44k_buzzdetect.csv')) as f:
         assert got == f.read()
-    assert tcli.main(argv).coordinator.end_reason == 'fully analyzed'
+    assert _main(argv).coordinator.end_reason == 'fully analyzed'
 
 
 def test_analyze_rejects_a_model_that_cannot_resample(audio, monkeypatch,

@@ -114,6 +114,18 @@ def test_cuda_device_ms_profiles_again_when_no_device_time(monkeypatch,
     assert 'session 3' not in err and utils.cuda_device_ms.fallbacks == 0
 
 
+def test_cuda_device_ms_rejects_a_partial_record(capsys):
+    """A session whose record holds some name a number of times that is
+    not a multiple of the calls lost launches: it counts as a miss (0.0),
+    said on stderr, where a whole record sums every launch."""
+    from buzzdetect_torch import utils
+    whole = [('logmel', 25.0)] * 10 + [('copy', 1.0)] * 20
+    assert utils._recorded_us(whole, 10) == 270.0
+    assert capsys.readouterr().err == ''
+    assert utils._recorded_us(whole[8:], 10) == 0.0
+    assert "{'logmel': 2}" in capsys.readouterr().err
+
+
 def test_cuda_device_ms_falls_back_to_cuda_events(monkeypatch, capsys):
     utils = _fake_card(monkeypatch, [0.0] * 3)
     monkeypatch.setattr(utils, 'cuda_time_ms',

@@ -2,8 +2,8 @@
 the CPU (``device='cpu'``).
 
 Mirrors tests/test_watch.py test for test against ``buzzdetect_torch``
-(the bundle is made by the JAX package's ``build_model_bundle``, which the
-port has not copied yet). Edits: every run passes ``device='cpu'``;
+(the bundle is made by the port's ``build_model_bundle``). Edits: every run
+passes ``device='cpu'``;
 ``devices=2`` is ``devices=['cpu', 'cpu']`` (two replicas on the one CPU);
 the compressed-file test encodes with the port's ``audio.ffi``.
 
@@ -25,9 +25,9 @@ import time
 import numpy as np
 import pytest
 
-from buzzdetect_tpu.models.convert import build_model_bundle
 from buzzdetect_torch import analysis as analysis_mod
 from buzzdetect_torch import config as cfg
+from buzzdetect_torch.models.convert import build_model_bundle
 from tests.audio_fixtures import make_tone, write_wav
 
 CLASSES = ['ins_buzz', 'ambient_noise', 'human']
