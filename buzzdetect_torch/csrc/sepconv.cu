@@ -20,14 +20,18 @@
 // The depthwise taps, biases, ReLU and pooling stay f32 in every mode.
 // Weights stay bf16 in device memory in BF16 and HIGH (half the bytes).
 //
-// Two kernels, one per route of the pointwise product, built on one
-// scheme: a block owns BM positions x BN = min(F, 256) output channels; K
-// goes in chunks of input channels, in order; a ring of cp.async stages
-// brings each chunk's weights, its 9 depthwise taps and bias, and the
-// window of input positions its outputs read to shared memory while
-// earlier chunks compute; the chunk's depthwise is computed from that
-// window into a shared-memory A tile, so it never reaches device memory.
-//   sep_layer_kernel      HIGHEST: FFMA, exact f32 (the main path);
+// Three kernels, built on one scheme: a block owns BM positions x BN
+// output channels; K goes in chunks of input channels, in order; a ring of
+// cp.async stages brings each chunk's weights, its 9 depthwise taps and
+// bias, and the window of input positions its outputs read to shared
+// memory while earlier chunks compute; the chunk's depthwise is computed
+// from that window into a shared-memory A tile, so it never reaches device
+// memory.
+//   sep_layer_kernel      HIGHEST, the wide tile (BN = min(F, 256)): FFMA,
+//                         exact f32, for batches that fill the card (the
+//                         main path's 209-patch chunks);
+//   sep_narrow_kernel     HIGHEST, the narrow tiles (BN = 8-64): the same
+//                         arithmetic for batches that do not;
 //   sep_layer_mma_kernel  BF16 and HIGH: bf16 operands on the tensor cores
 //                         (mma.sync m16n8k16, f32 accumulate).
 // Every layer ran faster on the tensor cores in BF16 and HIGH than on FFMA
@@ -80,6 +84,10 @@
 //     BK, BN or the order of K, so a patch's outputs do not depend on it.
 //   Pooling is a second small kernel that sums the spatial positions in a
 //   fixed order.
+//   The wide tile fills the card only at large batches: at B = 1-8 the
+//   tail layers launch 2-4 blocks on 132 SMs (BN = 256 and BM >= 32 over
+//   24 or 6 positions per patch), each streaming its 0.5-1 MB of weights
+//   and computing every row of its BM, most past the batch, on one SM.
 //   Measured (chip_smoke.py, device time alone at B = 209, H100 SXM at 700
 //   W): fused_tail 0.62 ms against the earlier kernel's 1.84 and the cuDNN
 //   f32 stack's 1.12 (0.55x); fused_front 0.46 ms (earlier 1.07). Per
@@ -87,8 +95,55 @@
 //   reaches, layers 8-12 run at ~52% of FFMA throughput. What bounds it
 //   now: the instructions around the FFMAs (shared-memory reads, the
 //   depthwise, the cp.async issue) and two barriers per 16 channels, at
-//   two blocks per SM; and at B = 5 the serial chain of K chunks (a block
-//   per 32-40 positions, no split K), which cuDNN does not have.
+//   two blocks per SM.
+//
+// HIGHEST at small batches (sep_narrow_kernel<BN, TM>). 256 threads; BN =
+// 8, 16, 32 or 64 threads along N, one output channel each, and 256 / BN
+// along M, each TM = 1, 2 or 4 positions 256 / BN apart: BM = 256 / BN x
+// TM, 4-128 positions. K in chunks of NK = 64 input channels (so C in
+// chunks of 64: layer 2's 32 channels keep the wide tile) through the same
+// ring of 3 stages (2 where 3 do not fit a block), two barriers a chunk.
+// A stage holds the chunk's weights transposed, (BN, 64 + 4) (4-byte
+// cp.async), so a thread reads 4 K steps of its channel as one float4, and
+// the A tile is (position, 64 + 4), so it reads 4 K steps of a position as
+// one float4: 1 + TM shared reads per 4 TM multiply-adds. Rows of 68
+// floats put 8 neighbouring rows on distinct bank groups. The depthwise is
+// recomputed by every n-block (F / BN times) for its own positions only:
+// 9 multiply-adds a position and channel against the product's BN.
+//   - The same arithmetic, so the outputs are bit for bit those of the
+//     wide tile: depthwise centre product and bias sum written as
+//     __fmul_rn / __fadd_rn (nothing may fold them into a multiply-add),
+//     the other taps fmaf in tap order; pointwise one accumulator per
+//     output from 0 over K ascending, fmaxf(acc + bias, 0). No split K, no
+//     atomics; a thread whose positions lie past the batch skips the
+//     product, and no row past the batch is computed.
+//   - Grid. ffma_geometry prices the wide tile and the 12 narrow ones with
+//     ffma_cost, the busiest SM's share: ceil(blocks / SMs) blocks, each
+//     rows x (BN + 9) multiply-adds and BN + window rows floats brought in
+//     (LOAD_COST = 16 multiply-adds a float) per input channel, and takes
+//     the cheapest, the wide tile on a tie. The shapes alone decide: the
+//     narrow tiles win at B = 1-8 on layers 3-14 (the tail 64-128 blocks,
+//     against 2-4), the wide tile at B = 209 on every layer (its grid
+//     above, unchanged) and from B = 16-128 on, layer by layer.
+//     tools/ffma_geometries.py times all 13 tiles per layer and batch: on
+//     layers 3-14 at B = 1-128 the picked tile took 1.03x the fastest on
+//     average (1.26x at worst, at an intermediate B); LOAD_COST 8 averaged
+//     1.02x but left layer 8 at B = 1 on 48 blocks, 32 averaged 1.02x.
+//   - ops/sepconv.py::ffma_geometry mirrors the rule; bz_sep_geometry
+//     gives the library's choice, which chip_smoke.py holds to the mirror
+//     at every B from 1 to 209.
+//   Measured (tools/compare_builds.py, device time alone, H100 SXM at 700
+//   W): fused_tail at B = 1-8 0.090-0.138 ms against the wide tile's
+//   0.366-0.381 (cuDNN's f32 stack: 0.18-0.24, chip_smoke.py), fused_front
+//   0.036-0.072 against 0.097-0.098; B = 209 as before. What bounds it now
+//   (inferred from tools/ffma_geometries.py, not traced): a fixed ~4 us a
+//   launch (layer 3, one K chunk, 3.9 us at B = 1) and ~1.1 us a K chunk
+//   (layer 8, eight chunks, 11.8 us), where each chunk's 64 FFMAs take
+//   ~0.1 us; so the shared-memory reads (the depthwise recomputed by every
+//   n-block reads as much as the product) and the two barriers, not the
+//   FFMA chain. A deeper ring was tried and did not help: the loads are
+//   not what waits. Computing the depthwise once per layer, and fewer
+//   launches for the whole tail, are the next steps.
 //
 // BF16 / HIGH design (sep_layer_mma_kernel). Eight warps, each a 32 x 32
 // (or 16 x 32) tile of the block's BM positions x BN output channels; K in
@@ -429,6 +484,219 @@ sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
     }
 }
 
+// --- the FFMA route for small batches (HIGHEST) ----------------------------------
+
+constexpr int NK = 64;  // input channels per K chunk
+// A and weight rows padded by 4 floats: 16-byte aligned, and 8 neighbouring
+// rows start on distinct bank groups
+constexpr int NLD = NK + 4;
+
+// The tile of sep_narrow_kernel<BN, TM>: BN threads along N, one output
+// channel each; TY = 256 / BN along M, each TM positions TY apart.
+template <int BN, int TM>
+struct NarrowTile {
+    static constexpr int TY = FT / BN;
+    static constexpr int BM = TY * TM;  // positions per block
+};
+
+// One ring stage, in floats: a chunk's weights transposed, (BN, NLD), then
+// its taps, bias and input window, NK channels a row
+__host__ __device__ inline int narrow_stage(int bm, int bn, const Layer& L) {
+    return bn * NLD + (XHEAD + window_rows(bm, L)) * NK;
+}
+
+// Dynamic shared memory of a tile: the f32 A tile (BM, NLD), then the ring
+inline int narrow_smem(int bm, int bn, int stages, const Layer& L) {
+    return (int)sizeof(float) *
+           (bm * NLD + stages * narrow_stage(bm, bn, L));
+}
+
+// 4 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+template <int BN, int TM>
+__global__ void __launch_bounds__(FT, 2)
+sep_narrow_kernel(const float* __restrict__ x, float* __restrict__ y,
+                  const Layer L, const int m_total, const int ring) {
+    using T = NarrowTile<BN, TM>;
+    constexpr int BM = T::BM, TY = T::TY;
+    constexpr int GROUPS = NK / 4;        // float4 groups of a chunk
+    constexpr int DW_STEP = FT / GROUPS;  // positions per depthwise pass
+    constexpr int DW_POS = (BM + DW_STEP - 1) / DW_STEP;
+    static_assert((NK * BN) % FT == 0, "weight tile");
+    const int stage = narrow_stage(BM, BN, L);  // floats
+    extern __shared__ __align__(16) unsigned char narrow_smem_raw[];
+    float* const As = reinterpret_cast<float*>(narrow_smem_raw);
+    float* const Ring = As + BM * NLD;
+
+    const int tid = threadIdx.x, tx = tid % BN, ty = tid / BN;
+    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+    const int hwo = L.ho * L.wo;
+    const int n_chunks = L.c / NK;
+    const int n_in = m_total / hwo * L.h * L.w;  // input positions
+
+    // the flattened input position of output m's centre tap
+    auto centre = [&](int m) {
+        const int b = m / hwo, r = m % hwo;
+        return (b * L.h + (r / L.wo) * L.stride + L.off_h) * L.w +
+               (r % L.wo) * L.stride + L.off_w;
+    };
+    // the block's input window: every tap of its outputs
+    const int m_last = (m0 + BM < m_total ? m0 + BM : m_total) - 1;
+    const int lo = centre(m0) - L.w - 1;
+    const int hi = centre(m_last) + L.w + 1;
+    const int xrows = window_rows(BM, L);
+    const int n_rows = hi - lo + 1 < xrows ? hi - lo + 1 : xrows;
+
+    // the thread's depthwise positions, as sep_layer_kernel's
+    const int kq = (tid % GROUPS) * 4;
+    int row[DW_POS], taps[DW_POS];
+#pragma unroll
+    for (int j = 0; j < DW_POS; ++j) {
+        const int pos = tid / GROUPS + DW_STEP * j, m = m0 + pos;
+        row[j] = XHEAD;
+        taps[j] = 0;
+        if (pos < BM && m < m_total) {
+            const int r = m % hwo;
+            const int ch = (r / L.wo) * L.stride + L.off_h;
+            const int cw = (r % L.wo) * L.stride + L.off_w;
+            row[j] = XHEAD + centre(m) - lo;
+#pragma unroll
+            for (int t = 0; t < 9; ++t) {
+                const int ih = ch + t / 3 - 1, iw = cw + t % 3 - 1;
+                if (ih >= 0 && ih < L.h && iw >= 0 && iw < L.w)
+                    taps[j] |= 1 << t;
+            }
+        }
+    }
+
+    const float* const pw = static_cast<const float*>(L.pw);
+    // chunk k's weights, transposed to (BN, NK) rows, and its depthwise
+    // inputs (taps, bias, the input window's NK channels; zeros off the
+    // ends of the batch) into ring stage k % ring
+    auto load_chunk = [&](int chunk) {
+        float* const W = Ring + (chunk % ring) * stage;
+        float* const X = W + BN * NLD;
+        const int c0 = chunk * NK;
+        const float* const src = pw + (long long)c0 * L.f + n0;
+#pragma unroll
+        for (int i = 0; i < NK * BN / FT; ++i) {
+            const int q = tid + i * FT;
+            const int k = q / BN, n = q % BN;
+            cp_async4(W + n * NLD + k, src + (long long)k * L.f + n);
+        }
+        for (int q = tid; q < (XHEAD + n_rows) * GROUPS; q += FT) {
+            const int r = q / GROUPS, cc = (q % GROUPS) * 4;
+            const int p = lo + r - XHEAD;
+            const bool ok = r < XHEAD || (p >= 0 && p < n_in);
+            const float* g =
+                r < 9 ? L.dw + r * L.c
+                      : r == 9 ? L.dw_b
+                               : x + (long long)(ok ? p : 0) * L.c;
+            cp_async16(X + r * NK + cc, g + c0 + cc, ok);
+        }
+    };
+    // chunk k's depthwise + bias + ReLU from its stage into the A tile,
+    // stored (position, k); the arithmetic of sep_layer_kernel's, with the
+    // product and the sum that no multiply-add may absorb written as such
+    auto depthwise = [&](int chunk) {
+        const float* const X = Ring + (chunk % ring) * stage + BN * NLD;
+        float4 a[DW_POS];
+        const float4 wc = lds4(X + 4 * NK + kq);
+#pragma unroll
+        for (int j = 0; j < DW_POS; ++j) {
+            a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (taps[j]) {
+                const float4 v = lds4(X + row[j] * NK + kq);
+                a[j] = make_float4(__fmul_rn(v.x, wc.x), __fmul_rn(v.y, wc.y),
+                                   __fmul_rn(v.z, wc.z), __fmul_rn(v.w, wc.w));
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+            if (t == 4) continue;
+            const int off = ((t / 3 - 1) * L.w + (t % 3 - 1)) * NK;
+            const float4 w = lds4(X + t * NK + kq);
+#pragma unroll
+            for (int j = 0; j < DW_POS; ++j) {
+                if (!((taps[j] >> t) & 1)) continue;
+                const float4 v = lds4(X + row[j] * NK + off + kq);
+                a[j].x = fmaf(v.x, w.x, a[j].x);
+                a[j].y = fmaf(v.y, w.y, a[j].y);
+                a[j].z = fmaf(v.z, w.z, a[j].z);
+                a[j].w = fmaf(v.w, w.w, a[j].w);
+            }
+        }
+        const float4 bias = lds4(X + 9 * NK + kq);
+#pragma unroll
+        for (int j = 0; j < DW_POS; ++j) {
+            const int pos = tid / GROUPS + DW_STEP * j;
+            if (pos >= BM) continue;
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (taps[j])
+                v = make_float4(fmaxf(__fadd_rn(a[j].x, bias.x), 0.f),
+                                fmaxf(__fadd_rn(a[j].y, bias.y), 0.f),
+                                fmaxf(__fadd_rn(a[j].z, bias.z), 0.f),
+                                fmaxf(__fadd_rn(a[j].w, bias.w), 0.f));
+            *reinterpret_cast<float4*>(As + pos * NLD + kq) = v;
+        }
+    };
+
+    // one accumulator per output from 0, k ascending; a thread whose first
+    // position lies past the batch has no output and skips the product
+    float acc[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i] = 0.f;
+    const bool busy = m0 + ty < m_total;
+    auto multiply = [&](int chunk) {
+        const float* const W = Ring + (chunk % ring) * stage + tx * NLD;
+#pragma unroll
+        for (int k = 0; k < NK; k += 4) {
+            const float4 w = lds4(W + k);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+                const float4 a = lds4(As + (ty + TY * i) * NLD + k);
+                acc[i] = fmaf(a.x, w.x, acc[i]);
+                acc[i] = fmaf(a.y, w.y, acc[i]);
+                acc[i] = fmaf(a.z, w.z, acc[i]);
+                acc[i] = fmaf(a.w, w.w, acc[i]);
+            }
+        }
+    };
+
+    // the ring as sep_layer_kernel's: two barriers per chunk
+    for (int s = 0; s < ring - 1; ++s) {
+        if (s < n_chunks) load_chunk(s);
+        cp_async_commit();
+    }
+    for (int kc = 0; kc < n_chunks; ++kc) {
+        if (ring == FRING)
+            cp_async_wait<FRING - 2>();
+        else
+            cp_async_wait<0>();
+        __syncthreads();
+        if (kc + ring - 1 < n_chunks) load_chunk(kc + ring - 1);
+        cp_async_commit();
+        depthwise(kc);
+        __syncthreads();
+        if (busy) multiply(kc);
+    }
+
+    const float pb = L.pw_b[n0 + tx];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        const int m = m0 + ty + TY * i;
+        if (m < m_total)
+            y[(long long)m * L.f + n0 + tx] =
+                fmaxf(__fadd_rn(acc[i], pb), 0.f);
+    }
+}
+
 // --- the tensor-core route (BF16, HIGH) ------------------------------------------
 
 constexpr int MK = 32;  // input channels per K chunk: two k16 steps
@@ -765,40 +1033,157 @@ cudaError_t launch_ffma_tm(int tm, int device, dim3 grid, int smem, int ring,
     }
 }
 
-// One HIGHEST layer: BN = min(F, 256); TM = 8, 5 or 4 positions per
-// thread, whichever gives the busiest SM the fewest positions (its
-// ceil(blocks / SMs) blocks of BM), the larger on a tie; a ring of FRING
-// stages if two blocks still fit an SM's shared memory, else 2.
-cudaError_t launch_ffma_layer(int device, int sms, int sm_smem,
-                              cudaStream_t stream, const float* in,
-                              float* dst, const Layer& L, int m_total) {
-    const int bn = L.f < 256 ? L.f : 256;
-    const int ty = FT / (bn / 8);
-    const int n_blocks = L.f / bn;
+// The launch of one HIGHEST layer: the kernel (narrow 0: sep_layer_kernel,
+// 1: sep_narrow_kernel), its tile (BN, TM, BM), grid and ring stages, and
+// its dynamic shared memory in bytes. ops/sepconv.py::ffma_geometry states
+// the same rule: a change to one is made in the other.
+struct Geometry {
+    int narrow, bn, tm, bm, grid_m, grid_n, ring, smem;
+};
+
+// The weight of one float that a block brings in, against one
+// multiply-add, in ffma_cost
+constexpr int LOAD_COST = 16;
+
+// The busiest SM's share of a layer, the yardstick between geometries, in
+// multiply-adds per input channel: ceil(blocks / SMs) blocks, each
+// computing `rows` positions x (BN + 9) (the pointwise and the depthwise
+// it recomputes), and bringing in BN weights and the window of `rows_in`
+// positions at LOAD_COST each.
+long long ffma_cost(long long blocks, int rows, int rows_in, int bn,
+                    const Layer& L, int sms) {
+    return (blocks + sms - 1) / sms *
+           ((long long)rows * (bn + 9) +
+            (long long)LOAD_COST * (bn + window_rows(rows_in, L)));
+}
+
+// The wide tile: BN = min(F, 256); TM = 8, 5 or 4 positions per thread,
+// whichever gives the busiest SM the fewest positions (its ceil(blocks /
+// SMs) blocks of BM), the larger on a tie; a ring of FRING stages if two
+// blocks still fit an SM's shared memory, else 2.
+Geometry wide_geometry(const Layer& L, int m_total, int sms, int sm_smem) {
+    const int chunks = L.c / FK;
+    Geometry g{};
+    g.bn = L.f < 256 ? L.f : 256;
+    const int ty = FT / (g.bn / 8);
+    g.grid_n = L.f / g.bn;
     auto busiest = [&](int bm) {
         const long long blocks = (long long)((m_total + bm - 1) / bm) *
-                                 n_blocks;
+                                 g.grid_n;
         return (blocks + sms - 1) / sms * bm;
     };
-    int tm = 8;
+    g.tm = 8;
     for (const int t : {5, 4})
-        if (busiest(t * ty) < busiest(tm * ty)) tm = t;
-    const int bm = tm * ty;
-    const int ring =
-        2 * (ffma_smem(bm, bn, FRING, L) + 1024) <= sm_smem ? FRING : 2;
-    const int chunks = L.c / FK;
-    const int smem = ffma_smem(bm, bn, chunks < ring ? chunks : ring, L);
-    const dim3 grid((m_total + bm - 1) / bm, n_blocks);
-    switch (bn) {
-        case 64:
-            return launch_ffma_tm<64>(tm, device, grid, smem, ring, stream,
-                                      in, dst, L, m_total);
-        case 128:
-            return launch_ffma_tm<128>(tm, device, grid, smem, ring, stream,
-                                       in, dst, L, m_total);
+        if (busiest(t * ty) < busiest(g.tm * ty)) g.tm = t;
+    g.bm = g.tm * ty;
+    g.grid_m = (m_total + g.bm - 1) / g.bm;
+    g.ring = 2 * (ffma_smem(g.bm, g.bn, FRING, L) + 1024) <= sm_smem ? FRING
+                                                                      : 2;
+    g.smem = ffma_smem(g.bm, g.bn, chunks < g.ring ? chunks : g.ring, L);
+    return g;
+}
+
+// A narrow tile (C in chunks of NK only), BN = 8, 16, 32 or 64 and TM =
+// 1, 2 or 4, with a ring of FRING stages if a block's shared memory holds
+// it, else 2; ring 0 where neither fits or C is not in chunks of NK.
+Geometry narrow_geometry(const Layer& L, int m_total, int bn, int tm,
+                         int block_smem) {
+    const int bm = FT / bn * tm, chunks = L.c / NK;
+    auto smem = [&](int r) {
+        return narrow_smem(bm, bn, chunks < r ? chunks : r, L);
+    };
+    int ring = smem(FRING) <= block_smem ? FRING : 2;
+    if (L.c % NK || smem(ring) > block_smem) ring = 0;
+    return Geometry{1, bn, tm, bm, (m_total + bm - 1) / bm, L.f / bn, ring,
+                    smem(ring)};
+}
+
+// The wide tile, unless a narrow one costs less by ffma_cost: of BN = 8,
+// 16, 32, 64 x TM = 1, 2, 4 the first of least cost. The wide tile computes
+// all its BM rows, a narrow one only those in the batch.
+Geometry ffma_geometry(const Layer& L, int m_total, int sms, int sm_smem,
+                       int block_smem) {
+    Geometry g = wide_geometry(L, m_total, sms, sm_smem);
+    long long best =
+        ffma_cost((long long)g.grid_m * g.grid_n, g.bm,
+                  g.bm < m_total ? g.bm : m_total, g.bn, L, sms);
+    for (const int bn : {8, 16, 32, 64}) {
+        for (const int tm : {1, 2, 4}) {
+            const Geometry n = narrow_geometry(L, m_total, bn, tm, block_smem);
+            if (!n.ring) continue;
+            const int rows = n.bm < m_total ? n.bm : m_total;
+            const long long cost = ffma_cost(
+                (long long)n.grid_m * n.grid_n, rows, rows, bn, L, sms);
+            if (cost < best) {
+                best = cost;
+                g = n;
+            }
+        }
+    }
+    return g;
+}
+
+template <int BN, int TM>
+cudaError_t launch_narrow(int device, const Geometry& g, cudaStream_t stream,
+                          const float* in, float* dst, const Layer& L,
+                          int m_total) {
+    static std::atomic<bool> ready[MAX_DEVICES];
+    const cudaError_t err =
+        opt_in_smem(sep_narrow_kernel<BN, TM>, device, ready);
+    if (err != cudaSuccess) return err;
+    sep_narrow_kernel<BN, TM><<<dim3(g.grid_m, g.grid_n), FT, g.smem,
+                                stream>>>(in, dst, L, m_total, g.ring);
+    return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_narrow_tm(int device, const Geometry& g,
+                             cudaStream_t stream, const float* in, float* dst,
+                             const Layer& L, int m_total) {
+    switch (g.tm) {
+        case 1:
+            return launch_narrow<BN, 1>(device, g, stream, in, dst, L,
+                                        m_total);
+        case 2:
+            return launch_narrow<BN, 2>(device, g, stream, in, dst, L,
+                                        m_total);
         default:
-            return launch_ffma_tm<256>(tm, device, grid, smem, ring, stream,
-                                       in, dst, L, m_total);
+            return launch_narrow<BN, 4>(device, g, stream, in, dst, L,
+                                        m_total);
+    }
+}
+
+// One HIGHEST layer at geometry g.
+cudaError_t launch_geometry(int device, const Geometry& g, cudaStream_t stream,
+                            const float* in, float* dst, const Layer& L,
+                            int m_total) {
+    if (g.narrow) {
+        switch (g.bn) {
+            case 8:
+                return launch_narrow_tm<8>(device, g, stream, in, dst, L,
+                                           m_total);
+            case 16:
+                return launch_narrow_tm<16>(device, g, stream, in, dst, L,
+                                            m_total);
+            case 32:
+                return launch_narrow_tm<32>(device, g, stream, in, dst, L,
+                                            m_total);
+            default:
+                return launch_narrow_tm<64>(device, g, stream, in, dst, L,
+                                            m_total);
+        }
+    }
+    const dim3 grid(g.grid_m, g.grid_n);
+    switch (g.bn) {
+        case 64:
+            return launch_ffma_tm<64>(g.tm, device, grid, g.smem, g.ring,
+                                      stream, in, dst, L, m_total);
+        case 128:
+            return launch_ffma_tm<128>(g.tm, device, grid, g.smem, g.ring,
+                                       stream, in, dst, L, m_total);
+        default:
+            return launch_ffma_tm<256>(g.tm, device, grid, g.smem, g.ring,
+                                       stream, in, dst, L, m_total);
     }
 }
 
@@ -859,6 +1244,32 @@ cudaError_t launch_mma_layer(int mode, int device, int sms, int sm_smem,
     }
 }
 
+// The current device and what the grids are sized by: its SMs, and the
+// shared memory of an SM and (opted in) of a block, in bytes
+struct Card {
+    int device, sms, sm_smem, block_smem;
+};
+
+Card current_card() {
+    Card c{};
+    cudaGetDevice(&c.device);
+    cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, c.device);
+    cudaDeviceGetAttribute(&c.sm_smem,
+                           cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                           c.device);
+    cudaDeviceGetAttribute(&c.block_smem,
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, c.device);
+    return c;
+}
+
+// A layer's shape from its host descriptor (DIMS ints), no operands
+Layer layer_of(const int* d) {
+    Layer L{};
+    L.h = d[0]; L.w = d[1]; L.c = d[2]; L.f = d[3]; L.stride = d[4];
+    L.ho = d[5]; L.wo = d[6]; L.off_h = d[7]; L.off_w = d[8];
+    return L;
+}
+
 // Runs the layers in order: layer i reads the previous layer's output from
 // one scratch buffer and writes the other; the last layer writes `out`
 // directly, or (with gap) a scratch buffer that gap_kernel reduces to `out`.
@@ -867,32 +1278,28 @@ int run_stack(const float* x, float* out, float* buf0, float* buf1, int batch,
               int mode, cudaStream_t stream) {
     if (batch <= 0 || n_layers <= 0 || mode < HIGHEST || mode > HIGH)
         return (int)cudaErrorInvalidValue;
-    int device = 0, sms = 0, sm_smem = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaDeviceGetAttribute(&sm_smem,
-                           cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    const Card card = current_card();
     const float* in = x;
     float* bufs[2] = {buf0, buf1};
     Layer L{};
     for (int i = 0; i < n_layers; ++i) {
-        const int* d = dims + DIMS * i;
+        L = layer_of(dims + DIMS * i);
         L.dw = reinterpret_cast<const float*>(ptrs[4 * i + 0]);
         L.dw_b = reinterpret_cast<const float*>(ptrs[4 * i + 1]);
         L.pw = reinterpret_cast<const void*>(ptrs[4 * i + 2]);
         L.pw_b = reinterpret_cast<const float*>(ptrs[4 * i + 3]);
-        L.h = d[0]; L.w = d[1]; L.c = d[2]; L.f = d[3]; L.stride = d[4];
-        L.ho = d[5]; L.wo = d[6]; L.off_h = d[7]; L.off_w = d[8];
         if (!takes(mode, L)) return (int)cudaErrorInvalidValue;
         const bool last = i == n_layers - 1;
         float* dst = (last && !gap) ? out : bufs[i % 2];
         const int m_total = batch * L.ho * L.wo;
         const cudaError_t err =
             mode == HIGHEST
-                ? launch_ffma_layer(device, sms, sm_smem, stream, in, dst, L,
-                                    m_total)
-                : launch_mma_layer(mode, device, sms, sm_smem, stream, in,
-                                   dst, L, m_total);
+                ? launch_geometry(card.device,
+                                  ffma_geometry(L, m_total, card.sms,
+                                                card.sm_smem, card.block_smem),
+                                  stream, in, dst, L, m_total)
+                : launch_mma_layer(mode, card.device, card.sms, card.sm_smem,
+                                   stream, in, dst, L, m_total);
         if (err != cudaSuccess) return (int)err;
         in = dst;
     }
@@ -919,6 +1326,65 @@ int bz_sep_stack(const float* x, float* out, float* buf0, float* buf1,
                  const int* dims, int gap, int mode, void* stream) {
     return run_stack(x, out, buf0, buf1, batch, n_layers, ptrs, dims, gap,
                      mode, static_cast<cudaStream_t>(stream));
+}
+
+// The exact-f32 route's launch of each of n_layers layers (dims as
+// bz_sep_stack's) at `batch` on a card of `sms` SMs, `sm_smem` bytes of
+// shared memory per SM and `block_smem` per block: 8 ints a layer into
+// `out`, ffma_geometry's Geometry (narrow, BN, TM, BM, grid along M and N,
+// ring stages, shared memory bytes). A host function: it launches nothing.
+int bz_sep_geometry(int batch, int n_layers, const int* dims, int sms,
+                    int sm_smem, int block_smem, int* out) {
+    if (batch <= 0 || n_layers <= 0 || sms <= 0)
+        return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n_layers; ++i) {
+        const Layer L = layer_of(dims + DIMS * i);
+        if (!takes(HIGHEST, L)) return (int)cudaErrorInvalidValue;
+        const Geometry g = ffma_geometry(L, batch * L.ho * L.wo, sms, sm_smem,
+                                         block_smem);
+        const int v[8] = {g.narrow, g.bn,     g.tm,   g.bm,
+                          g.grid_m, g.grid_n, g.ring, g.smem};
+        for (int k = 0; k < 8; ++k) out[8 * i + k] = v[k];
+    }
+    return 0;
+}
+
+// One exact-f32 layer (its descriptor and 4 operand pointers as one layer
+// of bz_sep_stack's) at a tile the caller names: the wide tile (narrow 0)
+// or the narrow BN x TM (8, 16, 32, 64 x 1, 2, 4). For
+// tools/ffma_geometries.py, which times every tile; the wrappers launch
+// through bz_sep_stack only. A tile that does not fit returns -1.
+int bz_sep_layer_at(const float* x, float* y, int batch, const int64_t* ptrs,
+                    const int* dims, int narrow, int bn, int tm,
+                    void* stream) {
+    Layer L = layer_of(dims);
+    L.dw = reinterpret_cast<const float*>(ptrs[0]);
+    L.dw_b = reinterpret_cast<const float*>(ptrs[1]);
+    L.pw = reinterpret_cast<const void*>(ptrs[2]);
+    L.pw_b = reinterpret_cast<const float*>(ptrs[3]);
+    const bool tile = (bn == 8 || bn == 16 || bn == 32 || bn == 64) &&
+                      (tm == 1 || tm == 2 || tm == 4);
+    if (batch <= 0 || !takes(HIGHEST, L) || (narrow && !tile))
+        return (int)cudaErrorInvalidValue;
+    const Card card = current_card();
+    const int m_total = batch * L.ho * L.wo;
+    const Geometry g =
+        narrow ? narrow_geometry(L, m_total, bn, tm, card.block_smem)
+               : wide_geometry(L, m_total, card.sms, card.sm_smem);
+    if (!g.ring) return -1;
+    return (int)launch_geometry(card.device, g,
+                                static_cast<cudaStream_t>(stream), x, y, L,
+                                m_total);
+}
+
+// The current device's SMs, shared memory per SM and per block (opted
+// in), as bz_sep_stack sizes its grids by them: 3 ints into `out`.
+int bz_sep_card(int* out) {
+    const Card c = current_card();
+    out[0] = c.sms;
+    out[1] = c.sm_smem;
+    out[2] = c.block_smem;
+    return (int)cudaGetLastError();
 }
 
 const char* bz_error_string(int code) {

@@ -59,7 +59,7 @@ def fused_front(x: Tensor, operands: list[Tensor], start_layer: int,
     specs = sepconv.tail_specs(start_layer, stop_layer)
     out = sepconv._launch(_layers(operands, specs), x, specs, False, mode)
     sepconv._count_launch(sepconv.fused_front, mode,
-                          (start_layer, stop_layer))
+                          (start_layer, stop_layer), x.shape[0])
     return out
 
 
@@ -78,7 +78,7 @@ def fused_tail(x: Tensor, operands: list[Tensor], start_layer: int,
     specs = sepconv.tail_specs(start_layer, stop_layer)
     out = sepconv._launch(_layers(operands, specs), x, specs, gap, mode)
     sepconv._count_launch(sepconv.fused_tail, mode,
-                          (start_layer, stop_layer))
+                          (start_layer, stop_layer), x.shape[0])
     return out
 
 

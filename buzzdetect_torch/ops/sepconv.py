@@ -7,7 +7,8 @@ its custom operator (``buzzdetect::fused_front`` / ``fused_tail``,
 ``ops/library.py``), which launches the kernels of ``csrc/sepconv.cu`` (see
 the note at the top of that file) and counts the launch in
 ``<wrapper>.launches[mode]`` (and per layer range in
-``<wrapper>.ranges[(start, stop, mode)]``); on a CPU tensor it computes the
+``<wrapper>.ranges[(start, stop, mode)]``, per range and batch in
+``<wrapper>.batches[(start, stop, mode, B)]``); on a CPU tensor it computes the
 plain PyTorch version. There is no other path. The pointwise
 product runs on FFMA in exact f32 ('highest') and on the tensor cores
 ('bf16', 'high'; ``layer_route``).
@@ -140,6 +141,108 @@ def _kernel_takes(s, mode) -> bool:
     chunk = 16 if layer_route(mode) == 'ffma' else 32
     return s.c_in % chunk == 0 and (s.c_out in (64, 128)
                                     or s.c_out % 256 == 0)
+
+
+# The exact-f32 route's tiles, as csrc/sepconv.cu sizes them: threads per
+# block, K chunk, ring stages and row padding of the wide tile
+# (sep_layer_kernel), depthwise rows ahead of a stage's input window, the
+# narrow tile's K chunk and row (sep_narrow_kernel), and ffma_cost's weight
+# of one float brought in
+_FT, _FK, _FRING, _APAD, _XHEAD = 256, 16, 3, 4, 10
+_NK, _NLD, _LOAD_COST = 64, 68, 16
+# what an H100 SXM sizes the grids by: SMs, shared memory per SM and per
+# block (opted in), bytes
+H100_CARD = (132, 233472, 232448)
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One exact-f32 layer launch: the kernel ('wide': sep_layer_kernel,
+    BN = min(F, 256); 'narrow': sep_narrow_kernel), its tile (BN output
+    channels x BM positions, TM positions a thread), its grid (blocks along
+    M, along N), its cp.async ring stages and dynamic shared memory."""
+    kernel: str
+    bn: int
+    tm: int
+    bm: int
+    grid: tuple
+    ring: int
+    smem: int
+
+    @property
+    def blocks(self):
+        return self.grid[0] * self.grid[1]
+
+
+def _window_rows(bm, s):
+    """``window_rows`` of csrc/sepconv.cu: the input rows the depthwise of
+    ``bm`` consecutive outputs of layer ``s`` can read."""
+    return (s.stride * (-(-bm // s.w_out) + 1) + 3) * s.w + 2
+
+
+def _ffma_cost(blocks, rows, rows_in, bn, s, sms):
+    """``ffma_cost``: the busiest SM's ceil(blocks / SMs) blocks, each
+    ``rows`` x (BN + 9) multiply-adds per input channel (pointwise and
+    recomputed depthwise) and BN weights plus the window of ``rows_in``
+    positions brought in at ``_LOAD_COST`` a float."""
+    return -(-blocks // sms) * (rows * (bn + 9) + _LOAD_COST * (
+        bn + _window_rows(rows_in, s)))
+
+
+def _wide_geometry(s, m, sms, sm_smem):
+    bn = min(s.c_out, 256)
+    ty, grid_n = _FT // (bn // 8), s.c_out // bn
+
+    def busiest(bm):
+        return -(-(-(-m // bm) * grid_n) // sms) * bm
+
+    def smem(bm, stages):
+        stage = _FK * bn + (_XHEAD + _window_rows(bm, s)) * _FK
+        return 4 * (_FK * (bm + _APAD) + stages * stage)
+    tm = 8
+    for t in (5, 4):
+        if busiest(t * ty) < busiest(tm * ty):
+            tm = t
+    bm = tm * ty
+    ring = _FRING if 2 * (smem(bm, _FRING) + 1024) <= sm_smem else 2
+    return Geometry('wide', bn, tm, bm, (-(-m // bm), grid_n), ring,
+                    smem(bm, min(s.c_in // _FK, ring)))
+
+
+def _narrow_geometry(s, m, bn, tm, block_smem):
+    bm, chunks = _FT // bn * tm, s.c_in // _NK
+
+    def smem(stages):
+        stage = bn * _NLD + (_XHEAD + _window_rows(bm, s)) * _NK
+        return 4 * (bm * _NLD + min(chunks, stages) * stage)
+    ring = _FRING if smem(_FRING) <= block_smem else 2
+    if s.c_in % _NK or smem(ring) > block_smem:
+        ring = 0
+    return Geometry('narrow', bn, tm, bm, (-(-m // bm), s.c_out // bn), ring,
+                    smem(ring))
+
+
+def ffma_geometry(s, batch, card=H100_CARD) -> Geometry:
+    """The launch of exact-f32 layer ``s`` at ``batch`` on a card of
+    ``card`` = (SMs, shared memory per SM, per block), as ``ffma_geometry``
+    in csrc/sepconv.cu picks it (a change to one is made in the other): the
+    wide tile, unless a narrow one (BN = 8, 16, 32, 64 x TM = 1, 2, 4, the
+    first of least cost) costs the busiest SM less (``_ffma_cost``). The
+    shapes alone decide: no knob."""
+    sms, sm_smem, block_smem = card
+    m = batch * s.h_out * s.w_out
+    g = _wide_geometry(s, m, sms, sm_smem)
+    best = _ffma_cost(g.blocks, g.bm, min(g.bm, m), g.bn, s, sms)
+    for bn in (8, 16, 32, 64):
+        for tm in (1, 2, 4):
+            n = _narrow_geometry(s, m, bn, tm, block_smem)
+            if not n.ring:
+                continue
+            rows = min(n.bm, m)
+            cost = _ffma_cost(n.blocks, rows, rows, bn, s, sms)
+            if cost < best:
+                best, g = cost, n
+    return g
 
 
 def resolve_compute_dtype(compute_dtype) -> torch.dtype:
@@ -314,6 +417,48 @@ def bind(lib):
     return lib
 
 
+def _layer_dims(specs):
+    """The layers' host descriptors for ``bz_sep_stack``: (h, w, C, F,
+    stride, Ho, Wo, and each axis's centre offset, 1 - pad_before)."""
+    return np.array([[s.h, s.w, s.c_in, s.c_out, s.stride, s.h_out, s.w_out,
+                      1 - same_pad(s.h, s.stride)[0],
+                      1 - same_pad(s.w, s.stride)[0]] for s in specs],
+                    np.int32)
+
+
+def library_card(lib=None):
+    """(SMs, shared memory per SM, per block) of the current CUDA device, as
+    the library sizes its grids by them (``bz_sep_card``)."""
+    lib = lib or load_kernels()
+    out = np.zeros(3, np.int32)
+    lib.bz_sep_card.argtypes = [ctypes.c_void_p]
+    lib.bz_sep_card.restype = ctypes.c_int
+    code = lib.bz_sep_card(out.ctypes.data)
+    if code != 0:
+        raise RuntimeError(f'bz_sep_card failed: CUDA error {code}')
+    return tuple(int(v) for v in out)
+
+
+def library_geometry(specs, batch, card, lib=None):
+    """The library's own choice for each exact-f32 layer of ``specs`` at
+    ``batch`` on ``card`` (``bz_sep_geometry``, a host function), as
+    Geometry; ``ffma_geometry`` is its mirror."""
+    lib = lib or load_kernels()
+    i32 = ctypes.c_int
+    lib.bz_sep_geometry.argtypes = [i32, i32, ctypes.c_void_p, i32, i32, i32,
+                                    ctypes.c_void_p]
+    lib.bz_sep_geometry.restype = i32
+    out = np.zeros((len(specs), 8), np.int32)
+    dims = _layer_dims(specs)
+    code = lib.bz_sep_geometry(batch, len(specs), dims.ctypes.data, *card,
+                               out.ctypes.data)
+    if code != 0:
+        raise RuntimeError(f'bz_sep_geometry failed: error {code}')
+    return [Geometry('narrow' if g[0] else 'wide', *map(int, g[1:4]),
+                     (int(g[4]), int(g[5])), int(g[6]), int(g[7]))
+            for g in out]
+
+
 def _check(params, x, specs, mode):
     """Validate the input and every layer's shape and operands for ``mode``;
     returns the per-layer (dw, dw_b, pw, pw_b) tensors the kernel reads,
@@ -369,10 +514,7 @@ def _launch(operands, x, specs, gap, mode, lib=None):
     b, sl = x.shape[0], specs[-1]
     ptrs = np.array([t.data_ptr() for layer in operands for t in layer],
                     np.int64)
-    dims = np.array([[s.h, s.w, s.c_in, s.c_out, s.stride, s.h_out, s.w_out,
-                      1 - same_pad(s.h, s.stride)[0],
-                      1 - same_pad(s.w, s.stride)[0]] for s in specs],
-                    np.int32)
+    dims = _layer_dims(specs)
     # ping-pong scratch for every layer output that does not go to `out`
     inter = specs if gap else specs[:-1]
     n_scratch = max((b * s.h_out * s.w_out * s.c_out for s in inter),
@@ -396,11 +538,13 @@ def _launch(operands, x, specs, gap, mode, lib=None):
     return out
 
 
-def _count_launch(wrapper, mode=None, layers=None):
+def _count_launch(wrapper, mode=None, layers=None, batch=None):
     """One more launch on ``wrapper.launches`` (or on its ``mode`` entry),
     and with ``layers`` = (start, stop) on ``wrapper.ranges[(start, stop,
-    mode)]``, which tells the layer ranges of one wrapper apart; inferer
-    threads share the wrappers, and ``+=`` is not atomic."""
+    mode)]``, which tells the layer ranges of one wrapper apart, and with
+    ``batch`` also on ``wrapper.batches[(start, stop, mode, batch)]``, which
+    tells the batch sizes apart; inferer threads share the wrappers, and
+    ``+=`` is not atomic."""
     with _count_lock:
         if mode is None:
             wrapper.launches += 1
@@ -408,6 +552,8 @@ def _count_launch(wrapper, mode=None, layers=None):
             wrapper.launches[mode] += 1
         if layers is not None:
             wrapper.ranges[(*layers, mode)] += 1
+            if batch is not None:
+                wrapper.batches[(*layers, mode, batch)] += 1
 
 
 def _flat(operands):
@@ -466,3 +612,5 @@ fused_front.launches = dict.fromkeys(MODES, 0)
 fused_tail.launches = dict.fromkeys(MODES, 0)
 fused_front.ranges = collections.Counter()
 fused_tail.ranges = collections.Counter()
+fused_front.batches = collections.Counter()
+fused_tail.batches = collections.Counter()

@@ -8,12 +8,21 @@ resume is byte-identical only if a redesigned kernel keeps its arithmetic.
 
 ``--against sepconv.cu``: ``fused_front`` (layers 2-7), ``fused_tail``
 (layers 8-14 + pooling) and layers 4-7 in exact f32, and the fronts and
-tails in bf16 and HIGH, at B = 209 (one 200 s chunk) and B = 5, on seeded
-inputs with the bundle's weights. Then it times each exact-f32 layer 2-14
-alone at B = 209 through both libraries, in turns (other, this, this,
-other; the median of 15 CUDA-event timings each, the better of each pair
-kept), so that a layer the redesign made slower shows on the same card in
-the same run.
+tails in bf16 and HIGH, at B = 209 (one 200 s chunk) and at the small
+batches 1, 2, 3, 5 and 8 (ragged last chunks, short chunk lengths), on
+seeded inputs with the bundle's weights. Then it times, at each of those
+B, the three exact-f32 stacks and each exact-f32 layer 2-14 alone through
+both libraries, in turns (other, this, this, other; device time alone,
+``utils.cuda_device_ms``, the better of each pair kept), so that a layer
+the redesign made slower shows on the same card in the same run. With
+``--launches`` (a run's conv launches by batch, as ``chip_smoke.py``
+prints them; repeatable) it also gives each batch's share of that run's
+conv device time through each library (``conv_shares``). With
+``--analyze SECONDS`` it runs ``analyze()`` on three seeded recordings of
+that length through each library (``ops/sepconv.load_kernels`` swapped
+for the other's during its run) and compares the CSVs byte for byte, then
+resumes through this library from a partial holding the other run's
+second chunk of the first recording, against the other's whole CSV.
 
 ``--against-probe probe.cu``: the three products (``dot_f32``,
 ``dot_high``, ``dot_high_emulated``) at the probe's shape (1024 x 128 x
@@ -36,7 +45,9 @@ interface.
     python -m buzzdetect_torch.tools.compare_builds \\
         [--against OTHER_CHECKOUT/buzzdetect_torch/csrc/sepconv.cu] \\
         [--against-probe OTHER_CHECKOUT/buzzdetect_torch/csrc/probe.cu] \\
-        [--against-logmel OTHER_CHECKOUT/buzzdetect_torch/csrc/logmel.cu]
+        [--against-logmel OTHER_CHECKOUT/buzzdetect_torch/csrc/logmel.cu] \\
+        [--launches '{"fused_front": {"209": 27}, "fused_tail": {...}}'] \\
+        [--analyze 1800]
 
 One line per case and per timed item; exit code 0 only when every case
 is equal.
@@ -45,6 +56,7 @@ is equal.
 import argparse
 import ctypes
 import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -61,7 +73,7 @@ CASES = {'fused_front': (dict(start_layer=2, stop_layer=8), False,
                         sepconv.MODES),
          'fused_tail[4:8]': (dict(start_layer=4, stop_layer=8), False,
                              ('highest',))}
-BATCHES = (209, 5)
+BATCHES = (209, 1, 2, 3, 5, 8)
 # the product kernels' cases: label -> (M, K, N, the bundle's pointwise
 # weight or None for the probe's own seeded one)
 DOT_SHAPES = {'probe': (1024, 128, 128, None),
@@ -150,26 +162,85 @@ def _report(label, ours, theirs):
 
 
 def time_layers(other, device):
-    """{layer: (this ms, other ms)} of every exact-f32 layer alone at the
-    largest batch, each on its input from the plain stack."""
+    """{(layer, B): (this ms, other ms)} of every exact-f32 layer alone at
+    each of BATCHES, device time, each on its input from the plain
+    stack."""
+    from buzzdetect_torch.utils import cuda_device_ms
     params = sepconv.pack_params(_weights(device), 'highest')
-    b = BATCHES[0]
+    card = sepconv.library_card()
     times = {}
     with torch.inference_mode():
-        x = inputs(params, 'highest', device)['fused_front']
-        for s in sepconv.tail_specs(2, None):
-            ops = sepconv._check(params, x, (s,), 'highest')
-            ours, theirs = _in_turns(
-                lambda lib: sepconv._launch(ops, x, (s,), False, 'highest',
-                                            lib=lib), other)
-            times[s.index] = ours, theirs
-            print(f'layer {s.index} (C={s.c_in}, F={s.c_out}, B={b}): this '
-                  f'{ours:.4f} ms, other {theirs:.4f} ms (this / other '
-                  f'{ours / theirs:.2f}x)', flush=True)
-            x = sepconv.fused_tail_plain(
-                params, x, start_layer=s.index, stop_layer=s.index + 1,
-                gap=False).reshape(b, s.h_out, s.w_out, s.c_out)
+        l1 = inputs(params, 'highest', device)['fused_front']
+        for b in BATCHES:
+            x = l1[:b].contiguous()
+            for s in sepconv.tail_specs(2, None):
+                ops = sepconv._check(params, x, (s,), 'highest')
+                ours, theirs = _in_turns(
+                    lambda lib: sepconv._launch(ops, x, (s,), False,
+                                                'highest', lib=lib), other,
+                    cuda_device_ms)
+                times[s.index, b] = ours, theirs
+                g = sepconv.ffma_geometry(s, b, card)
+                print(f'layer {s.index} (C={s.c_in}, F={s.c_out}, B={b}; '
+                      f'this: {g.kernel} {g.bn}x{g.bm}, {g.blocks} blocks): '
+                      f'device time this {ours:.4f} ms, other {theirs:.4f} '
+                      f'ms (this / other {ours / theirs:.2f}x)', flush=True)
+                x = sepconv.fused_tail_plain(
+                    params, x, start_layer=s.index, stop_layer=s.index + 1,
+                    gap=False).reshape(b, s.h_out, s.w_out, s.c_out)
     return times
+
+
+def time_stacks(other, device, batches=BATCHES, names=tuple(CASES)):
+    """{(case, B): (this ms, other ms)}: device time of the exact-f32
+    ``names`` of CASES (fused_front, fused_tail, fused_tail[4:8]) at each
+    of ``batches``, in turns."""
+    from buzzdetect_torch.utils import cuda_device_ms
+    params = sepconv.pack_params(_weights(device), 'highest')
+    times = {}
+    with torch.inference_mode():
+        xs = inputs(params, 'highest', device)
+        for name in names:
+            layers, gap, _modes = CASES[name]
+            specs = sepconv.tail_specs(layers['start_layer'],
+                                       layers['stop_layer'])
+            for b in batches:
+                x = xs[name][:b].contiguous()
+                ops = sepconv._check(params, x, specs, 'highest')
+                ours, theirs = _in_turns(
+                    lambda lib: sepconv._launch(ops, x, specs, gap,
+                                                'highest', lib=lib), other,
+                    cuda_device_ms)
+                times[name, b] = ours, theirs
+                print(f'{name} [highest] B={b}: device time this {ours:.4f} '
+                      f'ms, other {theirs:.4f} ms (this / other '
+                      f'{ours / theirs:.2f}x)', flush=True)
+    return times
+
+
+def conv_shares(hist, times):
+    """{wrapper: {B: share}}: each wrapper's launches at each B, times its
+    device ms per launch there, over the run's conv device time (every
+    launch of both wrappers). ``hist`` is {wrapper: {B: launches}} and
+    ``times`` {wrapper: {B: ms}}."""
+    total = sum(n * times[w][b] for w, h in hist.items() for b, n in h.items())
+    return {w: {b: n * times[w][b] / total for b, n in h.items()}
+            for w, h in hist.items()}
+
+
+def launch_shares(other, device, hist):
+    """A run's conv launches by batch (``hist``: {wrapper: {B: n}}, the
+    wrappers' default ranges, exact f32) priced through both libraries:
+    prints each B's share of the run's conv device time, this and other."""
+    stacks = time_stacks(other, device, sorted({b for h in hist.values()
+                                                for b in h}), tuple(hist))
+    for i, which in enumerate(('this', 'other')):
+        times = {w: {b: stacks[w, b][i] for b in h} for w, h in hist.items()}
+        shares = conv_shares(hist, times)
+        print(f'launches {hist}, priced by {which} library: share of the '
+              f'conv device time ' + '; '.join(
+                  f'{w} ' + ', '.join(f'B={b} {v:.4f}' for b, v in sh.items())
+                  for w, sh in shares.items()), flush=True)
 
 
 def _in_turns(run, other, timer=None):
@@ -335,6 +406,85 @@ def time_logmel(other, device):
              for label, x in logmel_inputs(device).items()}, other)
 
 
+def write_wav(path, seconds, seed, rate=16000):
+    """A seeded 16 kHz PCM16 recording: a harmonic tone that comes and
+    goes, over noise."""
+    import wave
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    tone = sum(0.15 / k * np.sin(2 * np.pi * (180 + 40 * seed) * k * t)
+               for k in (1, 2, 3)) * (np.sin(2 * np.pi * t / 37.0) > 0.3)
+    x = tone + 0.02 * rng.standard_normal(len(t))
+    with wave.open(path, 'wb') as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(np.clip(np.round(x * 32768), -32768, 32767)
+                      .astype('<i2').tobytes())
+
+
+def compare_analyze(other, seconds, root):
+    """{('analyze' or 'resume', name): equal}: ``analyze()`` of three seeded
+    recordings of ``seconds`` under ``root``, through this library and
+    through ``other``, CSVs byte for byte; then a resume through this
+    library from a partial holding the other run's second chunk of the
+    first recording, against the other's whole CSV."""
+    import shutil
+    import buzzdetect_torch
+    dir_audio = os.path.join(root, 'audio')
+    os.makedirs(dir_audio)
+    names = [f'rec{i}' for i in range(3)]
+    for i, name in enumerate(names):
+        write_wav(os.path.join(dir_audio, f'{name}.wav'), seconds, i)
+    outs, results = {}, {}
+    for which, lib in (('this', None), ('other', other)):
+        saved = sepconv.load_kernels
+        if lib is not None:
+            sepconv.load_kernels = lambda lib=lib: lib
+        try:
+            outs[which] = os.path.join(root, f'out_{which}')
+            run = buzzdetect_torch.analyze(
+                modelname='model_general_v3', dir_audio=dir_audio,
+                dir_out=outs[which], verbosity_print='WARNING')
+        finally:
+            sepconv.load_kernels = saved
+        if run.coordinator.end_reason != 'completed':
+            raise RuntimeError(f'analyze() through the {which} library '
+                               f'ended {run.coordinator.end_reason!r}')
+    chunk_s = run.chunklength
+
+    def csv(folder, name):
+        with open(os.path.join(folder, f'{name}_buzzdetect.csv'), 'rb') as f:
+            return f.read()
+    for name in names:
+        results['analyze', name] = same = (csv(outs['this'], name)
+                                           == csv(outs['other'], name))
+        print(f'analyze() {name} ({seconds:g} s, {chunk_s:g} s chunks): '
+              f'CSV {"byte-identical" if same else "DIFFERENT"}', flush=True)
+    name, resumed = names[0], os.path.join(root, 'out_resume')
+    os.makedirs(resumed)
+    lines = csv(outs['other'], name).decode().splitlines(keepends=True)
+    per_chunk = int(round(chunk_s / 0.96))
+    with open(os.path.join(resumed, f'{name}_buzzpart.csv'), 'w') as f:
+        f.write(lines[0])
+        f.writelines(lines[1 + per_chunk:1 + 2 * per_chunk])
+    shutil.copy(os.path.join(outs['other'], 'buzzdetect_manifest.json'),
+                resumed)
+    audio = os.path.join(root, 'resume_audio')
+    os.makedirs(audio)
+    os.symlink(os.path.join(dir_audio, f'{name}.wav'),
+               os.path.join(audio, f'{name}.wav'))
+    buzzdetect_torch.analyze(modelname='model_general_v3', dir_audio=audio,
+                             dir_out=resumed, verbosity_print='WARNING')
+    results['resume', name] = same = (csv(resumed, name)
+                                      == csv(outs['other'], name))
+    print(f'resume of {name} through this library from the other\'s '
+          f'partial (its second chunk): CSV '
+          f'{"byte-identical" if same else "DIFFERENT"} to the other\'s',
+          flush=True)
+    return results
+
+
 def _weights(device):
     from buzzdetect_torch.config import DIR_MODELS
     from buzzdetect_torch.models.weights import params_from_numpy
@@ -353,6 +503,13 @@ def main(argv=None):
     ap.add_argument('--against', help='path of the other sepconv.cu')
     ap.add_argument('--against-probe', help='path of the other probe.cu')
     ap.add_argument('--against-logmel', help='path of the other logmel.cu')
+    ap.add_argument('--launches', action='append', default=[],
+                    help='a run\'s conv launches by batch, JSON '
+                    '{"fused_front": {"B": n}, "fused_tail": {...}}, as '
+                    'chip_smoke.py prints it (with --against; repeatable)')
+    ap.add_argument('--analyze', type=float, metavar='SECONDS',
+                    help='analyze() three seeded recordings of SECONDS '
+                    'through both builds and a resume (with --against)')
     args = ap.parse_args(argv)
     if not (args.against or args.against_probe or args.against_logmel):
         ap.error('give one or more of --against, --against-probe and '
@@ -367,6 +524,10 @@ def main(argv=None):
     if args.against:
         other = build_other(args.against)
         results.update(compare(other, device))
+        if args.analyze:
+            import tempfile
+            with tempfile.TemporaryDirectory() as root:
+                results.update(compare_analyze(other, args.analyze, root))
     if args.against_probe:
         other_probe = build_other(args.against_probe, probe.bind)
         results.update(compare_probe(other_probe, device))
@@ -377,7 +538,12 @@ def main(argv=None):
     print(f'{len(results) - len(bad)} of {len(results)} cases '
           f'bit-identical', flush=True)
     if args.against:
+        time_stacks(other, device)
         time_layers(other, device)
+        for launches in args.launches:
+            launch_shares(other, device, {
+                w: {int(b): n for b, n in h.items()}
+                for w, h in json.loads(launches).items()})
     if args.against_probe:
         time_probe(other_probe, device)
     if args.against_logmel:

@@ -47,8 +47,12 @@ Phases, each printed before the last line:
    CSVs with the expected rows, the launch counts of its kernels (set to 0
    just before the run and read just after), one chunk's scores on the card
    against the same chunk on the CPU in the same mode; for the analyze()
-   run also the realtime factor and an upper estimate of the device busy
-   share;
+   run also the realtime factor, an upper estimate of the device busy
+   share, and what the run pays for its batches: the conv launches by B
+   (``<wrapper>.batches``), each wrapper's device time per launch at those
+   B, and each B's share of the run's conv device time
+   (``compare_builds.conv_shares``), with the histogram as
+   ``compare_builds --launches`` takes it;
 4. the developer tools (``buzzdetect_torch/tools``): (a) the capability
    probe's 23 cases through the kernels of ``csrc/probe.cu`` (launch counts
    set to 0 just before and read just after; its 20 layout cases are one
@@ -171,13 +175,16 @@ Phases, each printed before the last line:
 9. one JSON line with every kernel's numbers (printed after phase 10);
 10. the JAX package's kernel and pipeline suites on the card: (a) the grids
    of ``tests/test_pallas_conv.py`` and ``tests/test_pallas.py``:
-   ``fused_front`` (layers 2-3 and 2-7) at B = 1, 3 and 8, ``fused_tail``
-   from layers 8 and 13 at B = 3 with and without pooling (and from 8 at
-   B = 1 and 8), the layer 4-7 block at B = 1, 3 and 8, bf16 and HIGH at
+   ``fused_front`` (layers 2-3 and 2-7), ``fused_tail`` from layers 8 and
+   13 with pooling and the layer 4-7 block at B = 1, 2, 3, 5 and 8,
+   ``fused_tail`` from 8 and 13 without pooling at B = 3, bf16 and HIGH at
    B = 3, and the fused log-mel on 1.0, 4.8 and 10.0 s: each against its
-   plain version at phase 2's tolerances, its device time beside the plain
+   plain version at phase 2's tolerances, each conv row equal bit for bit
+   to the same rows at B = 209, its device time beside the plain
    version's and the cuDNN layer stack's (the matmul frontend's), and its
-   bound by phase 2's formula; (b) the three
+   bound by phase 2's formula; the exact-f32 rows also by ``queued_ms``
+   (the call's kernels and gaps, queued behind a device sleep), kernel and
+   cuDNN, warm and with the L2 flushed by a 128 MB write; (b) the three
    ``BUZZDETECT_PALLAS_FRONT`` routes (``models/yamnet.PALLAS_FRONT``:
    layers 2-7 in one ``fused_front``; 2-3 and a ``fused_tail`` 4-7; layers
    1-3 by cuDNN) through ``yamnet.embed`` on one 200.64 s chunk (209
@@ -206,10 +213,12 @@ Phases, each printed before the last line:
    embed_directory`` of the excerpt on the card and on the CPU at the
    default chunk length and at 2.0 s: the start grid on one 0.96 s stride
    across chunk boundaries, the conv kernels' launches (one of each per
-   chunk), the embeddings card against CPU; then ``python -m
-   buzzdetect_torch.tools.score_embeddings`` on the card's embeddings of
-   both chunk lengths, and on the default ones with an ensemble bundle
-   made by ``tools/build_ensemble`` (two copies of ``model_general_v3``),
+   chunk), the embeddings card against CPU, and for the 2.0 s run (1.92 s
+   chunks, B = 2) what it pays for its batches, as phase 3's; then
+   ``python -m buzzdetect_torch.tools.score_embeddings`` on the card's
+   embeddings of both chunk lengths, and on the default ones with an
+   ensemble bundle made by ``tools/build_ensemble`` (two copies of
+   ``model_general_v3``),
    each CSV equal to ``analyze()``'s on the card after 2-digit rounding;
    (c) the installed CLI's form, ``sys.exit(buzzdetect_torch.cli.
    main([...]))``, in a child process on the card on phase 3's first
@@ -237,6 +246,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MODEL = 'model_general_v3'
 BATCHES = (209, 5)       # one default 200 s chunk at framehop 1; a ragged B
+# phase 2's exact-f32 layers, each alone, at these B beside B = 209
+LAYER_BATCHES = (1, 8)
 # exact-f32 arithmetic on both sides (f32, HIGH, log-mel), in a different
 # summation order
 ATOL, RTOL = 2e-4, 1e-5
@@ -1989,21 +2000,29 @@ def dispatch_phase(torch, params, x_front, x_tail, rows):
 # the kernel grids of tests/test_pallas_conv.py: (label, wrapper, start
 # layer, stop layer, gap, batches, modes) each, on phase 2's activations;
 # and the log-mel lengths of tests/test_pallas.py
+SMALL_BATCHES = (1, 2, 3, 5, 8)   # with B = 2, the 1.92 s embed's chunks
 SUITE_CONV = (
-    ('fused_front(2, 4)', 'front', 2, 4, False, (1, 3, 8), ('highest',)),
-    ('fused_front(2, 8)', 'front', 2, 8, False, (1, 3, 8), ('highest',)),
-    ('fused_tail(8)', 'tail', 8, None, True, (1, 3, 8), ('highest',)),
+    ('fused_front(2, 4)', 'front', 2, 4, False, SMALL_BATCHES, ('highest',)),
+    ('fused_front(2, 8)', 'front', 2, 8, False, SMALL_BATCHES, ('highest',)),
+    ('fused_tail(8)', 'tail', 8, None, True, SMALL_BATCHES, ('highest',)),
     ('fused_tail(8, gap=False)', 'tail', 8, None, False, (3,),
      ('highest',)),
-    ('fused_tail(13)', 'tail', 13, None, True, (3,), ('highest',)),
+    ('fused_tail(13)', 'tail', 13, None, True, SMALL_BATCHES,
+     ('highest',)),
     ('fused_tail(13, gap=False)', 'tail', 13, None, False, (3,),
      ('highest',)),
-    ('fused_tail(4, 8)', 'tail', 4, 8, False, (1, 3, 8), ('highest',)),
+    ('fused_tail(4, 8)', 'tail', 4, 8, False, SMALL_BATCHES, ('highest',)),
     ('fused_front(2, 8)', 'front', 2, 8, False, (3,), ('bf16', 'high')),
     ('fused_tail(8)', 'tail', 8, None, True, (3,), ('bf16', 'high')),
     ('fused_tail(13)', 'tail', 13, None, True, (3,), ('bf16', 'high')),
 )
 SUITE_SECONDS = (1.0, 4.8, 10.0)
+# the cold timings of 10a: a write of FLUSH_BYTES (past the 50 MB L2)
+# before each timed call, behind a QUEUE_CYCLES device sleep (~2 ms) that
+# lets the host queue the flush and the call before the device reaches
+# them (queued_ms)
+FLUSH_BYTES = 128 << 20
+QUEUE_CYCLES = 4_000_000
 # (b) BUZZDETECT_PALLAS_FRONT's three routes (models/yamnet.PALLAS_FRONT):
 # (label, config, launches of one embed by (start, stop) layer range of
 # fused_front, and of fused_tail)
@@ -2071,6 +2090,97 @@ def read_ranges():
     return tuple(out)
 
 
+def read_batches():
+    """The conv kernels' launches since the last reset by wrapper and batch,
+    every layer range and mode summed: {'fused_front': {B: n},
+    'fused_tail': {B: n}}."""
+    from buzzdetect_torch.ops import sepconv
+    out = {}
+    for fn in (sepconv.fused_front, sepconv.fused_tail):
+        batches = collections.Counter()
+        for (_start, _stop, _mode, b), n in fn.batches.items():
+            batches[b] += n
+        out[fn.__name__] = dict(sorted(batches.items()))
+    return out
+
+
+def queued_ms(torch, fn, flush=None, reps=15):
+    """Median milliseconds of ``fn()``'s kernels, the gaps between them
+    included, by CUDA events that the device reaches only after the host
+    has queued the whole call: each timing starts with a device sleep of
+    QUEUE_CYCLES, then ``flush()`` (if given: L2 cold for ``fn``), the
+    start event, ``fn()``, the end event. So the host's launch work, which
+    exceeds a small call's device time, is not in the reading."""
+    import statistics
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        if flush is not None:
+            flush()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def geometry_phase():
+    """The exact-f32 route's launch geometry: the library's own choice
+    (``bz_sep_geometry`` for this card's ``bz_sep_card``) against its
+    mirror ``sepconv.ffma_geometry``, every layer 2-14 at every B from 1
+    to 209; prints the tail's geometry at SMALL_BATCHES and B = 209.
+    Returns the card's (SMs, shared memory per SM, per block)."""
+    from buzzdetect_torch.ops import sepconv
+    card = sepconv.library_card()
+    specs = sepconv.tail_specs(2, None)
+    for b in range(1, BATCHES[0] + 1):
+        got = sepconv.library_geometry(specs, b, card)
+        for s, g in zip(specs, got):
+            want = sepconv.ffma_geometry(s, b, card)
+            if g != want:
+                fail(f'layer {s.index} at B={b}: the library launches {g}, '
+                     f'its mirror says {want}')
+    print(f'exact-f32 geometry on {card[0]} SMs, {card[1]} B of shared '
+          f'memory per SM, {card[2]} per block: bz_sep_geometry equals '
+          f'sepconv.ffma_geometry on layers 2-14 at B = 1-{BATCHES[0]}',
+          flush=True)
+    for b in SMALL_BATCHES + BATCHES[:1]:
+        print(f'  B={b}: ' + ', '.join(
+            f'{s.index} {g.kernel} {g.bn}x{g.bm} ({g.blocks} blocks)'
+            for s, g in zip(specs, sepconv.library_geometry(specs, b, card))),
+            flush=True)
+    return card
+
+
+def batch_share_phase(label, hist, stack_ms):
+    """What a run pays for its batches: ``hist`` ({wrapper: {B: launches}},
+    ``read_batches``), each wrapper's device time per launch at each of
+    those B (``stack_ms(wrapper, B)``), and each B's share of the run's conv
+    device time by ``compare_builds.conv_shares`` (the tail's; the front's
+    beside it). Prints the histogram as ``compare_builds --launches`` takes
+    it. Returns the tail's shares."""
+    from buzzdetect_torch.tools.compare_builds import conv_shares
+    times = {w: {b: stack_ms(w, b) for b in h} for w, h in hist.items()}
+    shares = conv_shares(hist, times)
+
+    def by_batch(values, digits):
+        return ', '.join(f'B={b} {v:.{digits}f}' for b, v in values.items())
+    print(f'{label}: conv launches by B {hist}; device ms per launch '
+          + '; '.join(f'{w} {by_batch(ts, 4)}' for w, ts in times.items())
+          + '; share of the run\'s conv device time, fused_tail by B: '
+          + by_batch(shares['fused_tail'], 4) + '; fused_front by B: '
+          + by_batch(shares['fused_front'], 4), flush=True)
+    launches = {w: {str(b): n for b, n in h.items()} for w, h in hist.items()}
+    print(f'{label}: for compare_builds --launches: {json.dumps(launches)}',
+          flush=True)
+    return shares['fused_tail']
+
+
 def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms,
                        peaks):
     """(a) The kernel grids of the JAX package's kernel suites on the card:
@@ -2078,10 +2188,12 @@ def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms,
     input from the plain stack), and the fused log-mel on SUITE_SECONDS of
     phase 2's waveform padded by ``frontend.pad_waveform``: each against
     its plain version at phase 2's tolerances, two launches bit-identical,
-    its device time beside the plain version's and the cuDNN layer
+    each conv row equal to the same rows of the wrapper's output at B =
+    209, its device time beside the plain version's and the cuDNN layer
     stack's (the matmul frontend's for the log-mel), and its bound by
-    phase 2's formula from ``peaks``
-    (f32, bf16 and memory rates). Returns {(label, mode, B): row}."""
+    phase 2's formula from ``peaks`` (f32, bf16 and memory rates); exact
+    f32 also by ``queued_ms``, kernel and cuDNN, warm and with the L2
+    flushed. Returns {(label, mode, B): row}."""
     from buzzdetect_torch.models import yamnet
     from buzzdetect_torch.ops import frontend, logmel, sepconv
     from buzzdetect_torch.tools.roofline import library_stack, library_weights
@@ -2112,6 +2224,7 @@ def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms,
 
     print('10a. the kernel grids of tests/test_pallas_conv.py and '
           'tests/test_pallas.py', flush=True)
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device=patches.device)
     for label, which, start, stop, gap, batches, modes in SUITE_CONV:
         for mode in modes:
             params = sepconv.pack_params(all_params['yamnet'], mode)
@@ -2131,22 +2244,44 @@ def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms,
                 kw['gap'] = gap
             lib_dtype = torch.bfloat16 if mode == 'bf16' else torch.float32
             lib_w = library_weights(params, specs, lib_dtype)
+            # the same patches inside one 209-patch chunk, on the wide tile
+            whole = wrapper(params, x, **kw)
             for b in batches:
                 xb = x[:b].contiguous()
                 x_nchw = xb.permute(0, 3, 1, 2).contiguous().to(lib_dtype)
                 got = wrapper(params, xb, **kw)
                 again = wrapper(params, xb, **kw)
                 torch.cuda.synchronize()
+                if not torch.equal(got, whole[:b]):
+                    # per-patch results must not depend on the batch
+                    fail(f'{label} [{mode}] B={b}: rows differ from the same '
+                         f'rows inside B={x.shape[0]}')
                 pw_f, dw_f, n_bytes = stack_work(specs, b, gap, mode)
                 t_ops = ((pw_f + dw_f) / f32_peak if mode == 'highest'
                          else max(pw_f / bf16_peak, dw_f / f32_peak))
-                rows[label, mode, b] = hold(
+                run_kernel = (lambda xb=xb: wrapper(params, xb, **kw))
+                run_library = (lambda x_nchw=x_nchw: library_stack(
+                    lib_w, x_nchw, specs, gap))
+                row = rows[label, mode, b] = hold(
                     f'{label} [{mode}] B={b}', got, again,
-                    plain(params, xb, **kw), mode,
-                    lambda: wrapper(params, xb, **kw),
-                    lambda: plain(params, xb, **kw),
-                    lambda: library_stack(lib_w, x_nchw, specs, gap),
+                    plain(params, xb, **kw), mode, run_kernel,
+                    lambda: plain(params, xb, **kw), run_library,
                     (t_ops, n_bytes / bytes_peak))
+                if mode != 'highest':
+                    continue
+                # queued on the device: warm, and with the L2 flushed
+                for key, flush in (('warm', None), ('cold', flush_buf.zero_)):
+                    row[f'{key}_ms'] = queued_ms(torch, run_kernel, flush)
+                    row[f'{key}_library_ms'] = queued_ms(torch, run_library,
+                                                         flush)
+                print(f'    queued: kernel {row["warm_ms"]:.4f} ms warm, '
+                      f'{row["cold_ms"]:.4f} ms with L2 flushed; cuDNN '
+                      f'{row["warm_library_ms"]:.4f} / '
+                      f'{row["cold_library_ms"]:.4f} ms (kernel / cuDNN '
+                      f'{row["warm_ms"] / row["warm_library_ms"]:.2f}x warm, '
+                      f'{row["cold_ms"] / row["cold_library_ms"]:.2f}x '
+                      f'cold); B independent: rows equal to B='
+                      f'{x.shape[0]}\'s', flush=True)
     for seconds in SUITE_SECONDS:
         w = frontend.pad_waveform(wav[:int(seconds * 16000)], cfg)
         got = logmel.log_mel_spectrogram_fused(w, cfg)
@@ -2606,7 +2741,8 @@ def embeddings_phase(tmp, excerpt, name, reset_counts, read_counts,
     JAX package as here: that frame's patch reads 15 ms past its 0.96 s,
     zero padding at a chunk's end and audio inside ``analyze()``'s chunk.
     Those rows are reported apart and every other row is held. The
-    children are stopped before this returns."""
+    children are stopped before this returns. Returns the conv launches of
+    each chunk length's ``device`` run by batch (``read_batches``)."""
     import buzzdetect_torch
     from buzzdetect_torch import config as cfg
     from buzzdetect_torch.tools import build_ensemble
@@ -2622,7 +2758,7 @@ def embeddings_phase(tmp, excerpt, name, reset_counts, read_counts,
         fail(f'analyze() of the excerpt ended '
              f'{result.coordinator.end_reason!r}')
     classes = list(result.model.config['classes'])
-    dirs = {}
+    dirs, batches = {}, {}
     for cl in EMBED_CHUNKS:
         got = {}
         for role, d in (('run', device), ('cpu', 'cpu')):
@@ -2634,6 +2770,8 @@ def embeddings_phase(tmp, excerpt, name, reset_counts, read_counts,
                                       device=d)
             wall = time.perf_counter() - t0
             counts = read_counts()
+            if role == 'run':
+                batches[cl] = read_batches()
             if len(written) != 1:
                 fail(f'embed_directory at {cl:g} s on {d} wrote {written}')
             got[role] = load_embeddings(written[0])
@@ -2726,6 +2864,7 @@ def embeddings_phase(tmp, excerpt, name, reset_counts, read_counts,
     if worst > 0.0101:
         fail(f'the ensemble\'s member columns differ from analyze() by '
              f'{worst:.3g}')
+    return batches
 
 
 def console_script_phase(tmp, dir_audio, dir_out, name, device='cuda'):
@@ -2815,6 +2954,7 @@ def run(torch, tmp):
     native = decoder_line()
 
     # --- 2. kernels against their plain versions -----------------------
+    card = geometry_phase()
     sepconv.exact_f32()
     dev = torch.device('cuda')
     with np.load(os.path.join(ROOT, 'models', MODEL, 'model.npz')) as z:
@@ -2969,23 +3109,30 @@ def run(torch, tmp):
 
         # each mode's device time layer by layer, at B = 209, each layer on
         # its input from the plain stack, with its bound; in exact f32 also
-        # the cuDNN layer's (TF32 off), to show where the FFMA kernel loses
+        # the cuDNN layer's (TF32 off), to show where the FFMA kernel loses,
+        # and the same at B = 1 and 8 (the narrow tiles)
         layer_ms = {}
-        for mode in sepconv.MODES:
+        for mode, b in [(m, b0) for m in sepconv.MODES] + [
+                ('highest', b) for b in LAYER_BATCHES]:
             params = sepconv.pack_params(all_params['yamnet'], mode)
-            x = yamnet.layer1(params, patches, mode)
+            x = yamnet.layer1(params, patches[:b].contiguous(), mode)
             parts, vs_library = [], []
             for s in sepconv.tail_specs(2, None):
                 layer = dict(start_layer=s.index, stop_layer=s.index + 1,
                              gap=False, mode=mode)
-                pw_f, dw_f, n_bytes = stack_work((s,), b0, False, mode)
+                pw_f, dw_f, n_bytes = stack_work((s,), b, False, mode)
                 t_ops = ((pw_f + dw_f) / f32_peak if mode == 'highest'
                          else max(pw_f / bf16_peak, dw_f / f32_peak))
                 t_bound = max(t_ops, n_bytes / bytes_peak)
                 ms = device_ms(lambda: sepconv.fused_tail(params, x, **layer))
-                layer_ms[mode, s.index] = ms
-                parts.append(f'{s.index}: {ms:.4f} (bound {1e3 * t_bound:.4f}'
-                             f', {ms / (1e3 * t_bound):.1f}x)')
+                layer_ms[mode, s.index, b] = ms
+                geo = ''
+                if mode == 'highest':
+                    g = sepconv.ffma_geometry(s, b, card)
+                    geo = f' {g.kernel} {g.bn}x{g.bm}'
+                parts.append(f'{s.index}{geo}: {ms:.4f} (bound '
+                             f'{1e3 * t_bound:.4f}, '
+                             f'{ms / (1e3 * t_bound):.1f}x)')
                 if mode == 'highest':
                     lib_w = library_weights(params, (s,), torch.float32)
                     x_nchw = x.permute(0, 3, 1, 2).contiguous()
@@ -2994,15 +3141,16 @@ def run(torch, tmp):
                     vs_library.append(f'{s.index}: {lib_ms:.4f} '
                                       f'({ms / lib_ms:.2f}x)')
                 x = sepconv.fused_tail_plain(params, x, **layer).reshape(
-                    b0, s.h_out, s.w_out, s.c_out)
-            print(f'device time per layer, ms, [{mode}] B={b0}: '
+                    b, s.h_out, s.w_out, s.c_out)
+            print(f'device time per layer, ms, [{mode}] B={b}: '
                   + ', '.join(parts), flush=True)
             if vs_library:
                 print(f'cuDNN f32 device time per layer, ms (FFMA kernel / '
-                      f'cuDNN) B={b0}: ' + ', '.join(vs_library), flush=True)
+                      f'cuDNN) B={b}: ' + ', '.join(vs_library), flush=True)
         for mode in ('bf16', 'high'):
-            ratios = (f'{i}: {layer_ms[mode, i] / layer_ms["highest", i]:.2f}x'
-                      for i in range(2, 15))
+            ratios = (f'{i}: {layer_ms[mode, i, b0] / ms:.2f}x'
+                      for (m, i, b), ms in layer_ms.items()
+                      if m == 'highest' and b == b0)
             print(f'[{mode}] tensor cores / exact-f32 FFMA kernel, per layer: '
                   + ', '.join(ratios), flush=True)
 
@@ -3038,6 +3186,8 @@ def run(torch, tmp):
         sepconv.fused_tail.launches = dict.fromkeys(sepconv.MODES, 0)
         sepconv.fused_front.ranges.clear()
         sepconv.fused_tail.ranges.clear()
+        sepconv.fused_front.batches.clear()
+        sepconv.fused_tail.batches.clear()
         logmel.log_mel_spectrogram_fused.launches = 0
 
     def read_counts():
@@ -3063,6 +3213,7 @@ def run(torch, tmp):
         verbosity_print='WARNING')
     wall = time.perf_counter() - t0
     counts = read_counts()
+    batches = read_batches()
     print(f'analyze: end reason {analyzer.coordinator.end_reason!r}, '
           f'{wall:.2f} s wall, kernel launches {counts}', flush=True)
     if analyzer.coordinator.end_reason != 'completed':
@@ -3079,6 +3230,17 @@ def run(torch, tmp):
     print(f'realtime factor: {audio_s / wall:.1f} audio s per wall s '
           f'({audio_s:.1f} audio s in {wall:.2f} s, model load and warmup '
           f'included)', flush=True)
+
+    def stack_ms(wrapper, b, params=all_params['yamnet'], l1=l1, mid=mid):
+        """Device ms of one exact-f32 launch of ``wrapper`` at B = b, on
+        phase 2's activations."""
+        with torch.inference_mode():
+            if wrapper == 'fused_front':
+                x = l1[:b].contiguous()
+                return device_ms(lambda: sepconv.fused_front(params, x))
+            x = mid[:b].contiguous()
+            return device_ms(lambda: sepconv.fused_tail(params, x))
+    batch_share_phase('3. analyze()', batches, stack_ms)
     # every dispatch is one chunk of at most 209 patches, so this is an
     # upper estimate of the run's device time, from phase 2's time
     dispatches = counts['fused_front']
@@ -3462,7 +3624,10 @@ def run(torch, tmp):
     t0 = time.perf_counter()
     profile_phase(tmp, excerpt, names[0], analyzer.chunklength, reset_counts,
                   read_counts)
-    embeddings_phase(tmp, excerpt, names[0], reset_counts, read_counts)
+    embed_batches = embeddings_phase(tmp, excerpt, names[0], reset_counts,
+                                     read_counts)
+    batch_share_phase(f'11b. embed_directory at {EMBED_CHUNKS[1]:g} s',
+                      embed_batches[EMBED_CHUNKS[1]], stack_ms)
     console_script_phase(tmp, dir_audio, dir_out, names[0])
     print(f'phase 11: {time.perf_counter() - t0:.2f} s wall', flush=True)
 

@@ -74,7 +74,9 @@ def test_compare_builds_covers_every_mode_and_both_batches():
     modes = {m for _layers, _gap, ms in compare_builds.CASES.values()
              for m in ms}
     assert modes == set(compare_builds.sepconv.MODES)
-    assert compare_builds.BATCHES == (209, 5)
+    # one 200 s chunk, then the small batches of ragged last chunks and
+    # short chunk lengths (B = 2: the 1.92 s embed)
+    assert compare_builds.BATCHES == (209, 1, 2, 3, 5, 8)
 
 
 def test_compare_builds_asks_for_the_card_with_the_probe_flag():
@@ -186,3 +188,45 @@ def test_logmel_bind_takes_the_geometry_where_the_build_has_it(new):
         assert lib.bz_logmel_clusters.argtypes[:2] == [ctypes.c_int] * 2
     else:
         assert not hasattr(lib, 'bz_logmel_clusters')
+
+
+def test_compare_builds_conv_shares():
+    """Each wrapper's launches at each B, priced by its device time there,
+    over the run's conv device time."""
+    hist = {'fused_front': {209: 3, 2: 1}, 'fused_tail': {209: 3, 2: 1}}
+    times = {'fused_front': {209: 0.5, 2: 0.1},
+             'fused_tail': {209: 0.6, 2: 0.3}}
+    shares = compare_builds.conv_shares(hist, times)
+    total = 3 * 0.5 + 0.1 + 3 * 0.6 + 0.3
+    assert shares['fused_front'] == pytest.approx({209: 1.5 / total,
+                                                   2: 0.1 / total})
+    assert shares['fused_tail'] == pytest.approx({209: 1.8 / total,
+                                                  2: 0.3 / total})
+    assert sum(v for sh in shares.values() for v in sh.values()) == \
+        pytest.approx(1.0)
+
+
+def test_ffma_geometries_asks_for_the_card():
+    from buzzdetect_torch.tools import ffma_geometries
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        ffma_geometries.main(['--layers', '8', '--batches', '1'])
+
+
+def test_ffma_geometries_prices_the_rule_against_the_fastest_tile():
+    """``regret`` prices the mirror's pick at a LOAD_COST against the
+    fastest tile measured, and names the thin tail grids at B <= 8."""
+    from buzzdetect_torch.ops import sepconv
+    from buzzdetect_torch.tools import ffma_geometries as fg
+    s8 = sepconv.tail_specs(8, 9)[0]
+    pick = fg.tile_of(sepconv.ffma_geometry(s8, 1))
+    times = {(8, 1): {t: 2.0 for t in fg.TILES}}
+    times[8, 1][pick] = 3.0
+    times[8, 1][fg.WIDE] = 1.0
+    mean, worst, thin = fg.regret(times, sepconv._LOAD_COST,
+                                  sepconv.H100_CARD)
+    assert (mean, worst, thin) == (3.0, 3.0, [])
+    assert sepconv._LOAD_COST == 16
+    # with loads priced at nothing, layer 8 at B = 1 takes 4-position tiles
+    # of 64 channels: 48 blocks
+    assert fg.regret(times, 0, sepconv.H100_CARD)[2] == [(8, 1, 48)]

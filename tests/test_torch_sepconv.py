@@ -204,3 +204,68 @@ def test_stride2_layer_reads_odd_centres(tparams):
     y = sepconv.fused_tail_plain(p, x, start_layer=13, stop_layer=14,
                                  gap=False).reshape(2, s.h_out, s.w_out, -1)
     torch.testing.assert_close(y[..., :s.c_in], x[:, 1::2, 1::2, :])
+
+
+# The exact-f32 route's launch geometry (ops/sepconv.ffma_geometry, the
+# mirror of csrc/sepconv.cu's rule; chip_smoke.py holds the library's own
+# choice to it on the card). The three layer ranges the wrappers launch:
+# fused_front, fused_tail and fused_tail(4, 8).
+ROUTES = [(2, 8), (8, None), (4, 8)]
+# the wide tile's grid at B = 209 (one 200 s chunk), as csrc/sepconv.cu's
+# note lists it: the small-batch tiles leave it as it was
+WIDE_BLOCKS_209 = {2: 2508, 3: 627, 4: 627, 5: 502, 6: 502, 7: 252, 8: 252,
+                   9: 252, 10: 252, 11: 252, 12: 252, 13: 128, 14: 128}
+
+
+@pytest.mark.parametrize('start_layer,stop_layer', ROUTES)
+def test_ffma_geometry_keeps_the_wide_grid_at_209(start_layer, stop_layer):
+    for s in sepconv.tail_specs(start_layer, stop_layer):
+        g = sepconv.ffma_geometry(s, 209)
+        assert (g.kernel, g.bn, g.blocks) == (
+            'wide', min(s.c_out, 256), WIDE_BLOCKS_209[s.index]), s
+
+
+@pytest.mark.parametrize('batch', range(1, 9))
+@pytest.mark.parametrize('start_layer,stop_layer', ROUTES)
+def test_ffma_geometry_fills_the_card_at_small_batches(start_layer,
+                                                       stop_layer, batch):
+    """At B = 1-8 the wide tile gives fewer blocks than the card has SMs on
+    every layer whose C comes in chunks of 64, and each such layer takes a
+    narrow tile, which launches more; every tail layer 8-14 at least 64
+    (the wide tile: 2-4). Layer 2 (C = 32) keeps the wide tile. Each tile
+    covers the batch, divides F and fits a block's shared memory."""
+    sms, _, block_smem = sepconv.H100_CARD
+    for s in sepconv.tail_specs(start_layer, stop_layer):
+        m = batch * s.h_out * s.w_out
+        g = sepconv.ffma_geometry(s, batch)
+        wide = sepconv._wide_geometry(s, m, *sepconv.H100_CARD[:2])
+        assert (g.grid[0] - 1) * g.bm < m <= g.grid[0] * g.bm, (s, g)
+        assert g.grid[1] * g.bn == s.c_out and g.ring in (2, 3), (s, g)
+        assert g.smem <= block_smem, (s, g)
+        if s.c_in % 64:
+            assert g == wide, (s, g)
+            continue
+        assert wide.blocks < sms, (s, wide)
+        assert g.kernel == 'narrow' and g.blocks > wide.blocks, (s, g, wide)
+        assert g.bm == 256 // g.bn * g.tm, (s, g)
+        if s.index >= 8:
+            assert g.blocks >= 64, (s, g)
+
+
+def test_count_launch_by_batch():
+    """A launch with its batch counts on the wrapper's ``batches`` beside
+    ``launches`` and ``ranges``."""
+    import collections
+
+    def wrapper():
+        pass
+    wrapper.launches = dict.fromkeys(sepconv.MODES, 0)
+    wrapper.ranges = collections.Counter()
+    wrapper.batches = collections.Counter()
+    for b in (2, 2, 209):
+        sepconv._count_launch(wrapper, 'highest', (8, 15), b)
+    sepconv._count_launch(wrapper, 'bf16', (8, 15))
+    assert wrapper.launches == {'highest': 3, 'bf16': 1, 'high': 0}
+    assert wrapper.ranges == {(8, 15, 'highest'): 3, (8, 15, 'bf16'): 1}
+    assert wrapper.batches == {(8, 15, 'highest', 2): 2,
+                               (8, 15, 'highest', 209): 1}
