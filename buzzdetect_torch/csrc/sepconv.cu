@@ -52,51 +52,77 @@
 // depthwise, which stays on FFMA: 0.27 GFLOP per chunk, 0.004 ms at 67
 // TFLOP/s, or 0.6 GFLOP (0.009 ms) with the recompute below.
 //
-// HIGHEST design (sep_layer_kernel<BN, TM>). 256 threads; each owns TM = 8,
-// 5 or 4 positions x 8 output channels, the channels read as two float4s
-// BN / 2 apart from the weight stage, the positions as float4s 4 * TY apart
-// (TM = 8, 4) or five scalars (TM = 5) from the A tile; a warp is 8
-// threads along N x 4 along M, so each of its reads touches at most 128
-// distinct bytes. K in chunks of 16 input channels through a ring of 3
-// cp.async stages (2 where 3 would leave one block per SM: layer 3), the
-// chunk's (16, BN) f32 weights beside its taps, bias and input window. Two
-// barriers per chunk, as the tensor-core kernel.
+// HIGHEST design (sep_layer_kernel<BN, TM>). 256 threads; each owns TM = 5
+// or 4 positions TY apart x 8 output channels, the channels read as two
+// float4s BN / 2 apart from the weight stage; a warp is 8 threads along N x
+// 4 along M. K in chunks of FK = 16 input channels, in order.
+//   - The A tile is (position, k): a position's 16 channels, rows padded to
+//     ALD = 20 floats. Per 4 k a thread reads TM float4s of A (4 k of one
+//     position each) and 8 float4s of weights: 13 shared loads per 160 FFMA
+//     at TM = 5 (a (k, position) tile needs five scalar reads a k: 28 per
+//     160). The 4 rows a warp reads at once are neighbours, i * TY
+//     + ty for 4 consecutive ty, and a pitch of 20 floats puts them on bank
+//     quads 0, 20, 8 and 28: one wavefront. The depthwise writes each
+//     (position, 4 channels) as one float4.
+//   - One barrier per chunk, two A tiles. Stage s of the cp.async ring holds
+//     chunk s's (16, BN) weights and chunk s + 1's depthwise inputs (taps,
+//     bias, input window); chunk 0's inputs come first, a group of their
+//     own, in stage ring - 1. Between barriers k and k + 1 a block refills
+//     the stage chunk k - 1 used with group k + ring - 1, computes chunk k +
+//     1's depthwise into the A tile chunk k - 1's product is done with, and
+//     multiplies chunk k from the other. With 3 stages each group has two
+//     products' time to land (what 4 stages of the earlier pairing, one
+//     chunk's weights and inputs a stage, would give); 2 stages where 3 do
+//     not leave room for two blocks an SM (layer 3).
+//   - Shared memory a block: 2 x BM x 20 floats of A tiles and ring x (16 BN
+//     + 16 x (10 + window rows)) floats of stages, the window sized by
+//     ffma_window_rows (one output row tighter than window_rows). At B =
+//     209, KB: layer 2 87.2 (3 stages), 3 82.0 (2), 4 62.8, 5 95.5, 6 68.5,
+//     7 91.0, 8-12 66.2, 13 88.8, 14 65.1 (3): two blocks an SM on every
+//     layer (227 KB).
+//   - Registers (nvcc -Xptxas -v, tools/ffma_geometries.py prints them),
+//     at BN = 64, 128, 256: TM = 5 128, 128, 126; TM = 4 117, 96, 95; no
+//     spills. __launch_bounds__(256, 2) caps a thread at 128. The stage
+//     pointers rotate (no `% ring` a chunk), the weight pieces' offsets and
+//     the thread's place come from threadIdx where they are used, and the
+//     window copy is not unrolled, so that no per-thread offset stays live
+//     across the product. No TM = 8: with this schedule's live state its 64
+//     accumulators spilled 8-56 bytes in every form tried.
+//   - The depthwise is recomputed F / BN times: 1 on layers 2-6, 2 on 7-12,
+//     4 on 13-14. Computing it once per cluster of F / BN blocks and copying
+//     it to every rank through distributed shared memory is not done: the
+//     most it could save is the redundant part of the depthwise's share of
+//     a chunk's instructions (9 taps of 4 channels and their reads against
+//     8 x TM products a k, about a tenth; half of it redundant on 7-12,
+//     three quarters on 13-14), and it puts a cluster barrier where the
+//     block's one barrier a chunk is.
 //   - Exact f32: FFMA only, no TF32, no tensor cores, no split K, no
-//     atomics. The arithmetic is that of the earlier 64-channel FFMA
-//     kernel, so its outputs are bit for bit the same: depthwise
-//     a = x_centre * w[4], then fmaf over the other taps in tap order (a
-//     tap off the image is skipped), then fmaxf(a + bias, 0); pointwise one
+//     atomics. The arithmetic is that of the earlier kernels, so the outputs
+//     are bit for bit the same: depthwise a = x_centre * w[4] (__fmul_rn),
+//     then fmaf over the other taps in tap order (a tap off the image is
+//     skipped), then fmaxf(__fadd_rn(a, bias), 0); pointwise one
 //     accumulator per output from 0, acc = fmaf(a_k, w_k, acc) for k
-//     ascending; epilogue fmaxf(acc + bias, 0).
-//   - Recompute. Each A tile is computed F / BN times: 1 on layers 2-6, 2
-//     on 7-12, 4 on 13-14 (the earlier FFMA kernel's BN = 64: up to 16,
-//     each tap a load from L2).
-//   - Grid. BN = min(F, 256); TM = 8, 5 or 4, whichever gives the busiest
-//     SM the fewest positions (ceil(blocks / SMs) x BM), the larger TM on a
-//     tie. Two blocks fit an SM (registers and shared memory), 264 slots
-//     on 132 SMs. At B = 209: layer 2 2508 blocks (BM 128, 9.5 waves of
-//     264), 3 and 4 627 (BM 128, 2.4 waves), 5 and 6 502 (40, 1.9), 7-12
-//     252 (40, 0.95: every SM one or two blocks, the busiest 80 positions
-//     against a mean of 76; BM 32 gives 314 blocks and the busiest SM 96),
-//     13-14 128 (40, one block on each of 128 SMs; BM 64 gives 80 blocks of
-//     64 positions). The earlier kernel launched 320 blocks of 64 channels
-//     on every tail layer, 1.21 waves. Only BM depends on the batch, never
-//     BK, BN or the order of K, so a patch's outputs do not depend on it.
+//     ascending; epilogue fmaxf(__fadd_rn(acc, bias), 0).
+//   - Grid. BN = min(F, 256); TM = 5 or 4, whichever gives the busiest SM
+//     the least work, ceil(blocks / SMs) x (BM + BLOCK_ROWS), BLOCK_ROWS =
+//     48 positions of a block's fixed work, TM = 5 on a tie. At B = 209:
+//     layer 2 2007 blocks (BM 160), 3 and 4 1004 (80), 5 and 6 502 (40),
+//     7-12 252 (40: every SM one or two blocks), 13-14 128 (40). Only BM
+//     depends on the batch, never BK, BN or the order of K, so a patch's
+//     outputs do not depend on it.
 //   Pooling is a second small kernel that sums the spatial positions in a
 //   fixed order.
 //   The wide tile fills the card only at large batches: at B = 1-8 the
-//   tail layers launch 2-4 blocks on 132 SMs (BN = 256 and BM >= 32 over
-//   24 or 6 positions per patch), each streaming its 0.5-1 MB of weights
-//   and computing every row of its BM, most past the batch, on one SM.
-//   Measured (chip_smoke.py, device time alone at B = 209, H100 SXM at 700
-//   W): fused_tail 0.62 ms against the earlier kernel's 1.84 and the cuDNN
-//   f32 stack's 1.12 (0.55x); fused_front 0.46 ms (earlier 1.07). Per
-//   layer 1.9-3.0x the bound at 67 TFLOP/s; at the 54 TFLOP/s an FMA chain
-//   reaches, layers 8-12 run at ~52% of FFMA throughput. What bounds it
-//   now: the instructions around the FFMAs (shared-memory reads, the
-//   depthwise, the cp.async issue) and two barriers per 16 channels, at
-//   two blocks per SM.
-//
+//   tail layers would launch 2-4 blocks on 132 SMs, each streaming its
+//   0.5-1 MB of weights; the narrow tiles run there (below).
+//   Measured (tools/compare_builds.py, device time alone, B = 209, against
+//   the earlier kernel in the same call, H100 SXM at 700 W): fused_tail
+//   0.557 ms (earlier 0.637), fused_front 0.448 (0.456), layers 4-7 0.288
+//   (0.301); layers 8-12 0.081 each (0.093), 2.0x their bound at 67
+//   TFLOP/s, 13 and 14 0.055 and 0.094 (0.061, 0.109), 2.8x and 2.4x;
+//   layers 3 and 4 are slower, 0.074 and 0.104 (0.069, 0.094: the earlier
+//   TM = 8 tile), the others 0.87-0.98x. B = 1-8 within 1%.
+
 // HIGHEST at small batches (sep_narrow_kernel<BN, TM>). 256 threads; BN =
 // 8, 16, 32 or 64 threads along N, one output channel each, and 256 / BN
 // along M, each TM = 1, 2 or 4 positions 256 / BN apart: BM = 256 / BN x
@@ -124,11 +150,14 @@
 //     the cheapest, the wide tile on a tie. The shapes alone decide: the
 //     narrow tiles win at B = 1-8 on layers 3-14 (the tail 64-128 blocks,
 //     against 2-4), the wide tile at B = 209 on every layer (its grid
-//     above, unchanged) and from B = 16-128 on, layer by layer.
-//     tools/ffma_geometries.py times all 13 tiles per layer and batch: on
-//     layers 3-14 at B = 1-128 the picked tile took 1.03x the fastest on
-//     average (1.26x at worst, at an intermediate B); LOAD_COST 8 averaged
-//     1.02x but left layer 8 at B = 1 on 48 blocks, 32 averaged 1.02x.
+//     above) and from B = 16-128 on, layer by layer.
+//     tools/ffma_geometries.py times all 14 tiles per layer and batch: on
+//     layers 2-8, 13 and 14 at B = 1-209 the picked tile took 1.031x the
+//     fastest on average (1.358x at worst: layer 5 at B = 16, where the
+//     wide tile at TM = 4 beats the narrow pick). LOAD_COST 8 averaged
+//     1.024x but left layer 8 at B = 1 on 48 blocks; 32 averaged 1.026x
+//     (1.292x at worst) but gains only at B = 16-32, which no path of the
+//     port launches, and moves layer 3 at B = 8 to a tile 1% slower.
 //   - ops/sepconv.py::ffma_geometry mirrors the rule; bz_sep_geometry
 //     gives the library's choice, which chip_smoke.py holds to the mirror
 //     at every B from 1 to 209.
@@ -240,37 +269,51 @@ __host__ __device__ inline int window_rows(int bm, const Layer& L) {
 constexpr int FK = 16;   // input channels per K chunk
 constexpr int FT = 256;  // threads per block: 8 warps
 constexpr int FRING = 3;  // cp.async ring stages, where two blocks fit an SM
-// A rows padded by 4 floats: rows stay 16-byte aligned for the float4 reads
-constexpr int APAD = 4;
+// A rows: FK channels of one position, padded by 4 floats, so a row stays
+// 16-byte aligned and the 4 neighbouring rows a warp reads at once start on
+// bank quads 0, 20, 8 and 28
+constexpr int ALD = FK + 4;
 
 // The tile of sep_layer_kernel<BN, TM>: TX = BN / 8 threads along N, each
 // 8 channels in two float4 groups BN / 2 apart; TY = 256 / TX along M, each
-// TM positions: TM = 8 or 4 in float4 groups 4 * TY apart, TM = 5 as five
-// neighbouring positions. A warp is 8 x 4 threads.
+// TM = 5 or 4 positions TY apart. A warp is 8 x 4 threads.
 template <int BN, int TM>
 struct FfmaTile {
     static constexpr int TX = BN / 8;
     static constexpr int TY = FT / TX;
     static constexpr int BM = TM * TY;  // positions per block
     static constexpr int WX = TX / 8;   // warps along N
-    static constexpr int LDA = BM + APAD;
-    // the block row of the thread's i-th position
-    __device__ static int row(int ty, int i) {
-        return TM % 4 == 0 ? (i / 4) * 4 * TY + ty * 4 + i % 4 : ty * TM + i;
+    // the thread's place along N and M, from threadIdx where it is needed,
+    // not kept across the chunk loop
+    __device__ static int tx() {
+        return (threadIdx.x / 32 % WX) * 8 + threadIdx.x % 8;
+    }
+    __device__ static int ty() {
+        return (threadIdx.x / 32 / WX) * 4 + threadIdx.x % 32 / 8;
     }
 };
 
-// One ring stage, in floats: a chunk's (FK, BN) weights, then its taps,
-// bias and input window, FK channels a row
-__host__ __device__ inline int ffma_stage(int bm, int bn, const Layer& L) {
-    return FK * bn + (XHEAD + window_rows(bm, L)) * FK;
+// Input rows that the depthwise of `bm` consecutive outputs reads, at
+// most: the outputs span at most (bm + wo - 2) / wo + 1 output rows, whose
+// centres lie stride input rows apart (or less, from one image's last row
+// to the next one's first), so stride times that less one, plus 3, input
+// rows of W, and a position either side. window_rows, which the other
+// tiles size by, allows one output row more.
+__host__ __device__ inline int ffma_window_rows(int bm, const Layer& L) {
+    return (L.stride * ((bm + L.wo - 2) / L.wo) + 3) * L.w + 2;
 }
 
-// Dynamic shared memory of a tile: the f32 A tile (FK, BM + APAD), then the
+// One ring stage, in floats: a chunk's (FK, BN) weights, then the next
+// chunk's taps, bias and input window, FK channels a row
+__host__ __device__ inline int ffma_stage(int bm, int bn, const Layer& L) {
+    return FK * bn + (XHEAD + ffma_window_rows(bm, L)) * FK;
+}
+
+// Dynamic shared memory of a tile: two f32 A tiles (BM, ALD), then the
 // ring's stages
 inline int ffma_smem(int bm, int bn, int stages, const Layer& L) {
     return (int)sizeof(float) *
-           (FK * (bm + APAD) + stages * ffma_stage(bm, bn, L));
+           (2 * bm * ALD + stages * ffma_stage(bm, bn, L));
 }
 
 template <int BN, int TM>
@@ -278,7 +321,7 @@ __global__ void __launch_bounds__(FT, 2)
 sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
                  const Layer L, const int m_total, const int ring) {
     using T = FfmaTile<BN, TM>;
-    constexpr int BM = T::BM, LDA = T::LDA;
+    constexpr int BM = T::BM, TY = T::TY;
     // depthwise: 4 threads per position, 4 neighbouring channels each, so
     // 64 positions per pass (BM = 32: half the threads rest)
     constexpr int DW_POS = (BM + 63) / 64;
@@ -287,11 +330,9 @@ sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
     const int stage = ffma_stage(BM, BN, L);  // floats
     extern __shared__ __align__(16) unsigned char ffma_smem_raw[];
     float* const As = reinterpret_cast<float*>(ffma_smem_raw);
-    float* const Ring = As + FK * LDA;
+    float* const Ring = As + 2 * BM * ALD;
 
-    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-    const int tx = (warp % T::WX) * 8 + lane % 8;
-    const int ty = (warp / T::WX) * 4 + lane / 8;
+    const int tid = threadIdx.x;
     const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
     const int hwo = L.ho * L.wo;
     const int n_chunks = L.c / FK;
@@ -307,7 +348,7 @@ sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
     const int m_last = (m0 + BM < m_total ? m0 + BM : m_total) - 1;
     const int lo = centre(m0) - L.w - 1;
     const int hi = centre(m_last) + L.w + 1;
-    const int xrows = window_rows(BM, L);
+    const int xrows = ffma_window_rows(BM, L);
     const int n_rows = hi - lo + 1 < xrows ? hi - lo + 1 : xrows;
 
     // the thread's depthwise positions: the window row of each centre tap,
@@ -334,79 +375,91 @@ sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
         }
     }
 
+    // Stage s holds chunk s's weights and chunk s + 1's depthwise inputs,
+    // the two a block uses between the same two barriers; chunk 0's
+    // depthwise inputs go to the stage before 0, ring - 1, whose weights
+    // come only after chunk 0's depthwise is done.
     const float* const pw = static_cast<const float*>(L.pw);
-    // chunk k's (FK, BN) weights and its depthwise inputs (taps, bias, the
-    // input window's FK channels; zeros off the ends of the batch) into
-    // ring stage k % ring
-    auto load_chunk = [&](int chunk) {
-        float* const B = Ring + (chunk % ring) * stage;
-        float* const X = B + FK * BN;
-        const int c0 = chunk * FK;
-        const float* const src = pw + (long long)c0 * L.f + n0;
+    // chunk k's (FK, BN) weights into stage S: the thread's 16-byte pieces
+    // lie W_ROWS rows apart, from row w_row, column w_col (from threadIdx
+    // here, not kept across the chunk loop)
+    constexpr int W_ROWS = FT / (BN / 4);
+    auto load_weights = [&](float* S, int chunk) {
+        const int w_row = threadIdx.x / (BN / 4);
+        const int w_col = threadIdx.x % (BN / 4) * 4;
+        const float* src =
+            pw + ((long long)chunk * FK + w_row) * L.f + n0 + w_col;
+        float* dst = S + w_row * BN + w_col;
 #pragma unroll
         for (int i = 0; i < PIECES / FT; ++i) {
-            const int q = tid + i * FT;
-            const int r = q / (BN / 4), cc = (q % (BN / 4)) * 4;
-            cp_async16(B + r * BN + cc, src + (long long)r * L.f + cc);
+            cp_async16(dst, src);
+            src += W_ROWS * L.f;
+            dst += W_ROWS * BN;
         }
-        for (int q = tid; q < (XHEAD + n_rows) * (FK / 4); q += FT) {
-            const int r = q / (FK / 4), cc = (q % (FK / 4)) * 4;
+    };
+    // chunk k's depthwise inputs into stage S, after its weights: taps,
+    // bias, the input window's FK channels; zeros off the ends of the batch
+    auto load_window = [&](float* S, int chunk) {
+        float* const X = S + FK * BN + kq;
+        const int c0 = chunk * FK + kq;
+        // not unrolled: an unrolled copy keeps each piece's address live
+        // across the product, past the registers two blocks an SM leave
+#pragma unroll 1
+        for (int r = tid / 4; r < XHEAD + n_rows; r += FT / 4) {
             const int p = lo + r - XHEAD;
             const bool ok = r < XHEAD || (p >= 0 && p < n_in);
             const float* g =
                 r < 9 ? L.dw + r * L.c
                       : r == 9 ? L.dw_b
                                : x + (long long)(ok ? p : 0) * L.c;
-            cp_async16(X + r * FK + cc, g + c0 + cc, ok);
+            cp_async16(X + r * FK, g + c0, ok);
         }
     };
-    // chunk k's depthwise + bias + ReLU from its stage into the A tile,
-    // stored (k, position)
-    auto depthwise = [&](int chunk) {
-        const float* const X = Ring + (chunk % ring) * stage + FK * BN;
-        float4 a[DW_POS];
-        // centre tap first, then the others in tap order, as the TPU
-        // kernel accumulates them
+    // cp.async group g into stage S: chunk g's weights and chunk g + 1's
+    // depthwise inputs
+    auto load_group = [&](float* S, int g) {
+        if (g < n_chunks) load_weights(S, g);
+        if (g + 1 < n_chunks) load_window(S, g + 1);
+        cp_async_commit();
+    };
+    // the depthwise + bias + ReLU of the chunk whose inputs stage S holds,
+    // into A tile A, stored (position, k): each (position, 4 channels) one
+    // float4. Position by position, centre tap first, then the others in
+    // tap order, as the TPU kernel accumulates them; the product and the
+    // sum that no multiply-add may absorb are written as such.
+    auto depthwise = [&](const float* S, float* A) {
+        const float* const X = S + FK * BN;
         const float4 wc = lds4(X + 4 * FK + kq);
-#pragma unroll
-        for (int j = 0; j < DW_POS; ++j) {
-            a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (taps[j]) {
-                const float4 v = lds4(X + row[j] * FK + kq);
-                a[j] = make_float4(v.x * wc.x, v.y * wc.y, v.z * wc.z,
-                                   v.w * wc.w);
-            }
-        }
-#pragma unroll
-        for (int t = 0; t < 9; ++t) {
-            if (t == 4) continue;
-            const int off = ((t / 3 - 1) * L.w + (t % 3 - 1)) * FK;
-            const float4 w = lds4(X + t * FK + kq);
-#pragma unroll
-            for (int j = 0; j < DW_POS; ++j) {
-                if (!((taps[j] >> t) & 1)) continue;
-                const float4 v = lds4(X + row[j] * FK + off + kq);
-                a[j].x = fmaf(v.x, w.x, a[j].x);
-                a[j].y = fmaf(v.y, w.y, a[j].y);
-                a[j].z = fmaf(v.z, w.z, a[j].z);
-                a[j].w = fmaf(v.w, w.w, a[j].w);
-            }
-        }
         const float4 bias = lds4(X + 9 * FK + kq);
 #pragma unroll
         for (int j = 0; j < DW_POS; ++j) {
             const int pos = tid / 4 + 64 * j;
             if (pos >= BM) continue;
+            const int on = taps[j];
+            const float* const xc = X + row[j] * FK + kq;
             float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (taps[j])
-                v = make_float4(fmaxf(a[j].x + bias.x, 0.f),
-                                fmaxf(a[j].y + bias.y, 0.f),
-                                fmaxf(a[j].z + bias.z, 0.f),
-                                fmaxf(a[j].w + bias.w, 0.f));
-            As[(kq + 0) * LDA + pos] = v.x;
-            As[(kq + 1) * LDA + pos] = v.y;
-            As[(kq + 2) * LDA + pos] = v.z;
-            As[(kq + 3) * LDA + pos] = v.w;
+            if (on) {
+                const float4 c = lds4(xc);
+                float4 a = make_float4(
+                    __fmul_rn(c.x, wc.x), __fmul_rn(c.y, wc.y),
+                    __fmul_rn(c.z, wc.z), __fmul_rn(c.w, wc.w));
+#pragma unroll
+                for (int t = 0; t < 9; ++t) {
+                    if (t == 4 || !((on >> t) & 1)) continue;
+                    const float4 w = lds4(X + t * FK + kq);
+                    const float4 u =
+                        lds4(xc + ((t / 3 - 1) * L.w + (t % 3 - 1)) * FK);
+                    a.x = fmaf(u.x, w.x, a.x);
+                    a.y = fmaf(u.y, w.y, a.y);
+                    a.z = fmaf(u.z, w.z, a.z);
+                    a.w = fmaf(u.w, w.w, a.w);
+                }
+                v = make_float4(fmaxf(__fadd_rn(a.x, bias.x), 0.f),
+                                fmaxf(__fadd_rn(a.y, bias.y), 0.f),
+                                fmaxf(__fadd_rn(a.z, bias.z), 0.f),
+                                fmaxf(__fadd_rn(a.w, bias.w), 0.f));
+            }
+            *reinterpret_cast<float4*>(A + pos * ALD + kq) = v;
         }
     };
 
@@ -416,71 +469,96 @@ sep_layer_kernel(const float* __restrict__ x, float* __restrict__ y,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    auto multiply = [&](int chunk) {
-        const float* const B = Ring + (chunk % ring) * stage;
+    // the product of the chunk whose weights stage S holds with A tile A:
+    // the thread's positions i * TY + ty, channels tx * 4 .. + 3 and BN / 2
+    // + tx * 4 .. + 3. Per 4 k, one float4 of each position (4 k of its
+    // row), then k by k two float4s of weights.
+    auto multiply = [&](const float* S, const float* A) {
+        const float* const Ap = A + T::ty() * ALD;
+        const float* const B = S + T::tx() * 4;
 #pragma unroll
-        for (int k = 0; k < FK; ++k) {
-            float a[TM], b[8];
-            if constexpr (TM % 4 == 0) {
+        for (int k0 = 0; k0 < FK; k0 += 4) {
+            float4 a[TM];
 #pragma unroll
-                for (int q = 0; q < TM / 4; ++q) {
-                    const float4 v = lds4(As + k * LDA + T::row(ty, 4 * q));
-                    a[4 * q] = v.x; a[4 * q + 1] = v.y;
-                    a[4 * q + 2] = v.z; a[4 * q + 3] = v.w;
+            for (int i = 0; i < TM; ++i) a[i] = lds4(Ap + i * TY * ALD + k0);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const float4 b0 = lds4(B + (k0 + kk) * BN);
+                const float4 b1 = lds4(B + (k0 + kk) * BN + BN / 2);
+                const float b[8] = {b0.x, b0.y, b0.z, b0.w,
+                                    b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                for (int i = 0; i < TM; ++i) {
+                    const float ai = kk == 0   ? a[i].x
+                                     : kk == 1 ? a[i].y
+                                     : kk == 2 ? a[i].z
+                                               : a[i].w;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        acc[i][j] = fmaf(ai, b[j], acc[i][j]);
                 }
-            } else {
-#pragma unroll
-                for (int i = 0; i < TM; ++i)
-                    a[i] = As[k * LDA + T::row(ty, i)];
             }
-            const float4 b0 = lds4(B + k * BN + tx * 4);
-            const float4 b1 = lds4(B + k * BN + BN / 2 + tx * 4);
-            b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-            b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j)
-                    acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         }
     };
 
-    // Chunk k's stage was committed as cp.async group k. The first barrier
-    // of iteration k follows the wait for it and ends chunk k-1's product,
-    // so stage (k-1) % ring can be refilled (with chunk k+ring-1) and the A
-    // tile rewritten; the second makes the A tile whole before the product.
-    for (int s = 0; s < ring - 1; ++s) {
-        if (s < n_chunks) load_chunk(s);
-        cp_async_commit();
-    }
-    for (int kc = 0; kc < n_chunks; ++kc) {
+    // One barrier per chunk. Group g lands in stage g % ring; the wait
+    // before barrier k leaves ring - 2 groups in flight, so group k has
+    // landed. Between barriers k and k + 1 a block refills stage (k - 1) %
+    // ring (`last`), which chunk k - 1's product and chunk k's depthwise
+    // are done with, with group k + ring - 1; computes chunk k + 1's
+    // depthwise from stage k % ring (`cur`) into A tile (k + 1) % 2, which
+    // chunk k - 1's product is done with; and multiplies chunk k, from
+    // `cur` and A tile k % 2. Each group has ring - 1 products' time to
+    // land. Chunk 0's depthwise inputs come first, as a group of their own.
+    auto wait_group = [&]() {
         if (ring == FRING)
             cp_async_wait<FRING - 2>();
         else
             cp_async_wait<0>();
+    };
+    float* const end = Ring + (ring - 1) * stage;
+    float* last = end;
+    float* cur = Ring;
+    load_window(last, 0);
+    cp_async_commit();
+    for (int g = 0; g < ring - 1; ++g) load_group(Ring + g * stage, g);
+    if (ring == FRING)
+        cp_async_wait<FRING - 1>();
+    else
+        cp_async_wait<1>();
+    __syncthreads();
+    depthwise(last, As);
+    for (int kc = 0; kc < n_chunks; ++kc) {
+        wait_group();
         __syncthreads();
-        if (kc + ring - 1 < n_chunks) load_chunk(kc + ring - 1);
-        cp_async_commit();
-        depthwise(kc);
-        __syncthreads();
-        multiply(kc);
+        load_group(last, kc + ring - 1);
+        if (kc + 1 < n_chunks)
+            depthwise(cur, As + ((kc + 1) & 1) * BM * ALD);
+        multiply(cur, As + (kc & 1) * BM * ALD);
+        last = cur;
+        cur = cur == end ? Ring : cur + stage;
     }
 
+    const int tx = T::tx(), ty = T::ty();
     const float4 pb0 = *reinterpret_cast<const float4*>(L.pw_b + n0 + tx * 4);
     const float4 pb1 =
         *reinterpret_cast<const float4*>(L.pw_b + n0 + BN / 2 + tx * 4);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-        const int m = m0 + T::row(ty, i);
+        const int m = m0 + i * TY + ty;
         if (m >= m_total) continue;
         const float* c = acc[i];
         float* const out = y + (long long)m * L.f + n0 + tx * 4;
         *reinterpret_cast<float4*>(out) = make_float4(
-            fmaxf(c[0] + pb0.x, 0.f), fmaxf(c[1] + pb0.y, 0.f),
-            fmaxf(c[2] + pb0.z, 0.f), fmaxf(c[3] + pb0.w, 0.f));
+            fmaxf(__fadd_rn(c[0], pb0.x), 0.f),
+            fmaxf(__fadd_rn(c[1], pb0.y), 0.f),
+            fmaxf(__fadd_rn(c[2], pb0.z), 0.f),
+            fmaxf(__fadd_rn(c[3], pb0.w), 0.f));
         *reinterpret_cast<float4*>(out + BN / 2) = make_float4(
-            fmaxf(c[4] + pb1.x, 0.f), fmaxf(c[5] + pb1.y, 0.f),
-            fmaxf(c[6] + pb1.z, 0.f), fmaxf(c[7] + pb1.w, 0.f));
+            fmaxf(__fadd_rn(c[4], pb1.x), 0.f),
+            fmaxf(__fadd_rn(c[5], pb1.y), 0.f),
+            fmaxf(__fadd_rn(c[6], pb1.z), 0.f),
+            fmaxf(__fadd_rn(c[7], pb1.w), 0.f));
     }
 }
 
@@ -669,7 +747,9 @@ sep_narrow_kernel(const float* __restrict__ x, float* __restrict__ y,
         }
     };
 
-    // the ring as sep_layer_kernel's: two barriers per chunk
+    // chunk k's stage was committed as cp.async group k; the first barrier
+    // of iteration k ends chunk k-1's product, so stage (k-1) % ring can be
+    // refilled and the A tile rewritten; the second makes the A tile whole
     for (int s = 0; s < ring - 1; ++s) {
         if (s < n_chunks) load_chunk(s);
         cp_async_commit();
@@ -1020,17 +1100,10 @@ template <int BN>
 cudaError_t launch_ffma_tm(int tm, int device, dim3 grid, int smem, int ring,
                            cudaStream_t stream, const float* in, float* dst,
                            const Layer& L, int m_total) {
-    switch (tm) {
-        case 8:
-            return launch_ffma<BN, 8>(device, grid, smem, ring, stream, in,
-                                      dst, L, m_total);
-        case 5:
-            return launch_ffma<BN, 5>(device, grid, smem, ring, stream, in,
-                                      dst, L, m_total);
-        default:
-            return launch_ffma<BN, 4>(device, grid, smem, ring, stream, in,
-                                      dst, L, m_total);
-    }
+    return tm == 5 ? launch_ffma<BN, 5>(device, grid, smem, ring, stream, in,
+                                        dst, L, m_total)
+                   : launch_ffma<BN, 4>(device, grid, smem, ring, stream, in,
+                                        dst, L, m_total);
 }
 
 // The launch of one HIGHEST layer: the kernel (narrow 0: sep_layer_kernel,
@@ -1057,29 +1130,35 @@ long long ffma_cost(long long blocks, int rows, int rows_in, int bn,
             (long long)LOAD_COST * (bn + window_rows(rows_in, L)));
 }
 
-// The wide tile: BN = min(F, 256); TM = 8, 5 or 4 positions per thread,
-// whichever gives the busiest SM the fewest positions (its ceil(blocks /
-// SMs) blocks of BM), the larger on a tie; a ring of FRING stages if two
-// blocks still fit an SM's shared memory, else 2.
-Geometry wide_geometry(const Layer& L, int m_total, int sms, int sm_smem) {
-    const int chunks = L.c / FK;
+// A block's fixed work in wide_geometry's price, in positions: its
+// prologue (chunk 0's window and depthwise before the first product) and
+// its epilogue. tools/ffma_geometries.py times both TMs at every layer:
+// at 48 the price picks the faster on every layer at B = 209.
+constexpr int BLOCK_ROWS = 48;
+
+// The wide tile: BN = min(F, 256); TM = 5 or 4 positions per thread,
+// whichever gives the busiest SM the least work, ceil(blocks / SMs) x (BM +
+// BLOCK_ROWS), TM = 5 on a tie (a caller may name TM:
+// tools/ffma_geometries.py times each); a ring of FRING stages if two
+// blocks still fit an SM's shared memory, else 2 (two always fit at TM = 5
+// and 4 with 2 stages on the YAMNet layers).
+Geometry wide_geometry(const Layer& L, int m_total, int sms, int sm_smem,
+                       int tm = 0) {
     Geometry g{};
     g.bn = L.f < 256 ? L.f : 256;
     const int ty = FT / (g.bn / 8);
     g.grid_n = L.f / g.bn;
-    auto busiest = [&](int bm) {
-        const long long blocks = (long long)((m_total + bm - 1) / bm) *
-                                 g.grid_n;
-        return (blocks + sms - 1) / sms * bm;
+    auto price = [&](int t) {
+        const long long blocks =
+            (long long)((m_total + t * ty - 1) / (t * ty)) * g.grid_n;
+        return (blocks + sms - 1) / sms * (t * ty + BLOCK_ROWS);
     };
-    g.tm = 8;
-    for (const int t : {5, 4})
-        if (busiest(t * ty) < busiest(g.tm * ty)) g.tm = t;
+    g.tm = tm ? tm : price(4) < price(5) ? 4 : 5;
     g.bm = g.tm * ty;
     g.grid_m = (m_total + g.bm - 1) / g.bm;
     g.ring = 2 * (ffma_smem(g.bm, g.bn, FRING, L) + 1024) <= sm_smem ? FRING
                                                                       : 2;
-    g.smem = ffma_smem(g.bm, g.bn, chunks < g.ring ? chunks : g.ring, L);
+    g.smem = ffma_smem(g.bm, g.bn, g.ring, L);
     return g;
 }
 
@@ -1351,9 +1430,10 @@ int bz_sep_geometry(int batch, int n_layers, const int* dims, int sms,
 
 // One exact-f32 layer (its descriptor and 4 operand pointers as one layer
 // of bz_sep_stack's) at a tile the caller names: the wide tile (narrow 0)
-// or the narrow BN x TM (8, 16, 32, 64 x 1, 2, 4). For
-// tools/ffma_geometries.py, which times every tile; the wrappers launch
-// through bz_sep_stack only. A tile that does not fit returns -1.
+// at TM = 5 or 4, or 0 for the rule's TM; or the narrow BN x TM (8, 16,
+// 32, 64 x 1, 2, 4). For tools/ffma_geometries.py, which times every tile;
+// the wrappers launch through bz_sep_stack only. A tile that does not fit
+// returns -1.
 int bz_sep_layer_at(const float* x, float* y, int batch, const int64_t* ptrs,
                     const int* dims, int narrow, int bn, int tm,
                     void* stream) {
@@ -1362,16 +1442,17 @@ int bz_sep_layer_at(const float* x, float* y, int batch, const int64_t* ptrs,
     L.dw_b = reinterpret_cast<const float*>(ptrs[1]);
     L.pw = reinterpret_cast<const void*>(ptrs[2]);
     L.pw_b = reinterpret_cast<const float*>(ptrs[3]);
-    const bool tile = (bn == 8 || bn == 16 || bn == 32 || bn == 64) &&
-                      (tm == 1 || tm == 2 || tm == 4);
-    if (batch <= 0 || !takes(HIGHEST, L) || (narrow && !tile))
+    const bool tile = narrow ? (bn == 8 || bn == 16 || bn == 32 || bn == 64) &&
+                                   (tm == 1 || tm == 2 || tm == 4)
+                             : tm == 0 || tm == 5 || tm == 4;
+    if (batch <= 0 || !takes(HIGHEST, L) || !tile)
         return (int)cudaErrorInvalidValue;
     const Card card = current_card();
     const int m_total = batch * L.ho * L.wo;
     const Geometry g =
         narrow ? narrow_geometry(L, m_total, bn, tm, card.block_smem)
-               : wide_geometry(L, m_total, card.sms, card.sm_smem);
-    if (!g.ring) return -1;
+               : wide_geometry(L, m_total, card.sms, card.sm_smem, tm);
+    if (!g.ring || g.smem > card.block_smem) return -1;
     return (int)launch_geometry(card.device, g,
                                 static_cast<cudaStream_t>(stream), x, y, L,
                                 m_total);

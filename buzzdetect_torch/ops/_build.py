@@ -15,8 +15,10 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import threading
 
 DIR_CSRC = os.path.join(os.path.dirname(os.path.dirname(
@@ -93,6 +95,61 @@ def build_all(names=SOURCES):
     if errors:
         raise errors[0]
     return [paths[n] for n in names]
+
+
+def _demangle(symbol: str) -> str:
+    """A kernel's mangled name as ``name<1,2>``: the last of its nested
+    names, with its integer template arguments."""
+    i, name = 3 if symbol.startswith('_ZN') else 2, symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        n = int(symbol[i:j])
+        name, i = symbol[j:j + n], j + n
+    args = re.match(r'I((?:Li-?\d+E)+)E', symbol[i:])
+    return (f'{name}<{",".join(re.findall(r"Li(-?[0-9]+)E", args[1]))}>'
+            if args else name)
+
+
+def parse_ptxas(text: str):
+    """``nvcc -Xptxas -v``'s report as one dict per kernel: its name with
+    template arguments (``sep_layer_kernel<256,5>``), registers a thread,
+    and spill stores and loads in bytes."""
+    kernels, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _demangle(m[1])
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and name:
+            kernels.append(dict(kernel=name, spill_stores=int(m[1]),
+                                spill_loads=int(m[2])))
+            name = None
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and kernels and 'registers' not in kernels[-1]:
+            kernels[-1]['registers'] = int(m[1])
+    return kernels
+
+
+def resources(name: str):
+    """Compile ``csrc/<name>.cu`` once more with ``-Xptxas -v`` into a
+    throwaway file and return ``parse_ptxas`` of its report: each kernel's
+    registers and spills, as the build that loads runs them."""
+    os.makedirs(DIR_BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=DIR_BUILD) as tmp:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o',
+             os.path.join(tmp, f'{name}.so'),
+             os.path.join(DIR_CSRC, f'{name}.cu')],
+            capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed building {name}.cu (exit '
+                           f'{proc.returncode}):\n{proc.stdout}{proc.stderr}')
+    return parse_ptxas(proc.stdout + proc.stderr)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -144,12 +144,14 @@ def _kernel_takes(s, mode) -> bool:
 
 
 # The exact-f32 route's tiles, as csrc/sepconv.cu sizes them: threads per
-# block, K chunk, ring stages and row padding of the wide tile
-# (sep_layer_kernel), depthwise rows ahead of a stage's input window, the
-# narrow tile's K chunk and row (sep_narrow_kernel), and ffma_cost's weight
-# of one float brought in
-_FT, _FK, _FRING, _APAD, _XHEAD = 256, 16, 3, 4, 10
+# block, K chunk, ring stages and position-major A row (16 channels, 4
+# floats of padding) of the wide tile (sep_layer_kernel), depthwise rows
+# ahead of a stage's input window, the narrow tile's K chunk and row
+# (sep_narrow_kernel), and ffma_cost's weight of one float brought in
+_FT, _FK, _FRING, _ALD, _XHEAD = 256, 16, 3, 20, 10
 _NK, _NLD, _LOAD_COST = 64, 68, 16
+# the wide tile's fixed work a block, in positions (``BLOCK_ROWS``)
+_BLOCK_ROWS = 48
 # what an H100 SXM sizes the grids by: SMs, shared memory per SM and per
 # block (opted in), bytes
 H100_CARD = (132, 233472, 232448)
@@ -189,24 +191,33 @@ def _ffma_cost(blocks, rows, rows_in, bn, s, sms):
         bn + _window_rows(rows_in, s)))
 
 
-def _wide_geometry(s, m, sms, sm_smem):
+def _wide_geometry(s, m, sms, sm_smem, tm=0):
     bn = min(s.c_out, 256)
     ty, grid_n = _FT // (bn // 8), s.c_out // bn
 
-    def busiest(bm):
-        return -(-(-(-m // bm) * grid_n) // sms) * bm
-
-    def smem(bm, stages):
-        stage = _FK * bn + (_XHEAD + _window_rows(bm, s)) * _FK
-        return 4 * (_FK * (bm + _APAD) + stages * stage)
-    tm = 8
-    for t in (5, 4):
-        if busiest(t * ty) < busiest(tm * ty):
-            tm = t
+    def price(t):
+        return -(-(-(-m // (t * ty)) * grid_n) // sms) * (t * ty
+                                                          + _BLOCK_ROWS)
+    tm = tm or (4 if price(4) < price(5) else 5)
     bm = tm * ty
-    ring = _FRING if 2 * (smem(bm, _FRING) + 1024) <= sm_smem else 2
+    ring = (_FRING if 2 * (_wide_smem(s, bm, bn, _FRING) + 1024) <= sm_smem
+            else 2)
     return Geometry('wide', bn, tm, bm, (-(-m // bm), grid_n), ring,
-                    smem(bm, min(s.c_in // _FK, ring)))
+                    _wide_smem(s, bm, bn, ring))
+
+
+def _wide_smem(s, bm, bn, stages):
+    """``ffma_smem``: the wide tile's two A tiles (BM, ``_ALD``) and its
+    ring's stages, each a chunk's (16, BN) weights and the next chunk's
+    taps, bias and input window, in bytes."""
+    stage = _FK * bn + (_XHEAD + _ffma_window_rows(bm, s)) * _FK
+    return 4 * (2 * bm * _ALD + stages * stage)
+
+
+def _ffma_window_rows(bm, s):
+    """``ffma_window_rows``: the input rows the wide tile's depthwise of
+    ``bm`` consecutive outputs of layer ``s`` can read, at most."""
+    return (s.stride * ((bm + s.w_out - 2) // s.w_out) + 3) * s.w + 2
 
 
 def _narrow_geometry(s, m, bn, tm, block_smem):

@@ -11,16 +11,18 @@ resume is byte-identical only if a redesigned kernel keeps its arithmetic.
 tails in bf16 and HIGH, at B = 209 (one 200 s chunk) and at the small
 batches 1, 2, 3, 5 and 8 (ragged last chunks, short chunk lengths), on
 seeded inputs with the bundle's weights. Then it times, at each of those
-B, the three exact-f32 stacks and each exact-f32 layer 2-14 alone through
-both libraries, in turns (other, this, this, other; device time alone,
-``utils.cuda_device_ms``, the better of each pair kept), so that a layer
+B, the three stacks in every mode they run in and each exact-f32 layer
+2-14 alone through both libraries, in turns (other, this, this, other;
+device time alone, ``utils.cuda_device_ms``, the better of each pair
+kept), so that a layer
 the redesign made slower shows on the same card in the same run. With
 ``--launches`` (a run's conv launches by batch, as ``chip_smoke.py``
 prints them; repeatable) it also gives each batch's share of that run's
 conv device time through each library (``conv_shares``). With
 ``--analyze SECONDS`` it runs ``analyze()`` on three seeded recordings of
-that length through each library (``ops/sepconv.load_kernels`` swapped
-for the other's during its run) and compares the CSVs byte for byte, then
+that length through each library twice, in turns (``ops/sepconv.load_kernels``
+swapped for the other's during its runs), prints each run's realtime
+factor and compares the CSVs byte for byte, then
 resumes through this library from a partial holding the other run's
 second chunk of the first recording, against the other's whole CSV.
 
@@ -60,6 +62,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -191,30 +194,37 @@ def time_layers(other, device):
     return times
 
 
-def time_stacks(other, device, batches=BATCHES, names=tuple(CASES)):
-    """{(case, B): (this ms, other ms)}: device time of the exact-f32
-    ``names`` of CASES (fused_front, fused_tail, fused_tail[4:8]) at each
-    of ``batches``, in turns."""
+def time_stacks(other, device, batches=BATCHES, names=tuple(CASES),
+                modes=('highest',)):
+    """{(case, B): (this ms, other ms)}: device time of ``names`` of CASES
+    (fused_front, fused_tail, fused_tail[4:8]) at each of ``batches``, in
+    turns, in exact f32; in each other mode of ``modes`` the case runs in
+    too, keyed (case, mode, B)."""
     from buzzdetect_torch.utils import cuda_device_ms
-    params = sepconv.pack_params(_weights(device), 'highest')
+    yam = _weights(device)
     times = {}
     with torch.inference_mode():
-        xs = inputs(params, 'highest', device)
-        for name in names:
-            layers, gap, _modes = CASES[name]
-            specs = sepconv.tail_specs(layers['start_layer'],
-                                       layers['stop_layer'])
-            for b in batches:
-                x = xs[name][:b].contiguous()
-                ops = sepconv._check(params, x, specs, 'highest')
-                ours, theirs = _in_turns(
-                    lambda lib: sepconv._launch(ops, x, specs, gap,
-                                                'highest', lib=lib), other,
-                    cuda_device_ms)
-                times[name, b] = ours, theirs
-                print(f'{name} [highest] B={b}: device time this {ours:.4f} '
-                      f'ms, other {theirs:.4f} ms (this / other '
-                      f'{ours / theirs:.2f}x)', flush=True)
+        for mode in modes:
+            params = sepconv.pack_params(yam, mode)
+            xs = inputs(params, mode, device)
+            for name in names:
+                layers, gap, case_modes = CASES[name]
+                if mode not in case_modes:
+                    continue
+                specs = sepconv.tail_specs(layers['start_layer'],
+                                           layers['stop_layer'])
+                for b in batches:
+                    x = xs[name][:b].contiguous()
+                    ops = sepconv._check(params, x, specs, mode)
+                    ours, theirs = _in_turns(
+                        lambda lib: sepconv._launch(ops, x, specs, gap,
+                                                    mode, lib=lib), other,
+                        cuda_device_ms)
+                    key = (name, b) if mode == 'highest' else (name, mode, b)
+                    times[key] = ours, theirs
+                    print(f'{name} [{mode}] B={b}: device time this '
+                          f'{ours:.4f} ms, other {theirs:.4f} ms (this / '
+                          f'other {ours / theirs:.2f}x)', flush=True)
     return times
 
 
@@ -426,7 +436,8 @@ def write_wav(path, seconds, seed, rate=16000):
 def compare_analyze(other, seconds, root):
     """{('analyze' or 'resume', name): equal}: ``analyze()`` of three seeded
     recordings of ``seconds`` under ``root``, through this library and
-    through ``other``, CSVs byte for byte; then a resume through this
+    through ``other`` in turns (this, other, other, this), each run's
+    realtime factor printed, CSVs byte for byte; then a resume through this
     library from a partial holding the other run's second chunk of the
     first recording, against the other's whole CSV."""
     import shutil
@@ -436,31 +447,44 @@ def compare_analyze(other, seconds, root):
     names = [f'rec{i}' for i in range(3)]
     for i, name in enumerate(names):
         write_wav(os.path.join(dir_audio, f'{name}.wav'), seconds, i)
-    outs, results = {}, {}
-    for which, lib in (('this', None), ('other', other)):
+    outs, results, rates = {}, {}, {'this': [], 'other': []}
+    # in turns (this, other, other, this), so that a drift of the machine
+    # over the call shows in both libraries' realtime factors alike
+    for turn, (which, lib) in enumerate((('this', None), ('other', other),
+                                         ('other', other), ('this', None))):
         saved = sepconv.load_kernels
         if lib is not None:
             sepconv.load_kernels = lambda lib=lib: lib
         try:
-            outs[which] = os.path.join(root, f'out_{which}')
+            outs[which, turn] = os.path.join(root, f'out_{which}_{turn}')
+            t0 = time.perf_counter()
             run = buzzdetect_torch.analyze(
                 modelname='model_general_v3', dir_audio=dir_audio,
-                dir_out=outs[which], verbosity_print='WARNING')
+                dir_out=outs[which, turn], verbosity_print='WARNING')
+            wall = time.perf_counter() - t0
         finally:
             sepconv.load_kernels = saved
         if run.coordinator.end_reason != 'completed':
             raise RuntimeError(f'analyze() through the {which} library '
                                f'ended {run.coordinator.end_reason!r}')
+        rates[which].append(run.coordinator.audio_seconds_done / wall)
+    outs['this'], outs['other'] = outs['this', 0], outs['other', 1]
+    print('analyze() realtime factor (audio s per wall s, model load and '
+          'warmup included), in turns this, other, other, this: this '
+          + ', '.join(f'{r:.1f}' for r in rates['this']) + '; other '
+          + ', '.join(f'{r:.1f}' for r in rates['other']), flush=True)
     chunk_s = run.chunklength
 
     def csv(folder, name):
         with open(os.path.join(folder, f'{name}_buzzdetect.csv'), 'rb') as f:
             return f.read()
     for name in names:
-        results['analyze', name] = same = (csv(outs['this'], name)
-                                           == csv(outs['other'], name))
+        got = {csv(folder, name) for key, folder in outs.items()
+               if isinstance(key, tuple)}
+        results['analyze', name] = same = len(got) == 1
         print(f'analyze() {name} ({seconds:g} s, {chunk_s:g} s chunks): '
-              f'CSV {"byte-identical" if same else "DIFFERENT"}', flush=True)
+              f'CSVs of the four runs '
+              f'{"byte-identical" if same else "DIFFERENT"}', flush=True)
     name, resumed = names[0], os.path.join(root, 'out_resume')
     os.makedirs(resumed)
     lines = csv(outs['other'], name).decode().splitlines(keepends=True)
@@ -538,7 +562,7 @@ def main(argv=None):
     print(f'{len(results) - len(bad)} of {len(results)} cases '
           f'bit-identical', flush=True)
     if args.against:
-        time_stacks(other, device)
+        time_stacks(other, device, modes=sepconv.MODES)
         time_layers(other, device)
         for launches in args.launches:
             launch_shares(other, device, {

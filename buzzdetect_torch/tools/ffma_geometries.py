@@ -1,15 +1,16 @@
 """Time the exact-f32 conv layers at every tile, on the card.
 
 ``csrc/sepconv.cu`` runs an exact-f32 layer on the wide tile
-(``sep_layer_kernel``, BN = min(F, 256)) or on one of 12 narrow tiles
-(``sep_narrow_kernel``, BN = 8, 16, 32, 64 x TM = 1, 2, 4), as
-``ffma_geometry`` picks from the shapes (mirrored by
-``ops/sepconv.ffma_geometry``). This tool launches one layer at each tile
-(``bz_sep_layer_at``) for each layer shape and batch asked, on seeded
-non-negative activations with the bundle's weights, checks that every tile's
-output equals the wide tile's bit for bit, and prints each tile's device
-time alone (``utils.cuda_device_ms``), marking the one the library picks
-(a narrow tile named BN x BM: output channels x positions a block).
+(``sep_layer_kernel``, BN = min(F, 256), TM = 5 or 4 positions a thread)
+or on one of 12 narrow tiles (``sep_narrow_kernel``, BN = 8, 16, 32, 64 x
+TM = 1, 2, 4), as ``ffma_geometry`` picks from the shapes (mirrored by
+``ops/sepconv.ffma_geometry``). This tool launches one layer at each of
+the 14 tiles (``bz_sep_layer_at``) for each layer shape and batch asked,
+on seeded non-negative activations with the bundle's weights, checks that
+every tile's output equals the first's bit for bit, and prints each
+tile's device time alone (``utils.cuda_device_ms``), marking the one the
+library picks (a wide tile named by its TM, a narrow one BN x BM: output
+channels x positions a block).
 Then, for each ``--load-costs`` value, it prices the tiles with
 ``ffma_cost`` at that weight (through the mirror) and prints how far its
 picks lie from the fastest tile: the mean and the worst of pick / fastest,
@@ -20,7 +21,11 @@ blocks.
         [--layers 3,4,5,6,7,8,13,14] [--batches 1,2,3,5,8,16,32,64,128] \\
         [--load-costs 4,8,16,32]
 
-Card only; exit code 0 unless a launch fails or a tile's output differs.
+It first prints each tile's registers a thread and spilled bytes, from
+``nvcc -Xptxas -v`` on ``csrc/sepconv.cu`` (``ops/_build.resources``).
+
+Card only; exit code 0 unless a launch fails, a tile's output differs or a
+tile spills.
 """
 
 import argparse
@@ -32,21 +37,24 @@ import sys
 import numpy as np
 import torch
 
-WIDE = ('wide', 0, 0)
-TILES = (WIDE,) + tuple(('narrow', bn, tm) for bn in (8, 16, 32, 64)
-                        for tm in (1, 2, 4))
+# the wide tile at TM = 5: the first launched, each other tile's reference
+WIDE = ('wide', 0, 5)
+TILES = (WIDE, ('wide', 0, 4)) + tuple(
+    ('narrow', bn, tm) for bn in (8, 16, 32, 64) for tm in (1, 2, 4))
 
 
 def tile_of(g):
     """A Geometry's tile, as TILES names it."""
-    return WIDE if g.kernel == 'wide' else ('narrow', g.bn, g.tm)
+    return ('wide' if g.kernel == 'wide' else 'narrow',
+            0 if g.kernel == 'wide' else g.bn, g.tm)
 
 
 def label(tile):
-    """'wide', or a narrow tile as BN x BM (output channels x positions a
-    block), as chip_smoke.py and compare_builds print tiles."""
+    """A wide tile as 'wide TM<TM>', a narrow one as BN x BM (output
+    channels x positions a block), as chip_smoke.py and compare_builds
+    print narrow tiles."""
     kernel, bn, tm = tile
-    return 'wide' if kernel == 'wide' else f'{bn}x{256 // bn * tm}'
+    return f'wide TM{tm}' if kernel == 'wide' else f'{bn}x{256 // bn * tm}'
 
 
 def layer_at(lib, x, y, ops, s, tile):
@@ -89,7 +97,7 @@ def regret(times, load_cost, card):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description='Time each exact-f32 conv layer at every tile on the '
-                    'card, check each against the wide tile bit for bit, '
+                    'card, check each against the first bit for bit, '
                     'and price the grid rule\'s picks.')
     ap.add_argument('--layers', default='3,4,5,6,7,8,13,14',
                     help='sep layers (comma-separated; 9-12 have layer '
@@ -113,6 +121,15 @@ def main(argv=None):
     print(f'device: {torch.cuda.get_device_name(device)}; {card[0]} SMs, '
           f'{card[1]} B of shared memory per SM, {card[2]} per block',
           flush=True)
+    from buzzdetect_torch.ops import _build
+    tiles = [k for k in _build.resources('sepconv')
+             if k['kernel'].startswith(('sep_layer_kernel', 'sep_narrow'))]
+    spills = [k['kernel'] for k in tiles
+              if k['spill_stores'] or k['spill_loads']]
+    print('registers a thread (spilled bytes stored / loaded), nvcc '
+          '-Xptxas -v: ' + ', '.join(
+              f'{k["kernel"]} {k.get("registers")} ({k["spill_stores"]} / '
+              f'{k["spill_loads"]})' for k in tiles), flush=True)
     with np.load(os.path.join(DIR_MODELS, 'model_general_v3',
                               'model.npz')) as z:
         params = params_from_numpy({k: z[k] for k in z.files},
@@ -158,8 +175,9 @@ def main(argv=None):
         print(f'LOAD_COST {cost}{mark}: pick / fastest mean {mean:.3f}, '
               f'worst {worst:.3f}; tail layers at B <= 8 under 64 blocks: '
               f'{thin}', flush=True)
-    print(f'{bad} tiles differ from the wide tile', flush=True)
-    return 1 if bad else 0
+    print(f'{bad} tiles differ from the first; FFMA tiles that spill: '
+          f'{spills or "none"}', flush=True)
+    return 1 if bad or spills else 0
 
 
 if __name__ == '__main__':

@@ -277,6 +277,8 @@ PRODUCT_UNITS = {'mma': 'the tensor cores (mma)', 'ffma': 'FFMA'}
 # the product kernels of csrc/probe.cu, and the unit each runs on
 DOTS = ('dot_f32', 'dot_high', 'dot_high_emulated')
 DOT_UNITS = {'dot_f32': 'ffma', 'dot_high': 'mma', 'dot_high_emulated': 'mma'}
+# the exact-f32 layers printed beside dot_f32 at their pointwise shape
+DOT_LAYERS = (8, 9, 10, 11, 12, 14)
 # the length of the recording analyze(profile_dir=) traces in phase 4
 PROFILED_SECONDS = 60.0
 # the two HIGH routes against float64 of their common function on
@@ -3130,9 +3132,22 @@ def run(torch, tmp):
                 if mode == 'highest':
                     g = sepconv.ffma_geometry(s, b, card)
                     geo = f' {g.kernel} {g.bn}x{g.bm}'
+                # the yardstick beside layers 8-12 and 14 (stride 1, so as
+                # many positions in as out): probe.cu's dot_f32, the same
+                # exact-f32 FFMA product without the depthwise, on the
+                # layer's input and pointwise weight (not counted)
+                dot = ''
+                if mode == 'highest' and b == b0 and s.index in DOT_LAYERS:
+                    a = x.reshape(-1, s.c_in).contiguous()
+                    w = params[f'{s.name}/pointwise_conv/kernel']
+                    dot_ms = device_ms(
+                        lambda: probe.launch_dot('dot_f32', a, w))
+                    dot = (f', dot_f32 {a.shape[0]}x{s.c_in}x{s.c_out} '
+                           f'{dot_ms:.4f}: layer / dot_f32 '
+                           f'{ms / dot_ms:.2f}x')
                 parts.append(f'{s.index}{geo}: {ms:.4f} (bound '
                              f'{1e3 * t_bound:.4f}, '
-                             f'{ms / (1e3 * t_bound):.1f}x)')
+                             f'{ms / (1e3 * t_bound):.1f}x{dot})')
                 if mode == 'highest':
                     lib_w = library_weights(params, (s,), torch.float32)
                     x_nchw = x.permute(0, 3, 1, 2).contiguous()

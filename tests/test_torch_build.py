@@ -230,3 +230,42 @@ def test_ffma_geometries_prices_the_rule_against_the_fastest_tile():
     # with loads priced at nothing, layer 8 at B = 1 takes 4-position tiles
     # of 64 channels: 48 blocks
     assert fg.regret(times, 0, sepconv.H100_CARD)[2] == [(8, 1, 48)]
+
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__ab893dda_16_sepconv_cu_2c3154fb16sep_layer_kernelILi256ELi5EEEvPKfPfNS_5LayerEii' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__ab893dda_16_sepconv_cu_2c3154fb16sep_layer_kernelILi256ELi5EEEvPKfPfNS_5LayerEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__ab893dda_16_sepconv_cu_2c3154fb20sep_layer_mma_kernelILi64ELi2ELi2EEEvPKfPfNS_5LayerEi' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__ab893dda_16_sepconv_cu_2c3154fb20sep_layer_mma_kernelILi64ELi2ELi2EEEvPKfPfNS_5LayerEi
+    160 bytes stack frame, 152 bytes spill stores, 152 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 160 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__ab893dda_16_sepconv_cu_2c3154fb10gap_kernelEPKfPfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__ab893dda_16_sepconv_cu_2c3154fb10gap_kernelEPKfPfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_parse_ptxas_names_each_kernel_with_its_registers_and_spills():
+    """``_build.parse_ptxas`` reads ``nvcc -Xptxas -v``: one entry per
+    kernel, named with its template arguments, the anonymous namespace
+    dropped."""
+    assert _build.parse_ptxas(PTXAS) == [
+        dict(kernel='sep_layer_kernel<256,5>', registers=127,
+             spill_stores=0, spill_loads=0),
+        dict(kernel='sep_layer_mma_kernel<64,2,2>', registers=128,
+             spill_stores=152, spill_loads=152),
+        dict(kernel='gap_kernel', registers=32, spill_stores=0,
+             spill_loads=0)]
+
+
+def test_resources_needs_nvcc(csrc, monkeypatch):
+    """Without a CUDA toolkit ``_build.resources`` raises, naming nvcc."""
+    monkeypatch.setattr(_build.shutil, 'which', lambda name: None)
+    monkeypatch.setattr(_build.os.path, 'exists',
+                        lambda p: False if p.endswith('nvcc') else True)
+    with pytest.raises(RuntimeError, match='nvcc'):
+        _build.resources('sepconv')

@@ -212,8 +212,9 @@ def test_stride2_layer_reads_odd_centres(tparams):
 # fused_front, fused_tail and fused_tail(4, 8).
 ROUTES = [(2, 8), (8, None), (4, 8)]
 # the wide tile's grid at B = 209 (one 200 s chunk), as csrc/sepconv.cu's
-# note lists it: the small-batch tiles leave it as it was
-WIDE_BLOCKS_209 = {2: 2508, 3: 627, 4: 627, 5: 502, 6: 502, 7: 252, 8: 252,
+# note lists it (TM = 5 on every layer): the small-batch tiles leave it as
+# it is
+WIDE_BLOCKS_209 = {2: 2007, 3: 1004, 4: 1004, 5: 502, 6: 502, 7: 252, 8: 252,
                    9: 252, 10: 252, 11: 252, 12: 252, 13: 128, 14: 128}
 
 
@@ -250,6 +251,88 @@ def test_ffma_geometry_fills_the_card_at_small_batches(start_layer,
         assert g.bm == 256 // g.bn * g.tm, (s, g)
         if s.index >= 8:
             assert g.blocks >= 64, (s, g)
+
+
+# The wide tile's shared memory: two A tiles of BM rows of _ALD floats
+# (sep_layer_kernel computes chunk k + 1's depthwise into one while it
+# multiplies chunk k from the other) and `ring` stages, each a chunk's
+# (16, BN) weights and the next chunk's 9 taps, bias and input window.
+WIDE_BATCHES = list(range(1, 9)) + [16, 64, 209]
+
+
+@pytest.mark.parametrize('batch', WIDE_BATCHES)
+def test_wide_tile_leaves_room_for_a_second_block(batch):
+    """At every B and on every layer 2-14 the wide tile's TM is one whose
+    block leaves room for a second on an H100 SM (the kernel's
+    __launch_bounds__(256, 2)), with a ring of 3 stages where 3 still do
+    and 2 otherwise; its bytes are the two A tiles plus the ring's
+    stages."""
+    sms, sm_smem, block_smem = sepconv.H100_CARD
+    for s in sepconv.tail_specs(2, None):
+        m = batch * s.h_out * s.w_out
+        g = sepconv._wide_geometry(s, m, sms, sm_smem)
+        stage = 16 * g.bn + (10 + sepconv._ffma_window_rows(g.bm, s)) * 16
+        assert g.smem == 4 * (2 * g.bm * 20 + g.ring * stage), (s, g)
+        assert 2 * (g.smem + 1024) <= sm_smem, (s, g)
+        assert g.smem <= block_smem, (s, g)
+        three = 4 * (2 * g.bm * 20 + 3 * stage)
+        assert g.ring == (3 if 2 * (three + 1024) <= sm_smem else 2), (s, g)
+        assert g.bm == g.tm * 256 // (g.bn // 8), (s, g)
+
+
+@pytest.mark.parametrize('batch', WIDE_BATCHES)
+def test_wide_tile_takes_the_cheaper_tm(batch):
+    """Of TM = 5 and 4, the wide tile takes the one that gives the busiest
+    SM the least work, ceil(blocks / SMs) x (BM + 48), TM = 5 on a tie; a TM
+    the caller names (tools/ffma_geometries.py) keeps the same BN and ring
+    rule. Two blocks fit an SM at either TM on every layer."""
+    sms, sm_smem, _ = sepconv.H100_CARD
+    for s in sepconv.tail_specs(2, None):
+        m = batch * s.h_out * s.w_out
+        g = sepconv._wide_geometry(s, m, sms, sm_smem)
+        forced = {t: sepconv._wide_geometry(s, m, sms, sm_smem, tm=t)
+                  for t in (5, 4)}
+        assert forced[g.tm] == g, (s, g)
+
+        def price(h):
+            return -(-h.blocks // sms) * (h.bm + 48)
+        other = forced[9 - g.tm]
+        assert price(g) < price(other) or (price(g) == price(other)
+                                           and g.tm == 5), (s, g, other)
+        assert all(2 * (h.smem + 1024) <= sm_smem
+                   for h in forced.values()), (s, forced)
+
+
+def _wide_a_reads(bn, tm, warp, i, k):
+    """The shared-memory words the 32 lanes of ``warp`` read from the wide
+    tile's A tile in one load: lane l is thread (tx, ty) = ((warp % WX) * 8
+    + l % 8, (warp // WX) * 4 + l // 8), and reads 4 channels from k of its
+    position i * TY + ty; the tile is (position, k), rows _ALD floats
+    apart."""
+    tx_n = bn // 8
+    ty_n, wx = 256 // tx_n, tx_n // 8
+    reads = set()
+    for lane in range(32):
+        ty = (warp // wx) * 4 + lane // 8
+        start = (i * ty_n + ty) * sepconv._ALD + k
+        reads.add(tuple(range(start, start + 4)))
+    return reads
+
+
+@pytest.mark.parametrize('tm', (5, 4))
+@pytest.mark.parametrize('bn', (64, 128, 256))
+def test_wide_tile_a_reads_fall_on_distinct_bank_quads(bn, tm):
+    """Each load of the A tile by one warp is four float4s, 4 channels of
+    four neighbouring positions (the lanes along N read the same words),
+    whose 16 words fall on distinct banks of the 32: one wavefront, no bank
+    conflict."""
+    for warp in range(8):
+        for i in range(tm):
+            for k in range(0, 16, 4):
+                reads = _wide_a_reads(bn, tm, warp, i, k)
+                assert len(reads) == 4, (warp, i, k, reads)
+                banks = [w % 32 for r in reads for w in r]
+                assert len(set(banks)) == 16, (warp, i, k, reads)
 
 
 def test_count_launch_by_batch():
