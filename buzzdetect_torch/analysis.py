@@ -1156,7 +1156,8 @@ class Analyzer:
             # TensorBoard's profiler plugin or in Perfetto): the CPU ops of
             # every thread (inference runs on the analyzer_* threads, and
             # the profiler records only the thread that starts it unless
-            # told otherwise) and, on the card, every kernel and copy
+            # told otherwise), the model step's spans (runtime/spans.py)
+            # and, on the card, every kernel and copy
             from torch.profiler import (ProfilerActivity, _ExperimentalConfig,
                                         profile, tensorboard_trace_handler)
             activities = [ProfilerActivity.CPU]
@@ -1443,7 +1444,15 @@ def analyze(modelname: str,
     profile_dir : if set, write a ``torch.profiler`` trace of the run into
         this directory (``<host>_<pid>.<time>.pt.trace.json``, for TensorBoard
         or Perfetto): the CPU ops of every thread and, on the card, its
-        kernels and copies.
+        kernels and copies. The model step's spans are in it as
+        ``user_annotation`` ranges on the dispatch and writer threads
+        (``runtime/spans.py``): ``buzzdetect.dispatch`` holding
+        ``buzzdetect.wire``, ``buzzdetect.upload`` and
+        ``buzzdetect.classify`` (itself holding ``buzzdetect.frontend``,
+        ``buzzdetect.embed`` and ``buzzdetect.head``), then
+        ``buzzdetect.copy_back`` and, on the writer, ``buzzdetect.wait``.
+        A ``buzzdetect.chunk#<n>`` marker (``cpu_op``) inside the dispatch,
+        the copy back and the wait names the chunk they belong to.
     mesh : optional ``parallel.Mesh`` with a 'data' axis, of ``device``'s
         type (``parallel.make_mesh``, e.g. ``make_mesh(devices=['cuda:0',
         'cuda:1'])``, or ``['cpu'] * 4`` with ``device='cpu'``): each

@@ -53,6 +53,8 @@ The knobs, and how they resolve here:
   ``mesh=sharding.mesh``.
 """
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -65,6 +67,7 @@ from buzzdetect_torch.parallel.mesh import gather, mesh_device, split
 from buzzdetect_torch.ops.frontend import (
     FrontendConfig, padded_length, num_patches, log_mel_patches,
     patches_from_log_mel)
+from buzzdetect_torch.runtime.spans import mark, span, tag
 from buzzdetect_torch.utils import encode_mulaw, quantize_int16
 
 _LN256 = float(np.log(256.0))
@@ -169,17 +172,22 @@ def _classify(params, wavs: torch.Tensor, cfg: FrontendConfig,
     (``yamnet.embed``). With a mesh, the flattened patch axis splits over
     its ``'data'`` axis (``_over_data``; ``replicas`` maps each data device
     to its copy of ``params``)."""
-    wav = _to_float(wavs)
-    if resample_args is not None:
-        wav = _resample_in_graph(wav, cfg, *resample_args)
-    patches = _patches(wav, cfg, frontend)               # (..., P, 96, 64)
-    lead = patches.shape[:-2]
+    with span('buzzdetect.classify'):
+        with span('buzzdetect.frontend'):
+            wav = _to_float(wavs)
+            if resample_args is not None:
+                wav = _resample_in_graph(wav, cfg, *resample_args)
+            patches = _patches(wav, cfg, frontend)       # (..., P, 96, 64)
+        lead = patches.shape[:-2]
 
-    def embed_head(p, x):
-        return apply_head(p['head'], yamnet_lib.embed(
-            p['yamnet'], x, compute_dtype, conv_precision, conv))
-    return _over_data(embed_head, params, patches.reshape(-1, 96, 64), mesh,
-                      replicas).reshape(*lead, -1)
+        def embed_head(p, x):
+            with span('buzzdetect.embed'):
+                emb = yamnet_lib.embed(p['yamnet'], x, compute_dtype,
+                                       conv_precision, conv)
+            with span('buzzdetect.head'):
+                return apply_head(p['head'], emb)
+        return _over_data(embed_head, params, patches.reshape(-1, 96, 64),
+                          mesh, replicas).reshape(*lead, -1)
 
 
 class ChunkClassifier:
@@ -248,6 +256,8 @@ class ChunkClassifier:
             if self.frontend == 'pallas':
                 logmel.load_kernels()
         self.params = params_from_numpy(arrays, self.device)
+        # each dispatched chunk's id in a profiler trace (runtime/spans.py)
+        self._chunk_ids = itertools.count()
         # the path's conv operands, packed once beside the f32 params
         self.params['yamnet'] = (
             sepconv.pack_params(self.params['yamnet'], self.mode)
@@ -282,19 +292,21 @@ class ChunkClassifier:
 
     def _pad_to(self, samples: np.ndarray, target: int) -> np.ndarray:
         """Zero-pad to ``target`` samples, converting to the wire dtype."""
-        samples = self.to_wire(samples)
-        if len(samples) == target:
-            return samples
-        out = np.zeros(target, dtype=samples.dtype)
-        out[:len(samples)] = samples
-        return out
+        with span('buzzdetect.wire'):
+            samples = self.to_wire(samples)
+            if len(samples) == target:
+                return samples
+            out = np.zeros(target, dtype=samples.dtype)
+            out[:len(samples)] = samples
+            return out
 
     def _upload(self, wire: np.ndarray) -> torch.Tensor:
         """Host wire buffer -> device tensor (pinned, non-blocking on CUDA)."""
-        t = torch.from_numpy(np.ascontiguousarray(wire))
-        if self.device.type == 'cuda':
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        with span('buzzdetect.upload'):
+            t = torch.from_numpy(np.ascontiguousarray(wire))
+            if self.device.type == 'cuda':
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
 
     def _plan_native(self, n_native: int, input_rate: int):
         """Shape plan for a native-rate chunk resampled on the device: the
@@ -332,42 +344,53 @@ class ChunkClassifier:
 
         On CUDA the kernels run asynchronously on the current stream; the
         pipeline starts the copy back at once (runtime/inferer.py) and the
-        writer waits for it, so host decode overlaps device compute.
+        writer waits for it, so host decode overlaps device compute. The
+        tensor carries the chunk's id (``runtime/spans.py``).
         """
         self._need_head()
-        samples = np.asarray(samples)
-        if self._native_rate(input_rate):
-            n_valid, n_model, t_model, t_native = self._plan_native(
-                len(samples), input_rate)
-            wav = self._upload(self._pad_to(samples, t_native))
-            return self._classify(
-                wav, (int(input_rate), t_model, n_model)), n_valid
-        n_valid = num_patches(len(samples), self.cfg)
-        wav = self._pad_to(samples, padded_length(len(samples), self.cfg))
-        return self.classify_resident(self._upload(wav)), n_valid
+        chunk = next(self._chunk_ids)
+        with span('buzzdetect.dispatch'):
+            mark(chunk)
+            samples = np.asarray(samples)
+            if self._native_rate(input_rate):
+                n_valid, n_model, t_model, t_native = self._plan_native(
+                    len(samples), input_rate)
+                wav = self._upload(self._pad_to(samples, t_native))
+                out = self._classify(wav, (int(input_rate), t_model, n_model))
+            else:
+                n_valid = num_patches(len(samples), self.cfg)
+                wav = self._pad_to(samples,
+                                   padded_length(len(samples), self.cfg))
+                out = self.classify_resident(self._upload(wav))
+        return tag(out, chunk), n_valid
 
     @torch.inference_mode()
     def predict_async_batch(self, samples_list, input_rate: int = None):
         """Dispatch several chunks as ONE batched call. All chunks pad to the
         largest needed length and, with ``input_rate``, share that native
-        rate. Returns (scores (B, P, C), [n_valid each])."""
+        rate. Returns (scores (B, P, C), [n_valid each]); the scores carry
+        the chunks' ids, one a row (``runtime/spans.py``)."""
         self._need_head()
         arrs = [np.asarray(s) for s in samples_list]
-        if self._native_rate(input_rate):
-            sr = self.cfg.sample_rate
-            n_models = [-(-len(a) * sr // input_rate) for a in arrs]
-            n_valids = [num_patches(n, self.cfg) for n in n_models]
-            t_model = padded_length(max(n_models), self.cfg)
-            t_native = -(-t_model * input_rate // sr)
-            batch = self._upload(
-                np.stack([self._pad_to(a, t_native) for a in arrs]))
-            valid = torch.tensor(n_models, device=self.device)[:, None]
-            return self._classify(
-                batch, (int(input_rate), t_model, valid)), n_valids
-        n_valids = [num_patches(len(a), self.cfg) for a in arrs]
-        target = padded_length(max(len(a) for a in arrs), self.cfg)
-        batch = np.stack([self._pad_to(a, target) for a in arrs])
-        return self._classify(self._upload(batch)), n_valids
+        chunks = [next(self._chunk_ids) for _ in arrs]
+        with span('buzzdetect.dispatch'):
+            mark(chunks)
+            if self._native_rate(input_rate):
+                sr = self.cfg.sample_rate
+                n_models = [-(-len(a) * sr // input_rate) for a in arrs]
+                n_valids = [num_patches(n, self.cfg) for n in n_models]
+                t_model = padded_length(max(n_models), self.cfg)
+                t_native = -(-t_model * input_rate // sr)
+                batch = self._upload(
+                    np.stack([self._pad_to(a, t_native) for a in arrs]))
+                valid = torch.tensor(n_models, device=self.device)[:, None]
+                out = self._classify(batch, (int(input_rate), t_model, valid))
+            else:
+                n_valids = [num_patches(len(a), self.cfg) for a in arrs]
+                target = padded_length(max(len(a) for a in arrs), self.cfg)
+                batch = np.stack([self._pad_to(a, target) for a in arrs])
+                out = self._classify(self._upload(batch))
+        return tag(out, chunks), n_valids
 
     @torch.inference_mode()
     def classify_resident(self, wav_device: torch.Tensor) -> torch.Tensor:

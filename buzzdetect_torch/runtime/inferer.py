@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from buzzdetect_torch.runtime.assignments import AssignChunk, AssignLog
+from buzzdetect_torch.runtime.spans import chunk_of, mark, span, tag
 from buzzdetect_torch.runtime.writer import _materialize
 from buzzdetect_torch.utils import Timer
 
@@ -42,7 +43,8 @@ class HostCopy:
     non-blocking copy on the current stream of the result's device (the
     stream that computed it), and the CUDA event recorded after it on that
     stream. ``wait()`` blocks on the event and returns the host array —
-    ``np.asarray`` on the CUDA tensor itself would raise."""
+    ``np.asarray`` on the CUDA tensor itself would raise. It carries the
+    result's chunk id on to the wait (``runtime/spans.py``)."""
 
     def __init__(self, results):
         self.host = torch.empty(results.shape, dtype=results.dtype,
@@ -50,6 +52,7 @@ class HostCopy:
         self.host.copy_(results, non_blocking=True)
         self.event = torch.cuda.Event()
         self.event.record(torch.cuda.current_stream(results.device))
+        tag(self, chunk_of(results))
 
     def wait(self) -> np.ndarray:
         self.event.synchronize()
@@ -62,9 +65,11 @@ def _start_host_copy(results):
     earlier chunks. Returns what the writer materializes: a
     :class:`HostCopy` for a CUDA tensor, else ``results`` unchanged (CPU
     tensors and plugin models' plain numpy)."""
-    if isinstance(results, torch.Tensor) and results.is_cuda:
-        return HostCopy(results)
-    return results
+    with span('buzzdetect.copy_back'):
+        mark(chunk_of(results))
+        if isinstance(results, torch.Tensor) and results.is_cuda:
+            return HostCopy(results)
+        return results
 
 
 def _model_device(model):
@@ -271,8 +276,9 @@ class WorkerInferer:
               if batch[0].input_rate else {})
         out, n_valids = self.model.predict_async_batch(
             [c.samples for c in batch], **kw)
+        chunks = chunk_of(out) or [None] * len(batch)
         for i, a_chunk in enumerate(batch):
-            a_chunk.results = _start_host_copy(out[i])
+            a_chunk.results = _start_host_copy(tag(out[i], chunks[i]))
             a_chunk.n_valid = n_valids[i]
             a_chunk.samples = None
             self.coordinator.put_write(a_chunk)

@@ -13,6 +13,7 @@ import os
 import numpy as np
 
 from buzzdetect_torch.runtime.assignments import AssignChunk, AssignLog
+from buzzdetect_torch.runtime.spans import chunk_of, mark, span
 from buzzdetect_torch.write.formatting import format_activations, format_detections
 
 
@@ -58,9 +59,13 @@ def _materialize(results, n_valid):
     chunk). A copy in flight (runtime/inferer.HostCopy) is waited on
     through its CUDA event; CPU tensors and numpy convert directly. Split
     into its own frame so stack-sampling host profiles attribute the device
-    wait separately from the writer's real CSV work."""
-    wait = getattr(results, 'wait', None)
-    results = np.asarray(wait() if wait is not None else results)
+    wait separately from the writer's real CSV work, and a profiler trace
+    holds it as ``buzzdetect.wait`` with the chunk's id
+    (``runtime/spans.py``)."""
+    with span('buzzdetect.wait'):
+        mark(chunk_of(results))
+        wait = getattr(results, 'wait', None)
+        results = np.asarray(wait() if wait is not None else results)
     if n_valid is not None:
         results = results[:n_valid]
     return results

@@ -9,6 +9,10 @@ pairs; cProfile cannot see worker threads and the device profiler sees
 device work, so this fills the host-side gap. The device-side tool is
 ``analyze(profile_dir=...)`` (``--torch-trace``): a ``torch.profiler``
 trace of the run, CPU ops of every thread and, on the card, its kernels.
+Its ``buzzdetect.*`` ranges are the model step's spans
+(``runtime/spans.py``: dispatch, wire, upload, classify, frontend, embed,
+head, copy_back, wait), and a ``buzzdetect.chunk#<n>`` marker inside a
+dispatch, a copy back and a wait ties the three of one chunk together.
 
 Usage:
   python -m buzzdetect_torch.tools.profile_pipeline [--files 4]
@@ -127,7 +131,9 @@ def main(argv=None):
     ap.add_argument('--top', type=int, default=12)
     ap.add_argument('--torch-trace', default=None,
                     help='also write a torch.profiler trace here '
-                         '(analyze(profile_dir=...))')
+                         '(analyze(profile_dir=...)); the model step\'s '
+                         'spans are its buzzdetect.* ranges, tied per '
+                         'chunk by buzzdetect.chunk#<n> markers')
     ap.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
                     help='cuda (default): the card; cpu: the plain versions')
     args = ap.parse_args(argv)
