@@ -1,88 +1,80 @@
-// Fused log-mel spectrogram, exact f32.
+// Fused log-mel spectrogram by FFT, exact f32.
 //
 // Replaces the TPU kernel buzzdetect_tpu/ops/pallas_frontend.py::_kernel as
-// launched by log_mel_spectrogram_pallas: padded f32 waveform -> per 400-
-// sample frame at hop 160, the Hann-windowed real DFT (257 bins), its
-// magnitude sqrt(re^2 + im^2), the (257 x 64) HTK mel product, and
-// log(mel + offset). Rows of a (B, n) batch are independent waveforms.
+// launched by log_mel_spectrogram_pallas, and is the card's default
+// frontend: a waveform (f32, or the int16 wire scaled by 2^-15 as it is
+// loaded) -> per 400-sample frame at hop 160, the Hann-windowed 512-point
+// real FFT (257 bins), its magnitude sqrt(re^2 + im^2), the dense (257 x 64)
+// HTK mel product, and log(mel + offset). Rows of a (B, n) batch are
+// independent waveforms.
 //
-// Bound on an H100 SXM. One 200 s chunk is n = 3,210,480 samples, 20,064
-// frames: the dense DFT is 20,064 x 400 x 514 multiply-adds (8.25 GFLOP),
-// the mel product 0.66 GFLOP, against ~13 MB of samples in and ~5 MB of
-// log-mel out. At the card's 67 TFLOP/s f32 peak outside the tensor cores
-// that is ~0.133 ms against ~6 us of memory time: the kernel is bound by
-// f32 FFMA throughput. A file's ragged last chunk (5 patches, 480 frames)
-// is 1/42 of that work: there the bound is filling the card at all.
+// Bound on an H100 SXM. A 1,667-patch chunk (the benchmark's, 1600.335 s)
+// is 160,032 frames: benchmark/roofline.frontend_flops counts 2.5 N log2 N
+// flops of FFT a frame, the window, the magnitudes and the dense mel
+// product (45.6 kflop a frame, 7.30 GFLOP), 0.109 ms at the 67 TFLOP/s f32
+// peak, against 0.027 ms for its bytes (the int16 wire read once, the
+// log-mel written once): the kernel is bound by f32 arithmetic. B = 209
+// (20,064 frames, a 200 s chunk) is 0.0137 ms. The dense-DFT design this
+// file held before did 8.25 GFLOP at B = 209 (0.133 ms at the same peak),
+// eight times the FFT's multiply-adds; the mel product, 16,448 FMA a
+// frame, is now the largest part of the work.
 //
-// What held the earlier design (one block of 64 frames walking all 257
-// bins) back: a 200 s chunk launched 314 blocks, two per SM, so a full wave
-// and a wave of 50; 480 frames launched 8 blocks on 132 SMs; and the DFT
-// operand was copied synchronously between two barriers.
+// The design, one block of NT = 4 FT threads a tile of FT frames:
+//   - The FFT. A frame's 400 samples, times the periodic Hann window (built
+//     on the host in float64, rounded once to f32 and halved, so that the
+//     even/odd split below needs no 1/2), packed as 256 complex points
+//     z[m] = u[2m] + i u[2m+1] (zero from m = 200), take a 256-point
+//     complex FFT as 16 x 16: 16 threads (half a warp) own a frame; thread
+//     t reads z[t + 16 j] straight from device memory (two samples a load)
+//     and runs a 16-point DFT over j in registers (two radix-4 passes),
+//     multiplies by W256^(t k2), and the half-warp transposes the 16 x 16
+//     through 2 KB of shared memory (swizzled, so that neither side
+//     conflicts), after __syncwarp alone; thread k2 then runs the 16-point
+//     DFT over t and holds Z[k2 + 16 k1]. The post-twiddle X[k] = E + W512^k
+//     O, with E and O from Z[k] and conj(Z[256 - k]) of the partner thread
+//     (one shuffle of its 8 upper values), gives |X[k]| and |X[256 - k]| =
+//     |E - W512^k O| a pair; thread 0 adds bin 128. The twiddles are the
+//     host's float64 tables rounded once to f32. The magnitudes go to a
+//     (257, FT + 4) tile in shared memory, bin-major; the spectrum never
+//     reaches device memory. Each thread keeps the next round's samples in
+//     flight while it computes this one's. FT / 4 frames a round, 4 rounds.
+//   - The mel product, dense, as a GEMM from shared memory: thread (fg, bg)
+//     owns 4 frames x 4 bands (one float4 of magnitudes and one of weights a
+//     bin, 16 FMA); a warp spans 8 frame groups x 4 band groups where the
+//     tile allows, so that each load is a broadcast of 128 or 64 bytes. The
+//     mel matrix streams through a 3-stage cp.async ring of 32-bin chunks
+//     over the space the transposes used; bin 256 comes last, from the L1.
+//   - FT in {64, 32, 16, 8} is chosen per launch in ops/logmel.py
+//     (launch_geometry, from the frame count, the batch and the SM count):
+//     the largest tile whose busiest SM gets at most 1.1x the frames of the
+//     best. No cluster: a block holds its frames' whole spectrum. At
+//     FT = 64 a block takes 107 KB of shared memory, so two share an SM.
 //
-// The design:
-//   - A thread-block cluster of CS blocks shares FT frames. The bins 0..255
-//     are 4 chunks of 64; the block of rank r computes the DFT and the
-//     magnitudes of chunks [r * 4 / CS, (r + 1) * 4 / CS) for the cluster's
-//     frames into its own shared memory. After cluster.sync() it copies the
-//     other ranks' magnitude tiles into its own shared memory (R), 256
-//     contiguous bytes per 16 threads, then a second cluster.sync() lets
-//     every block run on, and it runs the mel product for bands
-//     [r * 64 / CS, (r + 1) * 64 / CS) from local memory, in the bins' own
-//     order. Reading the remote tiles in place instead (each lane its own
-//     frame's row) took 0.73 ms of a 1.07 ms launch at FT = 32, CS = 4:
-//     distributed shared memory wants whole segments. Bin 256 (the Nyquist
-//     bin, 800 FMA a frame) is computed by every block of the cluster for
-//     its own use.
-//   - FT and CS are chosen at launch (ops/logmel.py::launch_geometry, from
-//     the frame count, the batch, the SM count and
-//     cudaOccupancyMaxActiveClusters): FT in {128, 64, 32}, CS in {2, 4},
-//     the first candidate (larger tiles first, clusters of 2 before 4)
-//     whose busiest SM gets at most 1.1x the fewest (frame, bin-chunk)
-//     pairs any candidate gives it. On the H100, a 200 s chunk gets FT = 64,
-//     CS = 2: 628 blocks, two an SM, the busiest SM 1.05x the mean. 480
-//     frames get FT = 32, CS = 4: 60 blocks. Clusters of 4 at one block an
-//     SM fill only 120 of the 132 SMs (30 clusters: GPCs whose SM count is
-//     not a multiple of 4), and at one tile clusters of 2 stage the samples
-//     and bin 256 for half as many blocks.
-//   - Each thread owns TF = FT / 16 frames x TB = 4 bins of re and im, 256
-//     threads a block. Per 4 taps it reads its frames' samples as one
-//     float4 each (hop rows padded to 164 floats, so that 8 lanes on
-//     consecutive frames hit 8 distinct bank quads) and, per tap, the DFT
-//     row's 4 re and 4 im as two float4s that 16 lanes share. Of the tiles
-//     timed (4 x 8 and 2 x 8 before it), this one issues the fewest loads
-//     per FFMA at FT = 64 and read the fastest at every geometry.
-//   - The DFT operand comes through a 3-stage cp.async ring of 20-tap steps
-//     (10 KB each), one barrier a step; the frames' hop rows (4-byte
-//     cp.async, zero past the end) and bin 256's DFT arrive as one more
-//     group in flight with the first steps. At FT = 64 a block takes 113 KB
-//     of shared memory, so two blocks share an SM.
-//   - The spectrum never reaches device memory; only the log-mel is
-//     written.
+// Exact f32 on the FFMA pipes and the same bits at every shape: FFMA, FMUL
+// and FADD (written as intrinsics, so that no contraction is left to the
+// compiler), IEEE sqrtf and logf; no tensor cores, no TF32, no cuFFT or
+// cuBLAS, no split K and no atomics. Every frame runs the same instruction
+// sequence whatever FT, the launch or the batch, and each mel band is one
+// fmaf chain over the bins 0..256 ascending, so a frame's log-mel depends
+// on nothing but its samples.
 //
-// Exact f32 and the same bits as the earlier design at every shape: FFMA
-// only, IEEE sqrtf and logf, no tensor cores, no TF32, no cuBLAS or cuFFT,
-// no split K and no atomics. re and im of each (frame, bin) are one fmaf
-// chain over the taps 0..399 ascending; bin 256 is four chains of 100 taps
-// summed in order; each mel band is one fmaf chain over the bins 0..255
-// ascending, then bin 256. The tile shape changes none of them, so a frame's
-// log-mel does not depend on FT, CS or the batch.
-//
-// Measured (tools/logmel_geometries.py, tools/compare_builds.py and
-// chip_smoke.py, device time from torch.profiler, NVIDIA H100 80GB HBM3 at
-// 700 W):
-// 0.276-0.283 ms for a 200 s chunk (FT = 64, CS = 2), 2.1x the 0.133 ms
-// bound, against 0.436 ms for the earlier design and 0.53 ms for the matmul
-// frontend; 0.025 ms for 480 frames (FT = 32, CS = 4), against 0.136 ms
-// and the matmul frontend's 0.041. The DFT loop holds it: 8.25 GFLOP in
-// 0.28 ms is 29 TFLOP/s, 55% of the 53.7 TFLOP/s an FMA chain reaches on
-// the card, with the busiest SM 1.05x the mean (the mel product and its
-// copy took 9% of the launch, measured with the earlier 2 x 8 tile). Which
-// stall holds the loop is not measurable there (no ncu).
+// Measured (tools/logmel_geometries.py, device time from torch.profiler,
+// NVIDIA H100 80GB HBM3 at 700 W): 0.264-0.279 ms for the 1,667-patch
+// chunk on the int16 wire (FT = 64), 39-41% of its 0.109 ms bound, against
+// ~2.0 ms for the dense-DFT design at that shape and 4.9 ms a chunk for
+// the matmul frontend in the benchmark; 0.047-0.050 ms at B = 209 (28% of
+// 0.0137 ms; the dense-DFT design 0.249 ms); 0.013 ms at B = 5. What holds
+// it, by variants with a phase taken out: the FFT rounds and the mel
+// product take about half each. The mel product runs at ~64% of the FFMA
+// rate (two shared loads a 16 FMA, a barrier a ring chunk); the FFT at
+// ~800 instructions a thread a frame, its transposes, shuffles and IEEE
+// square roots among them. An 8 x 4 mel tile on half the threads was 5%
+// faster at FT = 64 and slower at every smaller tile. Which stall holds
+// each phase is not measurable there (no ncu).
 //
 // Plain C interface, loaded with ctypes; returns a cudaError_t code
 // (0 = success) and launches on the given stream.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,420 +82,409 @@
 
 #include "ptx.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr int WINDOW = 400;   // samples per frame
 constexpr int HOP = 160;      // samples between frames
 constexpr int MELS = 64;      // mel bands out
-constexpr int NYQ_BIN = 256;  // the last of the 257 bins, computed apart
-constexpr int BB = 64;        // bins per chunk
-constexpr int NCHUNK = NYQ_BIN / BB;  // chunks covering bins 0..255
-constexpr int KC = 20;        // taps per ring step: HOP = 8 KC, WINDOW =
-                              // 20 KC, so a step never straddles a hop row
-constexpr int KSTEPS = WINDOW / KC;
-constexpr int RING = 3;       // cp.async ring stages
-constexpr int RS = HOP + 4;   // padded hop-row stride (see the note above)
-constexpr int D_FLOATS = KC * 2 * BB;  // one ring step of (re | im)
-constexpr int NYQ_PARTS = 4;  // bin 256: four chains of 100 taps
-constexpr int NYQ_TAPS = WINDOW / NYQ_PARTS;
-static_assert(HOP % KC == 0 && WINDOW % KC == 0 && KC % 4 == 0, "steps");
-static_assert(NYQ_TAPS % 4 == 0 && HOP % 4 == 0, "float4 sample reads");
+constexpr int BINS = 257;     // rfft bins of 512 points
+constexpr int NC = 256;       // complex points of the packed FFT
+constexpr int ZN = WINDOW / 2;  // nonzero packed points
+constexpr int JN = (ZN + 15) / 16;  // loads a thread: j = 0..JN-1
+constexpr float INT16_SCALE = 1.0f / 32768.0f;  // exact: 2^-15
+// the host's tables, one tensor: half-window (400) | W256^e (256 x re, im)
+// | W512^k, k < 128 (128 x re, im) | W256^(t k2) at [k2][t] (16 x 16 x re,
+// im: pass 1's twiddles, so that the 16 lanes of a frame read 16
+// consecutive entries)
+constexpr int T_WIN = 0;
+constexpr int T_W256 = WINDOW;
+constexpr int T_W512 = T_W256 + 2 * NC;
+constexpr int T_PASS = T_W512 + 2 * (NC / 2);
+constexpr int TABLE_FLOATS = T_PASS + 2 * NC;
+constexpr int KB = 32;        // bins per chunk of the mel ring
+constexpr int W_CHUNKS = (BINS - 1) / KB;  // chunks covering bins 0..255
+constexpr int RING = 3;
+constexpr int W_FLOATS = KB * MELS;
+static_assert(TABLE_FLOATS % 4 == 0 && W_FLOATS % 4 == 0, "16-byte copies");
+static_assert(W_CHUNKS * KB == BINS - 1, "bin 256 is apart");
 
-template <int FT, int CS>
-struct LogmelTile {
-    static constexpr int CPB = NCHUNK / CS;   // bin chunks per block
-    static constexpr int BANDS = MELS / CS;   // mel bands per block
-    static constexpr int ROWS = FT + 2;       // frame f reads rows f..f+2
-    static constexpr int S_FLOATS = ROWS * RS;
-    static constexpr int MS = CPB * BB + 4;   // magnitude row stride
-    static constexpr int M_FLOATS = FT * MS;
-    static constexpr int P_FLOATS = 2 * NYQ_PARTS * FT;
-    static constexpr int N_FLOATS = 2 * WINDOW;  // bin 256's re | im taps
-    static constexpr int SMEM = (S_FLOATS + RING * D_FLOATS + M_FLOATS +
-                                 P_FLOATS + FT + N_FLOATS) * 4;
-    // the DFT tile of a thread: TF frames x TB bins, SL frame slots; NT
-    // threads a block
-    static constexpr int TF = FT / 16;
-    static constexpr int TB = 4;
-    static constexpr int SL = FT / TF;
-    static constexpr int NT = SL * (BB / TB);
-    // the mel tile of a thread: one frame x MB bands
-    static constexpr int MB = BANDS * FT / NT;
-    static_assert(SL % 32 == 0 || 32 % SL == 0, "a warp's frames");
-    static_assert(MB >= 2 && MB % 2 == 0 && FT % 32 == 0, "the mel tiles");
-    static constexpr int R_FLOATS = (NCHUNK - CPB) * FT * BB;
-    static_assert(R_FLOATS + (NYQ_BIN + 1) * BANDS <=
-                      S_FLOATS + RING * D_FLOATS,
-                  "R and W over the samples and the ring");
+template <int FT>
+struct FftTile {
+    static constexpr int NT = 4 * FT;          // threads
+    static constexpr int FPR = NT / 16;        // frames a round
+    static constexpr int ROUNDS = FT / FPR;    // = 4
+    static constexpr int MP = FT + 4;          // magnitude row stride
+    static constexpr int M_FLOATS = BINS * MP;
+    static constexpr int X_FLOATS = (NT / 32) * 1024;  // 2 KB a frame
+    static constexpr int U_FLOATS =
+        X_FLOATS > RING * W_FLOATS ? X_FLOATS : RING * W_FLOATS;
+    static constexpr int SMEM = (TABLE_FLOATS + M_FLOATS + U_FLOATS) * 4;
+    // the mel tile: FG frame groups x 16 band groups of 4 x 4; a warp
+    // spans FGW x BGW of them
+    static constexpr int FG = FT / 4;
+    static constexpr int FGW = FG < 8 ? FG : 8;
+    static constexpr int BGW = 32 / FGW;
+    static constexpr int WF = FG / FGW;        // warps along the frames
+    static_assert(FT % 8 == 0 && ROUNDS == 4, "tile");
+    static_assert(MP % 4 == 0, "float4 magnitude reads");
     static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
-// 4 bytes global -> shared, asynchronously; with ok false, a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(ok ? 4 : 0)
-                 : "memory");
+__device__ __forceinline__ float2 lds2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
 }
 
-__device__ __forceinline__ float part(const float4& v, int t) {
-    return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+// (a + ib) * (wr + i wi)
+__device__ __forceinline__ void cmul(float& a, float& b, float wr, float wi) {
+    const float r = fmaf(a, wr, -__fmul_rn(b, wi));
+    b = fmaf(a, wi, __fmul_rn(b, wr));
+    a = r;
 }
 
-// dft: (NCHUNK, WINDOW, 2 * BB), chunk c tap k = [re of bins c*BB..+BB |
-//      im of the same bins]; nyq: (WINDOW, 2) = re | im of bin 256;
-// mel: (257, MELS) row-major. Grid: (frame tiles * CS, batch), clusters of
-// CS along x.
-template <int FT, int CS>
-__global__ void __launch_bounds__(LogmelTile<FT, CS>::NT, FT >= 128 ? 1 : 2)
-logmel_kernel(const float* __restrict__ wav, float* __restrict__ out,
-              const float* __restrict__ dft, const float* __restrict__ nyq,
-              const float* __restrict__ mel, const long long n,
-              const int n_frames, const float log_offset) {
-    using T = LogmelTile<FT, CS>;
-    constexpr int TF = T::TF, TB = T::TB, SL = T::SL, MB = T::MB, NT = T::NT;
-    constexpr int STEPS = T::CPB * KSTEPS;
+// 4-point DFT in place, natural order (W4 = -i)
+__device__ __forceinline__ void dft4(float& r0, float& i0, float& r1,
+                                     float& i1, float& r2, float& i2,
+                                     float& r3, float& i3) {
+    const float b0r = __fadd_rn(r0, r2), b0i = __fadd_rn(i0, i2);
+    const float b1r = __fsub_rn(r0, r2), b1i = __fsub_rn(i0, i2);
+    const float b2r = __fadd_rn(r1, r3), b2i = __fadd_rn(i1, i3);
+    const float b3r = __fsub_rn(r1, r3), b3i = __fsub_rn(i1, i3);
+    r0 = __fadd_rn(b0r, b2r), i0 = __fadd_rn(b0i, b2i);
+    r2 = __fsub_rn(b0r, b2r), i2 = __fsub_rn(b0i, b2i);
+    r1 = __fadd_rn(b1r, b3i), i1 = __fsub_rn(b1i, b3r);  // b1 - i b3
+    r3 = __fsub_rn(b1r, b3i), i3 = __fadd_rn(b1i, b3r);  // b1 + i b3
+}
+
+// 16-point DFT of a[0..15] in place, natural order: j = j1 + 4 j2,
+// k = p + 4 q; a 4-point DFT over j2 for each j1, the twiddles W16^(j1 p)
+// (W16^e = W256^(16 e) from the table tw), a 4-point DFT over j1 for each
+// p, and the outputs renamed from 4 p + q to p + 4 q
+__device__ __forceinline__ void dft16(float (&re)[16], float (&im)[16],
+                                      const float* tw) {
+#pragma unroll
+    for (int j1 = 0; j1 < 4; ++j1)
+        dft4(re[j1], im[j1], re[j1 + 4], im[j1 + 4], re[j1 + 8], im[j1 + 8],
+             re[j1 + 12], im[j1 + 12]);
+    // c[j1][p] now sits at j1 + 4 p
+    const float2 w1 = lds2(tw + 2 * 16), w3 = lds2(tw + 2 * 48),
+                 w9 = lds2(tw + 2 * 144);
+    const float h = tw[2 * 32];  // cos(pi / 4) = -sin(-pi / 4)
+    cmul(re[5], im[5], w1.x, w1.y);    // (1, 1)
+    cmul(re[13], im[13], w3.x, w3.y);  // (1, 3)
+    cmul(re[7], im[7], w3.x, w3.y);    // (3, 1)
+    cmul(re[15], im[15], w9.x, w9.y);  // (3, 3)
+    {   // (1, 2) and (2, 1): W16^2 = h (1 - i)
+        float a = re[9], b = im[9];
+        re[9] = __fmul_rn(h, __fadd_rn(a, b)), im[9] = __fmul_rn(h, __fsub_rn(b, a));
+        a = re[6], b = im[6];
+        re[6] = __fmul_rn(h, __fadd_rn(a, b)), im[6] = __fmul_rn(h, __fsub_rn(b, a));
+    }
+    {   // (2, 3) and (3, 2): W16^6 = -h (1 + i)
+        float a = re[14], b = im[14];
+        re[14] = __fmul_rn(h, __fsub_rn(b, a)), im[14] = -__fmul_rn(h, __fadd_rn(a, b));
+        a = re[11], b = im[11];
+        re[11] = __fmul_rn(h, __fsub_rn(b, a)), im[11] = -__fmul_rn(h, __fadd_rn(a, b));
+    }
+    {   // (2, 2): W16^4 = -i, exact
+        const float a = re[10];
+        re[10] = im[10], im[10] = -a;
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+        dft4(re[4 * p], im[4 * p], re[4 * p + 1], im[4 * p + 1],
+             re[4 * p + 2], im[4 * p + 2], re[4 * p + 3], im[4 * p + 3]);
+    float r[16], i[16];
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) r[p + 4 * q] = re[4 * p + q],
+                                    i[p + 4 * q] = im[4 * p + q];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) re[k] = r[k], im[k] = i[k];
+}
+
+// samples 2m and 2m + 1 of a frame, one load (rows are aligned for it:
+// bz_logmel refuses an odd row stride). They stay in flight, as loaded,
+// until the next round reads them through as_f32. (A second, unaligned
+// path selected at run time made the compiler funnel every aligned load
+// of the int16 wire through one register, so that the loads of a round
+// waited for each other.)
+__device__ __forceinline__ float2 load_pair(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+__device__ __forceinline__ short2 load_pair(const short* p) {
+    return __ldg(reinterpret_cast<const short2*>(p));
+}
+
+__device__ __forceinline__ float2 as_f32(float2 v) { return v; }
+
+// the int16 wire scaled by 2^-15 (exact)
+__device__ __forceinline__ float2 as_f32(short2 v) {
+    return make_float2(__fmul_rn(__int2float_rn(v.x), INT16_SCALE),
+                       __fmul_rn(__int2float_rn(v.y), INT16_SCALE));
+}
+
+// wav: batch rows of In, stride samples apart (even), each holding at
+// least the n_frames frames' samples; out: (batch, n_frames, MELS);
+// tables: TABLE_FLOATS as above; mel: (257, MELS) row-major. Grid: (frame
+// tiles, batch).
+template <typename In, int FT>
+__global__ void __launch_bounds__(FftTile<FT>::NT, 2)
+logmel_fft_kernel(const In* __restrict__ wav, float* __restrict__ out,
+                  const float* __restrict__ tables,
+                  const float* __restrict__ mel, const long long stride,
+                  const int n_frames, const float log_offset) {
+    using T = FftTile<FT>;
+    constexpr int NT = T::NT, MP = T::MP;
     extern __shared__ __align__(16) float smem[];
-    float* const S = smem;                        // (ROWS, RS) hop rows
-    float* const ring = S + T::S_FLOATS;          // DFT steps
-    float* const R = smem;                        // then, over S and the
-                                                  // ring: the other ranks'
-    float* const W = R + T::R_FLOATS;             // |X|, and (257, BANDS) mel
-    float* const M = ring + RING * D_FLOATS;      // (FT, MS) |X|, own bins
-    float* const P = M + T::M_FLOATS;             // (2, 4, FT) bin-256 parts
-    float* const Q = P + T::P_FLOATS;             // (FT,) |X| of bin 256
-    float* const N = Q + FT;                      // (WINDOW, 2) bin 256's DFT
+    float* const TB = smem;                        // the tables
+    float* const M = smem + TABLE_FLOATS;          // (BINS, MP) |X|
+    float* const U = M + T::M_FLOATS;              // transposes, then the
+                                                   // mel ring
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int f0 = blockIdx.x * FT;
+    const In* const x = wav + (long long)blockIdx.y * stride;
 
-    cg::cluster_group cluster = cg::this_cluster();
-    const int rank = (int)cluster.block_rank();
-    const int tid = threadIdx.x;
-    const int f0 = (blockIdx.x / CS) * FT;
-    const float* const x = wav + (long long)blockIdx.y * n;
-    const long long base = (long long)f0 * HOP;
-    const int c0 = rank * T::CPB;  // this block's first bin chunk
+    for (int i = tid; i < TABLE_FLOATS / 4; i += NT)
+        cp_async16(TB + 4 * i, tables + 4 * i);
+    cp_async_commit();
 
-    // ring step s: taps (s % KSTEPS) * KC.. of bin chunk c0 + s / KSTEPS
-    auto load_step = [&](int s) {
-        const float* const src =
-            dft + ((long long)(c0 + s / KSTEPS) * WINDOW + (s % KSTEPS) * KC) *
-                      (2 * BB);
-        float* const dst = ring + (s % RING) * D_FLOATS;
-        for (int i = tid; i < D_FLOATS / 4; i += NT)
-            cp_async16(dst + 4 * i, src + 4 * i);
+    // the FFT: thread t of the half-warp that owns frame slot r * FPR + sub
+    const int t = tid & 15, sub = tid >> 4;
+    float* const X = U + (tid >> 5) * 1024 + (lane >> 4) * 512;
+    using Raw = decltype(load_pair(x));
+    auto load_round = [&](Raw (&z)[JN], int r) {
+        const int frame = f0 + r * T::FPR + sub;
+        const In* const src = x + (long long)frame * HOP + 2 * t;
+#pragma unroll
+        for (int j = 0; j < JN; ++j)
+            z[j] = frame < n_frames && t + 16 * j < ZN
+                       ? load_pair(src + 32 * j)
+                       : Raw{};
     };
-    // cp.async group 0: the tile's samples (zero past the end; only masked
-    // frames read them) and bin 256's DFT; groups 1, 2: ring steps 0, 1
-    for (int i = tid; i < T::ROWS * HOP; i += NT) {
-        const long long s = base + i;
-        cp_async4(S + (i / HOP) * RS + i % HOP, x + (s < n ? s : 0), s < n);
-    }
-    for (int i = tid; i < T::N_FLOATS / 4; i += NT)
-        cp_async16(N + 4 * i, nyq + 4 * i);
-    cp_async_commit();
-#pragma unroll
-    for (int s = 0; s < RING - 1; ++s) {
-        load_step(s);
-        cp_async_commit();
-    }
-    cp_async_wait<RING - 1>();
-    __syncthreads();
-
-    // bin 256: item (frame f, part p) sums taps [p * 100, p * 100 + 100)
-    for (int item = tid; item < NYQ_PARTS * FT; item += NT) {
-        const int f = item % FT, p = item / FT;
-        float r = 0.f, im = 0.f;
-        for (int k = p * NYQ_TAPS; k < (p + 1) * NYQ_TAPS; k += 4) {
-            const float4 a = lds4(S + (f + k / HOP) * RS + k % HOP);
-            const float4 w0 = lds4(N + 2 * k), w1 = lds4(N + 2 * k + 4);
-            r = fmaf(a.x, w0.x, r);
-            im = fmaf(a.x, w0.y, im);
-            r = fmaf(a.y, w0.z, r);
-            im = fmaf(a.y, w0.w, im);
-            r = fmaf(a.z, w1.x, r);
-            im = fmaf(a.z, w1.y, im);
-            r = fmaf(a.w, w1.z, r);
-            im = fmaf(a.w, w1.w, im);
-        }
-        P[p * FT + f] = r;
-        P[NYQ_PARTS * FT + p * FT + f] = im;
-    }
-    __syncthreads();
-    if (tid < FT) {
-        float r = 0.f, im = 0.f;
-#pragma unroll
-        for (int p = 0; p < NYQ_PARTS; ++p) {
-            r += P[p * FT + tid];
-            im += P[NYQ_PARTS * FT + p * FT + tid];
-        }
-        Q[tid] = sqrtf(r * r + im * im);
-    }
-
-    // the DFT: this thread's frames slot + i * SL (i < TF) and bins
-    // g * TB .. g * TB + TB - 1 of each of the block's chunks
-    const int slot = tid % SL, g = tid / SL;
-    float re[TF][TB], im[TF][TB];
-#pragma unroll
-    for (int i = 0; i < TF; ++i)
-#pragma unroll
-        for (int j = 0; j < TB; ++j) re[i][j] = im[i][j] = 0.f;
-
-    // Step s's copies were committed as cp.async group s + 1. The barrier
-    // after the wait ends step s-1's reads, so its stage can be refilled.
-    for (int s = 0; s < STEPS; ++s) {
-        cp_async_wait<RING - 2>();
-        __syncthreads();
-        if (s + RING - 1 < STEPS) load_step(s + RING - 1);
-        cp_async_commit();
-        const int q = s % KSTEPS;
-        // taps q*KC .. q*KC+KC-1 lie in hop row q/R from column (q%R)*KC
-        constexpr int R = HOP / KC;
-        const float* const sp = S + (slot + q / R) * RS + (q % R) * KC;
-        const float* const d = ring + (s % RING) * D_FLOATS + g * TB;
-#pragma unroll
-        for (int kk = 0; kk < KC; kk += 4) {
-            float4 a[TF];
-#pragma unroll
-            for (int i = 0; i < TF; ++i) a[i] = lds4(sp + i * SL * RS + kk);
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-                const float* const dk = d + (kk + t) * (2 * BB);
-                float wr[TB], wi[TB];
-#pragma unroll
-                for (int j = 0; j < TB; j += 4) {
-                    const float4 r4 = lds4(dk + j), i4 = lds4(dk + BB + j);
-                    wr[j] = r4.x, wr[j + 1] = r4.y, wr[j + 2] = r4.z,
-                    wr[j + 3] = r4.w;
-                    wi[j] = i4.x, wi[j + 1] = i4.y, wi[j + 2] = i4.z,
-                    wi[j + 3] = i4.w;
-                }
-#pragma unroll
-                for (int i = 0; i < TF; ++i) {
-                    const float av = part(a[i], t);
-#pragma unroll
-                    for (int j = 0; j < TB; ++j) {
-                        re[i][j] = fmaf(av, wr[j], re[i][j]);
-                        im[i][j] = fmaf(av, wi[j], im[i][j]);
-                    }
-                }
-            }
-        }
-        if (q == KSTEPS - 1) {  // a bin chunk is done: its magnitudes to M
-            const int col = (s / KSTEPS) * BB + g * TB;
-#pragma unroll
-            for (int i = 0; i < TF; ++i) {
-                float mg[TB];
-#pragma unroll
-                for (int j = 0; j < TB; ++j) {
-                    mg[j] = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
-                    re[i][j] = im[i][j] = 0.f;
-                }
-#pragma unroll
-                for (int j = 0; j < TB; j += 4)
-                    *reinterpret_cast<float4*>(M + (slot + i * SL) * T::MS +
-                                               col + j) =
-                        make_float4(mg[j], mg[j + 1], mg[j + 2], mg[j + 3]);
-            }
-        }
-    }
-
-    // The samples and the ring are read out. Over them go R, the other
-    // ranks' magnitude tiles copied here, and W, this block's bands of the
-    // mel matrix.
-    __syncthreads();
-    const int band0 = rank * T::BANDS;
-    for (int i = tid; i < (NYQ_BIN + 1) * T::BANDS / 4; i += NT) {
-        const int b = i / (T::BANDS / 4), c = (i % (T::BANDS / 4)) * 4;
-        cp_async16(W + b * T::BANDS + c, mel + b * MELS + band0 + c);
-    }
-    cp_async_commit();
-    cluster.sync();  // every block's magnitudes are complete
-    // Remote chunk rc (the chunks in order, this block's own left out) of
-    // frame f goes to R row rc * FT + f, 64 floats with its float4 j at
-    // j ^ (f % 8), so that 8 lanes on consecutive frames read 8 distinct
-    // bank quads. 16 consecutive threads copy one 256-byte row: distributed
-    // shared memory is read in whole segments, a few loads in flight each.
-    constexpr int COPY = (NCHUNK - T::CPB) * FT * (BB / 4);  // float4s
-    constexpr int UNR = 4;
-    for (int i0 = tid; i0 < COPY; i0 += UNR * NT) {
-        float4 v[UNR];
-#pragma unroll
-        for (int u = 0; u < UNR; ++u) {
-            const int i = i0 + u * NT;
-            if (i < COPY) {
-                const int j = i % (BB / 4), fr = (i / (BB / 4)) % FT;
-                const int rc = i / (BB / 4 * FT);
-                const int c = rc < c0 ? rc : rc + T::CPB;
-                v[u] = *reinterpret_cast<const float4*>(
-                    cluster.map_shared_rank(M, c / T::CPB) + fr * T::MS +
-                    (c % T::CPB) * BB + 4 * j);
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < UNR; ++u) {
-            const int i = i0 + u * NT;
-            if (i < COPY) {
-                const int j = i % (BB / 4), fr = (i / (BB / 4)) % FT;
-                const int rc = i / (BB / 4 * FT);
-                *reinterpret_cast<float4*>(R + (rc * FT + fr) * BB +
-                                           4 * (j ^ (fr % 8))) = v[u];
-            }
-        }
-    }
+    Raw cur[JN];
+    load_round(cur, 0);
     cp_async_wait<0>();
-    // R and W are complete, and no block reads another's magnitudes again,
-    // so every block may run on to its end
-    cluster.sync();
+    __syncthreads();
 
-    // the mel product: frame f, bands band0 + mg * MB .. + MB - 1, over the
-    // bins 0..255 in order (chunk c: this block's own in M, else in R), then
-    // bin 256
-    const int f = tid % FT, mg = tid / FT;
-    float macc[MB];
+#pragma unroll 1
+    for (int r = 0; r < T::ROUNDS; ++r) {
+        const int slot = r * T::FPR + sub;
+        Raw nxt[JN];
+        if (r + 1 < T::ROUNDS) load_round(nxt, r + 1);
+        float zr[16], zi[16];
 #pragma unroll
-    for (int j = 0; j < MB; ++j) macc[j] = 0.f;
-    for (int c = 0; c < NCHUNK; ++c) {
-        const bool own = c / T::CPB == rank;
-        const int rc = c < c0 ? c : c - T::CPB;
-        const float* const mr = own ? M + f * T::MS + (c % T::CPB) * BB
-                                    : R + (rc * FT + f) * BB;
-        const int swz = own ? 0 : f % 8;
-        const float* const w = W + c * BB * T::BANDS + mg * MB;
-#pragma unroll
-        for (int b = 0; b < BB; b += 4) {
-            const float4 m4 = lds4(mr + 4 * ((b / 4) ^ swz));
-#pragma unroll
-            for (int t = 0; t < 4; ++t) {
-                const float mv = part(m4, t);
-                const float* const wb = w + (b + t) * T::BANDS;
-                if constexpr (MB % 4 == 0) {
-#pragma unroll
-                    for (int j = 0; j < MB; j += 4) {
-                        const float4 w4 = lds4(wb + j);
-                        macc[j] = fmaf(mv, w4.x, macc[j]);
-                        macc[j + 1] = fmaf(mv, w4.y, macc[j + 1]);
-                        macc[j + 2] = fmaf(mv, w4.z, macc[j + 2]);
-                        macc[j + 3] = fmaf(mv, w4.w, macc[j + 3]);
-                    }
-                } else {
-#pragma unroll
-                    for (int j = 0; j < MB; j += 2) {
-                        const float2 w2 =
-                            *reinterpret_cast<const float2*>(wb + j);
-                        macc[j] = fmaf(mv, w2.x, macc[j]);
-                        macc[j + 1] = fmaf(mv, w2.y, macc[j + 1]);
-                    }
-                }
+        for (int j = 0; j < 16; ++j) {
+            if (j < JN) {
+                // past the window's end cur is zero; any table entry will do
+                const int m = t + 16 * j < ZN ? t + 16 * j : 0;
+                const float2 h = lds2(TB + T_WIN + 2 * m);
+                const float2 v = as_f32(cur[j]);
+                zr[j] = __fmul_rn(v.x, h.x);
+                zi[j] = __fmul_rn(v.y, h.y);
+            } else {
+                zr[j] = zi[j] = 0.f;
             }
         }
-    }
-    const int frame = f0 + f;
-    if (frame < n_frames) {
-        const float qv = Q[f];
-        const float* const w = W + NYQ_BIN * T::BANDS + mg * MB;
-        float* const o = out + ((long long)blockIdx.y * n_frames + frame) *
-                                   MELS + band0 + mg * MB;
+        dft16(zr, zi, TB + T_W256);
 #pragma unroll
-        for (int j = 0; j < MB; j += 2)
-            *reinterpret_cast<float2*>(o + j) = make_float2(
-                logf(fmaf(qv, w[j], macc[j]) + log_offset),
-                logf(fmaf(qv, w[j + 1], macc[j + 1]) + log_offset));
+        for (int k2 = 1; k2 < 16; ++k2) {
+            const float2 w = lds2(TB + T_PASS + 2 * (16 * k2 + t));
+            cmul(zr[k2], zi[k2], w.x, w.y);
+        }
+        // row k2, column t: the 16-byte chunk t / 2 of row k2 at t / 2 ^ (k2
+        // % 8), so that 8 lanes reading 8 rows hit 8 bank quads
+        __syncwarp();  // the last round's reads of X are done
+#pragma unroll
+        for (int k2 = 0; k2 < 16; ++k2)
+            *reinterpret_cast<float2*>(X + k2 * 32 + (((t >> 1) ^ (k2 & 7)) << 2) +
+                                       ((t & 1) << 1)) =
+                make_float2(zr[k2], zi[k2]);
+        __syncwarp();
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+            const float4 v = lds4(X + t * 32 + ((c ^ (t & 7)) << 2));
+            zr[2 * c] = v.x, zi[2 * c] = v.y;
+            zr[2 * c + 1] = v.z, zi[2 * c + 1] = v.w;
+        }
+        dft16(zr, zi, TB + T_W256);  // z[k1] = Z[t + 16 k1]
+        // Z[256 - t - 16 k1]: the partner thread (16 - t) % 16's value
+        // 15 - k1, or for t = 0 this thread's (16 - k1) % 16
+        const int src = (lane & 16) | ((16 - t) & 15);
+        float pr[8], pi[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            pr[i] = __shfl_sync(0xffffffffu, zr[8 + i], src);
+            pi[i] = __shfl_sync(0xffffffffu, zi[8 + i], src);
+        }
+        const bool dc = t == 0;
+#pragma unroll
+        for (int k1 = 0; k1 < 8; ++k1) {
+            const int k = t + 16 * k1;
+            const float cr = k1 == 0 ? (dc ? zr[0] : pr[7])
+                                     : (dc ? pr[(8 - k1) & 7] : pr[7 - k1]);
+            const float ci = k1 == 0 ? (dc ? zi[0] : pi[7])
+                                     : (dc ? pi[(8 - k1) & 7] : pi[7 - k1]);
+            const float a = zr[k1], b = zi[k1];
+            // E = Z[k] + conj(Z[256 - k]); O = (Z[k] - conj(Z[256 - k])) / i
+            const float er = __fadd_rn(a, cr), ei = __fsub_rn(b, ci);
+            float orr = __fadd_rn(b, ci), oi = __fsub_rn(cr, a);
+            const float2 w = lds2(TB + T_W512 + 2 * k);
+            cmul(orr, oi, w.x, w.y);
+            const float xr = __fadd_rn(er, orr), xi = __fadd_rn(ei, oi);
+            const float yr = __fsub_rn(er, orr), yi = __fsub_rn(ei, oi);
+            M[k * MP + slot] = sqrtf(fmaf(xr, xr, __fmul_rn(xi, xi)));
+            M[(NC - k) * MP + slot] = sqrtf(fmaf(yr, yr, __fmul_rn(yi, yi)));
+        }
+        if (dc) {  // bin 128: X = conj(2 Z[128])
+            const float a = __fadd_rn(zr[8], zr[8]), b = __fadd_rn(zi[8], zi[8]);
+            M[(NC / 2) * MP + slot] = sqrtf(fmaf(a, a, __fmul_rn(b, b)));
+        }
+#pragma unroll
+        for (int j = 0; j < JN; ++j) cur[j] = nxt[j];
+    }
+    __syncthreads();  // the magnitudes are complete; U is free
+
+    // the mel product: frames 4 fg .. 4 fg + 3, bands 4 bg .. 4 bg + 3
+    auto load_w = [&](int c) {
+        float* const dst = U + (c % RING) * W_FLOATS;
+        const float* const srcw = mel + c * W_FLOATS;
+        for (int i = tid; i < W_FLOATS / 4; i += NT)
+            cp_async16(dst + 4 * i, srcw + 4 * i);
+    };
+#pragma unroll
+    for (int c = 0; c < RING - 1; ++c) {
+        load_w(c);
+        cp_async_commit();
+    }
+    const int warp = tid >> 5;
+    const int fg = (warp % T::WF) * T::FGW + lane % T::FGW;
+    const int bg = (warp / T::WF) * T::BGW + lane / T::FGW;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    auto fma16 = [&](const float4& m4, const float4& w4) {
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+        const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(mv[i], wv[j], acc[i][j]);
+    };
+#pragma unroll 1
+    for (int c = 0; c < W_CHUNKS; ++c) {
+        cp_async_wait<RING - 2>();
+        __syncthreads();  // chunk c is in; chunk c - 1's stage is read out
+        if (c + RING - 1 < W_CHUNKS) load_w(c + RING - 1);
+        cp_async_commit();
+        const float* const mk = M + c * KB * MP + 4 * fg;
+        const float* const wk = U + (c % RING) * W_FLOATS + 4 * bg;
+#pragma unroll 8
+        for (int kk = 0; kk < KB; ++kk)
+            fma16(lds4(mk + kk * MP), lds4(wk + kk * MELS));
+    }
+    fma16(lds4(M + (BINS - 1) * MP + 4 * fg),
+          __ldg(reinterpret_cast<const float4*>(mel + (BINS - 1) * MELS) + bg));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int frame = f0 + 4 * fg + i;
+        if (frame < n_frames)
+            *reinterpret_cast<float4*>(
+                out + ((long long)blockIdx.y * n_frames + frame) * MELS +
+                4 * bg) =
+                make_float4(logf(__fadd_rn(acc[i][0], log_offset)),
+                            logf(__fadd_rn(acc[i][1], log_offset)),
+                            logf(__fadd_rn(acc[i][2], log_offset)),
+                            logf(__fadd_rn(acc[i][3], log_offset)));
     }
 }
 
-template <int FT, int CS>
+template <typename In, int FT>
 cudaError_t configure(int device) {
     static std::atomic<bool> ready[MAX_DEVICES];
     if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
     if (ready[device].load()) return cudaSuccess;
     const cudaError_t err = cudaFuncSetAttribute(
-        logmel_kernel<FT, CS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        LogmelTile<FT, CS>::SMEM);
+        logmel_fft_kernel<In, FT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        FftTile<FT>::SMEM);
     if (err == cudaSuccess) ready[device].store(true);
     return err;
 }
 
-template <int FT, int CS>
-cudaLaunchConfig_t launch_config(int tiles, int batch, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(tiles * CS), (unsigned)batch, 1);
-    cfg.blockDim = dim3(LogmelTile<FT, CS>::NT, 1, 1);
-    cfg.dynamicSmemBytes = LogmelTile<FT, CS>::SMEM;
-    cfg.stream = stream;
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = CS;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cfg;
-}
-
-// what the C entries below do for one (FT, CS): launch, or count clusters
-template <int FT, int CS>
-int run(bool launch, const float* wav, float* out, const float* dft,
-        const float* nyq, const float* mel, int batch, long long n,
-        int n_frames, float log_offset, cudaStream_t stream, int* clusters) {
+// what the C entries below do for one (In, FT): launch, or count the blocks
+// an SM holds at once
+template <typename In, int FT>
+int run(bool launch, const void* wav, float* out, const float* tables,
+        const float* mel, int batch, long long stride, int n_frames,
+        float log_offset, cudaStream_t stream, int* blocks) {
+    using T = FftTile<FT>;
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess) err = configure<FT, CS>(device);
+    if (err == cudaSuccess) err = configure<In, FT>(device);
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchAttribute attr;
-    const int tiles = launch ? (n_frames + FT - 1) / FT : 1;
-    const cudaLaunchConfig_t cfg =
-        launch_config<FT, CS>(tiles, launch ? batch : 1, stream, &attr);
     if (!launch)
-        return (int)cudaOccupancyMaxActiveClusters(
-            clusters, logmel_kernel<FT, CS>, &cfg);
-    err = cudaLaunchKernelEx(&cfg, logmel_kernel<FT, CS>, wav, out, dft, nyq,
-                             mel, n, n_frames, log_offset);
-    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, logmel_fft_kernel<In, FT>, T::NT, T::SMEM);
+    const In* const w = static_cast<const In*>(wav);
+    if (reinterpret_cast<uintptr_t>(w) % (2 * sizeof(In)) != 0)
+        return (int)cudaErrorMisalignedAddress;
+    const dim3 grid((unsigned)((n_frames + FT - 1) / FT), (unsigned)batch);
+    logmel_fft_kernel<In, FT><<<grid, T::NT, T::SMEM, stream>>>(
+        w, out, tables, mel, stride, n_frames, log_offset);
+    return (int)cudaGetLastError();
 }
 
-int dispatch(int ft, int cs, bool launch, const float* wav, float* out,
-             const float* dft, const float* nyq, const float* mel, int batch,
-             long long n, int n_frames, float log_offset, cudaStream_t stream,
-             int* clusters) {
-#define BZ_LOGMEL_CASE(F, C)                                                \
-    if (ft == F && cs == C)                                                 \
-        return run<F, C>(launch, wav, out, dft, nyq, mel, batch, n, n_frames, \
-                         log_offset, stream, clusters);
-    BZ_LOGMEL_CASE(128, 4)
-    BZ_LOGMEL_CASE(128, 2)
-    BZ_LOGMEL_CASE(64, 4)
-    BZ_LOGMEL_CASE(64, 2)
-    BZ_LOGMEL_CASE(32, 4)
-    BZ_LOGMEL_CASE(32, 2)
+template <typename In>
+int dispatch(int ft, bool launch, const void* wav, float* out,
+             const float* tables, const float* mel, int batch,
+             long long stride, int n_frames, float log_offset,
+             cudaStream_t stream, int* blocks) {
+#define BZ_LOGMEL_CASE(F)                                                \
+    if (ft == F)                                                         \
+        return run<In, F>(launch, wav, out, tables, mel, batch, stride,  \
+                          n_frames, log_offset, stream, blocks);
+    BZ_LOGMEL_CASE(64)
+    BZ_LOGMEL_CASE(32)
+    BZ_LOGMEL_CASE(16)
+    BZ_LOGMEL_CASE(8)
 #undef BZ_LOGMEL_CASE
-    return (int)cudaErrorInvalidValue;  // not a geometry the kernel has
+    return (int)cudaErrorInvalidValue;  // not a tile the kernel has
 }
 
 }  // namespace
 
 extern "C" {
 
-// (batch, n) f32 waveforms -> (batch, n_frames, 64) log-mel, where
-// n_frames = 1 + (n - 400) / 160, with ft frames per cluster of cs blocks
-// (ft in {128, 64, 32}, cs in {4, 2}). dft, nyq and mel as described above.
-int bz_logmel(const float* wav, float* out, const float* dft,
-              const float* nyq, const float* mel, int batch, long long n,
-              int n_frames, float log_offset, int ft, int cs, void* stream) {
-    if (batch <= 0 || batch > 65535 || n < WINDOW ||
-        n_frames != 1 + (n - WINDOW) / HOP)
+// (batch, n) waveforms, rows stride samples apart (stride even and at
+// least n, the first row aligned to two samples) -> (batch, n_frames, 64)
+// log-mel, where n_frames = 1 + (n - 400) / 160, ft frames a block (ft in
+// {64, 32, 16, 8}). wire 0: f32 samples; wire 1: the int16 wire, scaled by
+// 2^-15 as it is loaded. tables and mel as described above.
+int bz_logmel(const void* wav, int wire, float* out, const float* tables,
+              const float* mel, int batch, long long n, long long stride,
+              int n_frames, float log_offset, int ft, void* stream) {
+    if (batch <= 0 || batch > 65535 || n < WINDOW || stride < n ||
+        stride % 2 != 0 || n_frames != 1 + (n - WINDOW) / HOP ||
+        (wire != 0 && wire != 1))
         return (int)cudaErrorInvalidValue;
-    return dispatch(ft, cs, true, wav, out, dft, nyq, mel, batch, n, n_frames,
-                    log_offset, static_cast<cudaStream_t>(stream), nullptr);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return wire == 0
+               ? dispatch<float>(ft, true, wav, out, tables, mel, batch,
+                                 stride, n_frames, log_offset, s, nullptr)
+               : dispatch<short>(ft, true, wav, out, tables, mel, batch,
+                                 stride, n_frames, log_offset, s, nullptr);
 }
 
-// *clusters = how many clusters of the (ft, cs) geometry the current device
-// runs at once (cudaOccupancyMaxActiveClusters).
-int bz_logmel_clusters(int ft, int cs, int* clusters) {
-    *clusters = 0;
-    return dispatch(ft, cs, false, nullptr, nullptr, nullptr, nullptr,
-                    nullptr, 1, 0, 0, 0.f, nullptr, clusters);
+// *blocks = how many blocks of tile ft one SM of the current device runs at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the same for both
+// wires)
+int bz_logmel_blocks(int ft, int* blocks) {
+    *blocks = 0;
+    return dispatch<float>(ft, false, nullptr, nullptr, nullptr, nullptr, 1,
+                           0, 0, 0.f, nullptr, blocks);
 }
 
 const char* bz_logmel_error_string(int code) {

@@ -13,16 +13,23 @@ device (``ops/resample.py``) ahead of the frontend.
 
 On a CUDA device the conv stack runs through the hand-written kernels of
 ``ops/sepconv.py`` (or, with ``conv='xla'``, through cuDNN), the log-mel
-through ``ops/logmel.py`` with ``frontend='pallas'``, and results stay on
-the card until the pipeline copies them back (runtime/inferer.py). On the
-CPU every op runs its plain version. Nothing falls back: an option runs its
-kernel or raises.
+through the fused FFT kernel of ``ops/logmel.py`` (``frontend`` ``'auto'``
+or ``'pallas'``), and results stay on the card until the pipeline copies
+them back (runtime/inferer.py). On the CPU every op runs its plain
+version. Nothing falls back: an option runs its kernel or raises.
 
 The knobs, and how they resolve here:
 
-* ``frontend``: ``'auto'`` and ``'xla'`` are the matmul frontend
-  (``ops/frontend.py``); ``'pallas'`` is the fused log-mel kernel, on the
-  single-chunk and the batch path alike.
+* ``frontend`` (``resolve_frontend``): ``'pallas'`` is the fused log-mel
+  kernel, on the single-chunk and the batch path alike, which reads the
+  int16 wire itself; ``'xla'`` is the matmul frontend
+  (``ops/frontend.py``). ``'auto'`` is ``'pallas'`` on a CUDA device
+  without a mesh and ``'xla'`` on the CPU and under a mesh (whose frontend
+  stays on the first device, as the JAX package keeps it replicated). The
+  JAX package resolves ``'auto'`` to its matmul frontend on every backend:
+  on a TPU the matmul unit computes the DFT faster than an FFT could; on
+  the card the FFT kernel takes a tenth of the matmul frontend's time or
+  less.
 * ``conv``: ``'auto'`` and ``'pallas'`` run the hand-written conv kernels at
   every compute dtype. The JAX package's ``resolve_conv_auto`` sends bf16
   to its XLA conv, because Mosaic cannot rotate 16-bit vectors and the f32
@@ -61,7 +68,7 @@ import torch
 from buzzdetect_torch.models import yamnet as yamnet_lib
 from buzzdetect_torch.models.heads import apply_head
 from buzzdetect_torch.models.weights import params_from_numpy
-from buzzdetect_torch.ops import logmel, sepconv
+from buzzdetect_torch.ops import _build, logmel, sepconv
 from buzzdetect_torch.ops.resample import resample
 from buzzdetect_torch.parallel.mesh import gather, mesh_device, split
 from buzzdetect_torch.ops.frontend import (
@@ -71,6 +78,7 @@ from buzzdetect_torch.runtime.spans import mark, span, tag
 from buzzdetect_torch.utils import encode_mulaw, quantize_int16
 
 _LN256 = float(np.log(256.0))
+FRONTENDS = ('auto', 'xla', 'pallas')
 
 
 def resolve_device(device) -> torch.device:
@@ -104,6 +112,19 @@ def resolve_conv(conv, mesh=None) -> str:
     return 'xla' if conv == 'xla' else 'pallas'
 
 
+def resolve_frontend(frontend, device, mesh=None) -> str:
+    """'auto' -> 'pallas' (the fused log-mel kernel) on a CUDA device
+    without a mesh, else 'xla' (the matmul frontend); 'xla' and 'pallas'
+    as they are; anything else raises ValueError. ``device`` is the
+    classifier's device (a ``torch.device`` or its name)."""
+    if frontend not in FRONTENDS:
+        raise ValueError("frontend must be 'auto', 'xla' or 'pallas'")
+    if frontend != 'auto':
+        return frontend
+    on_card = torch.device(device).type == 'cuda' and mesh is None
+    return 'pallas' if on_card else 'xla'
+
+
 def _to_float(waveform: torch.Tensor) -> torch.Tensor:
     """Undo the wire format on the device: int16 is linear PCM; int8 is
     continuous mu-law (mu=255, utils.encode_mulaw), expanded with one
@@ -118,13 +139,23 @@ def _to_float(waveform: torch.Tensor) -> torch.Tensor:
 
 
 def _patches(wavs: torch.Tensor, cfg: FrontendConfig, frontend: str):
-    """(..., L) padded f32 waveforms -> (..., P, 96, 64) log-mel patches
-    through the selected frontend: 'xla' (the matmul frontend) or 'pallas'
-    (the fused log-mel kernel, which takes (L,) or (B, L))."""
+    """(..., L) padded waveforms -> (..., P, 96, 64) log-mel patches
+    through the selected frontend: 'xla' (the matmul frontend, f32 input)
+    or 'pallas' (the fused log-mel kernel, which takes (L,) or (B, L) f32
+    samples or the int16 wire)."""
     if frontend == 'pallas':
         return patches_from_log_mel(
             logmel.log_mel_spectrogram_fused(wavs, cfg), cfg)
     return log_mel_patches(wavs, cfg)
+
+
+def _frontend_input(wavs: torch.Tensor, frontend: str, direct: bool = True):
+    """The wire as the frontend takes it: the fused log-mel reads the int16
+    wire itself (``direct``: nothing resamples it first), so it skips
+    ``_to_float``'s pass; every other case is ``_to_float``."""
+    if direct and frontend == 'pallas' and wavs.dtype == torch.int16:
+        return wavs
+    return _to_float(wavs)
 
 
 def _resample_in_graph(wav: torch.Tensor, cfg: FrontendConfig,
@@ -174,7 +205,7 @@ def _classify(params, wavs: torch.Tensor, cfg: FrontendConfig,
     to its copy of ``params``)."""
     with span('buzzdetect.classify'):
         with span('buzzdetect.frontend'):
-            wav = _to_float(wavs)
+            wav = _frontend_input(wavs, frontend, resample_args is None)
             if resample_args is not None:
                 wav = _resample_in_graph(wav, cfg, *resample_args)
             patches = _patches(wav, cfg, frontend)       # (..., P, 96, 64)
@@ -209,10 +240,9 @@ class ChunkClassifier:
                  sharding=None, mesh=None):
         self.cfg = FrontendConfig().with_framehop(framehop_prop)
         self.compute_dtype = sepconv.resolve_compute_dtype(compute_dtype)
-        if frontend not in ('auto', 'xla', 'pallas'):
+        if frontend not in FRONTENDS:
             raise ValueError("frontend must be 'auto', 'xla' or 'pallas'")
         self._frontend_auto = frontend == 'auto'
-        self.frontend = 'xla' if self._frontend_auto else frontend
         if sharding is not None:
             if mesh is not None and mesh is not sharding.mesh:
                 raise ValueError('mesh and sharding name different meshes')
@@ -249,12 +279,16 @@ class ChunkClassifier:
             'int8' if self.transfer_name == 'mulaw' else self.transfer_name)
         self.device = resolve_device(
             device if mesh is None else mesh_device(mesh, device))
+        self.frontend = resolve_frontend(frontend, self.device, mesh)
         sepconv.exact_f32()
         if self.device.type == 'cuda':
-            if self.conv == 'pallas':
-                sepconv.load_kernels()
+            kernels = {'sepconv': sepconv} if self.conv == 'pallas' else {}
             if self.frontend == 'pallas':
-                logmel.load_kernels()
+                kernels['logmel'] = logmel
+            # a fresh checkout builds them at once, one nvcc per source
+            _build.build_all(list(kernels))
+            for module in kernels.values():
+                module.load_kernels()
         self.params = params_from_numpy(arrays, self.device)
         # each dispatched chunk's id in a profiler trace (runtime/spans.py)
         self._chunk_ids = itertools.count()
@@ -412,7 +446,8 @@ class ChunkClassifier:
         n_valid = num_patches(len(samples), self.cfg)
         wav = self._upload(self._pad_to(samples,
                                         padded_length(len(samples), self.cfg)))
-        patches = _patches(_to_float(wav), self.cfg, self.frontend)
+        patches = _patches(_frontend_input(wav, self.frontend), self.cfg,
+                           self.frontend)
         out = _over_data(
             lambda p, x: yamnet_lib.embed(p['yamnet'], x, self.compute_dtype,
                                           self.conv_precision, self.conv),

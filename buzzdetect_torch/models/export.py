@@ -25,6 +25,11 @@ Edits against the JAX module:
   referenced by name and their CUDA implementations build the kernels from
   the package's ``csrc/`` sources. A ``conv='xla'`` artifact with the
   matmul frontend needs only torch, like the JAX package's artifacts.
+* A bundle's ``frontend`` ``'auto'`` exports the matmul frontend
+  (``'xla'``), as in the JAX package, wherever the artifact is traced: the
+  live classifier's per-device rule (``classifier.resolve_frontend``,
+  the fused log-mel on a card) does not carry into an artifact that may
+  be served on the CPU.
 * The classifier packs its conv operands once, for its mode
   (``ChunkClassifier.__init__``), so the export builds its own classifier
   with the export's resolved ``conv`` and ``conv_precision`` instead of
@@ -175,7 +180,7 @@ def export_classifier(modelname: str, chunk_seconds: float,
     served = ChunkClassifier(arrays, framehop_prop=framehop_prop,
                              compute_dtype=clf.compute_dtype, device=device,
                              transfer_dtype=clf.transfer_name,
-                             frontend=clf.frontend, conv=conv,
+                             frontend=frontend, conv=conv,
                              conv_precision=conv_precision)
     wire = torch.zeros(target, dtype=_WIRE_DTYPES[clf.transfer_name][1],
                        device=device)

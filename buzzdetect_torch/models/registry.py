@@ -189,8 +189,9 @@ class BundleModel(BaseModel):
         self._transfer_dtype = (transfer_dtype
                                 or self.config.get('transfer_dtype')
                                 or 'int16')
-        # frontend implementation: 'auto' (default) and 'xla' run the
-        # matmul frontend, 'pallas' the fused log-mel kernel
+        # frontend implementation: 'pallas' the fused log-mel kernel, 'xla'
+        # the matmul frontend, 'auto' (default) the kernel on a card and the
+        # matmul frontend elsewhere (classifier.resolve_frontend)
         self._frontend = frontend or self.config.get('frontend') or 'auto'
         # conv stack implementation: 'auto' (default) and 'pallas' run the
         # CUDA conv kernels at every compute dtype, 'xla' the XLA conv path;

@@ -21,9 +21,10 @@ An operator takes only tensors, lists of tensors and scalars, so the
 packed conv operands travel as one flat ``Tensor[]`` (four per layer, in
 ``sepconv._check``'s order: depthwise taps, depthwise bias, the mode's
 pointwise operand, pointwise bias), the layer range as ints and the mode
-as a string; the log-mel's constants (``logmel._operands``: the DFT in bin
-chunks, bin 256, the mel matrix) as a ``Tensor[]``, with the frame
-geometry as ints and ``log_offset`` as a float.
+as a string; the log-mel's constants (``logmel._operands``: the window and
+twiddle tables, the mel matrix) as a ``Tensor[]``, with the frame geometry
+as ints and ``log_offset`` as a float. The log-mel takes f32 samples or
+the int16 wire.
 """
 
 import torch
@@ -100,11 +101,11 @@ def _log_mel_frames(n, window, hop):
                          device_types='cuda')
 def log_mel(waveform: Tensor, constants: list[Tensor], window: int,
             hop: int, log_offset: float) -> Tensor:
-    """(B, n) contiguous f32 waveforms -> (B, n_frames, 64) log-mel;
-    ``constants`` is ``[chunks, nyq, mel]`` of ``logmel._operands``."""
+    """(B, n) contiguous f32 or int16 waveforms -> (B, n_frames, 64) f32
+    log-mel; ``constants`` is ``[tables, mel]`` of ``logmel._operands``."""
     _log_mel_frames(waveform.shape[-1], window, hop)
-    chunks, nyq, mel = constants
-    out = logmel._launch_operands(waveform, chunks, nyq, mel, log_offset)
+    tables, mel = constants
+    out = logmel._launch_operands(waveform, tables, mel, log_offset)
     sepconv._count_launch(logmel.log_mel_spectrogram_fused)
     return out
 
@@ -112,4 +113,5 @@ def log_mel(waveform: Tensor, constants: list[Tensor], window: int,
 @log_mel.register_fake
 def _(waveform, constants, window, hop, log_offset):
     n_frames = _log_mel_frames(waveform.shape[-1], window, hop)
-    return waveform.new_empty((waveform.shape[0], n_frames, logmel.MELS))
+    return waveform.new_empty((waveform.shape[0], n_frames, logmel.MELS),
+                              dtype=torch.float32)

@@ -17,7 +17,8 @@ The spans, by name (fixed; ``PERF.md`` lists what reads each):
 * ``buzzdetect.upload``: ``_upload``, pinning and the non-blocking copy in;
 * ``buzzdetect.classify``: every launch of the classify (``_classify``),
   and inside it ``buzzdetect.frontend`` (wire to float, resample, log-mel
-  patches), ``buzzdetect.embed`` (layer 1 and the conv stack) and
+  patches; on the card's int16 path one launch, the fused log-mel, which
+  reads the wire itself), ``buzzdetect.embed`` (layer 1 and the conv stack) and
   ``buzzdetect.head``;
 * ``buzzdetect.copy_back``: ``runtime/inferer._start_host_copy``;
 * ``buzzdetect.wait``: ``runtime/writer._materialize``, the host blocked

@@ -40,9 +40,9 @@ by CUDA events and by device time alone (``torch.profiler``).
 (20,064 and 480 frames of one seeded waveform) and on a batch of two
 seeded waveforms whose length is no whole number of hops (1,001 frames
 each), then the same three timed through both libraries in the same
-turns, by CUDA events and by device time. An older build (one fixed
-geometry, no ``bz_logmel_clusters``) is called through its own
-interface.
+turns, by CUDA events and by device time. A build of the dense-DFT
+design (``bz_logmel_clusters``) takes other operands and is refused
+(``logmel.bind``).
 
     python -m buzzdetect_torch.tools.compare_builds \\
         [--against OTHER_CHECKOUT/buzzdetect_torch/csrc/sepconv.cu] \\

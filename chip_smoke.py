@@ -18,8 +18,10 @@ Phases, each printed before the last line:
    path's shapes (B = 209 patches, one default 200 s chunk; and B = 5), with
    the weights of ``models/model_general_v3/model.npz``: the conv kernels in
    their three modes (exact f32, bf16, emulated HIGH) and the fused log-mel
-   (with the geometry each of its launches takes: frames per cluster,
-   cluster size, blocks, and ``cudaOccupancyMaxActiveClusters``). Each row
+   (with the geometry each of its launches takes: frames a block, blocks,
+   the busiest SM's frames, blocks an SM runs at once; its bound by
+   ``benchmark/roofline.frontend_flops``' FFT count, and beside it by the
+   dense-DFT count). Each row
    gives max |kernel - plain| against the mode's tolerance, checks that two
    launches agree bit for bit and that the B = 5 rows equal the
    same rows inside B = 209, and gives the median times of the kernel, the
@@ -34,7 +36,14 @@ Phases, each printed before the last line:
    the exact-f32 FFMA kernel's against the cuDNN layer's (TF32 off), the
    ratio of the bf16 and HIGH kernels' to the exact-f32 kernel's, and one
    chunk's device time stage by stage, with the matmul frontend and with
-   the fused log-mel;
+   the fused log-mel on the int16 wire. The fused log-mel also at the
+   benchmark cells' shape, one 1,667-patch chunk of the int16 wire: bits
+   equal on two launches, to its f32 samples' and at every tile; against
+   the plain version; device time beside the matmul frontend's and both
+   bounds. Last, three classifies on the int16 wire under
+   ``torch.profiler``: each ``buzzdetect.frontend`` span launches one
+   kernel, ``logmel_fft_kernel``, and the wrapper counts one launch a
+   call;
 3. the main paths end to end: ``buzzdetect_torch.analyze()`` on three
    30-minute 16 kHz WAV recordings (exact f32), then the CLI in process
    (``buzzdetect_torch.cli.main``, which must return None; the run's
@@ -46,7 +55,9 @@ Phases, each printed before the last line:
    (b) ``"conv_precision": "high"`` in f32. Each run: end reason, complete
    CSVs with the expected rows, the launch counts of its kernels (set to 0
    just before the run and read just after), one chunk's scores on the card
-   against the same chunk on the CPU in the same mode; for the analyze()
+   against the same chunk on the CPU in the same mode (frontend 'auto' is
+   the fused log-mel on the card: the analyze() run launches it once a
+   chunk, and every CLI run launches it); for the analyze()
    run also the realtime factor, an upper estimate of the device busy
    share, and what the run pays for its batches: the conv launches by B
    (``<wrapper>.batches``), each wrapper's device time per launch at those
@@ -97,13 +108,14 @@ Phases, each printed before the last line:
    ``decode_rate_probe`` for pcm, flac and mp3; where it is absent, one
    line saying why those did not run;
 6. the XLA conv path and the layouts that need no collective: (a)
-   ``ChunkClassifier(conv='xla')`` on one 200 s chunk of phase 3's first
-   recording, at its 'auto' precision ('high', exact f32 here) and in bf16:
-   card against CPU, the hand conv kernels' launch counts over the call
-   (all must be 0), and at B = 209 the conv stack's CUDA-event and device
+   ``ChunkClassifier(conv='xla', frontend='xla')`` on one 200 s chunk of
+   phase 3's first recording, at its 'auto' precision ('high', exact f32
+   here) and in bf16: card against CPU, the hand kernels' launch counts
+   over the call (all must be 0), and at B = 209 the conv stack's CUDA-event and device
    time beside the hand kernels' (layer 1 + ``fused_front`` +
    ``fused_tail``) and the whole classify beside the kernel path's; (b) the
-   CLI on a bundle variant whose config says ``"conv": "xla"`` and on
+   CLI on a bundle variant whose config says ``"conv": "xla"`` and
+   ``"frontend": "xla"`` (the path a mesh takes) and on
    ``model_general_v3``, on phase 3's two CLI recordings: end reasons,
    realtime factor, no hand-kernel launch on the XLA run, one chunk card
    against CPU, the two runs' CSVs equal after 2-digit rounding; (c)
@@ -207,13 +219,14 @@ Phases, each printed before the last line:
    recording: (a) ``analyze(profile='field')``, ``analyze(profile=
    'strict')`` and ``analyze(strict_f32=True)`` on the card and on the
    CPU: end reason, the manifest's ``profile`` key, the resolved wire, the
-   field profile's note in the run's log, the conv kernels' launches (one
-   ``fused_front`` and one ``fused_tail`` per chunk, exact f32), card CSV
+   field profile's note in the run's log, the kernels' launches (one
+   ``fused_front``, one ``fused_tail`` and one log-mel per chunk, exact
+   f32), card CSV
    against CPU CSV after 2-digit rounding; (b) ``train.embed_corpus.
    embed_directory`` of the excerpt on the card and on the CPU at the
    default chunk length and at 2.0 s: the start grid on one 0.96 s stride
-   across chunk boundaries, the conv kernels' launches (one of each per
-   chunk), the embeddings card against CPU, and for the 2.0 s run (1.92 s
+   across chunk boundaries, the kernels' launches (one of each, the
+   log-mel's too, per chunk), the embeddings card against CPU, and for the 2.0 s run (1.92 s
    chunks, B = 2) what it pays for its batches, as phase 3's; then
    ``python -m buzzdetect_torch.tools.score_embeddings`` on the card's
    embeddings of both chunk lengths, and on the default ones with an
@@ -314,10 +327,11 @@ RESAMPLE_ATOL = 1e-5
 # the resampler's timed input: one default chunk at each native rate
 RESAMPLE_RATES = (44100, 48000)
 RESAMPLE_SECONDS = 200.0
-# the XLA conv path (conv='xla'): the bundle variant whose config asks for
-# it, and the modes phase 6 runs it in: 'auto' precision (-> 'high', exact
-# f32 on the card) and bf16, each with its classifier keywords
-XLA_BUNDLE = ('model_general_v3_xla', {'conv': 'xla'})
+# the XLA path (conv='xla' and the matmul frontend, frontend='xla', as a
+# mesh runs them): the bundle variant whose config asks for it, and the
+# modes phase 6 runs it in: 'auto' precision (-> 'high', exact f32 on the
+# card) and bf16, each with its classifier keywords
+XLA_BUNDLE = ('model_general_v3_xla', {'conv': 'xla', 'frontend': 'xla'})
 XLA_MODES = {'high': {}, 'bf16': {'compute_dtype': 'bfloat16'}}
 # two replicas on the one card (analyze(devices=...)), and the time limit of
 # each host_shard child process
@@ -732,7 +746,8 @@ def xla_conv_phase(torch, dev, arrays, cfg, wire, path_audio, chunk_s,
         b = patches.shape[0]
         for mode, kw in XLA_MODES.items():
             card = ChunkClassifier(arrays, device=dev, conv='xla',
-                                   transfer_dtype='int16', **kw)
+                                   frontend='xla', transfer_dtype='int16',
+                                   **kw)
             if (card.conv, card.conv_precision) != ('xla', 'high'):
                 fail(f'[xla {mode}] resolved to conv={card.conv!r}, '
                      f'conv_precision={card.conv_precision!r}')
@@ -1416,9 +1431,9 @@ def first_step_f64(state, patches, labels, masks=None):
 def head_phase(tmp, audio, ann, idents, reset_counts, read_counts,
                device='cuda'):
     """(a) ``buzzdetect_torch.tools.train_model`` head-only (HEAD_EPOCHS
-    epochs) on the corpus: the conv kernels' launches over it (all of them
-    in the embedding stage: one ``fused_front`` and one ``fused_tail`` per
-    chunk embedded), one file's embeddings on the card against the same
+    epochs) on the corpus: the kernels' launches over it (all of them in
+    the embedding stage: one ``fused_front``, one ``fused_tail`` and one
+    log-mel per chunk embedded), one file's embeddings on the card against the same
     file on the CPU port, and the bundle's metrics table. Returns the
     bundle's name."""
     from buzzdetect_torch import config as cfg_mod
@@ -1443,11 +1458,11 @@ def head_phase(tmp, audio, ann, idents, reset_counts, read_counts,
           f'({CORPUS_FILES} files x one {chunk:.2f} s chunk each)',
           flush=True)
     others = {k: v for k, v in counts.items()
-              if k not in ('fused_front', 'fused_tail') and v}
-    if counts['fused_front'] != want or counts['fused_tail'] != want \
-            or others:
+              if k not in ('fused_front', 'fused_tail', 'log_mel') and v}
+    if any(counts[k] != want for k in ('fused_front', 'fused_tail',
+                                        'log_mel')) or others:
         fail(f'the embedding stage launched {counts}, not {want} '
-             f'fused_front and fused_tail')
+             f'fused_front, fused_tail and log_mel')
     with np.load(os.path.join(work, f'{idents[0]}_embeddings.npz')) as z:
         starts, card = z['starts'], z['embeddings']
     cpu_model = load_model(MODEL, initialize=True, device='cpu')
@@ -1822,10 +1837,15 @@ def export_phase(torch, tmp, path_audio, chunk_s, ref_ms, reset_counts,
         t0 = time.perf_counter()
         call, meta = load_exported(d, device=device)
         load_s = time.perf_counter() - t0
+        # the live model on the artifact's frontend: an export maps the
+        # bundle's 'auto' to the matmul frontend, the card's classifier to
+        # the fused log-mel
         live = load_model(modelname, initialize=True, device=device,
                           framehop_prop=kw.get('framehop_prop', 1.0),
                           conv=meta['conv'],
-                          conv_precision=meta['conv_precision']).classifier
+                          conv_precision=meta['conv_precision'],
+                          frontend='pallas' if per_call.get('log_mel')
+                          else 'xla').classifier
         want = live.predict(samples)
         wire = live._pad_to(samples, meta['input_samples'])
         reset_counts()
@@ -2069,6 +2089,172 @@ CONSOLE_SCRIPT = ('import sys\n'
 PHASE11_TIMEOUT = 600
 
 
+def logmel_work(n_frames, n_samples, sample_bytes):
+    """(flops, bytes) of the log-mel of ``n_frames`` frames, as
+    ``benchmark/roofline.frontend_flops`` counts its work: a 512-point real
+    FFT a frame (2.5 N log2 N), the window, the magnitudes and the dense
+    257 x 64 mel product; the samples read once and the log-mel written
+    once."""
+    flops = n_frames * (2.5 * 512 * 9 + 400 + 3 * 257 + 2 * 257 * 64)
+    return flops, n_samples * sample_bytes + n_frames * 64 * 4
+
+
+def log_mel_dft_bound(b, n_frames, row, f32_peak):
+    """The same frames' bound as the dense-DFT design counted it (a 400 x
+    514 product and the mel product a frame at the f32 peak), beside the
+    kernel's device time of ``row``."""
+    dft_ms = 1e3 * n_frames * 2 * (400 * 2 * 257 + 257 * 64) / f32_peak
+    where = (f'; the kernel\'s device time {row["device_ms"]:.4f} ms is '
+             f'{100 * dft_ms / row["device_ms"]:.1f}% of it'
+             if row else '')
+    print(f'  log_mel B={b}: the dense-DFT count\'s bound {dft_ms:.4f} ms '
+          f'(8.25 GFLOP a 200 s chunk){where}', flush=True)
+
+
+def log_mel_geometry(logmel, dev, label, n_frames, batch=1):
+    g = logmel.geometry_on(dev, n_frames, batch)
+    print(f'log_mel {label} ({n_frames} frames) geometry: FT {g.ft} frames a '
+          f'block, {g.blocks} blocks of {g.threads} threads, grid {g.grid}; '
+          f'busiest SM {g.busiest} frames against a mean of {g.mean:.1f} '
+          f'({g.busiest / g.mean:.3f}x); {g.per_sm} blocks an SM at once',
+          flush=True)
+    return g
+
+
+# the benchmark's chunk: 1,667 patches (1600.335 s) as the int16 wire
+CHUNK_PATCHES = 1667
+
+
+def log_mel_chunk_phase(torch, dev, cfg, f32_peak, bytes_peak, time_ms,
+                        device_ms):
+    """The fused log-mel at the benchmark cells' shape: one seeded
+    1,667-patch chunk as the int16 wire, as the classifier hands it to the
+    kernel. Two launches agree bit for bit, and with the f32 samples the
+    wire stands for, and every tile (``logmel.FRAME_TILES``) gives the same
+    bits; max |kernel - plain| at ATOL and RTOL; the kernel's, the plain
+    version's, the matmul frontend's and an FFT log-mel's by
+    ``torch.fft.rfft`` (the benchmark's plain reference's formulation;
+    timed only, the port never calls it) times (CUDA events and device
+    time), and the kernel's bound under both counts."""
+    from buzzdetect_torch.models.classifier import _to_float
+    from buzzdetect_torch.ops import frontend, logmel
+    n = (frontend.min_waveform_samples(cfg)
+         + (CHUNK_PATCHES - 1) * cfg.patch_hop_samples)
+    rng = np.random.default_rng(1667)
+    wire = torch.from_numpy(
+        (rng.standard_normal(n) * 3277).clip(-32768, 32767).astype(np.int16)
+        ).to(dev)
+    samples = _to_float(wire)
+    n_frames = 1 + (n - 400) // 160
+    log_mel_geometry(logmel, dev, f'{CHUNK_PATCHES} patches', n_frames)
+    got = logmel.log_mel_spectrogram_fused(wire, cfg)
+    again = logmel.log_mel_spectrogram_fused(wire, cfg)
+    from_f32 = logmel.log_mel_spectrogram_fused(samples, cfg)
+    ref = logmel.log_mel_spectrogram_fused_plain(wire, cfg)
+    tiles = {ft: logmel._launch(wire.reshape(1, -1), cfg, ft=ft)[0]
+             for ft in logmel.FRAME_TILES}
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, again):
+        fail(f'log_mel {CHUNK_PATCHES} patches: two launches differ')
+    if not torch.equal(got, from_f32):
+        fail(f'log_mel {CHUNK_PATCHES} patches: the int16 wire and its f32 '
+             f'samples differ')
+    differ = [ft for ft, t in tiles.items() if not torch.equal(t, got)]
+    if differ:
+        fail(f'log_mel {CHUNK_PATCHES} patches: tiles {differ} differ from '
+             f'the launch\'s')
+    if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
+        fail(f'log_mel {CHUNK_PATCHES} patches disagrees with its plain '
+             f'version: max |d| {err:.3g}')
+    flops, n_bytes = logmel_work(n_frames, n, 2)
+    fft_ms = 1e3 * max(flops / f32_peak, n_bytes / bytes_peak)
+    dft_ms = 1e3 * n_frames * 2 * (400 * 2 * 257 + 257 * 64) / f32_peak
+    kernel = lambda: logmel.log_mel_spectrogram_fused(wire, cfg)  # noqa
+    plain = lambda: logmel.log_mel_spectrogram_fused_plain(wire, cfg)  # noqa
+    library = lambda: frontend.log_mel_spectrogram(_to_float(wire), cfg)  # noqa
+    hann = torch.from_numpy(logmel.fft_tables()[0] * 2).to(dev)
+    mel = logmel._operands(cfg, dev)['mel']
+
+    def rfft():
+        frames = _to_float(wire).unfold(-1, 400, 160) * hann
+        mag = torch.fft.rfft(frames, n=512).abs()
+        return torch.log(mag @ mel + cfg.log_offset)
+    t = {k: time_ms(fn) for k, fn in (('kernel', kernel), ('plain', plain),
+                                       ('library', library), ('rfft', rfft))}
+    d = {k: device_ms(fn) for k, fn in (('kernel', kernel),
+                                         ('library', library),
+                                         ('rfft', rfft))}
+    print(f'kernel log_mel {CHUNK_PATCHES} patches (int16 wire): max |kernel '
+          f'- plain| = {err:.3g} (atol {ATOL:.3g}, rtol {RTOL:.3g}); bits '
+          f'equal on two launches, to the f32 samples\' and at every tile '
+          f'{list(tiles)}; kernel {t["kernel"]:.4f} ms, plain '
+          f'{t["plain"]:.4f} ms, matmul frontend {t["library"]:.4f} ms '
+          f'(kernel / library {t["kernel"] / t["library"]:.2f}x)', flush=True)
+    print(f'  log_mel {CHUNK_PATCHES} patches: device time (kernels only, '
+          f'torch.profiler) kernel {d["kernel"]:.4f} ms, matmul frontend '
+          f'{d["library"]:.4f} ms ({d["kernel"] / d["library"]:.3f}x), '
+          f'torch.fft.rfft log-mel {t["rfft"]:.4f} ms (device '
+          f'{d["rfft"]:.4f} ms, {d["kernel"] / d["rfft"]:.3f}x); '
+          f'bound {fft_ms:.4f} ms by frontend_flops\' FFT count '
+          f'({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB; '
+          f'{100 * fft_ms / d["kernel"]:.1f}% of it), {dft_ms:.4f} ms by the '
+          f'dense-DFT count ({100 * dft_ms / d["kernel"]:.1f}%)', flush=True)
+
+
+def frontend_span_phase(torch, params, wire, cfg, calls=3, sessions=3):
+    """The main path's frontend on the int16 wire launches one kernel, the
+    fused log-mel's: ``calls`` classifies (frontend 'pallas', as 'auto'
+    resolves on the card) under ``torch.profiler``, each device operation
+    given to the ``buzzdetect.frontend`` span inside which its runtime call
+    was made (the call's correlation id), as ``benchmark/spans.py`` does.
+    A span holding any other operation fails the run; each must hold one
+    ``logmel_fft_kernel``, in one of up to ``sessions`` sessions (the
+    profiler can lose launches at a session's start). Also counts the
+    wrapper's launches."""
+    from buzzdetect_torch.models.classifier import _classify
+    from buzzdetect_torch.ops import logmel
+    cpu = torch.autograd.DeviceType.CPU
+    with torch.inference_mode():
+        _classify(params, wire, cfg, 'pallas')
+        torch.cuda.synchronize()
+    for session in range(1, sessions + 1):
+        before = logmel.log_mel_spectrogram_fused.launches
+        with torch.inference_mode(), torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                _classify(params, wire, cfg, 'pallas')
+            torch.cuda.synchronize()
+        launched = logmel.log_mel_spectrogram_fused.launches - before
+        spans, calls_at, device = [], {}, []
+        for e in prof.profiler.kineto_results.events():
+            on_cpu = e.device_type() == cpu
+            if e.is_user_annotation() and on_cpu \
+                    and e.name() == 'buzzdetect.frontend':
+                spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            elif on_cpu and e.name().startswith('cu'):
+                calls_at[e.correlation_id()] = e.start_ns()
+            elif not on_cpu:
+                device.append((e.correlation_id(), e.name()))
+        held = [[name for corr, name in device
+                 if corr in calls_at and a <= calls_at[corr] <= b]
+                for a, b in sorted(spans)]
+        print(f'buzzdetect.frontend on the int16 wire, {calls} classifies '
+              f'(profiler session {session}): {len(spans)} spans holding '
+              f'{[len(h) for h in held]} device operations '
+              f'({sorted({n[:60] for h in held for n in h})}); log_mel '
+              f'launches {launched}', flush=True)
+        if launched != calls or any('logmel_fft_kernel' not in n
+                                    for h in held for n in h):
+            fail(f'the frontend span launched {held} in {calls} classifies '
+                 f'(log_mel {launched} times)')
+        if len(spans) == calls and all(len(h) == 1 for h in held):
+            return
+    fail(f'no profiler session of {sessions} recorded one log_mel kernel in '
+         f'each frontend span')
+
+
 def tolerance(mode, ref):
     """(atol, rtol) of a kernel against its plain version, as phase 2
     holds it: exact f32 (and HIGH, exact f32 in another order) at ATOL and
@@ -2289,11 +2475,10 @@ def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms,
         got = logmel.log_mel_spectrogram_fused(w, cfg)
         again = logmel.log_mel_spectrogram_fused(w, cfg)
         torch.cuda.synchronize()
-        # phase 2's count: the DFT and mel products of every frame, the
-        # waveform and the two matrices read once, the log-mel written once
+        # phase 2's count (logmel_work): each frame's FFT, window,
+        # magnitudes and dense mel product; samples in and log-mel out once
         n_frames = 1 + (w.shape[0] - 400) // 160
-        flops = n_frames * 2 * (400 * 2 * 257 + 257 * 64)
-        n_bytes = 4 * (w.shape[0] + n_frames * 64 + 400 * 2 * 257 + 257 * 64)
+        flops, n_bytes = logmel_work(n_frames, w.shape[0], 4)
         rows['log_mel', seconds, 1] = hold(
             f'log_mel {seconds} s ({got.shape[-2]} frames)', got, again,
             logmel.log_mel_spectrogram_fused_plain(w, cfg), 'highest',
@@ -2617,8 +2802,8 @@ def profile_phase(tmp, excerpt, name, chunk_s, reset_counts, read_counts,
     """(a) PROFILE_RUNS through ``analyze()`` on ``excerpt`` (phase 10c's
     folder holding ``name``), on ``device`` and on the CPU: end reason, the
     manifest's profile key, the resolved wire, the field note in the run's
-    log, the conv kernels' launches on ``device`` (exact f32, one of each
-    per ``chunk_s`` chunk and one per dispatch thread's warmup, a nominal
+    log, the kernels' launches on ``device`` (exact f32: ``fused_front``,
+    ``fused_tail`` and the log-mel, one of each per ``chunk_s`` chunk and one per dispatch thread's warmup, a nominal
     chunk at its start), and the two CSVs equal after their 2-digit
     rounding (one unit of the last digit: a value within f32 rounding of a
     rounding edge may print the other way)."""
@@ -2670,8 +2855,8 @@ def profile_phase(tmp, excerpt, name, chunk_s, reset_counts, read_counts,
                      f'{clf.conv_precision!r}, expected exact f32')
             if d == device:
                 warmups = result.coordinator.analyzers_total
-                want = dict.fromkeys(('fused_front', 'fused_tail'),
-                                     chunks + warmups)
+                want = dict.fromkeys(('fused_front', 'fused_tail',
+                                      'log_mel'), chunks + warmups)
                 launched = {k: v for k, v in counts.items() if v}
                 if launched != want:
                     fail(f'{label}: the conv kernels launched {launched}, '
@@ -2793,7 +2978,8 @@ def embeddings_phase(tmp, excerpt, name, reset_counts, read_counts,
                   f'launches {counts}', flush=True)
             if starts[0] != 0.0 or not np.allclose(steps, 0.96, atol=1e-6):
                 fail(f'the start grid at {cl:g} s is off the 0.96 s stride')
-            want = {'fused_front': chunks, 'fused_tail': chunks}
+            want = dict.fromkeys(('fused_front', 'fused_tail', 'log_mel'),
+                                 chunks)
             launched = {k: v for k, v in counts.items() if v}
             if launched != want:
                 fail(f'embed_directory at {cl:g} s launched {launched}, '
@@ -2966,9 +3152,9 @@ def run(torch, tmp):
     rows, outputs = {}, {}
     # CUDA events less device time, per call: the host's launch work
     host_ms = {}
-    sms, clusters = logmel._card(dev, logmel.load_kernels())
-    print(f'log_mel: cudaOccupancyMaxActiveClusters per (FT, CS): '
-          f'{clusters} on {sms} SMs', flush=True)
+    sms, per_sm = logmel._card(dev, logmel.load_kernels())
+    print(f'log_mel: blocks an SM runs at once per tile FT: {per_sm} on '
+          f'{sms} SMs', flush=True)
 
     def check_row(name, b, got, ref, again, run_kernel, run_plain,
                   run_library, work, mode, product=None):
@@ -3040,16 +3226,8 @@ def run(torch, tmp):
             w = wav_dev[:frontend.min_waveform_samples(cfg)
                         + (b - 1) * cfg.patch_hop_samples]
             n_frames = 1 + (w.shape[0] - 400) // 160
-            flops = n_frames * 2 * (400 * 2 * 257 + 257 * 64)
-            n_bytes = 4 * (w.shape[0] + n_frames * 64
-                           + 400 * 2 * 257 + 257 * 64)
-            g = logmel.geometry_on(w.device, n_frames, 1)
-            print(f'log_mel B={b} ({n_frames} frames) geometry: FT {g.ft} '
-                  f'frames per cluster of {g.cs} blocks, {g.blocks} blocks of '
-                  f'{g.threads} threads, grid {g.grid}; busiest SM '
-                  f'{g.busiest} (frame, bin-chunk) pairs against a mean of '
-                  f'{g.mean:.1f} ({g.busiest / g.mean:.3f}x); '
-                  f'cudaOccupancyMaxActiveClusters {g.clusters}', flush=True)
+            flops, n_bytes = logmel_work(n_frames, w.shape[0], 4)
+            log_mel_geometry(logmel, dev, b, n_frames)
             got = logmel.log_mel_spectrogram_fused(w, cfg)
             torch.cuda.synchronize()
             check_row('log_mel', b, got,
@@ -3060,6 +3238,10 @@ def run(torch, tmp):
                       lambda: frontend.log_mel_spectrogram(w, cfg),
                       (flops / f32_peak, n_bytes / bytes_peak, flops,
                        n_bytes), 'highest')
+            log_mel_dft_bound(b, n_frames, rows.get('log_mel')
+                              if b == BATCHES[0] else None, f32_peak)
+        log_mel_chunk_phase(torch, dev, cfg, f32_peak, bytes_peak, time_ms,
+                            device_ms)
 
         cases = (('fused_front', dict(start_layer=2, stop_layer=8), False),
                  ('fused_tail', dict(start_layer=8, stop_layer=None), True),
@@ -3177,8 +3359,9 @@ def run(torch, tmp):
         wire = torch.from_numpy(quantize_int16(wav.astype(np.float32))).to(dev)
         stages = {
             'frontend': lambda: frontend.log_mel_patches(_to_float(wire), cfg),
-            'fused log-mel frontend': lambda: frontend.patches_from_log_mel(
-                logmel.log_mel_spectrogram_fused(_to_float(wire), cfg), cfg),
+            'fused log-mel frontend (int16 wire)':
+                lambda: frontend.patches_from_log_mel(
+                    logmel.log_mel_spectrogram_fused(wire, cfg), cfg),
             'layer 1': lambda: yamnet.layer1(params, patches),
             'fused_front': lambda: sepconv.fused_front(params, l1),
             'fused_tail': lambda: sepconv.fused_tail(params, mid),
@@ -3194,6 +3377,7 @@ def run(torch, tmp):
             f'{k} {v:.4f} ms' for k, v in stage_ms.items())
             + f'; whole classify {classify_ms:.4f} ms, with '
             f'frontend=\'pallas\' {pallas_ms:.4f} ms', flush=True)
+        frontend_span_phase(torch, all_params, wire, cfg)
 
     # --- 3. the main paths end to end ----------------------------------
     def reset_counts():
@@ -3237,6 +3421,11 @@ def run(torch, tmp):
         if counts[name] <= 0:
             fail(f'the main path never launched {name}')
         launches[name] = counts[name]
+    # frontend 'auto' is the fused log-mel on the card: one launch a chunk
+    if counts['log_mel'] != counts['fused_front']:
+        fail(f'the main path launched log_mel {counts["log_mel"]} times for '
+             f'{counts["fused_front"]} chunks')
+    launches['log_mel'] = counts['log_mel']
     check_csvs(dir_out, names, seconds, analyzer.chunklength, cfg)
     check_chunk_on_cpu(analyzer, arrays, os.path.join(dir_audio, 'rec0.wav'),
                        os.path.join(dir_out, 'rec0_buzzdetect.csv'),
@@ -3287,13 +3476,12 @@ def run(torch, tmp):
               flush=True)
         if reason != 'completed':
             fail(f'the CLI run of {variant} ended {reason!r}')
-        want = [f'fused_front[{mode}]', f'fused_tail[{mode}]']
-        if key.get('frontend') == 'pallas':
-            want.append('log_mel')
+        # every variant's frontend is the fused log-mel on the card
+        want = [f'fused_front[{mode}]', f'fused_tail[{mode}]', 'log_mel']
         for name in want:
             if counts[name] <= 0:
                 fail(f'the CLI run of {variant} never launched {name}')
-            launches[name] = counts[name]
+        launches.update((k, counts[k]) for k in want[:2])
         others = {k: v for k, v in counts.items() if k not in want and v}
         if others:
             fail(f'the CLI run of {variant} launched other kernels: {others}')

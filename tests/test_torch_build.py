@@ -168,8 +168,10 @@ def test_probe_bind_declares_what_a_build_has():
 
 @pytest.mark.parametrize('new', [True, False])
 def test_logmel_bind_takes_the_geometry_where_the_build_has_it(new):
-    """A build with bz_logmel_clusters takes (ft, cs) before the stream; an
-    older build of csrc/logmel.cu (one fixed geometry) does not."""
+    """A build of the FFT kernel (bz_logmel_blocks) takes its wire type
+    after the waveform, the row stride after the length and its tile before
+    the stream; a build of the
+    dense-DFT design (bz_logmel_clusters, other operands) is refused."""
     import ctypes
     from buzzdetect_torch.ops import logmel
 
@@ -177,17 +179,19 @@ def test_logmel_bind_takes_the_geometry_where_the_build_has_it(new):
         pass
     lib = Lib()
     names = ['bz_logmel', 'bz_logmel_error_string'] + (
-        ['bz_logmel_clusters'] if new else [])
+        ['bz_logmel_blocks'] if new else ['bz_logmel_clusters'])
     for name in names:
         setattr(lib, name, Lib())
+    if not new:
+        with pytest.raises(ValueError, match='dense-DFT'):
+            logmel.bind(lib)
+        return
     assert logmel.bind(lib) is lib
     args = lib.bz_logmel.argtypes
-    assert len(args) == (12 if new else 10)
+    assert len(args) == 12
+    assert args[1] is ctypes.c_int and args[-2] is ctypes.c_int
     assert args[-1] is ctypes.c_void_p
-    if new:
-        assert lib.bz_logmel_clusters.argtypes[:2] == [ctypes.c_int] * 2
-    else:
-        assert not hasattr(lib, 'bz_logmel_clusters')
+    assert lib.bz_logmel_blocks.argtypes[0] is ctypes.c_int
 
 
 def test_compare_builds_conv_shares():

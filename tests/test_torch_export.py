@@ -285,11 +285,48 @@ def test_fake_log_mel_matches_the_plain_shape(batch):
     with FakeTensorMode():
         w = torch.empty(batch, n, device='cuda')
         cs = [torch.empty(consts[k].shape, device='cuda')
-              for k in ('chunks', 'nyq', 'mel')]
+              for k in ('tables', 'mel')]
         fake = library.log_mel(w, cs, fcfg.window_samples, fcfg.hop_samples,
                                fcfg.log_offset)
         shape, dtype = fake.shape, fake.dtype
     assert (tuple(shape), dtype) == (tuple(plain.shape), plain.dtype)
+
+
+def test_fake_log_mel_of_the_int16_wire_is_f32():
+    """The operator takes the int16 wire as it is and gives f32 log-mel,
+    the shape of the plain version's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fcfg = FrontendConfig()
+    n = padded_length(int(2.0 * 16000), fcfg)
+    plain = logmel.log_mel_spectrogram_fused_plain(
+        torch.zeros(2, n, dtype=torch.int16), fcfg)
+    consts = logmel._operands(fcfg, torch.device('cpu'))
+    with FakeTensorMode():
+        w = torch.empty(2, n, dtype=torch.int16, device='cuda')
+        cs = [torch.empty(consts[k].shape, device='cuda')
+              for k in ('tables', 'mel')]
+        fake = library.log_mel(w, cs, fcfg.window_samples, fcfg.hop_samples,
+                               fcfg.log_offset)
+        shape, dtype = fake.shape, fake.dtype
+    assert (tuple(shape), dtype) == (tuple(plain.shape), torch.float32)
+    assert plain.dtype == torch.float32
+
+
+def test_log_mel_wrapper_hands_the_wire_to_the_op_as_it_is(monkeypatch):
+    """On a CUDA tensor the wrapper passes int16 and f32 samples to the
+    operator unconverted (the kernel reads both) and converts any other
+    type to f32. Rehearsed on CPU tensors with _route forced to 'cuda'."""
+    seen = []
+
+    def op(x, constants, *args):
+        seen.append(x.dtype)
+        return torch.zeros(1, 1, 64)
+    monkeypatch.setattr(library, 'log_mel', op)
+    monkeypatch.setattr(logmel, '_route', lambda x: 'cuda')
+    for dtype in (torch.int16, torch.float32, torch.float64):
+        logmel.log_mel_spectrogram_fused(torch.zeros(16000, dtype=dtype),
+                                         FrontendConfig())
+    assert seen == [torch.int16, torch.float32, torch.float32]
 
 
 def test_ops_refuse_cpu_tensors():
@@ -307,7 +344,7 @@ def test_ops_refuse_cpu_tensors():
         library.fused_tail(x, _stack_operands(specs, 'highest', 'cpu'),
                            2, 8, False, 'highest')
     with pytest.raises(NotImplementedError, match='CPU'):
-        library.log_mel(torch.zeros(1, 16000), [torch.zeros(1)] * 3, 400,
+        library.log_mel(torch.zeros(1, 16000), [torch.zeros(1)] * 2, 400,
                         160, 1e-3)
     assert before == (dict(sepconv.fused_front.launches),
                       dict(sepconv.fused_tail.launches),
@@ -346,4 +383,4 @@ def test_wrappers_route_cuda_through_the_ops(monkeypatch):
         ('front', (2, 48, 32, 32), 24, (2, 8, 'bf16')),
         ('tail', (2, 6, 4, 512), 28, (8, 15, True, 'bf16')),
         ('tail', (2, 24, 16, 128), 16, (4, 8, False, 'bf16')),
-        ('log_mel', (1, 16000), 3, (400, 160, 1e-3))]
+        ('log_mel', (1, 16000), 2, (400, 160, 1e-3))]

@@ -131,8 +131,10 @@ def _tiny_arrays(seed=6, n_classes=3):
 
 
 def test_frontend_auto_resolves_to_banked_xla():
-    """'auto' (the default) resolves to the hop-banked matmul frontend, as
-    in the JAX package. 'auto' stays the default name so resolution can be
+    """On the CPU 'auto' (the default) resolves to the hop-banked matmul
+    frontend, as in the JAX package; the rule is per device
+    (``classifier.resolve_frontend``: the fused log-mel on a CUDA device
+    without a mesh). 'auto' stays the default name so resolution can be
     re-tuned per backend without touching callers."""
     from buzzdetect_torch.models.classifier import ChunkClassifier
     clf = ChunkClassifier(_tiny_arrays(), device='cpu')
