@@ -5,8 +5,8 @@ correct when every number is at or under its limit. The numbers:
 
 * ``score_gap``: the widest gap, over every answer the window produced,
   between a score the program served and the plain reference's score for
-  the same samples (``reference/yamnet.py``, in the configuration's
-  function);
+  the same samples (``reference/<name>.py``, the one the configuration
+  names, in the configuration's function);
 * ``csv_excess``: the same for the CSVs the pipeline wrote, beyond the half
   unit of their last digit that rounding allows;
 * counts that must be 0: answers that never came (``missing``), answers
@@ -15,7 +15,14 @@ correct when every number is at or under its limit. The numbers:
   (``no_rows``).
 """
 
+import os
+import re
+
 import numpy as np
+
+from benchmark.manifest import load_module, reference_of
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class Check:
@@ -31,15 +38,18 @@ class Check:
                 f'{"ok" if self.ok else "FAILED"}')
 
 
-def reference_scores(config: dict, bundle: str, inputs: dict, device,
-                     precision: str = None) -> dict:
-    """{key: (n_patches, 13) reference scores} for {key: int16 samples},
-    in ``precision`` (the configuration's function by default), one chunk
-    at a time on ``device``."""
-    from benchmark.reference import yamnet
-    w = yamnet.load_bundle(bundle, device)
-    precision = precision or config['reference_function']
-    return {k: yamnet.classify(w, x, precision) for k, x in inputs.items()}
+def reference_scores(config: dict, inputs: dict, device,
+                     precision: str = None, root: str = ROOT) -> dict:
+    """{key: reference scores} for {key: int16 samples}: the ``scores`` of
+    the plain reference the configuration names
+    (``benchmark/reference/<name>.py`` under ``root``), in ``precision``
+    (the configuration's function by default), on ``device``."""
+    name = reference_of(config)
+    module = load_module(os.path.join(root, 'benchmark', 'reference',
+                                      name + '.py'),
+                         'benchmark_reference_' + re.sub(r'\W', '_', name))
+    return module.scores(config, inputs, device,
+                         precision or config['reference_function'])
 
 
 def answer_checks(outputs, refs: dict, limits: dict, attempted: int):

@@ -67,7 +67,9 @@ def _line(checks_) -> str:
                      for c in checks_)
 
 
-def main(argv=None):
+def main(argv=None, root=ROOT):
+    """``root`` holds ``BENCHMARK.json`` and the ``benchmark`` folder it
+    names files in (the checkout's own by default)."""
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--workload', required=True)
     ap.add_argument('--seeds', required=True, help='comma-separated seeds')
@@ -77,8 +79,8 @@ def main(argv=None):
     from benchmark import program
     from benchmark.manifest import Benchmark
     from benchmark.run import Run
-    bench = Benchmark(ROOT)
-    cell = bench.cell(args.workload)
+    bench = Benchmark(root)
+    cell = bench.cell(args.workload, rehearse=args.rehearse)
     model = None
     sound = True
     for seed in (int(s) for s in args.seeds.split(',')):

@@ -4,7 +4,12 @@ A cell (an entry of ``workloads``) names a configuration and a traffic mix.
 Everything that belongs to one of them, or to one metric, is a file of its
 own under ``benchmark/``:
 
-* ``configs/<config>.json``: the configuration as it is run;
+* ``configs/<config>.json``: the configuration as it is run. It names its
+  plain reference (``reference``: ``reference/<name>.py``, YAMNet's where
+  it names none), and may hold a ``rehearsal`` of keys merged over it in a
+  CPU rehearsal alone (a tiny bundle of the same architecture, say);
+* ``reference/<name>.py``: a plain reference, with ``scores(config,
+  inputs, device, precision)`` that finds its own weights;
 * ``traffic/<traffic>.json``: the mix's generator (``traffic/<generator>.py``),
   the entry that drives the program (``entries/<entry>.py``) and their
   parameters;
@@ -14,7 +19,9 @@ own under ``benchmark/``:
   metric's value, or None where it finds nothing to read. A metric split
   by cells, ``<metric>.<part>`` (one quantity under a bound or a ``moves``
   of its own in some cells), reads with ``<metric>``'s reader unless it
-  has a file of its own.
+  has a file of its own. A reader that counts one architecture's work
+  declares the references it counts for (``REFERENCES``), and reads for
+  no cell whose configuration names another.
 
 So a later change adds a configuration, a mix, a cell or a metric as new
 files (and entries in ``BENCHMARK.json``) and edits none.
@@ -28,6 +35,7 @@ import re
 NAME = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$')
 UNIT = re.compile(r'^[A-Za-z0-9_/%.-]{1,16}$')
 SOURCES = ('device_trace', 'program_span', 'program_counter', 'host_clock')
+DEFAULT_REFERENCE = 'yamnet'
 
 
 def check_name(name: str, what: str) -> str:
@@ -35,6 +43,13 @@ def check_name(name: str, what: str) -> str:
         raise ValueError(f'{what} {name!r}: a name is 1-64 letters, digits, '
                          f'_ . -, starting with a letter, digit or _')
     return name
+
+
+def reference_of(config: dict) -> str:
+    """The plain reference a configuration names: the module
+    ``reference/<name>.py``."""
+    return check_name(config.get('reference', DEFAULT_REFERENCE),
+                      'reference')
 
 
 def _json(path: str) -> dict:
@@ -64,9 +79,10 @@ class Benchmark:
     def path(self, *parts) -> str:
         return os.path.join(self.dir, *parts)
 
-    def cell(self, name: str) -> dict:
+    def cell(self, name: str, rehearse: bool = False) -> dict:
         """The cell ``name`` resolved: its entry, configuration, traffic,
-        limits and metrics."""
+        limits and metrics. ``rehearse``: with the configuration's and the
+        traffic's ``rehearsal`` merged over them."""
         if name not in self.cells:
             raise KeyError(f'no workload {name!r} in BENCHMARK.json (known: '
                            f'{", ".join(self.cells)})')
@@ -83,6 +99,10 @@ class Benchmark:
                 raise ValueError(f'workloads/{name}.json names {key} '
                                  f'{own.get(key)!r}, BENCHMARK.json '
                                  f'{w[key]!r}')
+        if rehearse:
+            config = {**config, **config.get('rehearsal', {})}
+            traffic = dict(traffic, params={**traffic['params'],
+                                            **traffic.get('rehearsal', {})})
         return dict(name=name, chips=w['chips'], config_name=w['config'],
                     config=config, traffic_name=w['traffic'],
                     traffic=traffic, limits=own['limits'],
@@ -105,15 +125,23 @@ class Benchmark:
                 out.append(m)
         return out
 
-    def reader(self, metric: str):
+    def reader(self, metric: str, reference: str = None):
         """``metrics/<metric>.py``'s ``read``; for ``<metric>.<part>``
-        without a file of its own, ``<metric>``'s."""
+        without a file of its own, ``<metric>``'s. With ``reference`` (a
+        cell's), a ValueError where the reader declares the references it
+        counts for and that is not one of them."""
         name = check_name(metric, 'metric')
         while not os.path.isfile(self.path('metrics', name + '.py')) \
                 and '.' in name:
             name = name.rsplit('.', 1)[0]
-        return load_module(self.path('metrics', name + '.py'),
-                           'benchmark_metric_' + re.sub(r'\W', '_', name)).read
+        module = load_module(self.path('metrics', name + '.py'),
+                             'benchmark_metric_' + re.sub(r'\W', '_', name))
+        counts = getattr(module, 'REFERENCES', None)
+        if reference is not None and counts is not None \
+                and reference not in counts:
+            raise ValueError(f'{metric}: metrics/{name}.py counts the work of '
+                             f'{", ".join(counts)}, not of {reference}')
+        return module.read
 
     def module(self, folder: str, name: str):
         """``<folder>/<name>.py`` (a traffic generator or an entry)."""

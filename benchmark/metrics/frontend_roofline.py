@@ -12,6 +12,9 @@ import numpy as np
 
 from benchmark import roofline, spans
 
+# the work it counts is YAMNet's
+REFERENCES = ('yamnet',)
+
 
 def bound_s(n_samples: int, wire_dtype: str, peak: dict) -> float:
     """The least time of one chunk's frontend on the card of ``peak``."""

@@ -5,6 +5,9 @@ the traced window ran, over the window."""
 from benchmark import roofline
 from benchmark.metrics_util import traced_chunks
 
+# the work it counts is YAMNet's
+REFERENCES = ('yamnet',)
+
 
 def read(run):
     chunks = traced_chunks(run)

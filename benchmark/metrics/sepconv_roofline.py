@@ -6,6 +6,9 @@ library's kernels in it."""
 from benchmark import program, roofline
 from benchmark.metrics_util import traced_chunks
 
+# the work it counts is YAMNet's
+REFERENCES = ('yamnet',)
+
 
 def read(run):
     chunks = traced_chunks(run)

@@ -15,15 +15,19 @@ import re
 import numpy as np
 
 
+# loader arguments a configuration passes only where it states them (YAMNet's
+# kernel choices); the program's defaults hold where it does not
+STATED = ('frontend', 'conv', 'conv_precision')
+
+
 def load_model(config: dict, device: str):
     """The bundle of ``config``, built and initialized on ``device``."""
     from buzzdetect_torch.models.registry import load_model as load
     model = load(config['model'], device=device,
                  compute_dtype=config['compute_dtype'],
                  transfer_dtype=config['transfer_dtype'],
-                 frontend=config['frontend'], conv=config['conv'],
-                 conv_precision=config['conv_precision'],
-                 framehop_prop=config['framehop_prop'])
+                 framehop_prop=config['framehop_prop'],
+                 **{k: config[k] for k in STATED if k in config})
     model.initialize()
     return model
 

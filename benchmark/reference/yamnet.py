@@ -32,6 +32,8 @@ compute:
   (per-tensor scale to 448) wherever it rounds to bf16.
 """
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -54,6 +56,8 @@ LAYERS = (('conv', 2, 32), ('sep', 1, 64), ('sep', 2, 128), ('sep', 1, 128),
           ('sep', 1, 512), ('sep', 1, 512), ('sep', 1, 512), ('sep', 1, 512),
           ('sep', 2, 1024), ('sep', 1, 1024))
 PRECISIONS = ('f32', 'bf16', 'tf32', 'fp8')
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def n_patches(n_samples: int) -> int:
@@ -219,3 +223,11 @@ def classify(w: dict, wire: np.ndarray, precision='f32',
         scores = torch.cat(outs).cpu().numpy()
     return scores[:n_patches(n)]
 
+
+def scores(config: dict, inputs: dict, device, precision: str) -> dict:
+    """{key: (n_patches, 13) scores} for {key: int16 samples}: the bundle
+    ``models/<model>/model.npz`` of this checkout, ``precision``'s function,
+    one chunk at a time on ``device``."""
+    w = load_bundle(os.path.join(ROOT, 'models', config['model'],
+                                 'model.npz'), device)
+    return {k: classify(w, x, precision) for k, x in inputs.items()}

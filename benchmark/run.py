@@ -11,8 +11,9 @@ per-layer metrics), ``device`` and, traced, ``breakdown``; last, ``checks``:
 each number compared beside its limit, which also close standard error.
 
 It needs as many CUDA devices as the cell asks for and exits with 2
-otherwise. ``--rehearse`` runs the same steps on the CPU at the tiny sizes
-of the traffic file's ``rehearsal`` entry; its last line starts with
+otherwise. ``--rehearse`` runs the same steps on the CPU, with the
+``rehearsal`` entries of the configuration (a tiny bundle, say) and of the
+traffic file (tiny sizes) merged over them; its last line starts with
 ``rehearsal:`` and carries no metric, since a CPU run measures nothing of
 the card.
 """
@@ -68,9 +69,7 @@ class Run:
         self.seed, self.seconds = args.seed, args.seconds
         self.rehearse = args.rehearse
         self.config = cell['config']
-        self.params = dict(cell['traffic']['params'])
-        if self.rehearse:
-            self.params.update(cell['traffic'].get('rehearsal', {}))
+        self.params = cell['traffic']['params']
         self.limits = cell['limits']
         self.device = 'cpu' if self.rehearse else 'cuda'
         self.tmpdir = tmpdir
@@ -103,10 +102,8 @@ class Run:
     def reference(self, inputs: dict, precision: str = None) -> dict:
         """The plain reference's scores for {key: int16 samples}."""
         from benchmark import checks
-        bundle = os.path.join(ROOT, 'models', self.config['model'],
-                              'model.npz')
-        return checks.reference_scores(self.config, bundle, inputs,
-                                       self.device, precision)
+        return checks.reference_scores(self.config, inputs, self.device,
+                                       precision, root=self.bench.root)
 
 
 def print_usage(a, b):
@@ -129,9 +126,11 @@ def device_info(run, peak):
 
 
 def read_metrics(run, metrics, required):
+    from benchmark.manifest import reference_of
+    reference = reference_of(run.config)
     out = {}
     for m in metrics:
-        value = run.bench.reader(m['name'])(run)
+        value = run.bench.reader(m['name'], reference)(run)
         if value is None:
             if required:
                 raise RuntimeError(f'{m["name"]}: nothing to read')
@@ -149,7 +148,7 @@ def main(argv=None, root=ROOT):
     os.environ['USE_FLAX'] = '0'
     from benchmark.manifest import Benchmark
     bench = Benchmark(root)
-    cell = bench.cell(args.workload)
+    cell = bench.cell(args.workload, rehearse=args.rehearse)
     threads = str(cell['config']['host_threads'])
     for var in ('OMP_NUM_THREADS', 'MKL_NUM_THREADS'):
         os.environ[var] = threads

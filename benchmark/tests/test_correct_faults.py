@@ -1,14 +1,17 @@
 """A run whose timed path is broken underneath comes out not correct: an
 answer altered where it is produced, and half of a batch left out with the
-mean of the rest in its place. (One chip, inference only: no state to
-leave unchanged and no exchange between chips to drop.)"""
+mean of the rest in its place, each done to the scores the program hands
+the harness (``helpers.break_path``), whatever the architecture. (One chip,
+inference only: no state to leave unchanged and no exchange between chips
+to drop.)"""
 
 import json
 import os
 
 import pytest
 
-from benchmark.tests.helpers import rehearse
+from benchmark.tests.helpers import (altered, break_path, half_left_out,
+                                     rehearse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -16,29 +19,11 @@ CELLS = [w['name'] for w in json.load(open(os.path.join(
     ROOT, 'BENCHMARK.json')))['workloads']]
 
 
-def _altered(out):
-    out = out.clone()
-    out.view(-1)[out.numel() // 2] += 1.0
-    return out
-
-
-def _half_left_out(out):
-    out = out.clone()
-    rows = out.reshape(-1, out.shape[-1])
-    keep = max(1, len(rows) // 2)
-    rows[keep:] = rows[:keep].mean(dim=0)
-    return out
-
-
-@pytest.mark.parametrize('fault', [_altered, _half_left_out])
+@pytest.mark.parametrize('fault', [altered, half_left_out],
+                         ids=['_altered', '_half_left_out'])
 @pytest.mark.parametrize('workload', CELLS)
 def test_a_broken_path_is_not_correct(monkeypatch, capsys, workload, fault):
-    from buzzdetect_torch.models.classifier import ChunkClassifier
-    original = ChunkClassifier._classify
-
-    def broken(self, wavs, resample_args=None):
-        return fault(original(self, wavs, resample_args))
-    monkeypatch.setattr(ChunkClassifier, '_classify', broken)
+    break_path(monkeypatch, fault)
     result = rehearse(capsys, workload, seconds=1.5)
     assert result['correct'] is False
 

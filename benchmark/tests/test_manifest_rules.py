@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from benchmark.manifest import NAME, SOURCES, UNIT, Benchmark
+from benchmark.manifest import NAME, SOURCES, UNIT, Benchmark, reference_of
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -119,6 +119,53 @@ def test_a_split_metric_reads_with_its_quantity_reader(tmp_path):
     assert other.reader('a_b.z')(None) == 1.0
     with pytest.raises(FileNotFoundError):
         other.reader('c_d.x')
+
+
+def foreign_readers(bench):
+    """(cell, metric) wherever a cell reports a metric whose reader declares
+    the references it counts for, and its configuration's is not one."""
+    out = []
+    for name in bench.cells:
+        cell = bench.cell(name)
+        for m in cell['end_to_end'] + cell['per_layer']:
+            try:
+                bench.reader(m['name'], reference_of(cell['config']))
+            except ValueError:
+                out.append((name, m['name']))
+    return out
+
+
+def test_each_cell_reads_only_what_counts_its_architecture():
+    assert foreign_readers(Benchmark(ROOT)) == []
+
+
+def test_readers_declare_the_architectures_they_count():
+    bench = Benchmark(ROOT)
+    for name in ('mfu.stream.bf16', 'sepconv_roofline', 'frontend_roofline'):
+        with pytest.raises(ValueError):
+            bench.reader(name, 'ast')
+        assert callable(bench.reader(name, 'yamnet'))
+    for name in ('stream_rtf', 'setup_s', 'device.idle_share.stream',
+                 'dispatch.host_ms.stream', 'launch.host_ms.stream',
+                 'wire.host_ms.stream', 'h2d.device_ms.stream.bf16'):
+        assert callable(bench.reader(name, 'ast'))
+
+
+def test_a_cell_of_another_architecture_cannot_report_yamnets_work(
+        tmp_path):
+    spec = json.loads(json.dumps(SPEC))
+    cfg = json.load(open(os.path.join(ROOT, spec['configs'][0]['file'])))
+    (tmp_path / 'other.json').write_text(json.dumps(
+        dict(cfg, reference='ast')))
+    spec['configs'][0]['file'] = 'other.json'
+    (tmp_path / 'BENCHMARK.json').write_text(json.dumps(spec))
+    (tmp_path / 'benchmark').symlink_to(os.path.join(ROOT, 'benchmark'))
+    cell = spec['workloads'][0]['name']
+    assert sorted(m for c, m in foreign_readers(Benchmark(str(tmp_path)))
+                  if c == cell) == sorted(
+        m['name'] for m in SPEC['per_layer']
+        if cell in m['workloads'] and m['name'].split('.')[0] in (
+            'mfu', 'sepconv_roofline', 'frontend_roofline'))
 
 
 def test_layers_are_named_in_perf_md():

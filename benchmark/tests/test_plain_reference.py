@@ -1,16 +1,19 @@
 """The plain reference against the port, on the CPU at a small size."""
 
+import json
 import os
 
 import numpy as np
 import pytest
 
-from benchmark import synth
+from benchmark import checks, synth
 from benchmark.reference import yamnet as ref
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUNDLE = os.path.join(ROOT, 'models', 'model_general_v3', 'model.npz')
+CONFIGS = [c['file'] for c in json.load(open(os.path.join(
+    ROOT, 'BENCHMARK.json')))['configs']]
 
 
 @pytest.fixture(scope='module')
@@ -60,3 +63,21 @@ def test_patch_counts_follow_the_port():
         assert ref.n_patches(n) == num_patches(n, cfg)
         assert ref.padded_samples(n) == padded_length(n, cfg)
 
+
+
+@pytest.mark.parametrize('config', CONFIGS)
+@pytest.mark.parametrize('seed', [11, 2 ** 33 + 5])
+def test_the_default_reference_scores_as_the_bundle_did(weights, seed,
+                                                        config):
+    """A configuration that names no reference is judged by YAMNet's, bit
+    for bit as the harness computed it before references had names: the
+    bundle loaded, each chunk classified in the configuration's function."""
+    config = json.load(open(os.path.join(ROOT, config)))
+    assert 'reference' not in config
+    inputs = dict(enumerate(synth.recordings(seed, 2, 2.5)))
+    got = checks.reference_scores(config, inputs, 'cpu')
+    assert sorted(got) == sorted(inputs)
+    for k, x in inputs.items():
+        want = ref.classify(weights, x, config['reference_function'])
+        assert got[k].dtype == want.dtype
+        assert np.array_equal(got[k], want)
