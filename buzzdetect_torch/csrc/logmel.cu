@@ -72,6 +72,23 @@
 // faster at FT = 64 and slower at every smaller tile. Which stall holds
 // each phase is not measurable there (no ncu).
 //
+// The Kaldi geometry (the Audio Spectrogram Transformer's fbank,
+// models/ast.py; torchaudio.compliance.kaldi.fbank with htk_compat,
+// use_energy off, a 'hanning' window, 128 bins, dither 0, a 10 ms shift) is
+// the second instantiation of the same kernel (KIND = KALDI, bz_fbank_kaldi):
+// the same frames, FFT, wire and tiles, and per frame before the window its
+// own mean subtracted (a half-warp sum of the 400 samples) and a 0.97
+// pre-emphasis whose first sample takes itself as the one before (a
+// shuffle brings each pair the sample that precedes it); the symmetric
+// Hann window (0.5 - 0.5 cos(2 pi n / 399)); the power spectrum re^2 + im^2
+// in place of the magnitude; a (257 x 128) Kaldi mel matrix (20-8000 Hz,
+// the Nyquist row zero) in 16-bin ring chunks, each thread 4 frames x 8
+// bands; and log(max(e, floor)), then (x + shift) / divisor, AST's
+// normalisation. Its work a frame is the FFT's and a product twice as
+// wide: 131,072 frames (a 128-window chunk) are 8.6 GFLOP, 0.13 ms at the
+// f32 peak, against 0.109 ms for its bytes (the int16 wire and the f32
+// output). KIND = YAMNET compiles to the code above, unchanged.
+//
 // Plain C interface, loaded with ctypes; returns a cudaError_t code
 // (0 = success) and launches on the given stream.
 
@@ -86,7 +103,10 @@ namespace {
 
 constexpr int WINDOW = 400;   // samples per frame
 constexpr int HOP = 160;      // samples between frames
-constexpr int MELS = 64;      // mel bands out
+constexpr int MELS = 64;      // mel bands out (YAMNet)
+// the geometries: YAMNet's log-mel, and the Kaldi fbank of AST
+constexpr int YAMNET = 0, KALDI = 1;
+constexpr float PREEMPH = 0.97f;  // Kaldi's pre-emphasis
 constexpr int BINS = 257;     // rfft bins of 512 points
 constexpr int NC = 256;       // complex points of the packed FFT
 constexpr int ZN = WINDOW / 2;  // nonzero packed points
@@ -101,12 +121,20 @@ constexpr int T_W256 = WINDOW;
 constexpr int T_W512 = T_W256 + 2 * NC;
 constexpr int T_PASS = T_W512 + 2 * (NC / 2);
 constexpr int TABLE_FLOATS = T_PASS + 2 * NC;
-constexpr int KB = 32;        // bins per chunk of the mel ring
-constexpr int W_CHUNKS = (BINS - 1) / KB;  // chunks covering bins 0..255
 constexpr int RING = 3;
-constexpr int W_FLOATS = KB * MELS;
+constexpr int W_FLOATS = 2048;  // floats of a chunk of the mel ring
 static_assert(TABLE_FLOATS % 4 == 0 && W_FLOATS % 4 == 0, "16-byte copies");
-static_assert(W_CHUNKS * KB == BINS - 1, "bin 256 is apart");
+
+// the mel product of a geometry: NM bands, NB = NM / 64 band blocks a
+// thread, chunks of KB bins (bins 0..255; bin 256 is apart)
+template <int KIND>
+struct Mel {
+    static constexpr int NM = KIND == KALDI ? 128 : MELS;
+    static constexpr int NB = NM / 64;
+    static constexpr int KB = W_FLOATS / NM;      // 32 (YAMNet), 16 (Kaldi)
+    static constexpr int CHUNKS = (BINS - 1) / KB;
+    static_assert(CHUNKS * KB == BINS - 1, "bin 256 is apart");
+};
 
 template <int FT>
 struct FftTile {
@@ -203,6 +231,49 @@ __device__ __forceinline__ void dft16(float (&re)[16], float (&im)[16],
     for (int k = 0; k < 16; ++k) re[k] = r[k], im[k] = i[k];
 }
 
+// a bin's magnitude (YAMNet) or power (Kaldi)
+template <int KIND>
+__device__ __forceinline__ float spectral(float re, float im) {
+    const float p = fmaf(re, re, __fmul_rn(im, im));
+    if constexpr (KIND == KALDI) return p;
+    else return sqrtf(p);
+}
+
+// Kaldi's framing of one frame's samples, held as pairs (x[j], y[j]) =
+// samples (2m, 2m + 1), m = t + 16 j, by lane t of a half-warp: subtract
+// the frame's mean, then y[n] -= 0.97 y[n - 1], sample 0 taking itself as
+// the one before; the pairs past the frame's end stay zero
+__device__ __forceinline__ void kaldi_frame(float (&x)[16], float (&y)[16],
+                                            int t, int lane) {
+    constexpr int JN_ = (WINDOW / 2 + 15) / 16;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < JN_; ++j) s = __fadd_rn(s, __fadd_rn(x[j], y[j]));
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    const float mean = __fdiv_rn(s, (float)WINDOW);
+#pragma unroll
+    for (int j = 0; j < JN_; ++j) {
+        x[j] = __fsub_rn(x[j], mean);
+        y[j] = __fsub_rn(y[j], mean);
+    }
+    // sample 2m - 1: lane t - 1's y[j], or for t = 0 lane 15's y[j - 1]
+    const int src = (lane & 16) | ((t + 15) & 15);
+    float up[JN_];
+#pragma unroll
+    for (int j = 0; j < JN_; ++j) up[j] = __shfl_sync(0xffffffffu, y[j], src);
+#pragma unroll
+    for (int j = 0; j < JN_; ++j) {
+        const bool in = t + 16 * j < WINDOW / 2;
+        const float prev = t > 0 ? up[j] : j > 0 ? up[j > 0 ? j - 1 : 0] : x[0];
+        const float ny = __fsub_rn(y[j], __fmul_rn(PREEMPH, x[j]));
+        const float nx = __fsub_rn(x[j], __fmul_rn(PREEMPH, prev));
+        x[j] = in ? nx : 0.f;
+        y[j] = in ? ny : 0.f;
+    }
+}
+
 // samples 2m and 2m + 1 of a frame, one load (rows are aligned for it:
 // bz_logmel refuses an odd row stride). They stay in flight, as loaded,
 // until the next round reads them through as_f32. (A second, unaligned
@@ -226,17 +297,21 @@ __device__ __forceinline__ float2 as_f32(short2 v) {
 }
 
 // wav: batch rows of In, stride samples apart (even), each holding at
-// least the n_frames frames' samples; out: (batch, n_frames, MELS);
-// tables: TABLE_FLOATS as above; mel: (257, MELS) row-major. Grid: (frame
-// tiles, batch).
-template <typename In, int FT>
+// least the n_frames frames' samples; out: (batch, n_frames, NM);
+// tables: TABLE_FLOATS as above; mel: (257, NM) row-major. Grid: (frame
+// tiles, batch). YAMNet: log(mel + log_offset); Kaldi: (log(max(mel,
+// log_offset)) + shift) / divisor.
+template <typename In, int FT, int KIND>
 __global__ void __launch_bounds__(FftTile<FT>::NT, 2)
 logmel_fft_kernel(const In* __restrict__ wav, float* __restrict__ out,
                   const float* __restrict__ tables,
                   const float* __restrict__ mel, const long long stride,
-                  const int n_frames, const float log_offset) {
+                  const int n_frames, const float log_offset,
+                  const float shift, const float divisor) {
     using T = FftTile<FT>;
-    constexpr int NT = T::NT, MP = T::MP;
+    using W = Mel<KIND>;
+    constexpr int NT = T::NT, MP = T::MP, NM = W::NM, NB = W::NB;
+    constexpr int KB = W::KB;
     extern __shared__ __align__(16) float smem[];
     float* const TB = smem;                        // the tables
     float* const M = smem + TABLE_FLOATS;          // (BINS, MP) |X|
@@ -277,15 +352,21 @@ logmel_fft_kernel(const In* __restrict__ wav, float* __restrict__ out,
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
             if (j < JN) {
-                // past the window's end cur is zero; any table entry will do
-                const int m = t + 16 * j < ZN ? t + 16 * j : 0;
-                const float2 h = lds2(TB + T_WIN + 2 * m);
                 const float2 v = as_f32(cur[j]);
-                zr[j] = __fmul_rn(v.x, h.x);
-                zi[j] = __fmul_rn(v.y, h.y);
+                zr[j] = v.x, zi[j] = v.y;
             } else {
                 zr[j] = zi[j] = 0.f;
             }
+        }
+        if constexpr (KIND == KALDI) kaldi_frame(zr, zi, t, lane);
+#pragma unroll
+        for (int j = 0; j < JN; ++j) {
+            // past the window's end the samples are zero; any table entry
+            // will do
+            const int m = t + 16 * j < ZN ? t + 16 * j : 0;
+            const float2 h = lds2(TB + T_WIN + 2 * m);
+            zr[j] = __fmul_rn(zr[j], h.x);
+            zi[j] = __fmul_rn(zi[j], h.y);
         }
         dft16(zr, zi, TB + T_W256);
 #pragma unroll
@@ -334,19 +415,20 @@ logmel_fft_kernel(const In* __restrict__ wav, float* __restrict__ out,
             cmul(orr, oi, w.x, w.y);
             const float xr = __fadd_rn(er, orr), xi = __fadd_rn(ei, oi);
             const float yr = __fsub_rn(er, orr), yi = __fsub_rn(ei, oi);
-            M[k * MP + slot] = sqrtf(fmaf(xr, xr, __fmul_rn(xi, xi)));
-            M[(NC - k) * MP + slot] = sqrtf(fmaf(yr, yr, __fmul_rn(yi, yi)));
+            M[k * MP + slot] = spectral<KIND>(xr, xi);
+            M[(NC - k) * MP + slot] = spectral<KIND>(yr, yi);
         }
         if (dc) {  // bin 128: X = conj(2 Z[128])
             const float a = __fadd_rn(zr[8], zr[8]), b = __fadd_rn(zi[8], zi[8]);
-            M[(NC / 2) * MP + slot] = sqrtf(fmaf(a, a, __fmul_rn(b, b)));
+            M[(NC / 2) * MP + slot] = spectral<KIND>(a, b);
         }
 #pragma unroll
         for (int j = 0; j < JN; ++j) cur[j] = nxt[j];
     }
     __syncthreads();  // the magnitudes are complete; U is free
 
-    // the mel product: frames 4 fg .. 4 fg + 3, bands 4 bg .. 4 bg + 3
+    // the mel product: frames 4 fg .. 4 fg + 3, bands 4 bg .. 4 bg + 3 (and
+    // 64 + 4 bg .. under Kaldi)
     auto load_w = [&](int c) {
         float* const dst = U + (c % RING) * W_FLOATS;
         const float* const srcw = mel + c * W_FLOATS;
@@ -361,91 +443,110 @@ logmel_fft_kernel(const In* __restrict__ wav, float* __restrict__ out,
     const int warp = tid >> 5;
     const int fg = (warp % T::WF) * T::FGW + lane % T::FGW;
     const int bg = (warp / T::WF) * T::BGW + lane / T::FGW;
-    float acc[4][4];
+    float acc[4][4 * NB];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    auto fma16 = [&](const float4& m4, const float4& w4) {
+        for (int j = 0; j < 4 * NB; ++j) acc[i][j] = 0.f;
+    auto fma16 = [&](int nb, const float4& m4, const float4& w4) {
         const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
         const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(mv[i], wv[j], acc[i][j]);
+            for (int j = 0; j < 4; ++j)
+                acc[i][4 * nb + j] = fmaf(mv[i], wv[j], acc[i][4 * nb + j]);
     };
 #pragma unroll 1
-    for (int c = 0; c < W_CHUNKS; ++c) {
+    for (int c = 0; c < W::CHUNKS; ++c) {
         cp_async_wait<RING - 2>();
         __syncthreads();  // chunk c is in; chunk c - 1's stage is read out
-        if (c + RING - 1 < W_CHUNKS) load_w(c + RING - 1);
+        if (c + RING - 1 < W::CHUNKS) load_w(c + RING - 1);
         cp_async_commit();
         const float* const mk = M + c * KB * MP + 4 * fg;
         const float* const wk = U + (c % RING) * W_FLOATS + 4 * bg;
 #pragma unroll 8
-        for (int kk = 0; kk < KB; ++kk)
-            fma16(lds4(mk + kk * MP), lds4(wk + kk * MELS));
+        for (int kk = 0; kk < KB; ++kk) {
+            const float4 m4 = lds4(mk + kk * MP);
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+                fma16(nb, m4, lds4(wk + kk * NM + 64 * nb));
+        }
     }
-    fma16(lds4(M + (BINS - 1) * MP + 4 * fg),
-          __ldg(reinterpret_cast<const float4*>(mel + (BINS - 1) * MELS) + bg));
+    {
+        const float4 m4 = lds4(M + (BINS - 1) * MP + 4 * fg);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+            fma16(nb, m4, __ldg(reinterpret_cast<const float4*>(
+                              mel + (BINS - 1) * NM + 64 * nb) + bg));
+    }
+    auto finish = [&](float e) {
+        if constexpr (KIND == KALDI)
+            return __fdiv_rn(__fadd_rn(logf(fmaxf(e, log_offset)), shift),
+                             divisor);
+        else
+            return logf(__fadd_rn(e, log_offset));
+    };
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int frame = f0 + 4 * fg + i;
         if (frame < n_frames)
-            *reinterpret_cast<float4*>(
-                out + ((long long)blockIdx.y * n_frames + frame) * MELS +
-                4 * bg) =
-                make_float4(logf(__fadd_rn(acc[i][0], log_offset)),
-                            logf(__fadd_rn(acc[i][1], log_offset)),
-                            logf(__fadd_rn(acc[i][2], log_offset)),
-                            logf(__fadd_rn(acc[i][3], log_offset)));
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+                *reinterpret_cast<float4*>(
+                    out + ((long long)blockIdx.y * n_frames + frame) * NM +
+                    64 * nb + 4 * bg) =
+                    make_float4(finish(acc[i][4 * nb]),
+                                finish(acc[i][4 * nb + 1]),
+                                finish(acc[i][4 * nb + 2]),
+                                finish(acc[i][4 * nb + 3]));
     }
 }
 
-template <typename In, int FT>
+template <typename In, int FT, int KIND>
 cudaError_t configure(int device) {
     static std::atomic<bool> ready[MAX_DEVICES];
     if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
     if (ready[device].load()) return cudaSuccess;
     const cudaError_t err = cudaFuncSetAttribute(
-        logmel_fft_kernel<In, FT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        FftTile<FT>::SMEM);
+        logmel_fft_kernel<In, FT, KIND>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, FftTile<FT>::SMEM);
     if (err == cudaSuccess) ready[device].store(true);
     return err;
 }
 
-// what the C entries below do for one (In, FT): launch, or count the blocks
-// an SM holds at once
-template <typename In, int FT>
+// what the C entries below do for one (In, FT, KIND): launch, or count the
+// blocks an SM holds at once
+template <typename In, int FT, int KIND>
 int run(bool launch, const void* wav, float* out, const float* tables,
         const float* mel, int batch, long long stride, int n_frames,
-        float log_offset, cudaStream_t stream, int* blocks) {
+        const float (&post)[3], cudaStream_t stream, int* blocks) {
     using T = FftTile<FT>;
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess) err = configure<In, FT>(device);
+    if (err == cudaSuccess) err = configure<In, FT, KIND>(device);
     if (err != cudaSuccess) return (int)err;
     if (!launch)
         return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, logmel_fft_kernel<In, FT>, T::NT, T::SMEM);
+            blocks, logmel_fft_kernel<In, FT, KIND>, T::NT, T::SMEM);
     const In* const w = static_cast<const In*>(wav);
     if (reinterpret_cast<uintptr_t>(w) % (2 * sizeof(In)) != 0)
         return (int)cudaErrorMisalignedAddress;
     const dim3 grid((unsigned)((n_frames + FT - 1) / FT), (unsigned)batch);
-    logmel_fft_kernel<In, FT><<<grid, T::NT, T::SMEM, stream>>>(
-        w, out, tables, mel, stride, n_frames, log_offset);
+    logmel_fft_kernel<In, FT, KIND><<<grid, T::NT, T::SMEM, stream>>>(
+        w, out, tables, mel, stride, n_frames, post[0], post[1], post[2]);
     return (int)cudaGetLastError();
 }
 
-template <typename In>
+template <typename In, int KIND>
 int dispatch(int ft, bool launch, const void* wav, float* out,
              const float* tables, const float* mel, int batch,
-             long long stride, int n_frames, float log_offset,
+             long long stride, int n_frames, const float (&post)[3],
              cudaStream_t stream, int* blocks) {
-#define BZ_LOGMEL_CASE(F)                                                \
-    if (ft == F)                                                         \
-        return run<In, F>(launch, wav, out, tables, mel, batch, stride,  \
-                          n_frames, log_offset, stream, blocks);
+#define BZ_LOGMEL_CASE(F)                                                   \
+    if (ft == F)                                                            \
+        return run<In, F, KIND>(launch, wav, out, tables, mel, batch,       \
+                                stride, n_frames, post, stream, blocks);
     BZ_LOGMEL_CASE(64)
     BZ_LOGMEL_CASE(32)
     BZ_LOGMEL_CASE(16)
@@ -471,11 +572,14 @@ int bz_logmel(const void* wav, int wire, float* out, const float* tables,
         (wire != 0 && wire != 1))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float post[3] = {log_offset, 0.f, 1.f};
     return wire == 0
-               ? dispatch<float>(ft, true, wav, out, tables, mel, batch,
-                                 stride, n_frames, log_offset, s, nullptr)
-               : dispatch<short>(ft, true, wav, out, tables, mel, batch,
-                                 stride, n_frames, log_offset, s, nullptr);
+               ? dispatch<float, YAMNET>(ft, true, wav, out, tables, mel,
+                                         batch, stride, n_frames, post, s,
+                                         nullptr)
+               : dispatch<short, YAMNET>(ft, true, wav, out, tables, mel,
+                                         batch, stride, n_frames, post, s,
+                                         nullptr);
 }
 
 // *blocks = how many blocks of tile ft one SM of the current device runs at
@@ -483,8 +587,37 @@ int bz_logmel(const void* wav, int wire, float* out, const float* tables,
 // wires)
 int bz_logmel_blocks(int ft, int* blocks) {
     *blocks = 0;
-    return dispatch<float>(ft, false, nullptr, nullptr, nullptr, nullptr, 1,
-                           0, 0, 0.f, nullptr, blocks);
+    const float post[3] = {0.f, 0.f, 1.f};
+    return dispatch<float, YAMNET>(ft, false, nullptr, nullptr, nullptr,
+                                   nullptr, 1, 0, 0, post, nullptr, blocks);
+}
+
+// The Kaldi geometry: as bz_logmel, with mel (257, 128) and out (batch,
+// n_frames, 128) = (log(max(fbank, floor)) + shift) / divisor.
+int bz_fbank_kaldi(const void* wav, int wire, float* out,
+                   const float* tables, const float* mel, int batch,
+                   long long n, long long stride, int n_frames, float floor,
+                   float shift, float divisor, int ft, void* stream) {
+    if (batch <= 0 || batch > 65535 || n < WINDOW || stride < n ||
+        stride % 2 != 0 || n_frames != 1 + (n - WINDOW) / HOP ||
+        (wire != 0 && wire != 1))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float post[3] = {floor, shift, divisor};
+    return wire == 0
+               ? dispatch<float, KALDI>(ft, true, wav, out, tables, mel,
+                                        batch, stride, n_frames, post, s,
+                                        nullptr)
+               : dispatch<short, KALDI>(ft, true, wav, out, tables, mel,
+                                        batch, stride, n_frames, post, s,
+                                        nullptr);
+}
+
+int bz_fbank_kaldi_blocks(int ft, int* blocks) {
+    *blocks = 0;
+    const float post[3] = {0.f, 0.f, 1.f};
+    return dispatch<float, KALDI>(ft, false, nullptr, nullptr, nullptr,
+                                  nullptr, 1, 0, 0, post, nullptr, blocks);
 }
 
 const char* bz_logmel_error_string(int code) {

@@ -1,6 +1,12 @@
 """The end-to-end chunk classifier: waveform -> log-mel patches -> embed ->
 head, on one torch device or split over a device mesh.
 
+``WireClassifier`` holds what every architecture shares: the wire format,
+the padding to whole frames, the pinned upload and the dispatch
+(``predict_async``, ``predict_async_batch``) with their spans and chunk
+ids. ``ChunkClassifier`` is YAMNet's classify on it; the Audio
+Spectrogram Transformer's is ``models/ast.ASTClassifier``.
+
 Counterpart of ``buzzdetect_tpu/models/classifier.py`` with the same surface
 (``predict``, ``predict_async``, ``predict_async_batch``, ``embed``,
 ``warmup``, ``to_wire``, ``classify_resident``) and the same ``n_valid``
@@ -221,8 +227,174 @@ def _classify(params, wavs: torch.Tensor, cfg: FrontendConfig,
                           mesh, replicas).reshape(*lead, -1)
 
 
-class ChunkClassifier:
-    """Callable classifier over variable-length chunks.
+class WireClassifier:
+    """What every architecture's chunk classifier shares: the wire
+    (``to_wire``, ``_pad_to``), the pinned upload (``_upload``), the
+    dispatch (``predict_async``, ``predict_async_batch``) with its spans and
+    chunk ids, ``predict``, ``classify_resident`` and ``warmup``. A subclass
+    sets ``device``, ``sample_rate`` and the wire (``_init_wire``) and gives
+    its frames: ``_valid(n)`` (frames a chunk of n samples yields),
+    ``_padded(n)`` (the samples it is padded to) and ``_classify(wavs,
+    resample_args)`` ((..., L) padded wire waveforms -> (..., frames,
+    classes))."""
+
+    sample_rate = 16000
+
+    def _init_wire(self, transfer_dtype):
+        """The wire format: 'float32', 'int16' or 'mulaw' (int8)."""
+        # 'mulaw' rides int8 on the wire; linear int8 is not offered
+        self.transfer_name = str(transfer_dtype)
+        if self.transfer_name not in ('float32', 'int16', 'mulaw'):
+            raise ValueError('transfer_dtype must be float32, int16 or mulaw')
+        self.transfer_dtype = np.dtype(
+            'int8' if self.transfer_name == 'mulaw' else self.transfer_name)
+        # each dispatched chunk's id in a profiler trace (runtime/spans.py)
+        self._chunk_ids = itertools.count()
+
+    def _valid(self, n_samples: int) -> int:
+        raise NotImplementedError
+
+    def _padded(self, n_samples: int) -> int:
+        raise NotImplementedError
+
+    def _classify(self, wavs: torch.Tensor,
+                  resample_args=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _need_head(self):
+        pass
+
+    def to_wire(self, samples: np.ndarray) -> np.ndarray:
+        """Convert host samples to this classifier's wire dtype (no-op when
+        the decode stage already emitted it). int8 input is always mu-law;
+        int16 is linear PCM."""
+        if samples.dtype == self.transfer_dtype:
+            return samples
+        if samples.dtype == np.int16:
+            samples = samples.astype(np.float32) * (1.0 / 32768.0)
+        elif samples.dtype == np.int8:
+            y = samples.astype(np.float32) * (1.0 / 127.0)
+            samples = np.sign(y) * np.expm1(np.abs(y) * _LN256,
+                                            dtype=np.float32) * (1.0 / 255.0)
+        elif samples.dtype != np.float32:
+            samples = samples.astype(np.float32)
+        if self.transfer_name == 'int16':
+            return quantize_int16(samples)
+        if self.transfer_name == 'mulaw':
+            return encode_mulaw(samples)
+        return samples
+
+    def _pad_to(self, samples: np.ndarray, target: int) -> np.ndarray:
+        """Zero-pad to ``target`` samples, converting to the wire dtype."""
+        with span('buzzdetect.wire'):
+            samples = self.to_wire(samples)
+            if len(samples) == target:
+                return samples
+            out = np.zeros(target, dtype=samples.dtype)
+            out[:len(samples)] = samples
+            return out
+
+    def _upload(self, wire: np.ndarray) -> torch.Tensor:
+        """Host wire buffer -> device tensor (pinned, non-blocking on CUDA)."""
+        with span('buzzdetect.upload'):
+            t = torch.from_numpy(np.ascontiguousarray(wire))
+            if self.device.type == 'cuda':
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
+
+    def _plan_native(self, n_native: int, input_rate: int):
+        """Shape plan for a native-rate chunk resampled on the device: the
+        valid frame count and padded target in the MODEL-rate domain, plus
+        the native-rate length the host pads the wire buffer to so the
+        resampler produces at least ``target_model`` samples."""
+        sr = self.sample_rate
+        n_model = -(-n_native * sr // input_rate)  # ceil
+        n_valid = self._valid(n_model)
+        target_model = self._padded(n_model)
+        target_native = -(-target_model * input_rate // sr)
+        return n_valid, n_model, target_model, target_native
+
+    def _native_rate(self, input_rate):
+        """True when chunks at ``input_rate`` need resampling here."""
+        return bool(input_rate) and input_rate != self.sample_rate
+
+    # --- public API ------------------------------------------------------------
+    def predict(self, samples: np.ndarray,
+                input_rate: int = None) -> np.ndarray:
+        """Mono samples -> (n_frames, n_classes) activations.
+
+        Samples are 16 kHz unless ``input_rate`` says otherwise, in which
+        case they ship at that rate and are resampled on the device."""
+        out, n_valid = self.predict_async(samples, input_rate=input_rate)
+        return out.cpu().numpy()[:n_valid]
+
+    @torch.inference_mode()
+    def predict_async(self, samples: np.ndarray, input_rate: int = None):
+        """Dispatch without waiting; returns (device_tensor, n_valid).
+
+        On CUDA the kernels run asynchronously on the current stream; the
+        pipeline starts the copy back at once (runtime/inferer.py) and the
+        writer waits for it, so host decode overlaps device compute. The
+        tensor carries the chunk's id (``runtime/spans.py``).
+        """
+        self._need_head()
+        chunk = next(self._chunk_ids)
+        with span('buzzdetect.dispatch'):
+            mark(chunk)
+            samples = np.asarray(samples)
+            if self._native_rate(input_rate):
+                n_valid, n_model, t_model, t_native = self._plan_native(
+                    len(samples), input_rate)
+                wav = self._upload(self._pad_to(samples, t_native))
+                out = self._classify(wav, (int(input_rate), t_model, n_model))
+            else:
+                n_valid = self._valid(len(samples))
+                wav = self._pad_to(samples, self._padded(len(samples)))
+                out = self.classify_resident(self._upload(wav))
+        return tag(out, chunk), n_valid
+
+    @torch.inference_mode()
+    def predict_async_batch(self, samples_list, input_rate: int = None):
+        """Dispatch several chunks as ONE batched call. All chunks pad to the
+        largest needed length and, with ``input_rate``, share that native
+        rate. Returns (scores (B, P, C), [n_valid each]); the scores carry
+        the chunks' ids, one a row (``runtime/spans.py``)."""
+        self._need_head()
+        arrs = [np.asarray(s) for s in samples_list]
+        chunks = [next(self._chunk_ids) for _ in arrs]
+        with span('buzzdetect.dispatch'):
+            mark(chunks)
+            if self._native_rate(input_rate):
+                sr = self.sample_rate
+                n_models = [-(-len(a) * sr // input_rate) for a in arrs]
+                n_valids = [self._valid(n) for n in n_models]
+                t_model = self._padded(max(n_models))
+                t_native = -(-t_model * input_rate // sr)
+                batch = self._upload(
+                    np.stack([self._pad_to(a, t_native) for a in arrs]))
+                valid = torch.tensor(n_models, device=self.device)[:, None]
+                out = self._classify(batch, (int(input_rate), t_model, valid))
+            else:
+                n_valids = [self._valid(len(a)) for a in arrs]
+                target = self._padded(max(len(a) for a in arrs))
+                batch = np.stack([self._pad_to(a, target) for a in arrs])
+                out = self._classify(self._upload(batch))
+        return tag(out, chunks), n_valids
+
+    @torch.inference_mode()
+    def classify_resident(self, wav_device: torch.Tensor) -> torch.Tensor:
+        """Classify an already device-resident padded wire-format waveform
+        (no host staging): (n_frames, n_classes) on the device."""
+        self._need_head()
+        return self._classify(wav_device)
+
+    def warmup(self, chunk_samples: int):
+        """Run the nominal chunk length once (first-use allocations)."""
+        self.predict(np.zeros(chunk_samples, np.float32))
+
+
+class ChunkClassifier(WireClassifier):
+    """Callable classifier over variable-length chunks: YAMNet and a head.
 
     ``arrays`` are numpy parameters as a bundle holds them (see
     ``models/weights.params_from_numpy``). ``device`` is ``'cuda'`` unless
@@ -271,12 +443,7 @@ class ChunkClassifier:
         self.mode = (sepconv.resolve_mode(self.compute_dtype, precision)
                      if self.conv == 'pallas' else
                      'bf16' if precision == 'default' else 'highest')
-        # 'mulaw' rides int8 on the wire; linear int8 is not offered
-        self.transfer_name = str(transfer_dtype)
-        if self.transfer_name not in ('float32', 'int16', 'mulaw'):
-            raise ValueError('transfer_dtype must be float32, int16 or mulaw')
-        self.transfer_dtype = np.dtype(
-            'int8' if self.transfer_name == 'mulaw' else self.transfer_name)
+        self._init_wire(transfer_dtype)
         self.device = resolve_device(
             device if mesh is None else mesh_device(mesh, device))
         self.frontend = resolve_frontend(frontend, self.device, mesh)
@@ -290,8 +457,6 @@ class ChunkClassifier:
             for module in kernels.values():
                 module.load_kernels()
         self.params = params_from_numpy(arrays, self.device)
-        # each dispatched chunk's id in a profiler trace (runtime/spans.py)
-        self._chunk_ids = itertools.count()
         # the path's conv operands, packed once beside the f32 params
         self.params['yamnet'] = (
             sepconv.pack_params(self.params['yamnet'], self.mode)
@@ -304,134 +469,15 @@ class ChunkClassifier:
              for g, group in self.params.items()}
             for d in mesh.axis_devices('data')}
 
-    def to_wire(self, samples: np.ndarray) -> np.ndarray:
-        """Convert host samples to this classifier's wire dtype (no-op when
-        the decode stage already emitted it). int8 input is always mu-law;
-        int16 is linear PCM."""
-        if samples.dtype == self.transfer_dtype:
-            return samples
-        if samples.dtype == np.int16:
-            samples = samples.astype(np.float32) * (1.0 / 32768.0)
-        elif samples.dtype == np.int8:
-            y = samples.astype(np.float32) * (1.0 / 127.0)
-            samples = np.sign(y) * np.expm1(np.abs(y) * _LN256,
-                                            dtype=np.float32) * (1.0 / 255.0)
-        elif samples.dtype != np.float32:
-            samples = samples.astype(np.float32)
-        if self.transfer_name == 'int16':
-            return quantize_int16(samples)
-        if self.transfer_name == 'mulaw':
-            return encode_mulaw(samples)
-        return samples
+    def _valid(self, n_samples: int) -> int:
+        return num_patches(n_samples, self.cfg)
 
-    def _pad_to(self, samples: np.ndarray, target: int) -> np.ndarray:
-        """Zero-pad to ``target`` samples, converting to the wire dtype."""
-        with span('buzzdetect.wire'):
-            samples = self.to_wire(samples)
-            if len(samples) == target:
-                return samples
-            out = np.zeros(target, dtype=samples.dtype)
-            out[:len(samples)] = samples
-            return out
-
-    def _upload(self, wire: np.ndarray) -> torch.Tensor:
-        """Host wire buffer -> device tensor (pinned, non-blocking on CUDA)."""
-        with span('buzzdetect.upload'):
-            t = torch.from_numpy(np.ascontiguousarray(wire))
-            if self.device.type == 'cuda':
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t
-
-    def _plan_native(self, n_native: int, input_rate: int):
-        """Shape plan for a native-rate chunk resampled on the device: the
-        valid patch count and padded target in the MODEL-rate domain, plus
-        the native-rate length the host pads the wire buffer to so the
-        resampler produces at least ``target_model`` samples."""
-        sr = self.cfg.sample_rate
-        n_model = -(-n_native * sr // input_rate)  # ceil
-        n_valid = num_patches(n_model, self.cfg)
-        target_model = padded_length(n_model, self.cfg)
-        target_native = -(-target_model * input_rate // sr)
-        return n_valid, n_model, target_model, target_native
-
-    def _native_rate(self, input_rate):
-        """True when chunks at ``input_rate`` need resampling here."""
-        return bool(input_rate) and input_rate != self.cfg.sample_rate
+    def _padded(self, n_samples: int) -> int:
+        return padded_length(n_samples, self.cfg)
 
     def _need_head(self):
         if 'head' not in self.params:
             raise ValueError('this bundle has no classifier head; use embed()')
-
-    # --- public API ------------------------------------------------------------
-    def predict(self, samples: np.ndarray,
-                input_rate: int = None) -> np.ndarray:
-        """Mono samples -> (n_patches, n_classes) activations.
-
-        Samples are 16 kHz unless ``input_rate`` says otherwise, in which
-        case they ship at that rate and are resampled on the device."""
-        out, n_valid = self.predict_async(samples, input_rate=input_rate)
-        return out.cpu().numpy()[:n_valid]
-
-    @torch.inference_mode()
-    def predict_async(self, samples: np.ndarray, input_rate: int = None):
-        """Dispatch without waiting; returns (device_tensor, n_valid).
-
-        On CUDA the kernels run asynchronously on the current stream; the
-        pipeline starts the copy back at once (runtime/inferer.py) and the
-        writer waits for it, so host decode overlaps device compute. The
-        tensor carries the chunk's id (``runtime/spans.py``).
-        """
-        self._need_head()
-        chunk = next(self._chunk_ids)
-        with span('buzzdetect.dispatch'):
-            mark(chunk)
-            samples = np.asarray(samples)
-            if self._native_rate(input_rate):
-                n_valid, n_model, t_model, t_native = self._plan_native(
-                    len(samples), input_rate)
-                wav = self._upload(self._pad_to(samples, t_native))
-                out = self._classify(wav, (int(input_rate), t_model, n_model))
-            else:
-                n_valid = num_patches(len(samples), self.cfg)
-                wav = self._pad_to(samples,
-                                   padded_length(len(samples), self.cfg))
-                out = self.classify_resident(self._upload(wav))
-        return tag(out, chunk), n_valid
-
-    @torch.inference_mode()
-    def predict_async_batch(self, samples_list, input_rate: int = None):
-        """Dispatch several chunks as ONE batched call. All chunks pad to the
-        largest needed length and, with ``input_rate``, share that native
-        rate. Returns (scores (B, P, C), [n_valid each]); the scores carry
-        the chunks' ids, one a row (``runtime/spans.py``)."""
-        self._need_head()
-        arrs = [np.asarray(s) for s in samples_list]
-        chunks = [next(self._chunk_ids) for _ in arrs]
-        with span('buzzdetect.dispatch'):
-            mark(chunks)
-            if self._native_rate(input_rate):
-                sr = self.cfg.sample_rate
-                n_models = [-(-len(a) * sr // input_rate) for a in arrs]
-                n_valids = [num_patches(n, self.cfg) for n in n_models]
-                t_model = padded_length(max(n_models), self.cfg)
-                t_native = -(-t_model * input_rate // sr)
-                batch = self._upload(
-                    np.stack([self._pad_to(a, t_native) for a in arrs]))
-                valid = torch.tensor(n_models, device=self.device)[:, None]
-                out = self._classify(batch, (int(input_rate), t_model, valid))
-            else:
-                n_valids = [num_patches(len(a), self.cfg) for a in arrs]
-                target = padded_length(max(len(a) for a in arrs), self.cfg)
-                batch = np.stack([self._pad_to(a, target) for a in arrs])
-                out = self._classify(self._upload(batch))
-        return tag(out, chunks), n_valids
-
-    @torch.inference_mode()
-    def classify_resident(self, wav_device: torch.Tensor) -> torch.Tensor:
-        """Classify an already device-resident padded wire-format waveform
-        (no host staging): (n_patches, n_classes) on the device."""
-        self._need_head()
-        return self._classify(wav_device)
 
     def _classify(self, wavs: torch.Tensor,
                   resample_args=None) -> torch.Tensor:
@@ -453,7 +499,3 @@ class ChunkClassifier:
                                           self.conv_precision, self.conv),
             self.params, patches, self.mesh, self._replicas)
         return out.cpu().numpy()[:n_valid]
-
-    def warmup(self, chunk_samples: int):
-        """Run the nominal chunk length once (first-use allocations)."""
-        self.predict(np.zeros(chunk_samples, np.float32))

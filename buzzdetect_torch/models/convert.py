@@ -16,9 +16,17 @@ Sources understood:
   the snapshot mounted here lacks the blob, so conversion falls back to
   deterministic seeded initialization with the same shapes.
 
-Copy of ``buzzdetect_tpu/models/convert.py``, import prefix changed: the
-arrays are numpy, so a bundle written by either package loads in the
-other. ``tensorflow`` and ``h5py`` are imported only by the readers that
+* the Audio Spectrogram Transformer's published checkpoint (a PyTorch state
+  dict, e.g. ``audioset_10_10_0.4593.pth``: ``module.v.blocks.{i}.attn.
+  qkv.weight``, ``module.mlp_head.1.bias``, ...), by ``ast_npz_from_state_
+  dict`` and ``convert_ast_checkpoint`` (``python -m buzzdetect_torch.models.
+  convert ast <checkpoint.pth> <model dir>``): the arrays under the names
+  ``models/ast.param_shapes`` gives, and a ``config_model.json`` naming
+  ``"architecture": "ast"`` with the sizes the shapes give.
+
+Beside the AST branch, a copy of ``buzzdetect_tpu/models/convert.py``,
+import prefix changed: the arrays are numpy, so a bundle written by either
+package loads in the other. ``tensorflow`` and ``h5py`` are imported only by the readers that
 need them, so a machine without them still builds seeded bundles and
 merges ensembles.
 """
@@ -297,3 +305,100 @@ def build_ensemble_bundle(member_dirs: list, dir_out: str):
     }
     save_bundle(dir_out, arrays, config)
     return arrays, config
+
+
+# --- the Audio Spectrogram Transformer ----------------------------------------
+
+def ast_config_from_state_dict(state: dict, num_heads: int = 12,
+                               input_fdim: int = 128, input_tdim: int = 1024,
+                               fstride: int = 10, tstride: int = 10):
+    """The ``models/ast.ASTConfig`` of a published AST state dict: width,
+    depth, MLP, classes and patch size from its shapes; the heads, the input
+    frames and bins and the strides, which no shape gives, as published
+    unless stated, and held to the position embedding's token count."""
+    from buzzdetect_torch.models.ast import ASTConfig
+    w = _ast_arrays(state)
+    cfg = ASTConfig(
+        embed_dim=w['v.pos_embed'].shape[-1],
+        depth=1 + max(int(k.split('.')[2]) for k in w
+                      if k.startswith('v.blocks.')),
+        num_heads=num_heads, mlp_dim=w['v.blocks.0.mlp.fc1.weight'].shape[0],
+        label_dim=w['mlp_head.1.weight'].shape[0], input_fdim=input_fdim,
+        input_tdim=input_tdim,
+        patch_size=w['v.patch_embed.proj.weight'].shape[-1],
+        fstride=fstride, tstride=tstride)
+    if cfg.tokens != w['v.pos_embed'].shape[1]:
+        raise ValueError(f'the position embedding holds '
+                         f'{w["v.pos_embed"].shape[1]} tokens; {input_fdim} x '
+                         f'{input_tdim} at strides ({fstride}, {tstride}) '
+                         f'give {cfg.tokens}')
+    return cfg
+
+
+def _ast_arrays(state: dict) -> dict:
+    """A state dict's tensors as f32 numpy arrays, DataParallel's
+    ``module.`` prefix taken off."""
+    out = {}
+    for k, v in state.items():
+        name = k[len('module.'):] if k.startswith('module.') else k
+        out[name] = np.asarray(v.detach().cpu().float().numpy()
+                               if hasattr(v, 'detach') else v, np.float32)
+    return out
+
+
+def ast_npz_from_state_dict(state: dict, cfg) -> dict:
+    """The port's AST arrays from a published state dict: every name of
+    ``models/ast.param_shapes(cfg)``, at its shape; DeiT's unused heads
+    (``v.head``, ``v.head_dist``) left out; a missing name or a wrong shape
+    raises."""
+    from buzzdetect_torch.models.ast import check_params, param_shapes
+    arrays = _ast_arrays(state)
+    out = {name: arrays[name] for name in param_shapes(cfg)
+           if name in arrays}
+    check_params(out, cfg)
+    return out
+
+
+def convert_ast_checkpoint(path: str, dir_out: str, **sizes):
+    """``torch.load`` a published AST checkpoint (a state dict) and write
+    ``dir_out/model.npz`` and ``config_model.json``; returns the config.
+    ``sizes``: what ``ast_config_from_state_dict`` takes beside the state."""
+    import dataclasses
+
+    import torch
+    state = torch.load(path, map_location='cpu', weights_only=True)
+    cfg = ast_config_from_state_dict(state, **sizes)
+    arrays = ast_npz_from_state_dict(state, cfg)
+    config = {
+        'architecture': 'ast',
+        'embeddername': 'ast',
+        'digits_results': 2,
+        'sizes': dataclasses.asdict(cfg),
+        'provenance': f'converted from {os.path.basename(path)} '
+                      f'(models/convert.convert_ast_checkpoint)',
+    }
+    save_bundle(dir_out, arrays, config)
+    return config
+
+
+def main(argv=None):
+    """``python -m buzzdetect_torch.models.convert ast <checkpoint.pth>
+    <model dir> [--heads 12] [--tdim 1024]``."""
+    import argparse
+    ap = argparse.ArgumentParser(description='convert a published '
+                                 'checkpoint into a model directory')
+    ap.add_argument('architecture', choices=['ast'])
+    ap.add_argument('checkpoint')
+    ap.add_argument('dir_out')
+    ap.add_argument('--heads', type=int, default=12)
+    ap.add_argument('--tdim', type=int, default=1024,
+                    help='frames a window (the model\'s input_tdim)')
+    args = ap.parse_args(argv)
+    config = convert_ast_checkpoint(args.checkpoint, args.dir_out,
+                                    num_heads=args.heads,
+                                    input_tdim=args.tdim)
+    print(f'wrote {args.dir_out}: AST {config["sizes"]}')
+
+
+if __name__ == '__main__':
+    main()

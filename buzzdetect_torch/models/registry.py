@@ -9,7 +9,11 @@ models without touching the framework. Additionally (superset), a model
 directory containing a ``model.npz`` bundle needs *no* Python plugin — the
 built-in :class:`BundleModel` runs it on one torch device (``'cuda'`` unless
 the caller asks for ``'cpu'``), or split over a device mesh (``mesh=``,
-``sharding=``).
+``sharding=``). A directory whose ``config_model.json`` names
+``"architecture": "ast"`` is the Audio Spectrogram Transformer
+(:class:`ASTModel`, ``models/ast.py``), with its weights from
+``model.npz`` where one is present, else from the seed the file gives
+(``"weights": "seeded"``).
 
 Counterpart of ``buzzdetect_tpu/models/registry.py``.
 """
@@ -148,12 +152,43 @@ class EmbedderYamnet(BaseEmbedder):
         return self._classifier.embed(samples)
 
 
+class EmbedderAST(BaseEmbedder):
+    """The Audio Spectrogram Transformer's frame contract: windows of
+    ``input_tdim`` 10 ms fbank frames (10.24 s at the published 1024), their
+    hop ``framehop_prop`` of a window snapped to whole frames, and a
+    look-ahead of one frame's tail (25 ms - 10 ms). Its scores come from
+    :class:`ASTModel`; ``embed`` is not offered."""
+
+    embeddername = 'ast'
+    digits_time = 2
+    samplerate = 16000
+
+    def __init__(self, framehop_prop: float = 1.0, cfg=None):
+        from buzzdetect_torch.models import ast
+        from buzzdetect_torch.ops.logmel import HOP, WINDOW
+        cfg = ast.ASTConfig() if cfg is None else cfg
+        self.framelength_s = cfg.input_tdim * HOP / self.samplerate
+        self.lookahead_s = (WINDOW - HOP) / self.samplerate
+        self.n_embeddings = cfg.embed_dim
+        super().__init__(framehop_prop)
+        self.framehop_s = (ast.window_hop_frames(cfg, framehop_prop) * HOP
+                           / self.samplerate)
+
+    def initialize(self):
+        pass
+
+    def embed(self, samples):
+        raise NotImplementedError('the AST model gives scores, not '
+                                  'embeddings; use predict()')
+
+
 # 'yamnet_k2' resolves to the same native embedder: reference model configs
 # name it (`models/model_general_v3/config_model.json`), and its only reason
 # to exist — a faster restricted-framehop SavedModel — is moot here.
 BUILTIN_EMBEDDERS = {
     'yamnet': EmbedderYamnet,
     'yamnet_k2': EmbedderYamnet,
+    'ast': EmbedderAST,
 }
 
 
@@ -259,6 +294,87 @@ class BundleModel(BaseModel):
         self.classifier.warmup(chunk_samples)
 
 
+class ASTModel(BundleModel):
+    """The Audio Spectrogram Transformer of a model directory whose
+    ``config_model.json`` names ``"architecture": "ast"``: its ``sizes``
+    (``models/ast.ASTConfig``), its weights from ``model.npz`` where one is
+    present, else, where the file says ``"weights": "seeded"``, from
+    ``models/ast.seeded_params`` at its ``seed``. Class names are the file's
+    ``classes``, or ``audioset_000`` .. where it has none. One device, the
+    int16 wire by default; the YAMNet options (``frontend``, ``conv``, a
+    mesh) are refused, and ``conv_precision`` may only say exact f32."""
+
+    supports_device_resample = False
+
+    def __init__(self, dir_model: str, framehop_prop: float = 1.0,
+                 compute_dtype=None, sharding=None, mesh=None,
+                 transfer_dtype=None, frontend=None, conv=None, device='cuda',
+                 conv_precision=None):
+        from buzzdetect_torch.models import ast
+        self.dir_model = dir_model
+        self.framehop_prop = framehop_prop
+        self.modelname = os.path.basename(dir_model.rstrip('/'))
+        with open(os.path.join(dir_model, 'config_model.json')) as f:
+            self.config = json.load(f)
+        if self.config.get('architecture') != 'ast':
+            raise ValueError(f'{dir_model}: not an AST model directory')
+        if sharding is not None or mesh is not None:
+            raise ValueError('the AST model runs on one device: no mesh')
+        if (frontend not in (None, 'auto') or conv not in (None, 'auto')
+                or conv_precision not in (None, 'auto', 'highest')):
+            raise ValueError('frontend, conv and conv_precision are YAMNet '
+                             'options; the AST model takes none of them')
+        self.ast_config = ast.ASTConfig.from_sizes(self.config['sizes'])
+        self.config.setdefault('classes', [
+            f'audioset_{i:03d}' for i in range(self.ast_config.label_dim)])
+        self.embeddername = 'ast'
+        self.digits_results = self.config.get('digits_results', 2)
+        self._compute_dtype = compute_dtype
+        self._sharding = self._mesh = None
+        self._device = resolve_device(device)
+        self._transfer_dtype = (transfer_dtype
+                                or self.config.get('transfer_dtype')
+                                or 'int16')
+        self.classifier = None
+        self._init_lock = threading.Lock()
+        self.embedder = EmbedderAST(framehop_prop, self.ast_config)
+
+    def weights(self) -> dict:
+        """The parameters: ``model.npz``, or the seeded ones."""
+        from buzzdetect_torch.models import ast
+        import numpy as np
+        path = os.path.join(self.dir_model, 'model.npz')
+        if os.path.exists(path):
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+        if self.config.get('weights') != 'seeded':
+            raise FileNotFoundError(
+                f'{self.dir_model}: no model.npz, and config_model.json does '
+                f'not say "weights": "seeded"')
+        return ast.seeded_params(self.ast_config, self.config['seed'])
+
+    def initialize(self):
+        from buzzdetect_torch.models import ast
+        with self._init_lock:
+            if self.classifier is not None:
+                return
+            self.classifier = ast.ASTClassifier(
+                self.weights(), self.ast_config,
+                framehop_prop=self.framehop_prop,
+                compute_dtype=self._compute_dtype, device=self._device,
+                transfer_dtype=self._transfer_dtype)
+
+
+def _architecture(dir_model: str):
+    """The ``architecture`` a model directory's ``config_model.json`` names,
+    or None."""
+    path = os.path.join(dir_model, 'config_model.json')
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f).get('architecture')
+
+
 def _import_plugin(path_py: str, base_class):
     """Import a plugin module and instantiate its unique Base subclass."""
     name = f'buzzdetect_plugin_{abs(hash(path_py))}'
@@ -331,6 +447,8 @@ def load_model(modelname: str, framehop_prop: float = 1.0,
                conv_precision=None) -> BaseModel:
     """Resolve a model by directory name.
 
+    ``models/<name>/config_model.json`` naming ``"architecture": "ast"`` ->
+    ASTModel on ``device``;
     ``models/<name>/model.npz`` -> built-in BundleModel on ``device``, or
     over ``mesh`` (of ``device``'s type);
     otherwise ``models/<name>/model.py`` -> user plugin class.
@@ -341,7 +459,13 @@ def load_model(modelname: str, framehop_prop: float = 1.0,
     if not os.path.isdir(dir_model):
         raise FileNotFoundError(f'no model directory: {dir_model}')
 
-    if os.path.exists(os.path.join(dir_model, 'model.npz')):
+    if _architecture(dir_model) == 'ast':
+        model = ASTModel(dir_model, framehop_prop,
+                         compute_dtype=compute_dtype, sharding=sharding,
+                         mesh=mesh, transfer_dtype=transfer_dtype,
+                         frontend=frontend, conv=conv, device=device,
+                         conv_precision=conv_precision)
+    elif os.path.exists(os.path.join(dir_model, 'model.npz')):
         model = BundleModel(dir_model, framehop_prop,
                             compute_dtype=compute_dtype, sharding=sharding,
                             mesh=mesh, transfer_dtype=transfer_dtype,

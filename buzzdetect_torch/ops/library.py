@@ -1,9 +1,12 @@
 """The hand kernels as ``torch.library`` custom operators.
 
-``buzzdetect::fused_front``, ``buzzdetect::fused_tail`` and
-``buzzdetect::log_mel`` are the one route to the kernels of
-``csrc/sepconv.cu`` and ``csrc/logmel.cu``: the wrappers of
-``ops/sepconv.py`` and ``ops/logmel.py`` call them on a CUDA tensor, and a
+``buzzdetect::fused_front``, ``buzzdetect::fused_tail``,
+``buzzdetect::log_mel``, ``buzzdetect::attention``,
+``buzzdetect::bias_epilogue`` and ``buzzdetect::bias_residual`` are the one
+route to the kernels of ``csrc/sepconv.cu``, ``csrc/logmel.cu``,
+``csrc/attention.cu`` and ``csrc/epilogue.cu``: the wrappers of
+``ops/sepconv.py``, ``ops/logmel.py``, ``ops/attention.py`` and
+``ops/epilogue.py`` call them on a CUDA tensor, and a
 ``torch.export`` program records them by name, so a serving artifact
 (``models/export.py``) runs the same kernels. The JAX package has no
 counterpart: its ``conv='pallas'`` export bakes the Mosaic kernel into the
@@ -24,13 +27,17 @@ pointwise operand, pointwise bias), the layer range as ints and the mode
 as a string; the log-mel's constants (``logmel._operands``: the window and
 twiddle tables, the mel matrix) as a ``Tensor[]``, with the frame geometry
 as ints and ``log_offset`` as a float. The log-mel takes f32 samples or
-the int16 wire.
+the int16 wire; ``geometry='kaldi'`` selects the Kaldi fbank, whose floor
+rides in ``log_offset`` and whose normalisation in ``shift`` and
+``scale``. The attention takes the (B, n, 3C) qkv product, the head count
+and the scale.
 """
 
 import torch
 from torch import Tensor
 
-from buzzdetect_torch.ops import logmel, sepconv
+from buzzdetect_torch.ops import attention as attention_lib
+from buzzdetect_torch.ops import epilogue, logmel, sepconv
 
 NAMESPACE = 'buzzdetect'
 
@@ -100,18 +107,69 @@ def _log_mel_frames(n, window, hop):
 @torch.library.custom_op(f'{NAMESPACE}::log_mel', mutates_args=(),
                          device_types='cuda')
 def log_mel(waveform: Tensor, constants: list[Tensor], window: int,
-            hop: int, log_offset: float) -> Tensor:
+            hop: int, log_offset: float, geometry: str = 'yamnet',
+            shift: float = 0.0, scale: float = 1.0) -> Tensor:
     """(B, n) contiguous f32 or int16 waveforms -> (B, n_frames, 64) f32
-    log-mel; ``constants`` is ``[tables, mel]`` of ``logmel._operands``."""
+    log-mel; ``constants`` is ``[tables, mel]`` of ``logmel._operands``.
+    ``geometry='kaldi'``: (B, n_frames, 128), (log(max(fbank, log_offset))
+    + shift) / scale."""
     _log_mel_frames(waveform.shape[-1], window, hop)
     tables, mel = constants
-    out = logmel._launch_operands(waveform, tables, mel, log_offset)
+    out = logmel._launch_operands(waveform, tables, mel, log_offset,
+                                  kind=geometry, shift=shift, divisor=scale)
     sepconv._count_launch(logmel.log_mel_spectrogram_fused)
     return out
 
 
 @log_mel.register_fake
-def _(waveform, constants, window, hop, log_offset):
+def _(waveform, constants, window, hop, log_offset, geometry='yamnet',
+      shift=0.0, scale=1.0):
     n_frames = _log_mel_frames(waveform.shape[-1], window, hop)
-    return waveform.new_empty((waveform.shape[0], n_frames, logmel.MELS),
+    return waveform.new_empty((waveform.shape[0], n_frames,
+                               logmel.GEOMETRIES[geometry][-1]),
                               dtype=torch.float32)
+
+
+@torch.library.custom_op(f'{NAMESPACE}::attention', mutates_args=(),
+                         device_types='cuda')
+def attention(qkv: Tensor, heads: int, scale: float) -> Tensor:
+    """(B, n, 3 heads 64) contiguous f32 or bf16 -> (B, n, heads 64) in the
+    same dtype: softmax(q k^T * scale) v of each head."""
+    out = attention_lib._launch(qkv, heads, scale)
+    sepconv._count_launch(attention_lib.attention)
+    return out
+
+
+@attention.register_fake
+def _(qkv, heads, scale):
+    b, n, _ = qkv.shape
+    return qkv.new_empty((b, n, heads * attention_lib.HEAD_DIM))
+
+
+@torch.library.custom_op(f'{NAMESPACE}::bias_epilogue', mutates_args=(),
+                         device_types='cuda')
+def bias_epilogue(y: Tensor, bias: Tensor, mode: str) -> Tensor:
+    """(rows, cols) f32 product output and (cols) f32 bias -> the bf16
+    operand of mode 'bias_bf16' or 'bias_gelu_bf16' (``ops/epilogue``)."""
+    out = torch.empty(y.shape, dtype=torch.bfloat16, device=y.device)
+    epilogue._launch(mode, y, bias, out)
+    sepconv._count_launch(epilogue.apply)
+    return out
+
+
+@bias_epilogue.register_fake
+def _(y, bias, mode):
+    return y.new_empty(y.shape, dtype=torch.bfloat16)
+
+
+@torch.library.custom_op(f'{NAMESPACE}::bias_residual', mutates_args=('x',),
+                         device_types='cuda')
+def bias_residual(x: Tensor, y: Tensor, bias: Tensor) -> None:
+    """x += y + bias, in place: (rows, cols) f32 x and y, (cols) f32 bias."""
+    epilogue._launch('bias_residual', y, bias, x)
+    sepconv._count_launch(epilogue.apply)
+
+
+@bias_residual.register_fake
+def _(x, y, bias):
+    return None

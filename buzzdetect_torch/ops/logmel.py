@@ -20,9 +20,19 @@ reads.
 The plain version frames the waveform with ``unfold`` and multiplies by the
 (400, 514) windowed-DFT matrix: the same function as the kernel and as the
 matmul frontend of ``ops/frontend.py``, formulated on its own.
+
+The kernel has a second geometry, the Kaldi fbank of the Audio
+Spectrogram Transformer (``KaldiFbankConfig``, ``models/ast.py``): the same
+frames, FFT and wire, and per frame its mean subtracted, a 0.97
+pre-emphasis and a symmetric Hann window before the FFT, the power
+spectrum, a (257, 128) Kaldi mel matrix, log(max(e, floor)) and AST's
+normalisation, out as ``(n_frames, 128)``. ``_check_geometry`` takes these
+two and refuses any other; the wrapper, the operator and the plain version
+follow the configuration's type.
 """
 
 import ctypes
+from dataclasses import dataclass
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -39,25 +49,75 @@ WIRES = (torch.float32, torch.int16)
 INT16_SCALE = 1.0 / 32768.0
 
 
-def _check_geometry(cfg):
+@dataclass(frozen=True)
+class KaldiFbankConfig:
+    """The Audio Spectrogram Transformer's fbank: ``torchaudio.compliance.
+    kaldi.fbank`` with the settings AST passes (``htk_compat=True``,
+    ``use_energy=False``, ``window_type='hanning'``, ``num_mel_bins=128``,
+    ``dither=0``, ``frame_shift=10``; frames of 25 ms with ``snip_edges``,
+    each frame's mean removed, pre-emphasis 0.97, a symmetric Hann window,
+    the power spectrum of a 512-point FFT, Kaldi mel bands over 20-8000 Hz,
+    log(max(e, float32 eps))) at 16 kHz, then AST's normalisation
+    (x - norm_mean) / (2 norm_std) with the AudioSet statistics."""
+    sample_rate: int = 16000
+    window_samples: int = WINDOW
+    hop_samples: int = HOP
+    fft_length: int = FFT
+    mel_bands: int = 128
+    mel_min_hz: float = 20.0
+    mel_max_hz: float = 8000.0
+    preemphasis: float = 0.97
+    floor: float = float(np.finfo(np.float32).eps)
+    norm_mean: float = -4.2677393
+    norm_std: float = 4.5689974
+
+    @property
+    def fft_bins(self) -> int:
+        return self.fft_length // 2 + 1
+
+    @property
+    def shift(self) -> float:
+        """What the normalisation adds to the log fbank."""
+        return -self.norm_mean
+
+    @property
+    def divisor(self) -> float:
+        """What the normalisation divides by."""
+        return self.norm_std * 2
+
+
+# the geometries the kernel takes: (frame, hop, FFT, bins, bands) of each
+GEOMETRIES = {'yamnet': (WINDOW, HOP, FFT, FFT // 2 + 1, MELS),
+              'kaldi': (WINDOW, HOP, FFT, FFT // 2 + 1, 128)}
+
+
+def _check_geometry(cfg) -> str:
+    """'kaldi' for a ``KaldiFbankConfig`` of the Kaldi geometry, 'yamnet'
+    for any other configuration of YAMNet's; a ValueError otherwise."""
+    kind = 'kaldi' if isinstance(cfg, KaldiFbankConfig) else 'yamnet'
     if (cfg.window_samples, cfg.hop_samples, cfg.fft_length, cfg.fft_bins,
-            cfg.mel_bands) != (WINDOW, HOP, FFT, FFT // 2 + 1, MELS):
+            cfg.mel_bands) != GEOMETRIES[kind]:
         raise ValueError(
             'the fused log-mel kernel is specialized to the YAMNet geometry '
             '(400-sample frames at hop 160, a 512-point FFT, 257 bins, 64 '
-            'mel bands)')
+            'mel bands) and to the Kaldi fbank geometry of AST (the same '
+            'frames and FFT, 128 mel bands)')
+    return kind
 
 
-def fft_tables(window_samples: int = WINDOW, fft_length: int = FFT):
+def fft_tables(window_samples: int = WINDOW, fft_length: int = FFT,
+               symmetric: bool = False):
     """The kernel's constants besides the mel matrix, each computed in
-    float64 and rounded once to f32: the periodic Hann window halved (the
-    kernel's even/odd split of the packed FFT then needs no 1/2; halving is
-    exact), ``W256^e = exp(-2 pi i e / 256)`` for e < 256, ``W512^k`` for
-    k < 128, and pass 1's twiddles ``W256^(t k2)`` at [k2, t] (t, k2 < 16:
-    the same values as ``W256[t k2]``, in the order the kernel's lanes read
-    them), each as (re, im) rows."""
+    float64 and rounded once to f32: the Hann window halved (periodic, or
+    with ``symmetric`` the Kaldi geometry's 0.5 - 0.5 cos(2 pi n / (N - 1));
+    the kernel's even/odd split of the packed FFT then needs no 1/2;
+    halving is exact), ``W256^e = exp(-2 pi i e / 256)`` for e < 256,
+    ``W512^k`` for k < 128, and pass 1's twiddles ``W256^(t k2)`` at [k2, t]
+    (t, k2 < 16: the same values as ``W256[t k2]``, in the order the
+    kernel's lanes read them), each as (re, im) rows."""
     n = np.arange(window_samples, dtype=np.float64)
-    hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / window_samples)
+    hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / (
+        window_samples - 1 if symmetric else window_samples))
     half = fft_length // 2
 
     def roots(count, order):
@@ -80,14 +140,18 @@ def _operands(cfg, device):
     key = (cfg, device)
     ops = _OPERANDS.get(key)
     if ops is None:
-        w_re, w_im = mel_lib.windowed_rdft_matrices(cfg.window_samples,
-                                                    cfg.fft_length)
+        kaldi = _check_geometry(cfg) == 'kaldi'
+        w_re, w_im = mel_lib.windowed_rdft_matrices(
+            cfg.window_samples, cfg.fft_length, symmetric=kaldi)
         dft = np.concatenate([w_re, w_im], axis=1)
-        mel = mel_lib.mel_weight_matrix(cfg.mel_bands, cfg.fft_bins,
+        mel = (mel_lib.kaldi_mel_matrix(cfg.mel_bands, cfg.fft_length,
                                         cfg.sample_rate, cfg.mel_min_hz,
-                                        cfg.mel_max_hz)
+                                        cfg.mel_max_hz) if kaldi else
+               mel_lib.mel_weight_matrix(cfg.mel_bands, cfg.fft_bins,
+                                         cfg.sample_rate, cfg.mel_min_hz,
+                                         cfg.mel_max_hz))
         tables = np.concatenate([t.reshape(-1) for t in fft_tables(
-            cfg.window_samples, cfg.fft_length)])
+            cfg.window_samples, cfg.fft_length, symmetric=kaldi)])
         ops = _OPERANDS[key] = {
             k: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
             for k, a in (('dft', dft), ('mel', mel), ('tables', tables))}
@@ -107,15 +171,27 @@ def log_mel_spectrogram_fused_plain(waveform: torch.Tensor,
                                     cfg) -> torch.Tensor:
     """Plain version of ``log_mel_spectrogram_fused``: frames by ``unfold``,
     one (400 x 514) DFT product, magnitude, mel product, log, on the
-    wrapper's samples (``_samples``). f32 with TF32 off."""
+    wrapper's samples (``_samples``). f32 with TF32 off. The Kaldi geometry
+    removes each frame's mean and pre-emphasises it first, takes the power,
+    and ends in log(max(e, floor)) and the normalisation."""
     exact_f32()
+    kaldi = _check_geometry(cfg) == 'kaldi'
     ops = _operands(cfg, waveform.device)
     frames = _samples(waveform).unfold(-1, cfg.window_samples,
                                        cfg.hop_samples)
+    if kaldi:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+        before = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - cfg.preemphasis * before
     spectrum = torch.matmul(frames, ops['dft'])  # (..., n_frames, 2*bins)
     re, im = spectrum.split(cfg.fft_bins, dim=-1)
-    magnitude = torch.sqrt(re * re + im * im)
-    return torch.log(torch.matmul(magnitude, ops['mel']) + cfg.log_offset)
+    power = re * re + im * im
+    if kaldi:
+        fbank = torch.matmul(power, ops['mel'])
+        return (torch.log(torch.clamp_min(fbank, cfg.floor)) + cfg.shift) \
+            / cfg.divisor
+    return torch.log(torch.matmul(torch.sqrt(power), ops['mel'])
+                     + cfg.log_offset)
 
 
 # --- launch geometry -------------------------------------------------------------
@@ -194,12 +270,20 @@ def bind(lib):
                          'design (no bz_logmel_blocks); it takes other '
                          'operands and cannot be called here')
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    i64 = ctypes.c_longlong
+    i64, f32 = ctypes.c_longlong, ctypes.c_float
     lib.bz_logmel.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i64, i64, i32,
-                              ctypes.c_float, i32, ptr]
+                              f32, i32, ptr]
     lib.bz_logmel.restype = i32
     lib.bz_logmel_blocks.argtypes = [i32, ctypes.POINTER(i32)]
     lib.bz_logmel_blocks.restype = i32
+    # a build from before the Kaldi geometry lacks these; only that
+    # geometry needs them
+    if hasattr(lib, 'bz_fbank_kaldi'):
+        lib.bz_fbank_kaldi.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i64, i64,
+                                       i32, f32, f32, f32, i32, ptr]
+        lib.bz_fbank_kaldi.restype = i32
+        lib.bz_fbank_kaldi_blocks.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.bz_fbank_kaldi_blocks.restype = i32
     lib.bz_logmel_error_string.argtypes = [i32]
     lib.bz_logmel_error_string.restype = ctypes.c_char_p
     return lib
@@ -214,18 +298,24 @@ def _check_code(lib, name, code):
 _CARDS = {}
 
 
-def _card(device, lib):
+# the C entries of each geometry: launch, blocks an SM runs at once
+ENTRIES = {'yamnet': ('bz_logmel', 'bz_logmel_blocks'),
+           'kaldi': ('bz_fbank_kaldi', 'bz_fbank_kaldi_blocks')}
+
+
+def _card(device, lib, kind='yamnet'):
     """(SM count, {FT: blocks an SM runs at once}) of ``device`` for
-    ``lib``, queried once."""
-    key = (device, id(lib))
+    ``lib``'s instantiation of geometry ``kind``, queried once."""
+    key = (device, id(lib), kind)
     card = _CARDS.get(key)
     if card is None:
         blocks = {}
+        name = ENTRIES[kind][1]
         with device_scope(device):
             for ft in FRAME_TILES:
                 count = ctypes.c_int(0)
-                _check_code(lib, 'bz_logmel_blocks',
-                            lib.bz_logmel_blocks(ft, ctypes.byref(count)))
+                _check_code(lib, name, getattr(lib, name)(
+                    ft, ctypes.byref(count)))
                 blocks[ft] = count.value
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         card = _CARDS[key] = (sms, blocks)
@@ -233,23 +323,29 @@ def _card(device, lib):
 
 
 @lru_cache(maxsize=256)
-def _geometry(device, n_frames, batch, lib):
-    return launch_geometry(n_frames, batch, *_card(device, lib))
+def _geometry(device, n_frames, batch, lib, kind='yamnet'):
+    return launch_geometry(n_frames, batch, *_card(device, lib, kind))
 
 
-def geometry_on(device, n_frames: int, batch: int, lib=None) -> Geometry:
+def geometry_on(device, n_frames: int, batch: int, lib=None,
+                kind: str = 'yamnet') -> Geometry:
     """The geometry the kernel launches with for this shape on ``device``
-    (a CUDA device)."""
+    (a CUDA device), in geometry ``kind`` ('yamnet' or 'kaldi')."""
     return _geometry(device, n_frames, batch,
-                     load_kernels() if lib is None else lib)
+                     load_kernels() if lib is None else lib, kind)
 
 
 def _launch(waveform, cfg, lib=None, ft=None):
     """(B, n) contiguous f32 or int16 CUDA waveforms -> (B, n_frames, 64)
     through ``bz_logmel`` of this checkout's library, or of ``lib``
     (another build of ``csrc/logmel.cu``, bound by ``bind``), at the tile
-    ``ft`` or at ``launch_geometry``'s."""
+    ``ft`` or at ``launch_geometry``'s; in the Kaldi geometry (B, n_frames,
+    128) through ``bz_fbank_kaldi``."""
     ops = _operands(cfg, waveform.device)
+    if _check_geometry(cfg) == 'kaldi':
+        return _launch_operands(waveform, ops['tables'], ops['mel'],
+                                cfg.floor, lib, ft, 'kaldi', cfg.shift,
+                                cfg.divisor)
     return _launch_operands(waveform, ops['tables'], ops['mel'],
                             cfg.log_offset, lib, ft)
 
@@ -268,10 +364,13 @@ def _paired_rows(waveform):
     return waveform
 
 
-def _launch_operands(waveform, tables, mel, log_offset, lib=None, ft=None):
+def _launch_operands(waveform, tables, mel, log_offset, lib=None, ft=None,
+                     kind='yamnet', shift=0.0, divisor=1.0):
     """``_launch`` on the constants of ``_operands`` as given: the CUDA
-    implementation of the ``buzzdetect::log_mel`` operator."""
+    implementation of the ``buzzdetect::log_mel`` operator. In the Kaldi
+    geometry ``log_offset`` is the floor."""
     lib = load_kernels() if lib is None else lib
+    bands = GEOMETRIES[kind][-1]
     b, n = waveform.shape
     n_frames = 1 + (n - WINDOW) // HOP
     device = waveform.device
@@ -283,17 +382,24 @@ def _launch_operands(waveform, tables, mel, log_offset, lib=None, ft=None):
                 or t.device != device:
             raise ValueError(f'{name}: expected a contiguous float32 tensor '
                              f'on {device}, got {t.dtype} on {t.device}')
-    out = torch.empty((b, n_frames, MELS), dtype=torch.float32, device=device)
+    if mel.shape[-1] != bands:
+        raise ValueError(f'mel: expected {bands} bands for the {kind} '
+                         f'geometry, got {tuple(mel.shape)}')
+    out = torch.empty((b, n_frames, bands), dtype=torch.float32,
+                      device=device)
     if ft is None:
-        ft = geometry_on(device, n_frames, b, lib).ft
+        ft = geometry_on(device, n_frames, b, lib, kind).ft
+    entry = ENTRIES[kind][0]
+    post = ((float(log_offset),) if kind == 'yamnet' else
+            (float(log_offset), float(shift), float(divisor)))
     with device_scope(device):
         x = _paired_rows(waveform)
-        code = lib.bz_logmel(x.data_ptr(), WIRES.index(x.dtype),
-                             out.data_ptr(), tables.data_ptr(),
-                             mel.data_ptr(), b, n, x.shape[1], n_frames,
-                             float(log_offset), ft,
-                             torch.cuda.current_stream().cuda_stream)
-    _check_code(lib, 'bz_logmel', code)
+        code = getattr(lib, entry)(x.data_ptr(), WIRES.index(x.dtype),
+                                   out.data_ptr(), tables.data_ptr(),
+                                   mel.data_ptr(), b, n, x.shape[1],
+                                   n_frames, *post, ft,
+                                   torch.cuda.current_stream().cuda_stream)
+    _check_code(lib, entry, code)
     return out
 
 
@@ -301,8 +407,9 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor, cfg) -> torch.Tensor:
     """Padded (n,) or (B, n) waveform -> (n_frames, 64) or (B, n_frames, 64)
     log-mel. f32 samples or the int16 wire (scaled by 2^-15; other types
     are converted to f32 first). Matches ``ops.frontend.log_mel_spectrogram``
-    on the same samples to f32 rounding."""
-    _check_geometry(cfg)
+    on the same samples to f32 rounding. With a ``KaldiFbankConfig``, the
+    Kaldi fbank, (n_frames, 128) or (B, n_frames, 128)."""
+    kind = _check_geometry(cfg)
     if waveform.dim() not in (1, 2):
         raise ValueError(f'expected a (n,) or (B, n) waveform, got '
                          f'{tuple(waveform.shape)}')
@@ -315,10 +422,17 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor, cfg) -> torch.Tensor:
     x = waveform if waveform.dtype in WIRES else waveform.to(torch.float32)
     x = x.contiguous()
     ops = _operands(cfg, x.device)
-    out = library.log_mel(x.reshape(-1, x.shape[-1]),
-                          [ops['tables'], ops['mel']],
-                          cfg.window_samples, cfg.hop_samples,
-                          cfg.log_offset)
+    if kind == 'kaldi':
+        out = library.log_mel(x.reshape(-1, x.shape[-1]),
+                              [ops['tables'], ops['mel']],
+                              cfg.window_samples, cfg.hop_samples, cfg.floor,
+                              geometry=kind, shift=cfg.shift,
+                              scale=cfg.divisor)
+    else:
+        out = library.log_mel(x.reshape(-1, x.shape[-1]),
+                              [ops['tables'], ops['mel']],
+                              cfg.window_samples, cfg.hop_samples,
+                              cfg.log_offset)
     return out if waveform.dim() == 2 else out[0]
 
 

@@ -34,8 +34,11 @@ def hann_window_periodic(length: int, dtype=np.float32):
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / length)).astype(dtype)
 
 
-def windowed_rdft_matrices(frame_length: int, fft_length: int, dtype=np.float32):
-    """Real-input DFT as matmul, with the Hann window folded in.
+def windowed_rdft_matrices(frame_length: int, fft_length: int,
+                           dtype=np.float32, symmetric: bool = False):
+    """Real-input DFT as matmul, with the Hann window folded in (periodic;
+    with ``symmetric`` 0.5 - 0.5 cos(2 pi n / (frame_length - 1)), Kaldi's
+    'hanning').
 
     Returns ``(w_real, w_imag)`` of shape ``(frame_length, fft_length//2 + 1)``
     such that for a frame ``x`` of ``frame_length`` samples::
@@ -46,7 +49,9 @@ def windowed_rdft_matrices(frame_length: int, fft_length: int, dtype=np.float32)
     frame_length would be zero, so they are simply absent).
     """
     bins = fft_length // 2 + 1
-    window = hann_window_periodic(frame_length, dtype=np.float64)
+    n = np.arange(frame_length, dtype=np.float64)
+    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / (
+        frame_length - 1 if symmetric else frame_length))
     t = np.arange(frame_length, dtype=np.float64)[:, None]
     k = np.arange(bins, dtype=np.float64)[None, :]
     angle = 2.0 * np.pi * t * k / float(fft_length)
@@ -86,3 +91,24 @@ def mel_weight_matrix(num_mel_bins: int = 64,
     weights = np.maximum(0.0, np.minimum(lower_slopes, upper_slopes))
 
     return np.pad(weights, [[bands_to_zero, 0], [0, 0]]).astype(dtype)
+
+
+def kaldi_mel_matrix(num_mel_bins: int = 128, fft_length: int = 512,
+                     sample_rate: float = 16000.0, low_hz: float = 20.0,
+                     high_hz: float = 8000.0, dtype=np.float32):
+    """Kaldi's mel filterbank (``torchaudio.compliance.kaldi.get_mel_banks``
+    at VTLN warp 1) as a ``(fft_length // 2 + 1, num_mel_bins)`` matrix:
+    triangles on the 1127 ln(1 + f / 700) scale, their edges evenly spaced
+    in mel from ``low_hz`` to ``high_hz``, over the bins k * rate /
+    fft_length, k < fft_length / 2; the Nyquist bin's row zero. Computed in
+    float64, rounded once."""
+    bins = fft_length // 2
+    mel = hertz_to_mel(sample_rate / fft_length * np.arange(bins))[:, None]
+    lo, hi = hertz_to_mel(low_hz), hertz_to_mel(high_hz)
+    delta = (hi - lo) / (num_mel_bins + 1)
+    band = np.arange(num_mel_bins, dtype=np.float64)[None, :]
+    left, center, right = (lo + band * delta, lo + (band + 1) * delta,
+                           lo + (band + 2) * delta)
+    weights = np.maximum(0.0, np.minimum((mel - left) / (center - left),
+                                         (right - mel) / (right - center)))
+    return np.pad(weights, [[0, 1], [0, 0]]).astype(dtype)

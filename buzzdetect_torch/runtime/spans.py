@@ -19,7 +19,11 @@ The spans, by name (fixed; ``PERF.md`` lists what reads each):
   and inside it ``buzzdetect.frontend`` (wire to float, resample, log-mel
   patches; on the card's int16 path one launch, the fused log-mel, which
   reads the wire itself), ``buzzdetect.embed`` (layer 1 and the conv stack) and
-  ``buzzdetect.head``;
+  ``buzzdetect.head``; under the Audio Spectrogram Transformer
+  (``models/ast.py``) ``buzzdetect.frontend`` holds the Kaldi fbank's one
+  launch, and each block of windows has ``buzzdetect.patch_embed``,
+  ``buzzdetect.embed`` (the encoder, with a ``buzzdetect.attention``
+  around each launch of the attention operator) and ``buzzdetect.head``;
 * ``buzzdetect.copy_back``: ``runtime/inferer._start_host_copy``;
 * ``buzzdetect.wait``: ``runtime/writer._materialize``, the host blocked
   on a chunk's scores.

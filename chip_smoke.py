@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases, each printed before the last line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the build of the three CUDA libraries from ``buzzdetect_torch/csrc``
-   (``sepconv``, ``logmel``, ``probe``; one ``nvcc`` per source, started
+   and the build of the five CUDA libraries from ``buzzdetect_torch/csrc``
+   (``sepconv``, ``logmel``, ``probe``, ``attention``, ``epilogue``; one
+   ``nvcc`` per source, started
    together); then the ``decoder:`` line: the FFmpeg libraries that
    ``pkg-config`` finds, or their absence, and ``audio.ffi.native_status()``
    (a native stage that fails to build where FFmpeg is present fails the
@@ -43,7 +44,8 @@ Phases, each printed before the last line:
    bounds. Last, three classifies on the int16 wire under
    ``torch.profiler``: each ``buzzdetect.frontend`` span launches one
    kernel, ``logmel_fft_kernel``, and the wrapper counts one launch a
-   call;
+   call. Then the Audio Spectrogram Transformer's kernels and one chunk of
+   its cell (``ast_phase``);
 3. the main paths end to end: ``buzzdetect_torch.analyze()`` on three
    30-minute 16 kHz WAV recordings (exact f32), then the CLI in process
    (``buzzdetect_torch.cli.main``, which must return None; the run's
@@ -273,10 +275,16 @@ SCORE_ATOL = {'highest': 1e-3,   # the score parity budget (BASELINE.md)
               'bf16': 5e-3}      # past this a bf16 score is a fault
 SOURCES = {'sepconv': 'buzzdetect_torch/csrc/sepconv.cu',
            'logmel': 'buzzdetect_torch/csrc/logmel.cu',
-           'probe': 'buzzdetect_torch/csrc/probe.cu'}
+           'probe': 'buzzdetect_torch/csrc/probe.cu',
+           'attention': 'buzzdetect_torch/csrc/attention.cu',
+           'epilogue': 'buzzdetect_torch/csrc/epilogue.cu'}
 REPLACES = {'fused_front': 'buzzdetect_tpu/ops/pallas_conv.py:448',
             'fused_tail': 'buzzdetect_tpu/ops/pallas_conv.py:529',
             'log_mel': 'buzzdetect_tpu/ops/pallas_frontend.py:128',
+            # no TPU kernel: the JAX package runs no transformer
+            'attention': 'none (added for the Audio Spectrogram Transformer)',
+            'bias_epilogue': 'none (added for the Audio Spectrogram '
+                             'Transformer)',
             'remap': 'tools/mosaic_capability_probe.py:49',
             'dot_f32': 'tools/mosaic_capability_probe.py:152',
             'dot_high': 'tools/mosaic_capability_probe.py:270',
@@ -482,6 +490,9 @@ def make_models_dir(root):
             config = json.load(f)
         with open(path, 'w') as f:
             json.dump({**config, **extra}, f)
+    # the AST model directory (a config, seeded weights), as it is
+    shutil.copytree(os.path.join(ROOT, 'models', AST_MODEL),
+                    os.path.join(models, AST_MODEL))
     return models
 
 
@@ -2202,6 +2213,284 @@ def log_mel_chunk_phase(torch, dev, cfg, f32_peak, bytes_peak, time_ms,
           f'dense-DFT count ({100 * dft_ms / d["kernel"]:.1f}%)', flush=True)
 
 
+# the AST cell's chunk: 128 windows of 1,024 fbank frames (131,072 frames,
+# 1310.735 s) and its attention: 12 heads of 64 over 1,214 tokens a window
+AST_WINDOWS, AST_TOKENS, AST_HEADS = 128, 1214, 12
+AST_MODEL = 'ast_audioset_10s'
+
+
+def ast_phase(torch, dev, f32_peak, bf16_peak, bytes_peak, time_ms,
+              device_ms):
+    """The Audio Spectrogram Transformer's kernels and its classify on the
+    card, at the benchmark cell's shapes:
+
+    (a) the Kaldi fbank of one 128-window chunk (131,072 frames) of the
+        int16 wire: bits equal on two launches, to its f32 samples' and at
+        every tile; against the plain version; its time, device time and
+        bound (``benchmark/roofline_ast.fbank_flops``) beside a
+        ``torch.fft.rfft`` fbank's (timed only);
+    (b) the attention kernel at 128 windows x 12 heads x 1,214 x 64 in bf16
+        (every window against the plain version and the kernel's schedule
+        replayed in PyTorch; its time, device time and bound beside the
+        plain version's and ``F.scaled_dot_product_attention``'s, timed
+        only, the port never calls it) and in f32 at 8 windows;
+    (c) one chunk through ``load_model(AST_MODEL, bf16)``'s
+        ``predict_async`` on the int16 wire: one fbank launch, 12 attention
+        launches, the scores' gap to ``benchmark/reference/ast.py``'s bf16
+        function and to the same chunk with the plain attention, each held
+        to the cell's ``score_gap`` limit, and the chunk's time.
+
+    Returns the kernels line's rows ('log_mel[kaldi]', 'attention')."""
+    import torch.nn.functional as F
+    from buzzdetect_torch.models.classifier import _to_float
+    from buzzdetect_torch.ops import attention, epilogue, logmel
+    sys.path.insert(0, ROOT)
+    from benchmark import roofline_ast
+    peak = {'f32': f32_peak, 'bf16': bf16_peak, 'bytes': bytes_peak}
+    rows = {}
+
+    # (a) the Kaldi fbank
+    cfg = logmel.KaldiFbankConfig()
+    n = 400 + (AST_WINDOWS * 1024 - 1) * 160
+    rng = np.random.default_rng(1024)
+    wire = torch.from_numpy(
+        (rng.standard_normal(n) * 3277).clip(-32768, 32767).astype(np.int16)
+        ).to(dev)
+    n_frames = 1 + (n - 400) // 160
+    g = logmel.geometry_on(dev, n_frames, 1, kind='kaldi')
+    print(f'kaldi fbank ({n_frames} frames) geometry: FT {g.ft}, {g.blocks} '
+          f'blocks of {g.threads} threads; {g.per_sm} blocks an SM at once',
+          flush=True)
+    got = logmel.log_mel_spectrogram_fused(wire, cfg)
+    again = logmel.log_mel_spectrogram_fused(wire, cfg)
+    from_f32 = logmel.log_mel_spectrogram_fused(_to_float(wire), cfg)
+    ref = logmel.log_mel_spectrogram_fused_plain(wire, cfg)
+    tiles = {ft: logmel._launch(wire.reshape(1, -1), cfg, ft=ft)[0]
+             for ft in logmel.FRAME_TILES}
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, again) or not torch.equal(got, from_f32):
+        fail('kaldi fbank: two launches, or the wire and its f32 samples, '
+             'differ')
+    differ = [ft for ft, t in tiles.items() if not torch.equal(t, got)]
+    if differ:
+        fail(f'kaldi fbank: tiles {differ} differ from the launch\'s')
+    # the log of a power: a band whose energy is a difference of larger
+    # terms keeps f32's absolute error, relative to the frame's energy
+    if not torch.allclose(got, ref, atol=1e-3, rtol=1e-5):
+        fail(f'kaldi fbank disagrees with its plain version: max |d| {err:.3g}')
+    # the benchmark's count: the mel product by the banks' nonzero weights;
+    # the int16 wire read once, the f32 fbank written once
+    flops = roofline_ast.fbank_flops(n_frames, cfg.mel_bands)
+    n_bytes = n * 2 + n_frames * cfg.mel_bands * 4
+    kernel = lambda: logmel.log_mel_spectrogram_fused(wire, cfg)  # noqa
+    plain = lambda: logmel.log_mel_spectrogram_fused_plain(wire, cfg)  # noqa
+    mel = logmel._operands(cfg, dev)['mel']
+    hann = torch.hann_window(400, periodic=False, device=dev)
+
+    def rfft():
+        fr = _to_float(wire).unfold(-1, 400, 160)
+        fr = fr - fr.mean(dim=-1, keepdim=True)
+        fr = fr - 0.97 * torch.cat([fr[:, :1], fr[:, :-1]], dim=-1)
+        power = torch.fft.rfft(fr * hann, n=512).abs().pow(2)
+        return (torch.log(torch.clamp_min(power @ mel, cfg.floor))
+                + cfg.shift) / cfg.divisor
+    row = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+               library_ms=time_ms(rfft), device_ms=device_ms(kernel),
+               library_device_ms=device_ms(rfft),
+               **bound(flops / f32_peak, n_bytes / bytes_peak))
+    row['ratio'] = row['ms'] / row['library_ms']
+    rows['log_mel[kaldi]'] = row
+    print(f'kernel log_mel[kaldi] {n_frames} frames (int16 wire): max '
+          f'|kernel - plain| = {err:.3g} (atol 1e-3); bits equal on two '
+          f'launches, to the f32 samples\' and at every tile; kernel '
+          f'{row["ms"]:.4f} ms (device {row["device_ms"]:.4f} ms), plain '
+          f'{row["plain_ms"]:.4f} ms, torch.fft.rfft fbank '
+          f'{row["library_ms"]:.4f} ms (device '
+          f'{row["library_device_ms"]:.4f} ms); bound {row["bound_ms"]:.4f} '
+          f'ms ({row["bound_by"]}: {flops / 1e9:.2f} GFLOP, '
+          f'{n_bytes / 1e6:.1f} MB; '
+          f'{100 * row["bound_ms"] / row["device_ms"]:.1f}% of it)',
+          flush=True)
+
+    # (b) attention
+    c = AST_HEADS * attention.HEAD_DIM
+    gen = torch.Generator(device=dev).manual_seed(1214)
+    qkv = torch.randn(AST_WINDOWS, AST_TOKENS, 3 * c, device=dev,
+                      generator=gen).to(torch.bfloat16)
+    got = attention.attention(qkv, AST_HEADS)
+    again = attention.attention(qkv, AST_HEADS)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail('attention: two launches on the same input differ')
+    # every window against the plain version and the kernel's schedule
+    # replayed in PyTorch, 16 windows at a time (a slice's f32 scores are
+    # 1.1 GB)
+    err = err_sched = top = 0.0
+    for w in range(0, AST_WINDOWS, 16):
+        part = qkv[w:w + 16].contiguous()
+        ref = attention.attention_plain(part, AST_HEADS).float()
+        sched = attention.attention_blocked(part, AST_HEADS).float()
+        mine = got[w:w + 16].float()
+        err = max(err, float((mine - ref).abs().max()))
+        err_sched = max(err_sched, float((mine - sched).abs().max()))
+        top = max(top, float(ref.abs().max()))
+    del part, ref, sched, mine
+    # bf16: the output's own rounding (2^-8 of the largest value) and P
+    # rounded at the running maximum, not after the division
+    atol = 2.0 ** -7 * top
+    if err > atol:
+        fail(f'attention bf16 disagrees with its plain version: max |d| '
+             f'{err:.3g} > {atol:.3g}')
+    q, k, v = (qkv.view(AST_WINDOWS, AST_TOKENS, 3, AST_HEADS, 64)
+               .permute(2, 0, 3, 1, 4).contiguous().unbind(0))
+    kernel = lambda: attention.attention(qkv, AST_HEADS)  # noqa
+    plain = lambda: attention.attention_plain(qkv, AST_HEADS)  # noqa
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa
+    flops = attention.attention_flops(AST_WINDOWS, AST_TOKENS, AST_HEADS)
+    n_bytes = attention.attention_bytes(AST_WINDOWS, AST_TOKENS, AST_HEADS, 2)
+    row = dict(max_abs_err=err, ms=time_ms(kernel),
+               plain_ms=time_ms(plain),
+               library_ms=time_ms(sdpa), device_ms=device_ms(kernel),
+               library_device_ms=device_ms(sdpa), product='mma',
+               **bound(flops / bf16_peak, n_bytes / bytes_peak))
+    row['ratio'] = row['ms'] / row['library_ms']
+    rows['attention'] = row
+    print(f'kernel attention bf16 {AST_WINDOWS}x{AST_HEADS}x{AST_TOKENS}x64: '
+          f'max |kernel - plain| = {err:.3g} (atol {atol:.3g}, every '
+          f'window), |kernel - schedule in torch| = {err_sched:.3g}; bits '
+          f'equal on '
+          f'two launches; kernel {row["ms"]:.4f} ms (device '
+          f'{row["device_ms"]:.4f} ms, {flops / row["device_ms"] / 1e9:.1f} '
+          f'TFLOP/s), plain {row["plain_ms"]:.4f} ms, '
+          f'sdpa {row["library_ms"]:.4f} ms (device '
+          f'{row["library_device_ms"]:.4f} ms); bound {row["bound_ms"]:.4f} '
+          f'ms ({row["bound_by"]}: {flops / 1e12:.2f} TFLOP, '
+          f'{n_bytes / 1e9:.2f} GB; '
+          f'{100 * row["bound_ms"] / row["device_ms"]:.1f}% of it)',
+          flush=True)
+    f32 = qkv[:8].float().contiguous()
+    got32 = attention.attention(f32, AST_HEADS)
+    ref32 = attention.attention_plain(f32, AST_HEADS)
+    torch.cuda.synchronize()
+    err32 = float((got32 - ref32).abs().max())
+    if not torch.allclose(got32, ref32, atol=ATOL, rtol=RTOL):
+        fail(f'attention f32 disagrees with its plain version: max |d| '
+             f'{err32:.3g}')
+    print(f'kernel attention f32 8x{AST_HEADS}x{AST_TOKENS}x64: max |kernel '
+          f'- plain| = {err32:.3g} (atol {ATOL:.3g}); kernel '
+          f'{time_ms(lambda: attention.attention(f32, AST_HEADS)):.4f} ms, '
+          f'bound {1e3 * attention.attention_bound_s(8, AST_TOKENS, AST_HEADS, torch.float32, peak):.4f} ms',
+          flush=True)
+    del qkv, q, k, v, got, again, f32
+    torch.cuda.empty_cache()
+
+    # (b') the products' epilogues at fc1's shape (a 128-window block)
+    m, cols = AST_WINDOWS * AST_TOKENS, 4 * c
+    y = torch.randn(m, cols, device=dev, generator=gen) * 2
+    bias = torch.randn(cols, device=dev, generator=gen)
+    errs = {}
+    for mode in epilogue.MODES:
+        x = torch.randn(m, cols, device=dev, generator=gen)
+        want = epilogue.plain(mode, y, bias, x.clone()).float()
+        got = epilogue.apply(mode, y, bias, x.clone()).float()
+        torch.cuda.synchronize()
+        errs[mode] = float((got - want).abs().max())
+        # bf16: one bf16 ulp where erff and the library's erf round apart
+        # at a rounding edge; f32 sums: the same adds in the same order
+        atol = 2.0 ** -7 * float(want.abs().max()) if mode != \
+            'bias_residual' else 0.0
+        if errs[mode] > atol:
+            fail(f'bias_epilogue {mode} disagrees with its plain version: '
+                 f'max |d| {errs[mode]:.3g}')
+    n_bytes = m * cols * (4 + 2) + cols * 4
+    x = torch.randn(m, cols, device=dev, generator=gen)
+    kernel = lambda: epilogue.apply('bias_gelu_bf16', y, bias)  # noqa
+    plain = lambda: epilogue.plain('bias_gelu_bf16', y, bias)  # noqa
+    row = dict(max_abs_err=max(errs.values()), ms=time_ms(kernel),
+               plain_ms=time_ms(plain), library_ms=time_ms(plain),
+               device_ms=device_ms(kernel), library_device_ms=device_ms(plain),
+               **bound(0.0, n_bytes / bytes_peak))
+    row['ratio'] = row['ms'] / row['library_ms']
+    resid_ms = device_ms(lambda: epilogue.apply('bias_residual', y, bias, x))
+    rows_out = dict(row)
+    print(f'kernel bias_epilogue {m}x{cols}: max |kernel - plain| '
+          f'{errs}; bias_gelu_bf16 {row["ms"]:.4f} ms (device '
+          f'{row["device_ms"]:.4f} ms) against the three PyTorch passes\' '
+          f'{row["library_device_ms"]:.4f} ms; bound {row["bound_ms"]:.4f} ms '
+          f'(bytes: {n_bytes / 1e9:.2f} GB; '
+          f'{100 * row["bound_ms"] / row["device_ms"]:.1f}% of it); '
+          f'bias_residual device {resid_ms:.4f} ms (bound '
+          f'{1e3 * m * cols * 12 / bytes_peak:.4f} ms)', flush=True)
+    rows['bias_epilogue'] = rows_out
+    del y, x
+    torch.cuda.empty_cache()
+
+    # (c) one chunk through the model
+    from buzzdetect_torch.models.registry import load_model
+    from buzzdetect_torch.runtime.inferer import _start_host_copy
+    from buzzdetect_torch.runtime.writer import _materialize
+    from benchmark.manifest import load_module
+    reference = load_module(os.path.join(ROOT, 'benchmark', 'reference',
+                                         'ast.py'), 'chip_smoke_ast_ref')
+    t0 = time.perf_counter()
+    model = load_model(AST_MODEL, compute_dtype='bfloat16',
+                       transfer_dtype='int16', device='cuda',
+                       initialize=True)
+    print(f'{AST_MODEL}: loaded in {time.perf_counter() - t0:.1f} s', flush=True)
+    chunk = wire.cpu().numpy()
+    logmel.log_mel_spectrogram_fused.launches = 0
+    attention.attention.launches = 0
+    epilogue.apply.launches = 0
+    out, n_valid = model.predict_async(chunk)
+    scores = _materialize(_start_host_copy(out), n_valid)
+    counts = (logmel.log_mel_spectrogram_fused.launches,
+              attention.attention.launches, epilogue.apply.launches)
+    if counts != (1, 12, 48) or scores.shape != (AST_WINDOWS, 527):
+        fail(f'{AST_MODEL}: one chunk gave {scores.shape} with (fbank, '
+             f'attention, epilogue) launches {counts}, expected (1, 12, 48)')
+    s, w = reference.load_weights(os.path.join(ROOT, 'models', AST_MODEL),
+                                  dev)
+    ref = reference.classify(w, s, chunk, 1.0, 'bf16')
+    ref32 = reference.classify(w, s, chunk, 1.0, 'f32')
+    gap = float(np.abs(scores - ref).max())
+    # the benchmark cell's limit on the same gap
+    with open(os.path.join(ROOT, 'benchmark', 'workloads',
+                           'ast.bf16.long_chunks.pinned.json')) as f:
+        limit = json.load(f)['limits']['score_gap']
+    # the same chunk with the attention operator's plain version in the
+    # kernel's place: how much of the gap is the kernel's
+    from buzzdetect_torch.ops import library
+    launch = library.attention
+    library.attention = lambda qkv, heads, scale: attention.attention_plain(
+        qkv, heads, scale)
+    try:
+        out, _ = model.predict_async(chunk)
+        plain_scores = _materialize(_start_host_copy(out), n_valid)
+    finally:
+        library.attention = launch
+    plain_gap = float(np.abs(plain_scores - ref).max())
+    kernel_gap = float(np.abs(scores - plain_scores).max())
+    if gap > limit or kernel_gap > limit:
+        fail(f'{AST_MODEL}: one chunk\'s scores lie {gap:.3g} from the '
+             f'reference\'s bf16 function and {kernel_gap:.3g} from the same '
+             f'chunk with the plain attention, past the cell\'s score_gap '
+             f'limit {limit:g}')
+    chunk_ms = time_ms(lambda: model.predict_async(chunk), reps=5, warmup=2)
+    print(f'{AST_MODEL} bf16, one {AST_WINDOWS}-window chunk on the int16 '
+          f'wire: launches (fbank, attention, epilogue) {counts}; max |scores - '
+          f'reference bf16| = {gap:.3g} (limit {limit:g}); with the plain '
+          f'attention {plain_gap:.3g}; |kernel - plain attention scores| '
+          f'{kernel_gap:.3g} (limit {limit:g}); |reference bf16 - reference f32| '
+          f'{float(np.abs(ref - ref32).max()):.3g}; {chunk_ms:.2f} ms a '
+          f'chunk ({(n / 16000) / (chunk_ms / 1e3):.0f} audio_s/s)',
+          flush=True)
+    rows['attention']['launches'] = counts[1]
+    rows['log_mel[kaldi]']['launches'] = counts[0]
+    rows['bias_epilogue']['launches'] = counts[2]
+    return rows
+
+
 def frontend_span_phase(torch, params, wire, cfg, calls=3, sessions=3):
     """The main path's frontend on the int16 wire launches one kernel, the
     fused log-mel's: ``calls`` classifies (frontend 'pallas', as 'auto'
@@ -3110,6 +3399,8 @@ def run(torch, tmp):
     from buzzdetect_torch.models.heads import apply_head
     from buzzdetect_torch.models.weights import params_from_numpy
     from buzzdetect_torch.ops import _build, frontend, logmel, probe, sepconv
+    from buzzdetect_torch.ops import attention as attention_lib
+    from buzzdetect_torch.ops import epilogue as epilogue_lib
     from buzzdetect_torch.tools import (capability_probe, profile_pipeline,
                                         roofline)
     from buzzdetect_torch.tools.roofline import (
@@ -3136,6 +3427,8 @@ def run(torch, tmp):
     sepconv.load_kernels()
     logmel.load_kernels()
     probe.load_kernels()
+    attention_lib.load_kernels()
+    epilogue_lib.load_kernels()
     print(f'built and loaded {", ".join(SOURCES.values())} in '
           f'{time.perf_counter() - t0:.1f} s (one nvcc per source, in '
           f'parallel)', flush=True)
@@ -3378,6 +3671,9 @@ def run(torch, tmp):
             + f'; whole classify {classify_ms:.4f} ms, with '
             f'frontend=\'pallas\' {pallas_ms:.4f} ms', flush=True)
         frontend_span_phase(torch, all_params, wire, cfg)
+        ast_rows = ast_phase(torch, dev, f32_peak, bf16_peak, bytes_peak,
+                             time_ms, device_ms)
+        rows.update(ast_rows)
 
     # --- 3. the main paths end to end ----------------------------------
     def reset_counts():
@@ -3841,12 +4137,17 @@ def run(torch, tmp):
     order = ('fused_front', 'fused_tail', 'fused_tail[4:8]',
              'fused_front[bf16]',
              'fused_tail[bf16]', 'fused_front[high]', 'fused_tail[high]',
-             'log_mel', 'remap') + DOTS + ('fma_chain',)
+             'log_mel', 'log_mel[kaldi]', 'attention', 'bias_epilogue',
+             'remap') + DOTS + (
+                 'fma_chain',)
+    launches.update((k, ast_rows[k]['launches']) for k in ast_rows)
     table = []
     for name in order:
         r = rows[name]
         base = name.split('[')[0]
         source = SOURCES['logmel' if base == 'log_mel' else
+                         'attention' if base == 'attention' else
+                         'epilogue' if base == 'bias_epilogue' else
                          'sepconv' if base.startswith('fused') else 'probe']
         table.append({'name': name, 'route': 'cuda', 'source': source,
                       'replaces': REPLACES[base],

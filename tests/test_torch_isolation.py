@@ -45,6 +45,7 @@ def test_no_jax_or_reference_package_imports():
     'buzzdetect_torch', 'buzzdetect_torch.ops.sepconv',
     'buzzdetect_torch.models.yamnet', 'buzzdetect_torch.models.classifier',
     'buzzdetect_torch.ops.logmel', 'buzzdetect_torch.cli',
+    'buzzdetect_torch.ops.attention', 'buzzdetect_torch.models.ast',
     'buzzdetect_torch.api', 'buzzdetect_torch.doctor',
     'buzzdetect_torch.ops.probe', 'buzzdetect_torch.tools.capability_probe',
     'buzzdetect_torch.tools.roofline',

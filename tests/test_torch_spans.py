@@ -326,3 +326,146 @@ def test_traced_rehearsal_counts_the_loop_chunks(cell, suffix):
     assert numbers['launch.host_ms.stream' + suffix]['value'] > 0
     assert numbers['wire.host_ms.stream' + suffix]['value'] > 0
     assert 'frontend_roofline' + suffix not in numbers
+
+
+# --- the Audio Spectrogram Transformer ---------------------------------------------
+
+def _ast_spied(monkeypatch):
+    """The tiny AST model on the CPU with its two operators' routes forced
+    to the card's and the operators replaced by spies that open a
+    ``spy.<op>`` range, compute the plain version and count a launch, as
+    the CUDA implementations count theirs."""
+    from buzzdetect_torch.models.registry import load_model
+    from buzzdetect_torch.ops import attention, library, logmel, sepconv
+
+    def spy_log_mel(x, constants, window, hop, floor, geometry='yamnet',
+                    shift=0.0, scale=1.0):
+        assert geometry == 'kaldi'
+        with torch.autograd.profiler.record_function('spy.log_mel'):
+            out = logmel.log_mel_spectrogram_fused_plain(
+                x, logmel.KaldiFbankConfig())
+        sepconv._count_launch(logmel.log_mel_spectrogram_fused)
+        return out
+
+    def spy_attention(qkv, heads, scale):
+        with torch.autograd.profiler.record_function('spy.attention'):
+            out = attention.attention_plain(qkv, heads, scale)
+        sepconv._count_launch(attention.attention)
+        return out
+    monkeypatch.setattr(logmel, '_route', lambda x: 'cuda')
+    monkeypatch.setattr(attention, '_route', lambda x: 'cuda')
+    monkeypatch.setattr(library, 'log_mel', spy_log_mel)
+    monkeypatch.setattr(library, 'attention', spy_attention)
+    return load_model('ast_tiny', device='cpu', compute_dtype='bfloat16',
+                      initialize=True)
+
+
+@pytest.mark.parametrize('block', [128, 2])
+def test_ast_spans_hold_their_launches(monkeypatch, tmp_path, block):
+    """Each attention launch lies inside a ``buzzdetect.attention`` span
+    inside ``buzzdetect.embed``, the fbank's one launch inside
+    ``buzzdetect.frontend``; a block of windows launches one attention a
+    block of the encoder (12 at the published depth, 2 here), and
+    ``patch_embed``, ``embed`` and ``head`` once each, inside
+    ``classify``."""
+    from buzzdetect_torch.models import ast
+    from buzzdetect_torch.ops import attention, logmel
+    model = _ast_spied(monkeypatch)
+    monkeypatch.setattr(ast, 'WINDOW_BLOCK', block)
+    samples = _chunk(seconds=6.3)          # 5 windows of 1.28 s
+    model.predict(samples)                 # first-use allocations
+    blocks = -(-5 // block)
+    before = (logmel.log_mel_spectrogram_fused.launches,
+              attention.attention.launches)
+    prof = _session()
+    prof.start()
+    try:
+        _one_chunk(model.classifier, samples)
+    finally:
+        prof.stop()
+    launched = (logmel.log_mel_spectrogram_fused.launches - before[0],
+                attention.attention.launches - before[1])
+    depth = model.ast_config.depth
+    assert launched == (1, depth * blocks)
+    assert ast.ASTConfig().depth == 12
+    path = str(tmp_path / 'trace.json')
+    prof.export_chrome_trace(path)
+    events = [e for e in json.load(open(path))['traceEvents']
+              if e.get('cat') == 'user_annotation']
+    by = {}
+    for e in events:
+        by.setdefault(e['name'], []).append(e)
+    assert len(by['spy.log_mel']) == 1
+    assert len(by['spy.attention']) == depth * blocks
+    assert len(by['buzzdetect.attention']) == depth * blocks
+    for name in ('patch_embed', 'embed', 'head'):
+        assert len(by[f'buzzdetect.{name}']) == blocks
+        assert all(_within(e, by['buzzdetect.classify'][0])
+                   for e in by[f'buzzdetect.{name}'])
+    assert _within(by['spy.log_mel'][0], by['buzzdetect.frontend'][0])
+    for e in by['spy.attention']:
+        assert any(_within(e, s) for s in by['buzzdetect.attention'])
+    for s in by['buzzdetect.attention']:
+        assert any(_within(s, emb) for emb in by['buzzdetect.embed'])
+
+
+def _ast_trace():
+    """One AST chunk in the window on thread 10: its fbank kernel launched
+    in the frontend span, two attention kernels in attention spans, a GEMM
+    in the embed span outside them."""
+    ev = [_x('user_annotation', 'bench.active', 1, 100, 900)]
+    ev += [_span('dispatch', 10, 200, 600), _span('classify', 10, 210, 580),
+           _span('frontend', 10, 220, 40), _span('embed', 10, 300, 400),
+           _span('attention', 10, 320, 50), _span('attention', 10, 500, 50),
+           _x('cuda_runtime', 'cudaLaunchKernel', 10, 230, 2, 1),
+           _x('cuda_runtime', 'cudaLaunchKernel', 10, 310, 2, 2),
+           _x('cuda_runtime', 'cudaLaunchKernel', 10, 330, 2, 3),
+           _x('cuda_runtime', 'cudaLaunchKernel', 10, 510, 2, 4)]
+    ev += [_x('kernel', 'logmel_fft_kernel', 7, 240, 30, 1),
+           _x('kernel', 'gemm', 7, 320, 500, 2),
+           _x('kernel', 'attention_bf16_kernel', 7, 820, 70, 3),
+           _x('kernel', 'attention_bf16_kernel', 7, 890, 80, 4)]
+    return ev
+
+
+def test_ast_readers_read_the_correlated_kernels():
+    from benchmark import roofline, roofline_ast
+    bench = Benchmark(ROOT)
+    config = json.load(open(os.path.join(
+        ROOT, 'benchmark', 'configs',
+        'ast_audioset_10s.bf16.long_chunks.json')))
+    n = 20_971_760
+    run = _Run(_ast_trace(), n)
+    run.config = config
+    peak = roofline.peaks(run.card)
+    want_attention = roofline_ast.attention_bound_s(
+        128, config['sizes'], peak) / 150e-6
+    want_fbank = roofline_ast.fbank_bound_s(n, config, peak) / 30e-6
+    assert bench.reader('attention_roofline', 'ast')(run) == pytest.approx(
+        100.0 * want_attention)
+    assert bench.reader('frontend_roofline.ast', 'ast')(run) == \
+        pytest.approx(100.0 * want_fbank)
+    bare = [e for e in _ast_trace()
+            if not e['name'].startswith('buzzdetect')]
+    for name in ('attention_roofline', 'frontend_roofline.ast'):
+        assert bench.reader(name, 'ast')(_Run(bare, n)) is None
+        with pytest.raises(ValueError, match='counts the work of ast'):
+            bench.reader(name, 'yamnet')
+
+
+def test_traced_ast_rehearsal_counts_the_loop_chunks():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
+    proc = subprocess.run(
+        [sys.executable, '-c', REHEARSE.format(
+            root=ROOT, cell='ast.bf16.long_chunks.pinned')],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    counts = json.loads([ln for ln in lines
+                         if ln.startswith('COUNTS ')][-1][len('COUNTS '):])
+    result = json.loads([ln for ln in lines if ln.startswith(
+        'rehearsal: ')][-1][len('rehearsal: '):])
+    assert result['correct']
+    assert counts['spans'] == counts['loop'] > 0
+    # the cell's layer metrics read the card's trace: none on the CPU
+    assert result['host_numbers'] == {}
