@@ -75,6 +75,7 @@ from buzzdetect_torch.models import yamnet as yamnet_lib
 from buzzdetect_torch.models.heads import apply_head
 from buzzdetect_torch.models.weights import params_from_numpy
 from buzzdetect_torch.ops import _build, logmel, sepconv
+from buzzdetect_torch.ops import layer1 as layer1_lib
 from buzzdetect_torch.ops.resample import resample
 from buzzdetect_torch.parallel.mesh import gather, mesh_device, split
 from buzzdetect_torch.ops.frontend import (
@@ -449,7 +450,8 @@ class ChunkClassifier(WireClassifier):
         self.frontend = resolve_frontend(frontend, self.device, mesh)
         sepconv.exact_f32()
         if self.device.type == 'cuda':
-            kernels = {'sepconv': sepconv} if self.conv == 'pallas' else {}
+            kernels = ({'sepconv': sepconv, 'layer1': layer1_lib}
+                       if self.conv == 'pallas' else {})
             if self.frontend == 'pallas':
                 kernels['logmel'] = logmel
             # a fresh checkout builds them at once, one nvcc per source

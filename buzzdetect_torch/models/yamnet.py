@@ -8,9 +8,10 @@ ReLU, ending in global average pooling to a 1024-d embedding per patch.
 
 Inference runs on BatchNorm-folded weights, along one of two paths:
 
-* the kernels (``embed``, the JAX package's ``conv='pallas'``): layer 1 is
-  a plain ``F.conv2d`` (the JAX package leaves it to XLA); layers 2-7 and
-  8-14 + pooling go through the hand-written kernels in ``ops/sepconv.py``,
+* the kernels (``embed``, the JAX package's ``conv='pallas'``): layer 1
+  goes through the kernel of ``ops/layer1.py`` (the JAX package leaves it
+  to XLA), layers 2-7 and 8-14 + pooling through the hand-written kernels
+  in ``ops/sepconv.py``,
   in the mode that ``compute_dtype`` and ``conv_precision`` select
   (``conv_mxu_precision``, copied from ``buzzdetect_tpu/models/yamnet.py``,
   then ``sepconv.resolve_mode``). ``PALLAS_FRONT`` (or the
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from buzzdetect_torch.ops.layer1 import layer1 as layer1_op
 from buzzdetect_torch.ops.sepconv import (
     exact_f32, front_pw_splits, fused_front, fused_tail, resolve_compute_dtype,
     resolve_mode, round_bf16, same_pad, tail_specs)
@@ -196,7 +198,8 @@ def layer1(params: dict, patches: torch.Tensor,
            mode: str = 'highest') -> torch.Tensor:
     """(B, 96, 64[, 1]) patches -> (B, 48, 32, 32) NHWC layer-1 activations:
     full 3x3 stride-2 conv with TF-SAME padding (bottom/right only), bias,
-    ReLU.
+    ReLU (``ops/layer1.py``: on a CUDA tensor the kernel of
+    ``csrc/layer1.cu``, on a CPU tensor the plain version).
 
     ``mode`` is the conv kernels' mode. In ``'bf16'`` the patches and the
     kernel are rounded to bf16, the products accumulate in f32, bias and
@@ -205,20 +208,10 @@ def layer1(params: dict, patches: torch.Tensor,
     (``'highest'``, and ``'high'`` too) the layer is exact f32: for HIGH,
     exact f32 is what XLA computes on the CPU oracle, and cuDNN has no
     3-product bf16 convolution."""
-    exact_f32()
-    x = patches.to(torch.float32)
-    if x.dim() == 4:
-        x = x[..., 0]
-    kernel = params['layer1/conv/kernel']
-    if mode == 'bf16':
-        x, kernel = round_bf16(x), round_bf16(kernel)
-    ph, pw = same_pad(x.shape[1], 2), same_pad(x.shape[2], 2)
-    x = F.pad(x[:, None], (pw[0], pw[1], ph[0], ph[1]))
-    y = F.conv2d(x, kernel, stride=2)
-    y = torch.relu(y + params['layer1/conv/bias'][:, None, None])
-    if mode == 'bf16':
-        y = round_bf16(y)
-    return y.permute(0, 2, 3, 1).contiguous()
+    if patches.dim() == 4:
+        patches = patches[..., 0]
+    return layer1_op(params['layer1/conv/kernel'], params['layer1/conv/bias'],
+                     patches, mode)
 
 
 def embed(params: dict, patches: torch.Tensor, compute_dtype=torch.float32,

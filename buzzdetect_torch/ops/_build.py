@@ -6,9 +6,9 @@ share. The build goes to ``csrc/build/`` (listed in .gitignore), keyed by a
 hash of the source and the headers, and is serialized across threads
 and processes with a file lock, so concurrent first users build once.
 Nothing here runs at import: callers build at first use (model
-initialization for ``sepconv`` and ``logmel``, and for ``attention`` and
-``epilogue`` under the Audio Spectrogram Transformer; the tools for
-``probe``).
+initialization for ``sepconv``, ``layer1`` and ``logmel``, and for
+``attention`` and ``epilogue`` under the Audio Spectrogram Transformer;
+the tools for ``probe``).
 ``build_all`` starts one ``nvcc`` per source at once, for callers that need
 several libraries (the doctor, ``chip_smoke.py``).
 """
@@ -27,7 +27,7 @@ DIR_CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
 DIR_BUILD = os.path.join(DIR_CSRC, 'build')
 # every kernel source of the port, csrc/<name>.cu
-SOURCES = ('sepconv', 'logmel', 'probe', 'attention', 'epilogue')
+SOURCES = ('sepconv', 'logmel', 'probe', 'attention', 'epilogue', 'layer1')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 

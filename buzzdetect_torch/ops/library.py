@@ -1,12 +1,14 @@
 """The hand kernels as ``torch.library`` custom operators.
 
-``buzzdetect::fused_front``, ``buzzdetect::fused_tail``,
-``buzzdetect::log_mel``, ``buzzdetect::attention``,
-``buzzdetect::bias_epilogue`` and ``buzzdetect::bias_residual`` are the one
-route to the kernels of ``csrc/sepconv.cu``, ``csrc/logmel.cu``,
+``buzzdetect::layer1``, ``buzzdetect::fused_front``,
+``buzzdetect::fused_tail``, ``buzzdetect::log_mel``,
+``buzzdetect::attention``, ``buzzdetect::bias_epilogue`` and
+``buzzdetect::bias_residual`` are the one route to the kernels of
+``csrc/layer1.cu``, ``csrc/sepconv.cu``, ``csrc/logmel.cu``,
 ``csrc/attention.cu`` and ``csrc/epilogue.cu``: the wrappers of
-``ops/sepconv.py``, ``ops/logmel.py``, ``ops/attention.py`` and
-``ops/epilogue.py`` call them on a CUDA tensor, and a
+``ops/layer1.py``, ``ops/sepconv.py``, ``ops/logmel.py``,
+``ops/attention.py`` and ``ops/epilogue.py`` call them on a CUDA tensor,
+and a
 ``torch.export`` program records them by name, so a serving artifact
 (``models/export.py``) runs the same kernels. The JAX package has no
 counterpart: its ``conv='pallas'`` export bakes the Mosaic kernel into the
@@ -38,6 +40,7 @@ from torch import Tensor
 
 from buzzdetect_torch.ops import attention as attention_lib
 from buzzdetect_torch.ops import epilogue, logmel, sepconv
+from buzzdetect_torch.ops import layer1 as layer1_lib
 
 NAMESPACE = 'buzzdetect'
 
@@ -56,6 +59,23 @@ def _stack_shape(x, specs, gap):
     if gap:
         return (x.shape[0], last.c_out)
     return (x.shape[0], last.h_out * last.w_out, last.c_out)
+
+
+@torch.library.custom_op(f'{NAMESPACE}::layer1', mutates_args=(),
+                         device_types='cuda')
+def layer1(patches: Tensor, kernel: Tensor, bias: Tensor, mode: str
+           ) -> Tensor:
+    """YAMNet's layer 1 on (B, 96, 64) contiguous f32 patches, the
+    (32, 1, 3, 3) OIHW kernel and the (32) bias -> (B, 48, 32, 32) NHWC
+    f32 in ``mode``."""
+    out = layer1_lib._launch(kernel, bias, patches, mode)
+    sepconv._count_launch(layer1_lib.layer1)
+    return out
+
+
+@layer1.register_fake
+def _(patches, kernel, bias, mode):
+    return patches.new_empty((patches.shape[0], *layer1_lib.OUT_SHAPE))
 
 
 @torch.library.custom_op(f'{NAMESPACE}::fused_front', mutates_args=(),

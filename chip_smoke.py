@@ -8,9 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases, each printed before the last line:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the build of the five CUDA libraries from ``buzzdetect_torch/csrc``
-   (``sepconv``, ``logmel``, ``probe``, ``attention``, ``epilogue``; one
-   ``nvcc`` per source, started
+   and the build of the six CUDA libraries from ``buzzdetect_torch/csrc``
+   (``sepconv``, ``logmel``, ``probe``, ``attention``, ``epilogue``,
+   ``layer1``; one ``nvcc`` per source, started
    together); then the ``decoder:`` line: the FFmpeg libraries that
    ``pkg-config`` finds, or their absence, and ``audio.ffi.native_status()``
    (a native stage that fails to build where FFmpeg is present fails the
@@ -44,8 +44,14 @@ Phases, each printed before the last line:
    bounds. Last, three classifies on the int16 wire under
    ``torch.profiler``: each ``buzzdetect.frontend`` span launches one
    kernel, ``logmel_fft_kernel``, and the wrapper counts one launch a
-   call. Then the Audio Spectrogram Transformer's kernels and one chunk of
-   its cell (``ast_phase``);
+   call. YAMNet's layer 1 (``layer1_phase``) in exact f32 and bf16 at
+   B = 5, 209 and 1,667: bits equal on two launches, to the kernel's
+   replay in PyTorch and across batches; against the PyTorch chain it
+   replaced; device time beside the chain's, cuDNN's ``F.conv2d`` alone
+   and the bytes bound; one launch an embed, and no kernel in the embed
+   but those of ``csrc/layer1.cu`` and ``csrc/sepconv.cu``. Then the
+   Audio Spectrogram Transformer's kernels and one chunk of its cell
+   (``ast_phase``);
 3. the main paths end to end: ``buzzdetect_torch.analyze()`` on three
    30-minute 16 kHz WAV recordings (exact f32), then the CLI in process
    (``buzzdetect_torch.cli.main``, which must return None; the run's
@@ -59,7 +65,8 @@ Phases, each printed before the last line:
    just before the run and read just after), one chunk's scores on the card
    against the same chunk on the CPU in the same mode (frontend 'auto' is
    the fused log-mel on the card: the analyze() run launches it once a
-   chunk, and every CLI run launches it); for the analyze()
+   chunk, and every CLI run launches it; every run launches layer 1 once
+   a chunk); for the analyze()
    run also the realtime factor, an upper estimate of the device busy
    share, and what the run pays for its batches: the conv launches by B
    (``<wrapper>.batches``), each wrapper's device time per launch at those
@@ -277,7 +284,8 @@ SOURCES = {'sepconv': 'buzzdetect_torch/csrc/sepconv.cu',
            'logmel': 'buzzdetect_torch/csrc/logmel.cu',
            'probe': 'buzzdetect_torch/csrc/probe.cu',
            'attention': 'buzzdetect_torch/csrc/attention.cu',
-           'epilogue': 'buzzdetect_torch/csrc/epilogue.cu'}
+           'epilogue': 'buzzdetect_torch/csrc/epilogue.cu',
+           'layer1': 'buzzdetect_torch/csrc/layer1.cu'}
 REPLACES = {'fused_front': 'buzzdetect_tpu/ops/pallas_conv.py:448',
             'fused_tail': 'buzzdetect_tpu/ops/pallas_conv.py:529',
             'log_mel': 'buzzdetect_tpu/ops/pallas_frontend.py:128',
@@ -285,6 +293,9 @@ REPLACES = {'fused_front': 'buzzdetect_tpu/ops/pallas_conv.py:448',
             'attention': 'none (added for the Audio Spectrogram Transformer)',
             'bias_epilogue': 'none (added for the Audio Spectrogram '
                              'Transformer)',
+            # no TPU kernel: the JAX package leaves layer 1 to XLA
+            'layer1': 'none (buzzdetect_tpu/models/yamnet.py packed_l1 is '
+                      'XLA)',
             'remap': 'tools/mosaic_capability_probe.py:49',
             'dot_f32': 'tools/mosaic_capability_probe.py:152',
             'dot_high': 'tools/mosaic_capability_probe.py:270',
@@ -2213,6 +2224,149 @@ def log_mel_chunk_phase(torch, dev, cfg, f32_peak, bytes_peak, time_ms,
           f'dense-DFT count ({100 * dft_ms / d["kernel"]:.1f}%)', flush=True)
 
 
+# YAMNet's layer 1 at the main path's batches: a ragged chunk, a default
+# 200 s chunk and the benchmark cells' 1,667-patch chunk
+LAYER1_BATCHES = (5, 209, CHUNK_PATCHES)
+
+
+def layer1_work(b):
+    """(FLOP, bytes) of YAMNet's layer 1 at ``b`` patches: 9 products and
+    9 sums of each of the 48 x 32 x 32 outputs (the bias add counted with
+    the sums); the patches read once, the taps and bias once, the NHWC
+    output written once."""
+    flops = 2 * 9 * b * 48 * 32 * 32
+    return flops, 4 * (b * 96 * 64 + 9 * 32 + 32 + b * 48 * 32 * 32)
+
+
+def layer1_phase(torch, dev, params, cfg, bytes_peak, time_ms, device_ms):
+    """YAMNet's layer 1 (``ops/layer1.py``, ``csrc/layer1.cu``) on
+    log-mel patches of a seeded waveform, in exact f32 and bf16, at B = 5,
+    209 and 1,667 (the first patches of one 1,667-patch chunk): two
+    launches agree bit for bit, equal ``layer1.replay`` (the kernel's steps
+    in PyTorch) bit for bit, and the B = 5 and 209 rows equal the same rows
+    inside B = 1,667; max |kernel - plain| (the PyTorch chain it replaced:
+    pad, cuDNN ``F.conv2d`` with TF32 off, bias, ReLU, the bf16 roundings,
+    the NHWC permute) within 1e-6 of each value's terms' magnitude in f32
+    and one bf16 ulp of the larger value in bf16. Times by CUDA events and
+    device time: the kernel, the plain chain and cuDNN's ``F.conv2d`` alone
+    (the yardstick), beside the bytes bound. Then one ``yamnet.embed`` of
+    the chunk in each mode under ``torch.profiler``: one layer-1 launch,
+    and no kernel but those of ``csrc/layer1.cu`` and ``csrc/sepconv.cu``.
+    Returns the kernels line's rows, at B = 1,667."""
+    import torch.nn.functional as F
+    from benchmark.program import kernel_matcher
+    from buzzdetect_torch.models import yamnet
+    from buzzdetect_torch.ops import frontend
+    from buzzdetect_torch.ops import layer1 as layer1_lib
+    from buzzdetect_torch.ops import sepconv
+    n = (frontend.min_waveform_samples(cfg)
+         + (CHUNK_PATCHES - 1) * cfg.patch_hop_samples)
+    wav = np.random.default_rng(1667).standard_normal(n) * 0.1
+    chunk = frontend.log_mel_patches(
+        torch.from_numpy(wav.astype(np.float32)).to(dev), cfg).contiguous()
+    kernel, bias = params['layer1/conv/kernel'], params['layer1/conv/bias']
+    rows, whole = {}, {}
+    for mode in ('highest', 'bf16'):
+        name = 'layer1' if mode == 'highest' else f'layer1[{mode}]'
+        for b in reversed(LAYER1_BATCHES):
+            x = chunk[:b]
+            kern = lambda: layer1_lib.layer1(kernel, bias, x, mode)  # noqa
+            plain = lambda: layer1_lib.plain(kernel, bias, x, mode)  # noqa
+            k_in = (sepconv.round_bf16(kernel) if mode == 'bf16'
+                    else kernel)
+            x_in = F.pad(x[:, None], (0, 1, 0, 1))
+            library = lambda: F.conv2d(x_in, k_in, stride=2)  # noqa
+            before = layer1_lib.layer1.launches
+            got, again = kern(), kern()
+            launched = layer1_lib.layer1.launches - before
+            ref = plain()
+            replayed = layer1_lib.replay(kernel, bias, x, mode)
+            torch.cuda.synchronize()
+            if launched != 2:
+                fail(f'{name} B={b}: two calls launched {launched} times')
+            if not torch.equal(got, again):
+                fail(f'{name} B={b}: two launches on the same input differ')
+            if not torch.equal(got, replayed):
+                fail(f'{name} B={b}: the kernel differs from its replay, '
+                     f'max |d| {float((got - replayed).abs().max()):.3g}')
+            if b == CHUNK_PATCHES:
+                whole[mode] = got
+            elif not torch.equal(got, whole[mode][:b]):
+                fail(f'{name}: B={b} rows differ from the same rows inside '
+                     f'B={CHUNK_PATCHES}')
+            gap = (got - ref).abs()
+            err = float(gap.max())
+            if mode == 'bf16':
+                top = torch.maximum(got.abs(), ref.abs())
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    top.clamp_min(1e-30))) - 7)
+                ok = bool((gap <= torch.where(top == 0, 0, ulp)).all())
+                limit = 'one bf16 ulp of the larger value'
+            else:
+                scale = layer1_lib.replay(kernel.abs(), bias.abs(), x.abs(),
+                                          mode)
+                ok = bool((gap <= 1e-6 * scale).all())
+                limit = '1e-6 of the terms\' magnitude'
+            flops, n_bytes = layer1_work(b)
+            row = dict(max_abs_err=err, ms=time_ms(kern),
+                       plain_ms=time_ms(plain), library_ms=time_ms(library),
+                       device_ms=device_ms(kern),
+                       plain_device_ms=device_ms(plain),
+                       library_device_ms=device_ms(library),
+                       **bound(0.0, n_bytes / bytes_peak))
+            row['ratio'] = row['ms'] / row['library_ms']
+            print(f'kernel {name} B={b}: max |kernel - plain| = {err:.3g} '
+                  f'(within {limit}: {ok}); bits equal on two launches, to '
+                  f'the replay and to B={CHUNK_PATCHES}\'s rows; kernel '
+                  f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, '
+                  f'cuDNN F.conv2d alone {row["library_ms"]:.4f} ms; device '
+                  f'kernel {row["device_ms"]:.4f} ms, plain '
+                  f'{row["plain_device_ms"]:.4f} ms, cuDNN '
+                  f'{row["library_device_ms"]:.4f} ms; bound '
+                  f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}: '
+                  f'{flops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB; '
+                  f'{100 * row["bound_ms"] / row["device_ms"]:.1f}% of it); '
+                  f'{layer1_lib.band_rows(b, layer1_lib._sms(dev.index or 0))}'
+                  f' output rows a block', flush=True)
+            if not ok:
+                fail(f'{name} B={b} disagrees with its plain version: max '
+                     f'|d| {err:.3g}')
+            if b == CHUNK_PATCHES:
+                rows[name] = row
+        del whole[mode]
+    # one embed of the chunk: one layer-1 launch, and only the two
+    # libraries' kernels on the card
+    ours = (kernel_matcher('layer1'), kernel_matcher('sepconv'))
+    for mode in ('highest', 'bf16'):
+        name = 'layer1' if mode == 'highest' else f'layer1[{mode}]'
+        p = sepconv.pack_params(params, mode)
+        yamnet.embed(p, chunk, 'bfloat16' if mode == 'bf16' else 'float32')
+        torch.cuda.synchronize()
+        before = layer1_lib.layer1.launches
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            yamnet.embed(p, chunk,
+                         'bfloat16' if mode == 'bf16' else 'float32')
+            torch.cuda.synchronize()
+        launched = layer1_lib.layer1.launches - before
+        names = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        others = {k: v for k, v in names.items()
+                  if not k.startswith(('Memcpy', 'Memset'))
+                  and not any(m(k) for m in ours)}
+        print(f'yamnet.embed [{mode}] B={CHUNK_PATCHES}: layer-1 launches '
+              f'{launched}; device kernels {dict(names)}', flush=True)
+        if launched != 1:
+            fail(f'one embed launched layer 1 {launched} times')
+        if others:
+            fail(f'one embed [{mode}] ran kernels of neither library: '
+                 f'{others}')
+        rows[name]['launches'] = launched
+    return rows
+
+
 # the AST cell's chunk: 128 windows of 1,024 fbank frames (131,072 frames,
 # 1310.735 s) and its attention: 12 heads of 64 over 1,214 tokens a window
 AST_WINDOWS, AST_TOKENS, AST_HEADS = 128, 1214, 12
@@ -3401,6 +3555,7 @@ def run(torch, tmp):
     from buzzdetect_torch.ops import _build, frontend, logmel, probe, sepconv
     from buzzdetect_torch.ops import attention as attention_lib
     from buzzdetect_torch.ops import epilogue as epilogue_lib
+    from buzzdetect_torch.ops import layer1 as layer1_lib
     from buzzdetect_torch.tools import (capability_probe, profile_pipeline,
                                         roofline)
     from buzzdetect_torch.tools.roofline import (
@@ -3429,6 +3584,7 @@ def run(torch, tmp):
     probe.load_kernels()
     attention_lib.load_kernels()
     epilogue_lib.load_kernels()
+    layer1_lib.load_kernels()
     print(f'built and loaded {", ".join(SOURCES.values())} in '
           f'{time.perf_counter() - t0:.1f} s (one nvcc per source, in '
           f'parallel)', flush=True)
@@ -3535,6 +3691,9 @@ def run(torch, tmp):
                               if b == BATCHES[0] else None, f32_peak)
         log_mel_chunk_phase(torch, dev, cfg, f32_peak, bytes_peak, time_ms,
                             device_ms)
+        layer1_rows = layer1_phase(torch, dev, all_params['yamnet'], cfg,
+                                   bytes_peak, time_ms, device_ms)
+        rows.update(layer1_rows)
 
         cases = (('fused_front', dict(start_layer=2, stop_layer=8), False),
                  ('fused_tail', dict(start_layer=8, stop_layer=None), True),
@@ -3684,6 +3843,7 @@ def run(torch, tmp):
         sepconv.fused_front.batches.clear()
         sepconv.fused_tail.batches.clear()
         logmel.log_mel_spectrogram_fused.launches = 0
+        layer1_lib.layer1.launches = 0
 
     def read_counts():
         counts = {'log_mel': logmel.log_mel_spectrogram_fused.launches}
@@ -3722,6 +3882,11 @@ def run(torch, tmp):
         fail(f'the main path launched log_mel {counts["log_mel"]} times for '
              f'{counts["fused_front"]} chunks')
     launches['log_mel'] = counts['log_mel']
+    # layer 1 is one kernel launch an embed
+    if layer1_lib.layer1.launches != counts['fused_front']:
+        fail(f'the main path launched layer 1 {layer1_lib.layer1.launches} '
+             f'times for {counts["fused_front"]} chunks')
+    launches['layer1'] = layer1_lib.layer1.launches
     check_csvs(dir_out, names, seconds, analyzer.chunklength, cfg)
     check_chunk_on_cpu(analyzer, arrays, os.path.join(dir_audio, 'rec0.wav'),
                        os.path.join(dir_out, 'rec0_buzzdetect.csv'),
@@ -3778,6 +3943,12 @@ def run(torch, tmp):
             if counts[name] <= 0:
                 fail(f'the CLI run of {variant} never launched {name}')
         launches.update((k, counts[k]) for k in want[:2])
+        if layer1_lib.layer1.launches != counts[want[0]]:
+            fail(f'the CLI run of {variant} launched layer 1 '
+                 f'{layer1_lib.layer1.launches} times for '
+                 f'{counts[want[0]]} chunks')
+        launches[f'layer1[{mode}]' if mode == 'bf16' else 'layer1'] = \
+            layer1_lib.layer1.launches
         others = {k: v for k, v in counts.items() if k not in want and v}
         if others:
             fail(f'the CLI run of {variant} launched other kernels: {others}')
@@ -4134,7 +4305,8 @@ def run(torch, tmp):
     print(f'torch.profiler sessions that recorded no device time on any '
           f'attempt, timed by CUDA events instead: {device_ms.fallbacks}',
           flush=True)
-    order = ('fused_front', 'fused_tail', 'fused_tail[4:8]',
+    order = ('layer1', 'layer1[bf16]', 'fused_front', 'fused_tail',
+             'fused_tail[4:8]',
              'fused_front[bf16]',
              'fused_tail[bf16]', 'fused_front[high]', 'fused_tail[high]',
              'log_mel', 'log_mel[kaldi]', 'attention', 'bias_epilogue',
@@ -4145,7 +4317,8 @@ def run(torch, tmp):
     for name in order:
         r = rows[name]
         base = name.split('[')[0]
-        source = SOURCES['logmel' if base == 'log_mel' else
+        source = SOURCES['layer1' if base == 'layer1' else
+                         'logmel' if base == 'log_mel' else
                          'attention' if base == 'attention' else
                          'epilogue' if base == 'bias_epilogue' else
                          'sepconv' if base.startswith('fused') else 'probe']
