@@ -132,10 +132,9 @@ def main(modelname: str = None, json_mode: bool = False):
                   '(CLI: --device cpu).')
 
     def check_kernels():
-        from buzzdetect_torch.ops import _build, logmel, probe, sepconv
-        _build.build_all(_build.SOURCES)
-        for module in (sepconv, logmel, probe):
-            module.load_kernels()
+        from buzzdetect_torch.ops import _build
+        from buzzdetect_torch.ops.common import load_libraries
+        load_libraries(_build.SOURCES)
         return ', '.join(f'{name}.cu' for name in _build.SOURCES) + \
             ' built (nvcc) and loaded'
     ok &= _check('CUDA kernels (nvcc build)', check_kernels, results,

@@ -58,9 +58,10 @@ import torch.nn.functional as F
 from buzzdetect_torch.models.classifier import (WireClassifier,
                                                  _frontend_input,
                                                  resolve_device)
-from buzzdetect_torch.ops import _build, attention as attention_lib
+from buzzdetect_torch.ops import attention as attention_lib
 from buzzdetect_torch.ops import epilogue, logmel
-from buzzdetect_torch.ops.sepconv import exact_f32, resolve_compute_dtype
+from buzzdetect_torch.ops.common import (
+    exact_f32, load_libraries, resolve_compute_dtype)
 from buzzdetect_torch.runtime.spans import span
 
 # windows a pass of the encoder takes at most: a chunk's windows go through
@@ -334,10 +335,7 @@ class ASTClassifier(WireClassifier):
                 raise ValueError(f'the attention kernel takes heads of '
                                  f'{attention_lib.HEAD_DIM}, not '
                                  f'{cfg.head_dim}')
-            _build.build_all(['logmel', 'attention', 'epilogue'])
-            logmel.load_kernels()
-            attention_lib.load_kernels()
-            epilogue.load_kernels()
+            load_libraries(['logmel', 'attention', 'epilogue'])
         self.params = pack_params(arrays, cfg, self.device, self.bf16)
 
     @property

@@ -74,8 +74,9 @@ import torch
 from buzzdetect_torch.models import yamnet as yamnet_lib
 from buzzdetect_torch.models.heads import apply_head
 from buzzdetect_torch.models.weights import params_from_numpy
-from buzzdetect_torch.ops import _build, logmel, sepconv
-from buzzdetect_torch.ops import layer1 as layer1_lib
+from buzzdetect_torch.ops import logmel, sepconv
+from buzzdetect_torch.ops.common import (
+    exact_f32, load_libraries, resolve_compute_dtype)
 from buzzdetect_torch.ops.resample import resample
 from buzzdetect_torch.parallel.mesh import gather, mesh_device, split
 from buzzdetect_torch.ops.frontend import (
@@ -303,17 +304,18 @@ class WireClassifier:
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t
 
-    def _plan_native(self, n_native: int, input_rate: int):
-        """Shape plan for a native-rate chunk resampled on the device: the
-        valid frame count and padded target in the MODEL-rate domain, plus
-        the native-rate length the host pads the wire buffer to so the
-        resampler produces at least ``target_model`` samples."""
+    def _plan_native(self, n_natives, input_rate: int):
+        """Shape plan for native-rate chunks resampled on the device, one
+        per length of ``n_natives``: each chunk's valid frame count and
+        length in the MODEL-rate domain, the padded model-rate target of
+        the longest, and the native-rate length the host pads every wire
+        buffer to so the resampler produces at least that target."""
         sr = self.sample_rate
-        n_model = -(-n_native * sr // input_rate)  # ceil
-        n_valid = self._valid(n_model)
-        target_model = self._padded(n_model)
+        n_models = [-(-n * sr // input_rate) for n in n_natives]  # ceil
+        n_valids = [self._valid(n) for n in n_models]
+        target_model = self._padded(max(n_models))
         target_native = -(-target_model * input_rate // sr)
-        return n_valid, n_model, target_model, target_native
+        return n_valids, n_models, target_model, target_native
 
     def _native_rate(self, input_rate):
         """True when chunks at ``input_rate`` need resampling here."""
@@ -344,10 +346,12 @@ class WireClassifier:
             mark(chunk)
             samples = np.asarray(samples)
             if self._native_rate(input_rate):
-                n_valid, n_model, t_model, t_native = self._plan_native(
-                    len(samples), input_rate)
+                n_valids, n_models, t_model, t_native = self._plan_native(
+                    [len(samples)], input_rate)
+                n_valid = n_valids[0]
                 wav = self._upload(self._pad_to(samples, t_native))
-                out = self._classify(wav, (int(input_rate), t_model, n_model))
+                out = self._classify(wav, (int(input_rate), t_model,
+                                           n_models[0]))
             else:
                 n_valid = self._valid(len(samples))
                 wav = self._pad_to(samples, self._padded(len(samples)))
@@ -366,11 +370,8 @@ class WireClassifier:
         with span('buzzdetect.dispatch'):
             mark(chunks)
             if self._native_rate(input_rate):
-                sr = self.sample_rate
-                n_models = [-(-len(a) * sr // input_rate) for a in arrs]
-                n_valids = [self._valid(n) for n in n_models]
-                t_model = self._padded(max(n_models))
-                t_native = -(-t_model * input_rate // sr)
+                n_valids, n_models, t_model, t_native = self._plan_native(
+                    [len(a) for a in arrs], input_rate)
                 batch = self._upload(
                     np.stack([self._pad_to(a, t_native) for a in arrs]))
                 valid = torch.tensor(n_models, device=self.device)[:, None]
@@ -412,7 +413,7 @@ class ChunkClassifier(WireClassifier):
                  frontend='auto', conv='auto', conv_precision='auto',
                  sharding=None, mesh=None):
         self.cfg = FrontendConfig().with_framehop(framehop_prop)
-        self.compute_dtype = sepconv.resolve_compute_dtype(compute_dtype)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         if frontend not in FRONTENDS:
             raise ValueError("frontend must be 'auto', 'xla' or 'pallas'")
         self._frontend_auto = frontend == 'auto'
@@ -422,11 +423,6 @@ class ChunkClassifier(WireClassifier):
             mesh = sharding.mesh
         self.mesh, self.sharding = mesh, sharding
         self.conv = resolve_conv(conv, mesh)
-        if self.conv == 'pallas':
-            # the BUZZDETECT_PALLAS_FRONT override resolves now, so a
-            # malformed value fails at model init (its ValueError names the
-            # variable), not at import and not mid-dispatch
-            yamnet_lib.check_front(yamnet_lib.resolve_front())
         if conv_precision not in ('auto', 'high', 'highest'):
             raise ValueError(
                 "conv_precision must be 'auto', 'high' or 'highest'")
@@ -448,16 +444,13 @@ class ChunkClassifier(WireClassifier):
         self.device = resolve_device(
             device if mesh is None else mesh_device(mesh, device))
         self.frontend = resolve_frontend(frontend, self.device, mesh)
-        sepconv.exact_f32()
+        exact_f32()
         if self.device.type == 'cuda':
-            kernels = ({'sepconv': sepconv, 'layer1': layer1_lib}
-                       if self.conv == 'pallas' else {})
+            # the path's libraries; a fresh checkout builds them at once
+            names = ['sepconv', 'layer1'] if self.conv == 'pallas' else []
             if self.frontend == 'pallas':
-                kernels['logmel'] = logmel
-            # a fresh checkout builds them at once, one nvcc per source
-            _build.build_all(list(kernels))
-            for module in kernels.values():
-                module.load_kernels()
+                names.append('logmel')
+            load_libraries(names)
         self.params = params_from_numpy(arrays, self.device)
         # the path's conv operands, packed once beside the f32 params
         self.params['yamnet'] = (

@@ -35,7 +35,7 @@ Edits against the JAX module:
   with the export's resolved ``conv`` and ``conv_precision`` instead of
   passing raw parameters into the traced function.
 * The TF32 switches are process state, not graph: the loaded callable
-  turns TF32 off (``sepconv.exact_f32``) before each call.
+  turns TF32 off (``common.exact_f32``) before each call.
 """
 
 import io
@@ -127,7 +127,7 @@ def export_classifier(modelname: str, chunk_seconds: float,
     """
     from buzzdetect_torch.models.classifier import ChunkClassifier
     from buzzdetect_torch.models.registry import load_model
-    from buzzdetect_torch.ops import sepconv
+    from buzzdetect_torch.ops.common import exact_f32
     from buzzdetect_torch.ops.frontend import padded_length, num_patches
 
     platforms = tuple(platforms)
@@ -184,7 +184,7 @@ def export_classifier(modelname: str, chunk_seconds: float,
                              conv_precision=conv_precision)
     wire = torch.zeros(target, dtype=_WIRE_DTYPES[clf.transfer_name][1],
                        device=device)
-    sepconv.exact_f32()
+    exact_f32()
     with torch.no_grad():
         module = _Classify(served, wire).eval()
         exported = torch.export.export(module, (wire,))
@@ -234,7 +234,7 @@ def load_exported(dir_in: str, device='cuda'):
     # registers the buzzdetect:: operators a conv='pallas' program names
     from buzzdetect_torch.ops import library  # noqa: F401
     from buzzdetect_torch.models.classifier import resolve_device
-    from buzzdetect_torch.ops.sepconv import exact_f32
+    from buzzdetect_torch.ops.common import exact_f32
     from torch.export.passes import move_to_device_pass
 
     with open(os.path.join(dir_in, FNAME_META)) as f:

@@ -25,7 +25,7 @@ def init_head(n_embeddings: int, n_classes: int, seed: int = 0):
 def apply_head(params: dict, embeddings: torch.Tensor) -> torch.Tensor:
     """(B, n_embeddings) embeddings -> (B, n_classes) linear activations.
 
-    Exact f32 (TF32 off, see ops/sepconv.exact_f32): head outputs are the
+    Exact f32 (TF32 off, see ops/common.exact_f32): head outputs are the
     user-visible scores and must hold the 1e-3 parity budget.
     """
     return (torch.matmul(embeddings.to(torch.float32), params['head/kernel'])

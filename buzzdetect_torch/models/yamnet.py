@@ -14,9 +14,7 @@ Inference runs on BatchNorm-folded weights, along one of two paths:
   in ``ops/sepconv.py``,
   in the mode that ``compute_dtype`` and ``conv_precision`` select
   (``conv_mxu_precision``, copied from ``buzzdetect_tpu/models/yamnet.py``,
-  then ``sepconv.resolve_mode``). ``PALLAS_FRONT`` (or the
-  ``BUZZDETECT_PALLAS_FRONT`` variable, ``resolve_front``) picks one of the
-  JAX package's three routes through the kernels (``embed``);
+  then ``sepconv.resolve_mode``);
 * the XLA conv path (``embed_xla``, the JAX package's ``conv='xla'``):
   every one of the 27 convs is a library ``F.conv2d`` (cuDNN on the card,
   TF32 off), with no kernel of its own, as the JAX package runs it outside
@@ -27,93 +25,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from buzzdetect_torch.ops.common import (
+    exact_f32, resolve_compute_dtype, round_bf16)
 from buzzdetect_torch.ops.layer1 import layer1 as layer1_op
 from buzzdetect_torch.ops.sepconv import (
-    exact_f32, front_pw_splits, fused_front, fused_tail, resolve_compute_dtype,
-    resolve_mode, round_bf16, same_pad, tail_specs)
-
-# (kind, stride, output_filters); every kernel is 3x3.
-LAYER_DEFS = (
-    ('conv', 2, 32),
-    ('sep', 1, 64),
-    ('sep', 2, 128),
-    ('sep', 1, 128),
-    ('sep', 2, 256),
-    ('sep', 1, 256),
-    ('sep', 2, 512),
-    ('sep', 1, 512),
-    ('sep', 1, 512),
-    ('sep', 1, 512),
-    ('sep', 1, 512),
-    ('sep', 1, 512),
-    ('sep', 2, 1024),
-    ('sep', 1, 1024),
-)
+    LAYER_DEFS, fused_front, fused_tail, resolve_mode, same_pad, tail_specs)
 
 N_EMBEDDINGS = 1024
 BN_EPSILON = 1e-4
 # the kernels' split of the stack: fused_front runs [2, TAIL_START),
 # fused_tail runs [TAIL_START, end) and pools
 TAIL_START = 8
-# where the front route without 'mid' (and the route 'off') hands over to
-# fused_tail(MID_START, TAIL_START, gap=False)
-MID_START = 4
-
-# The JAX package's packed-front knob (buzzdetect_tpu/models/yamnet.py:
-# PALLAS_FRONT). On the TPU ``groups`` patches share the 128 lanes of
-# layers 2-3 and ``block_packed`` packed rows make one kernel block; the
-# card's kernels keep patches apart, so here both are validated
-# (``sepconv.front_pw_splits``) and change no arithmetic. ``fuse_mid``
-# (the default) runs layers 2-7 in one fused_front; without it
-# fused_front runs 2-3 and fused_tail 4-7; None (BUZZDETECT_PALLAS_FRONT
-# 'off') runs layers 1-3 outside any kernel. A direct assignment wins over
-# the variable once ``resolve_front`` has run.
-PALLAS_FRONT = dict(groups=4, block_packed=1, fuse_mid=True)
-
-
-def _front_from_env(default):
-    """BUZZDETECT_PALLAS_FRONT='g:pbi[:mid]' -> a PALLAS_FRONT config;
-    'off' -> disabled (layers 1-3 outside the kernels); unset/blank ->
-    ``default``. Malformed values fail loudly: a typo silently falling
-    back would un-apply the operator's requested experiment with no sign
-    anything was ignored. Parsing and messages as in the JAX package."""
-    import os
-    spec = os.environ.get('BUZZDETECT_PALLAS_FRONT', '').strip()
-    if not spec:
-        return default
-    if spec.lower() in ('off', 'none', '0'):
-        return None
-    parts = spec.split(':')
-    try:
-        cfg = dict(groups=int(parts[0]), block_packed=int(parts[1]))
-    except (IndexError, ValueError):
-        raise ValueError(
-            f"BUZZDETECT_PALLAS_FRONT must be 'g:pbi' or 'g:pbi:mid' "
-            f"(e.g. '4:1'); got {spec!r}") from None
-    if len(parts) > 3 or (len(parts) == 3 and parts[2] != 'mid'):
-        raise ValueError(
-            f"BUZZDETECT_PALLAS_FRONT third field must be 'mid'; "
-            f"got {spec!r}")
-    if len(parts) == 3:
-        cfg['fuse_mid'] = True
-    return cfg
-
-
-_FRONT_ENV_APPLIED = False
-
-
-def resolve_front():
-    """Apply the BUZZDETECT_PALLAS_FRONT override lazily, at the first
-    kernel-path model build (``ChunkClassifier(conv='pallas')``) or embed,
-    not at import: a malformed value raises there, where the classifier
-    surfaces it, and every entry point (the doctor included) still
-    imports. The parsed override is written back into ``PALLAS_FRONT``
-    once; a later direct assignment wins."""
-    global PALLAS_FRONT, _FRONT_ENV_APPLIED
-    if not _FRONT_ENV_APPLIED:
-        PALLAS_FRONT = _front_from_env(PALLAS_FRONT)
-        _FRONT_ENV_APPLIED = True
-    return PALLAS_FRONT
 
 
 # --- parameter construction --------------------------------------------------
@@ -225,15 +147,9 @@ def embed(params: dict, patches: torch.Tensor, compute_dtype=torch.float32,
     ``models/weights.params_from_numpy``, with ``sepconv.pack_params``
     applied for the mode (the f32 'highest' mode needs nothing packed);
     ``compute_dtype`` and ``conv_precision`` select the kernels' mode, as in
-    the JAX package's ``embed(..., conv='pallas')``. ``resolve_front()``
-    picks the route, as the JAX package's does:
-
-    * ``fuse_mid`` (the default): layer 1, ``fused_front(2, 8)``,
-      ``fused_tail(8)``;
-    * a config without ``fuse_mid``: layer 1, ``fused_front(2, 4)``,
-      ``fused_tail(4, 8, gap=False)``, ``fused_tail(8)``;
-    * None (``'off'``): layers 1-3 as ``embed_xla`` computes them (cuDNN,
-      TF32 off), then ``fused_tail(4, 8, gap=False)`` and ``fused_tail(8)``.
+    the JAX package's ``embed(..., conv='pallas')``. One route: layer 1,
+    ``fused_front(2, TAIL_START)``, ``fused_tail(TAIL_START)`` (the JAX
+    package's default front route).
     """
     if conv == 'xla':
         return embed_xla(params, patches, compute_dtype, conv_precision)
@@ -241,24 +157,8 @@ def embed(params: dict, patches: torch.Tensor, compute_dtype=torch.float32,
         raise ValueError(f"conv must be 'xla' or 'pallas', got {conv!r}")
     mode = resolve_mode(compute_dtype,
                         conv_mxu_precision(compute_dtype, conv_precision))
-    front = check_front(resolve_front())
-    if front is not None and front.get('fuse_mid'):
-        y = fused_front(params, layer1(params, patches, mode), start_layer=2,
-                        stop_layer=TAIL_START, mode=mode)
-    else:
-        if front is None:
-            bf16 = resolve_compute_dtype(compute_dtype) == torch.bfloat16
-            kernels = [_xla_kernel(params, key, kind, shape, bf16)
-                       for key, kind, _stride, shape in _conv_shapes()
-                       if _layer_of(key) < MID_START]
-            y = _xla_stack(params, patches, compute_dtype, kernels)
-            y = y.permute(0, 2, 3, 1).contiguous()
-        else:
-            y = _unflatten(fused_front(params, layer1(params, patches, mode),
-                                       start_layer=2, stop_layer=MID_START,
-                                       mode=mode), MID_START)
-        y = fused_tail(params, y, start_layer=MID_START,
-                       stop_layer=TAIL_START, gap=False, mode=mode)
+    y = fused_front(params, layer1(params, patches, mode), start_layer=2,
+                    stop_layer=TAIL_START, mode=mode)
     return fused_tail(params, _unflatten(y, TAIL_START),
                       start_layer=TAIL_START, gap=True, mode=mode)
 
@@ -268,21 +168,6 @@ def _unflatten(y, layer):
     input."""
     s = tail_specs(layer)[0]
     return y.reshape(y.shape[0], s.h, s.w, s.c_in)
-
-
-def check_front(front):
-    """``front`` (a PALLAS_FRONT config or None) if valid, else ValueError:
-    positive ``groups`` that the JAX package's lane split takes
-    (``sepconv.front_pw_splits``) and a positive ``block_packed``."""
-    if front is None:
-        return None
-    groups, packed = front.get('groups'), front.get('block_packed')
-    for name, v in (('groups', groups), ('block_packed', packed)):
-        if not isinstance(v, int) or v < 1:
-            raise ValueError(f'PALLAS_FRONT {name} must be a positive int, '
-                             f'got {v!r}')
-    front_pw_splits(groups)
-    return front
 
 
 # --- the XLA conv path ----------------------------------------------------------
@@ -361,17 +246,6 @@ def embed_xla(params: dict, patches: torch.Tensor,
     for f32. Exact f32 is also what XLA computes for both on the CPU.
     """
     conv_mxu_precision(compute_dtype, conv_precision)
-    kernels = [params[_xla_key(key, compute_dtype)]
-               for key, _kind, _stride, _shape in _conv_shapes()]
-    return _xla_stack(params, patches, compute_dtype, kernels).mean(
-        dim=(2, 3))
-
-
-def _xla_stack(params: dict, patches: torch.Tensor, compute_dtype,
-               kernels) -> torch.Tensor:
-    """``embed_xla``'s first ``len(kernels)`` convs on the patches, each
-    with its OIHW kernel from ``kernels`` (``pack_xla``'s, or laid out by
-    ``_xla_kernel``); returns the NCHW f32 activations."""
     bf16 = resolve_compute_dtype(compute_dtype) == torch.bfloat16
     exact_f32()
     x = patches.to(torch.float32)
@@ -380,18 +254,14 @@ def _xla_stack(params: dict, patches: torch.Tensor, compute_dtype,
     x = x[:, None]                                      # (B, 1, 96, 64)
     if bf16:
         x = round_bf16(x)
-    for (key, kind, stride, _shape), kernel in zip(_conv_shapes(), kernels):
+    for key, kind, stride, _shape in _conv_shapes():
         groups = x.shape[1] if kind == 'depthwise' else 1
-        y = _conv_same(x, kernel, stride, groups)
+        y = _conv_same(x, params[_xla_key(key, compute_dtype)], stride,
+                       groups)
         x = torch.relu(y + params[f'{key}/bias'][:, None, None])
         if bf16:
             x = round_bf16(x)
-    return x
-
-
-def _layer_of(key: str) -> int:
-    """'layer12/depthwise_conv' -> 12."""
-    return int(key.split('/')[0][len('layer'):])
+    return x.mean(dim=(2, 3))
 
 
 # --- training ---------------------------------------------------------------------

@@ -8,9 +8,10 @@ and processes with a file lock, so concurrent first users build once.
 Nothing here runs at import: callers build at first use (model
 initialization for ``sepconv``, ``layer1`` and ``logmel``, and for
 ``attention`` and ``epilogue`` under the Audio Spectrogram Transformer;
-the tools for ``probe``).
+the tools for ``probe``), through ``ops/common.py``, which binds each
+library to its interface.
 ``build_all`` starts one ``nvcc`` per source at once, for callers that need
-several libraries (the doctor, ``chip_smoke.py``).
+several libraries (``common.load_libraries``).
 """
 
 import ctypes
@@ -27,7 +28,8 @@ DIR_CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
 DIR_BUILD = os.path.join(DIR_CSRC, 'build')
 # every kernel source of the port, csrc/<name>.cu
-SOURCES = ('sepconv', 'logmel', 'probe', 'attention', 'epilogue', 'layer1')
+SOURCES = tuple(sorted(f[:-3] for f in os.listdir(DIR_CSRC)
+                       if f.endswith('.cu')))
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 

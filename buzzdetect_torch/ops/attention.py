@@ -29,13 +29,12 @@ running maximum, one division at the end): the tests hold it against
 machine without a card.
 """
 
-import ctypes
 import math
-from functools import lru_cache
 
 import torch
 
-from buzzdetect_torch.ops.sepconv import _route, device_scope, exact_f32
+from buzzdetect_torch.ops.common import (
+    F32, I32, PTR, Library, exact_f32, route)
 
 HEAD_DIM = 64
 # the bf16 kernel's tile of keys
@@ -140,24 +139,11 @@ def attention_bound_s(batch: int, n: int, heads: int, dtype, peak: dict):
 
 # --- kernel launch ---------------------------------------------------------------
 
-@lru_cache(maxsize=None)
-def load_kernels():
-    """Build (once) and load ``csrc/attention.cu``; returns the ctypes
-    library."""
-    from buzzdetect_torch.ops import _build
-    return bind(_build.load('attention'))
-
-
-def bind(lib):
-    """Declare the C interface of a library built from ``csrc/attention.cu``
-    on ``lib`` (a ctypes CDLL); returns it."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bz_attention.argtypes = [ptr, ptr, i32, i32, i32, i32, i32,
-                                 ctypes.c_float, ptr]
-    lib.bz_attention.restype = i32
-    lib.bz_attention_error_string.argtypes = [i32]
-    lib.bz_attention_error_string.restype = ctypes.c_char_p
-    return lib
+# the C interface of csrc/attention.cu
+LIBRARY = Library('attention', {
+    'bz_attention': (I32, [PTR, PTR, I32, I32, I32, I32, I32, F32, PTR]),
+}, errors='bz_attention_error_string')
+load_kernels = LIBRARY.load
 
 
 def _launch(qkv: torch.Tensor, heads: int, scale: float, lib=None):
@@ -175,14 +161,9 @@ def _launch(qkv: torch.Tensor, heads: int, scale: float, lib=None):
                          f'{HEAD_DIM}')
     out = torch.empty((b, n, heads * HEAD_DIM), dtype=qkv.dtype,
                       device=qkv.device)
-    with device_scope(qkv.device):
-        code = lib.bz_attention(qkv.data_ptr(), out.data_ptr(),
-                                DTYPES.index(qkv.dtype), b, n, heads,
-                                HEAD_DIM, float(scale),
-                                torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f'bz_attention failed: CUDA error {code} '
-                           f'({lib.bz_attention_error_string(code).decode()})')
+    LIBRARY.launch(lib, 'bz_attention', qkv.device, qkv.data_ptr(),
+                   out.data_ptr(), DTYPES.index(qkv.dtype), b, n, heads,
+                   HEAD_DIM, float(scale))
     return out
 
 
@@ -193,7 +174,7 @@ def attention(qkv: torch.Tensor, heads: int,
     if qkv.dim() != 3:
         raise ValueError(f'expected a (B, n, 3C) tensor, got '
                          f'{tuple(qkv.shape)}')
-    if _route(qkv) == 'cpu':
+    if route(qkv) == 'cpu':
         return attention_plain(qkv, heads, scale)
     from buzzdetect_torch.ops import library
     return library.attention(qkv.contiguous(), heads,

@@ -18,13 +18,10 @@ CPU tensors the plain version, the same f32 arithmetic in PyTorch. There
 is no other path.
 """
 
-import ctypes
-from functools import lru_cache
-
 import torch
 import torch.nn.functional as F
 
-from buzzdetect_torch.ops.sepconv import _route, device_scope
+from buzzdetect_torch.ops.common import I32, I64, PTR, Library, route
 
 # the kernel's modes
 MODES = ('bias_bf16', 'bias_gelu_bf16', 'bias_residual')
@@ -40,19 +37,11 @@ def plain(mode: str, y: torch.Tensor, bias: torch.Tensor, x=None):
     return s.to(torch.bfloat16)
 
 
-@lru_cache(maxsize=None)
-def load_kernels():
-    """Build (once) and load ``csrc/epilogue.cu``; returns the ctypes
-    library."""
-    from buzzdetect_torch.ops import _build
-    lib = _build.load('epilogue')
-    ptr = ctypes.c_void_p
-    lib.bz_epilogue.argtypes = [ctypes.c_int, ptr, ptr, ptr,
-                                ctypes.c_longlong, ctypes.c_int, ptr]
-    lib.bz_epilogue.restype = ctypes.c_int
-    lib.bz_epilogue_error_string.argtypes = [ctypes.c_int]
-    lib.bz_epilogue_error_string.restype = ctypes.c_char_p
-    return lib
+# the C interface of csrc/epilogue.cu
+LIBRARY = Library('epilogue', {
+    'bz_epilogue': (I32, [I32, PTR, PTR, PTR, I64, I32, PTR]),
+}, errors='bz_epilogue_error_string')
+load_kernels = LIBRARY.load
 
 
 def _check(y, bias, out):
@@ -73,15 +62,9 @@ def _launch(mode: str, y: torch.Tensor, bias: torch.Tensor,
     """``bz_epilogue`` on CUDA tensors: the implementation of both
     operators."""
     _check(y, bias, out)
-    lib = load_kernels()
-    with device_scope(y.device):
-        code = lib.bz_epilogue(MODES.index(mode), y.data_ptr(),
-                               bias.data_ptr(), out.data_ptr(), y.shape[0],
-                               y.shape[1],
-                               torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f'bz_epilogue failed: CUDA error {code} '
-                           f'({lib.bz_epilogue_error_string(code).decode()})')
+    LIBRARY.launch(load_kernels(), 'bz_epilogue', y.device,
+                   MODES.index(mode), y.data_ptr(), bias.data_ptr(),
+                   out.data_ptr(), y.shape[0], y.shape[1])
     return out
 
 
@@ -92,7 +75,7 @@ def apply(mode: str, y: torch.Tensor, bias: torch.Tensor,
     'bias_gelu_bf16'), or ``x`` updated in place ('bias_residual')."""
     if mode not in MODES:
         raise ValueError(f'mode must be one of {MODES}')
-    if _route(y) == 'cpu':
+    if route(y) == 'cpu':
         return plain(mode, y, bias, x)
     from buzzdetect_torch.ops import library
     if mode == 'bias_residual':

@@ -18,14 +18,14 @@ products in f32 and rounds the output to bf16 (held in f32), as the JAX
 package's ``packed_l1`` computes under bf16 compute: the other.
 """
 
-import ctypes
 from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
 
-from buzzdetect_torch.ops.sepconv import (
-    _check_mode, _route, device_scope, exact_f32, round_bf16, same_pad)
+from buzzdetect_torch.ops.common import (
+    I32, PTR, Library, exact_f32, round_bf16, route)
+from buzzdetect_torch.ops.sepconv import check_mode, same_pad
 
 # a patch (frames x mel bands) and the layer's output (rows, columns,
 # channels)
@@ -98,25 +98,18 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-@lru_cache(maxsize=None)
-def load_kernels():
-    """Build (once) and load ``csrc/layer1.cu``; returns the ctypes
-    library."""
-    from buzzdetect_torch.ops import _build
-    lib = _build.load('layer1')
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bz_layer1.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.bz_layer1.restype = i32
-    lib.bz_layer1_error_string.argtypes = [i32]
-    lib.bz_layer1_error_string.restype = ctypes.c_char_p
-    return lib
+# the C interface of csrc/layer1.cu
+LIBRARY = Library('layer1', {
+    'bz_layer1': (I32, [PTR] * 4 + [I32, I32, I32, PTR]),
+}, errors='bz_layer1_error_string')
+load_kernels = LIBRARY.load
 
 
 def _check(kernel, bias, x, mode):
     """Raise on anything the kernel does not take: ``x`` must be (B, 96,
     64) contiguous f32 with B > 0, ``kernel`` (32, 1, 3, 3) and ``bias``
     (32) contiguous f32 on ``x``'s device, ``mode`` one of the modes."""
-    _check_mode(mode)
+    check_mode(mode)
     if x.dim() != 3 or tuple(x.shape[1:]) != IN_SHAPE or x.shape[0] == 0:
         raise ValueError(f'expected (B, {IN_SHAPE[0]}, {IN_SHAPE[1]}) '
                          f'patches with B > 0, got {tuple(x.shape)}')
@@ -145,14 +138,9 @@ def _launch(kernel, bias, x, mode):
     out = torch.empty((b, *OUT_SHAPE), dtype=torch.float32, device=x.device)
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    with device_scope(x.device):
-        code = lib.bz_layer1(x.data_ptr(), kernel.data_ptr(),
-                             bias.data_ptr(), out.data_ptr(), b,
-                             band_rows(b, _sms(index)), _MODE_CODE[mode],
-                             torch.cuda.current_stream(x.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f'bz_layer1 failed: CUDA error {code} '
-                           f'({lib.bz_layer1_error_string(code).decode()})')
+    LIBRARY.launch(lib, 'bz_layer1', x.device, x.data_ptr(),
+                   kernel.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+                   band_rows(b, _sms(index)), _MODE_CODE[mode])
     return out
 
 
@@ -161,8 +149,8 @@ def layer1(kernel: torch.Tensor, bias: torch.Tensor, patches: torch.Tensor,
     """(B, 96, 64) f32 patches -> (B, 48, 32, 32) NHWC f32 layer-1
     activations in ``mode``: the kernel on a CUDA tensor, ``plain`` on a
     CPU tensor."""
-    if _route(patches) == 'cpu':
-        _check_mode(mode)
+    if route(patches) == 'cpu':
+        check_mode(mode)
         return plain(kernel, bias, patches, mode)
     _check(kernel, bias, patches, mode)
     from buzzdetect_torch.ops import library

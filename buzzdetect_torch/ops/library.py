@@ -16,10 +16,10 @@ StableHLO itself.
 
 Each operator has a CUDA implementation, which calls the existing launcher
 (``sepconv._launch``, ``logmel._launch_operands``) and counts the launch on
-the wrapper's ``launches`` (``sepconv._count_launch``), and a fake
+the wrapper's ``launches`` (``common.count_launch``), and a fake
 implementation, which gives the output's shape and dtype for tracing. None
 has a CPU implementation: on the CPU the wrappers compute their plain
-versions (``sepconv._route``), and an operator called on CPU tensors
+versions (``common.route``), and an operator called on CPU tensors
 raises ``NotImplementedError``.
 
 An operator takes only tensors, lists of tensors and scalars, so the
@@ -41,6 +41,7 @@ from torch import Tensor
 from buzzdetect_torch.ops import attention as attention_lib
 from buzzdetect_torch.ops import epilogue, logmel, sepconv
 from buzzdetect_torch.ops import layer1 as layer1_lib
+from buzzdetect_torch.ops.common import count_launch
 
 NAMESPACE = 'buzzdetect'
 
@@ -69,7 +70,7 @@ def layer1(patches: Tensor, kernel: Tensor, bias: Tensor, mode: str
     (32, 1, 3, 3) OIHW kernel and the (32) bias -> (B, 48, 32, 32) NHWC
     f32 in ``mode``."""
     out = layer1_lib._launch(kernel, bias, patches, mode)
-    sepconv._count_launch(layer1_lib.layer1)
+    count_launch(layer1_lib.layer1)
     return out
 
 
@@ -86,7 +87,7 @@ def fused_front(x: Tensor, operands: list[Tensor], start_layer: int,
     (B, H, W, C) NHWC f32 -> (B, Ho*Wo, F) in ``mode``."""
     specs = sepconv.tail_specs(start_layer, stop_layer)
     out = sepconv._launch(_layers(operands, specs), x, specs, False, mode)
-    sepconv._count_launch(sepconv.fused_front, mode,
+    count_launch(sepconv.fused_front, mode,
                           (start_layer, stop_layer), x.shape[0])
     return out
 
@@ -105,7 +106,7 @@ def fused_tail(x: Tensor, operands: list[Tensor], start_layer: int,
     (B, F) pooled with ``gap``, else (B, Ho*Wo, F), in ``mode``."""
     specs = sepconv.tail_specs(start_layer, stop_layer)
     out = sepconv._launch(_layers(operands, specs), x, specs, gap, mode)
-    sepconv._count_launch(sepconv.fused_tail, mode,
+    count_launch(sepconv.fused_tail, mode,
                           (start_layer, stop_layer), x.shape[0])
     return out
 
@@ -137,7 +138,7 @@ def log_mel(waveform: Tensor, constants: list[Tensor], window: int,
     tables, mel = constants
     out = logmel._launch_operands(waveform, tables, mel, log_offset,
                                   kind=geometry, shift=shift, divisor=scale)
-    sepconv._count_launch(logmel.log_mel_spectrogram_fused)
+    count_launch(logmel.log_mel_spectrogram_fused)
     return out
 
 
@@ -156,7 +157,7 @@ def attention(qkv: Tensor, heads: int, scale: float) -> Tensor:
     """(B, n, 3 heads 64) contiguous f32 or bf16 -> (B, n, heads 64) in the
     same dtype: softmax(q k^T * scale) v of each head."""
     out = attention_lib._launch(qkv, heads, scale)
-    sepconv._count_launch(attention_lib.attention)
+    count_launch(attention_lib.attention)
     return out
 
 
@@ -173,7 +174,7 @@ def bias_epilogue(y: Tensor, bias: Tensor, mode: str) -> Tensor:
     operand of mode 'bias_bf16' or 'bias_gelu_bf16' (``ops/epilogue``)."""
     out = torch.empty(y.shape, dtype=torch.bfloat16, device=y.device)
     epilogue._launch(mode, y, bias, out)
-    sepconv._count_launch(epilogue.apply)
+    count_launch(epilogue.apply)
     return out
 
 
@@ -187,7 +188,7 @@ def _(y, bias, mode):
 def bias_residual(x: Tensor, y: Tensor, bias: Tensor) -> None:
     """x += y + bias, in place: (rows, cols) f32 x and y, (cols) f32 bias."""
     epilogue._launch('bias_residual', y, bias, x)
-    sepconv._count_launch(epilogue.apply)
+    count_launch(epilogue.apply)
 
 
 @bias_residual.register_fake

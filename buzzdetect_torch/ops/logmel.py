@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from buzzdetect_torch.ops import mel as mel_lib
-from buzzdetect_torch.ops.sepconv import _route, device_scope, exact_f32
+from buzzdetect_torch.ops.common import (
+    F32, I32, I64, PTR, Library, device_scope, exact_f32, route)
 
 # the frame geometry the kernel is written for
 WINDOW, HOP, MELS, FFT = 400, 160, 64, 512
@@ -253,46 +254,28 @@ def block_work(geometry: Geometry, n_frames: int, bx: int, by: int):
 
 # --- kernel launch ---------------------------------------------------------------
 
-@lru_cache(maxsize=None)
-def load_kernels():
-    """Build (once) and load ``csrc/logmel.cu``; returns the ctypes library."""
-    from buzzdetect_torch.ops import _build
-    return bind(_build.load('logmel'))
+# the C interface of csrc/logmel.cu (a build from before the Kaldi
+# geometry lacks bz_fbank_kaldi*, which only that geometry needs)
+LIBRARY = Library('logmel', {
+    'bz_logmel': (I32, [PTR, I32, PTR, PTR, PTR, I32, I64, I64, I32, F32,
+                        I32, PTR]),
+    'bz_logmel_blocks': (I32, [I32, ctypes.POINTER(I32)]),
+    'bz_fbank_kaldi': (I32, [PTR, I32, PTR, PTR, PTR, I32, I64, I64, I32,
+                             F32, F32, F32, I32, PTR]),
+    'bz_fbank_kaldi_blocks': (I32, [I32, ctypes.POINTER(I32)]),
+}, errors='bz_logmel_error_string')
+load_kernels = LIBRARY.load
 
 
 def bind(lib):
-    """Declare the C interface of a library built from ``csrc/logmel.cu``
-    on ``lib`` (a ctypes CDLL); returns it. A build of the dense-DFT
-    design (``bz_logmel_clusters``, other operands) is refused: its
-    interface is not this one."""
+    """``LIBRARY.bind`` for another build of ``csrc/logmel.cu``. A build
+    of the dense-DFT design (``bz_logmel_clusters``, other operands) is
+    refused: its interface is not this one."""
     if not hasattr(lib, 'bz_logmel_blocks'):
         raise ValueError('this build of csrc/logmel.cu is the dense-DFT '
                          'design (no bz_logmel_blocks); it takes other '
                          'operands and cannot be called here')
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    i64, f32 = ctypes.c_longlong, ctypes.c_float
-    lib.bz_logmel.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i64, i64, i32,
-                              f32, i32, ptr]
-    lib.bz_logmel.restype = i32
-    lib.bz_logmel_blocks.argtypes = [i32, ctypes.POINTER(i32)]
-    lib.bz_logmel_blocks.restype = i32
-    # a build from before the Kaldi geometry lacks these; only that
-    # geometry needs them
-    if hasattr(lib, 'bz_fbank_kaldi'):
-        lib.bz_fbank_kaldi.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i64, i64,
-                                       i32, f32, f32, f32, i32, ptr]
-        lib.bz_fbank_kaldi.restype = i32
-        lib.bz_fbank_kaldi_blocks.argtypes = [i32, ctypes.POINTER(i32)]
-        lib.bz_fbank_kaldi_blocks.restype = i32
-    lib.bz_logmel_error_string.argtypes = [i32]
-    lib.bz_logmel_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_code(lib, name, code):
-    if code != 0:
-        raise RuntimeError(f'{name} failed: CUDA error {code} '
-                           f'({lib.bz_logmel_error_string(code).decode()})')
+    return LIBRARY.bind(lib)
 
 
 _CARDS = {}
@@ -314,7 +297,7 @@ def _card(device, lib, kind='yamnet'):
         with device_scope(device):
             for ft in FRAME_TILES:
                 count = ctypes.c_int(0)
-                _check_code(lib, name, getattr(lib, name)(
+                LIBRARY.check(lib, name, getattr(lib, name)(
                     ft, ctypes.byref(count)))
                 blocks[ft] = count.value
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -392,14 +375,10 @@ def _launch_operands(waveform, tables, mel, log_offset, lib=None, ft=None,
     entry = ENTRIES[kind][0]
     post = ((float(log_offset),) if kind == 'yamnet' else
             (float(log_offset), float(shift), float(divisor)))
-    with device_scope(device):
-        x = _paired_rows(waveform)
-        code = getattr(lib, entry)(x.data_ptr(), WIRES.index(x.dtype),
-                                   out.data_ptr(), tables.data_ptr(),
-                                   mel.data_ptr(), b, n, x.shape[1],
-                                   n_frames, *post, ft,
-                                   torch.cuda.current_stream().cuda_stream)
-    _check_code(lib, entry, code)
+    x = _paired_rows(waveform)
+    LIBRARY.launch(lib, entry, device, x.data_ptr(), WIRES.index(x.dtype),
+                   out.data_ptr(), tables.data_ptr(), mel.data_ptr(), b, n,
+                   x.shape[1], n_frames, *post, ft)
     return out
 
 
@@ -416,7 +395,7 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor, cfg) -> torch.Tensor:
     if waveform.shape[-1] < WINDOW or waveform.numel() == 0:
         raise ValueError(f'a waveform needs at least {WINDOW} samples, got '
                          f'{tuple(waveform.shape)}')
-    if _route(waveform) == 'cpu':
+    if route(waveform) == 'cpu':
         return log_mel_spectrogram_fused_plain(waveform, cfg)
     from buzzdetect_torch.ops import library
     x = waveform if waveform.dtype in WIRES else waveform.to(torch.float32)

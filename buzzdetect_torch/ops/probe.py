@@ -35,9 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from buzzdetect_torch.ops.sepconv import (
-    _count_launch, _pointwise_plain, _route, device_scope, exact_f32,
-    pack_pointwise)
+from buzzdetect_torch.ops.common import (
+    F32, I32, I64, PTR, Library, count_launch, exact_f32, route)
+from buzzdetect_torch.ops.sepconv import pack_pointwise, pointwise_plain
 
 # The 20 layout cases, in the order of csrc/probe.cu's case ids: name ->
 # the plain version, a torch expression of the input (and, for
@@ -139,7 +139,7 @@ def dot_f32_plain(a, w):
     """Plain version of ``dot_f32``: one f32 matrix product, TF32 off."""
     _check_dot(a, w, None)
     exact_f32()
-    return _pointwise_plain(a, w, 'highest')
+    return pointwise_plain(a, w, 'highest')
 
 
 def dot_high_plain(a, w):
@@ -147,14 +147,14 @@ def dot_high_plain(a, w):
     ``pack_pointwise(w, 'high')``, then the emulated-HIGH product."""
     _check_dot(a, w, None)
     exact_f32()
-    return _pointwise_plain(a, pack_pointwise(w, 'high'), 'high')
+    return pointwise_plain(a, pack_pointwise(w, 'high'), 'high')
 
 
 def dot_high_emulated_plain(a, w_hilo):
     """Plain version of ``dot_high_emulated``."""
     _check_dot(a, w_hilo, 2)
     exact_f32()
-    return _pointwise_plain(a, w_hilo, 'high')
+    return pointwise_plain(a, w_hilo, 'high')
 
 
 def fma_chain_plain(x, steps, a, b):
@@ -178,56 +178,24 @@ def _check_fma(x, steps):
 
 # --- kernel launch ---------------------------------------------------------------
 
-@lru_cache(maxsize=None)
-def load_kernels():
-    """Build (once) and load ``csrc/probe.cu``; returns the ctypes library."""
-    from buzzdetect_torch.ops import _build
-    return bind(_build.load('probe'))
-
-
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-# the C interface of csrc/probe.cu: name -> argument types; every pointer
-# and the stream (the last argument) pass as c_void_p, since an untyped int
-# argument would be cut to 32 bits
-_INTERFACE = {
-    'bz_probe_remap': [_I32, _PTR, _PTR, _PTR, _PTR, ctypes.c_longlong,
-                       _PTR],
-    'bz_probe_remap_batch': [_I32, _PTR, _PTR, _PTR, _PTR],
-    'bz_probe_dot_f32': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
-    'bz_probe_dot_high': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
-    'bz_probe_dot_high_emulated': [_PTR, _PTR, _PTR, _I32, _I32, _I32,
-                                   _PTR],
-    'bz_probe_fma_chain': [_PTR, _PTR, ctypes.c_longlong, _I32,
-                           ctypes.c_float, ctypes.c_float, _PTR],
-}
-
-
-def bind(lib):
-    """Declare the C interface of a library built from ``csrc/probe.cu`` on
-    ``lib`` (a ctypes CDLL); returns it. A function that an older build of
-    the source lacks (``bz_probe_remap_batch``) stays undeclared, and
-    calling it raises AttributeError."""
-    for name, argtypes in _INTERFACE.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes = argtypes
-            fn.restype = _I32
-    lib.bz_probe_error_string.argtypes = [_I32]
-    lib.bz_probe_error_string.restype = ctypes.c_char_p
-    return lib
+# the C interface of csrc/probe.cu (an older build lacks
+# bz_probe_remap_batch)
+LIBRARY = Library('probe', {
+    'bz_probe_remap': (I32, [I32, PTR, PTR, PTR, PTR, I64, PTR]),
+    'bz_probe_remap_batch': (I32, [I32, PTR, PTR, PTR, PTR]),
+    'bz_probe_dot_f32': (I32, [PTR, PTR, PTR, I32, I32, I32, PTR]),
+    'bz_probe_dot_high': (I32, [PTR, PTR, PTR, I32, I32, I32, PTR]),
+    'bz_probe_dot_high_emulated': (I32, [PTR, PTR, PTR, I32, I32, I32, PTR]),
+    'bz_probe_fma_chain': (I32, [PTR, PTR, I64, I32, F32, F32, PTR]),
+}, errors='bz_probe_error_string')
+load_kernels, bind = LIBRARY.load, LIBRARY.bind
 
 
 def _call(name, device, *args, lib=None):
-    """Run ``lib.<name>(*args, stream)`` (this checkout's library, or
-    ``lib``, another build of it) on ``device``'s current stream; raises on
-    any CUDA error code."""
-    lib = load_kernels() if lib is None else lib
-    with device_scope(device):
-        code = getattr(lib, name)(*args,
-                                  torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f'{name} failed: CUDA error {code} '
-                           f'({lib.bz_probe_error_string(code).decode()})')
+    """``LIBRARY.launch`` of this checkout's library, or of ``lib``,
+    another build of it."""
+    LIBRARY.launch(load_kernels() if lib is None else lib, name, device,
+                   *args)
 
 
 def _contiguous(*tensors):
@@ -306,7 +274,7 @@ def remap_batch(items):
         key.append((case, tuple(x.shape),
                     None if w is None else tuple(w.shape)))
     ids, dims, outs, total = _batch_table(tuple(key))
-    if _route(items[0][1]) == 'cpu':
+    if route(items[0][1]) == 'cpu':
         return [remap_plain(case, x, w) for case, x, w in items]
     _contiguous(*(t for _case, x, w in items
                   for t in (x, w) if t is not None))
@@ -316,7 +284,7 @@ def remap_batch(items):
         (x.data_ptr(), 0 if w is None else w.data_ptr(), base + 4 * offset)
         for (_case, x, w), (_shape, _stride, offset) in zip(items, outs)))
     _call('bz_probe_remap_batch', device, len(items), ids, ptrs, dims)
-    _count_launch(remap)
+    count_launch(remap)
     return [buf.as_strided(shape, stride, offset)
             for shape, stride, offset in outs]
 
@@ -350,20 +318,20 @@ def launch_dot(name, a, w, lib=None):
 def dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) in exact f32."""
     m, n, k = _check_dot(a, w, None)
-    if _route(a) == 'cpu':
+    if route(a) == 'cpu':
         return dot_f32_plain(a, w)
     out = _launch_dot('dot_f32', a, w, m, n, k)
-    _count_launch(dot_f32)
+    count_launch(dot_f32)
     return out
 
 
 def dot_high(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) at HIGH on the tensor cores (f32 operands)."""
     m, n, k = _check_dot(a, w, None)
-    if _route(a) == 'cpu':
+    if route(a) == 'cpu':
         return dot_high_plain(a, w)
     out = _launch_dot('dot_high', a, w, m, n, k)
-    _count_launch(dot_high)
+    count_launch(dot_high)
     return out
 
 
@@ -371,10 +339,10 @@ def dot_high_emulated(a: torch.Tensor, w_hilo: torch.Tensor) -> torch.Tensor:
     """(M, K) @ hi/lo (2, K, N) bf16 at emulated HIGH on the tensor
     cores."""
     m, n, k = _check_dot(a, w_hilo, 2)
-    if _route(a) == 'cpu':
+    if route(a) == 'cpu':
         return dot_high_emulated_plain(a, w_hilo)
     out = _launch_dot('dot_high_emulated', a, w_hilo, m, n, k)
-    _count_launch(dot_high_emulated)
+    count_launch(dot_high_emulated)
     return out
 
 
@@ -382,13 +350,13 @@ def fma_chain(x: torch.Tensor, steps: int, a: float, b: float):
     """Every element of the 1-d f32 ``x`` after ``steps`` of
     ``v = fma(v, a, b)``."""
     _check_fma(x, steps)
-    if _route(x) == 'cpu':
+    if route(x) == 'cpu':
         return fma_chain_plain(x, steps, a, b)
     _contiguous(x)
     out = torch.empty_like(x)
     _call('bz_probe_fma_chain', x.device, x.data_ptr(), out.data_ptr(),
           x.numel(), steps, a, b)
-    _count_launch(fma_chain)
+    count_launch(fma_chain)
     return out
 
 

@@ -38,15 +38,34 @@ biases. ``pack_params`` adds each mode's pointwise operand beside them
 """
 
 import collections
-import contextlib
-import ctypes
-import threading
 from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from buzzdetect_torch.ops.common import (
+    I32, PTR, Library, exact_f32, resolve_compute_dtype, round_bf16, route)
+
+# YAMNet's layers, (kind, stride, output_filters); every kernel is 3x3
+LAYER_DEFS = (
+    ('conv', 2, 32),
+    ('sep', 1, 64),
+    ('sep', 2, 128),
+    ('sep', 1, 128),
+    ('sep', 2, 256),
+    ('sep', 1, 256),
+    ('sep', 2, 512),
+    ('sep', 1, 512),
+    ('sep', 1, 512),
+    ('sep', 1, 512),
+    ('sep', 1, 512),
+    ('sep', 1, 512),
+    ('sep', 2, 1024),
+    ('sep', 1, 1024),
+)
+
 
 @dataclass(frozen=True)
 class SepSpec:
@@ -76,9 +95,6 @@ def tail_specs(start_layer: int = 8, stop_layer: int = None):
     """SepSpecs for LAYER_DEFS[start_layer-1:stop_layer-1] with their input
     spatial sizes (stop_layer is exclusive; None runs to the end); cached,
     since every launch asks for its range."""
-    # here, not at the top: importing the models package imports the
-    # classifier, which imports this module
-    from buzzdetect_torch.models.yamnet import LAYER_DEFS
     stop = len(LAYER_DEFS) + 1 if stop_layer is None else stop_layer
     h, w, c = 96, 64, 1
     specs = []
@@ -91,24 +107,6 @@ def tail_specs(start_layer: int = 8, stop_layer: int = None):
     if not specs:
         raise ValueError(f'empty layer range [{start_layer}, {stop})')
     return tuple(specs)
-
-
-def front_pw_splits(groups: int, start_layer: int = 2, stop_layer: int = 4):
-    """Per-layer number of pointwise sub-dots of the TPU's packed front
-    (``buzzdetect_tpu.ops.pallas_conv.front_pw_splits``, the same rule and
-    message): ``groups`` patches share the lanes, and a layer of C input
-    channels contracts in ``groups / q`` dots of ``q = min(groups,
-    128 // C)`` groups. The card's kernels do not pack patches, so here it
-    only validates a ``PALLAS_FRONT`` config (``models/yamnet.check_front``).
-    """
-    splits = []
-    for s in tail_specs(start_layer, stop_layer):
-        q = max(1, min(groups, 128 // s.c_in))
-        if groups % q:
-            raise ValueError(f'groups={groups} not divisible by q={q} '
-                             f'at layer {s.index}')
-        splits.append(groups // q)
-    return tuple(splits)
 
 
 def same_pad(n: int, stride: int, k: int = 3):
@@ -129,7 +127,7 @@ def layer_route(mode: str) -> str:
     """The unit that runs a layer's pointwise product in ``mode``: 'ffma'
     (sep_layer_kernel, exact f32) or 'mma' (sep_layer_mma_kernel, bf16
     operands on the tensor cores)."""
-    _check_mode(mode)
+    check_mode(mode)
     return 'ffma' if mode == 'highest' else 'mma'
 
 
@@ -256,17 +254,6 @@ def ffma_geometry(s, batch, card=H100_CARD) -> Geometry:
     return g
 
 
-def resolve_compute_dtype(compute_dtype) -> torch.dtype:
-    """None, float32 (or 'float32') -> torch.float32; bfloat16 (or
-    'bfloat16') -> torch.bfloat16; anything else raises."""
-    if compute_dtype in (None, torch.float32, 'float32'):
-        return torch.float32
-    if compute_dtype in (torch.bfloat16, 'bfloat16'):
-        return torch.bfloat16
-    raise ValueError(f'compute_dtype must be float32 or bfloat16, got '
-                     f'{compute_dtype!r}')
-
-
 def resolve_mode(compute_dtype=torch.float32, precision=None) -> str:
     """The kernel mode for a compute dtype and a product precision
     ('highest' | 'high' | 'default' | None), as ``pallas_conv.
@@ -289,14 +276,9 @@ def resolve_mode(compute_dtype=torch.float32, precision=None) -> str:
     return 'highest'
 
 
-def _check_mode(mode):
+def check_mode(mode):
     if mode not in MODES:
         raise ValueError(f'mode must be one of {MODES}, got {mode!r}')
-
-
-def round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> the nearest bf16 value (ties to even), kept in f32."""
-    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def pack_pointwise(pw: torch.Tensor, mode: str) -> torch.Tensor:
@@ -304,7 +286,7 @@ def pack_pointwise(pw: torch.Tensor, mode: str) -> torch.Tensor:
     ``pallas_conv._pack_pw`` packs it: itself ('highest'); rounded to bf16
     ('bf16'); or the (2, C, F) bf16 hi/lo split of ``_split_hi_lo``,
     ``w ~= hi + lo`` ('high')."""
-    _check_mode(mode)
+    check_mode(mode)
     if mode == 'highest':
         return pw
     hi = pw.to(torch.bfloat16)
@@ -341,17 +323,9 @@ def _pointwise(params, s, mode):
     return params[key]
 
 
-def exact_f32():
-    """Keep float32 convolutions and matrix products out of TF32 on the card:
-    cuDNN allows TF32 for convolutions by default, which keeps about three
-    decimal digits and breaks the 1e-3 score budget."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 # --- plain versions ------------------------------------------------------------
 
-def _pointwise_plain(flat, pw, mode):
+def pointwise_plain(flat, pw, mode):
     """The pointwise product of ``mode`` in f32 matrix products (TF32 off):
     the bf16 operands are bf16 values held in f32, whose products are exact,
     and the HIGH split sums its three products as ``_pw_dot`` does."""
@@ -375,13 +349,13 @@ def _sep_layer_plain(params, x, s: SepSpec, mode='highest'):
     y = torch.relu(y + params[f'{s.name}/depthwise_conv/bias'][:, None, None])
     b = y.shape[0]
     flat = y.permute(0, 2, 3, 1).reshape(b * s.h_out * s.w_out, s.c_in)
-    z = torch.relu(_pointwise_plain(flat, _pointwise(params, s, mode), mode)
+    z = torch.relu(pointwise_plain(flat, _pointwise(params, s, mode), mode)
                    + params[f'{s.name}/pointwise_conv/bias'])
     return z.reshape(b, s.h_out, s.w_out, s.c_out)
 
 
 def _stack_plain(params, x, specs, gap, mode):
-    _check_mode(mode)
+    check_mode(mode)
     exact_f32()
     for s in specs:
         x = _sep_layer_plain(params, x, s, mode)
@@ -407,25 +381,14 @@ def fused_tail_plain(params, x, *, start_layer=8, stop_layer=None, gap=True,
 
 # --- kernel launch ---------------------------------------------------------------
 
-@lru_cache(maxsize=None)
-def load_kernels():
-    """Build (once) and load ``csrc/sepconv.cu``; returns the ctypes library.
-    Every pointer and the stream pass as c_void_p: an untyped int argument
-    would be cut to 32 bits."""
-    from buzzdetect_torch.ops import _build
-    return bind(_build.load('sepconv'))
-
-
-def bind(lib):
-    """Declare the C interface of a library built from ``csrc/sepconv.cu``
-    on ``lib`` (a ctypes CDLL); returns it."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bz_sep_stack.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, i32,
-                                 i32, ptr]
-    lib.bz_sep_stack.restype = i32
-    lib.bz_error_string.argtypes = [i32]
-    lib.bz_error_string.restype = ctypes.c_char_p
-    return lib
+# the C interface of csrc/sepconv.cu
+LIBRARY = Library('sepconv', {
+    'bz_sep_stack': (I32, [PTR] * 4 + [I32, I32, PTR, PTR, I32, I32, PTR]),
+    'bz_sep_geometry': (I32, [I32, I32, PTR, I32, I32, I32, PTR]),
+    'bz_sep_layer_at': (I32, [PTR, PTR, I32, PTR, PTR, I32, I32, I32, PTR]),
+    'bz_sep_card': (I32, [PTR]),
+}, errors='bz_error_string')
+load_kernels, bind = LIBRARY.load, LIBRARY.bind
 
 
 def _layer_dims(specs):
@@ -442,11 +405,7 @@ def library_card(lib=None):
     the library sizes its grids by them (``bz_sep_card``)."""
     lib = lib or load_kernels()
     out = np.zeros(3, np.int32)
-    lib.bz_sep_card.argtypes = [ctypes.c_void_p]
-    lib.bz_sep_card.restype = ctypes.c_int
-    code = lib.bz_sep_card(out.ctypes.data)
-    if code != 0:
-        raise RuntimeError(f'bz_sep_card failed: CUDA error {code}')
+    LIBRARY.check(lib, 'bz_sep_card', lib.bz_sep_card(out.ctypes.data))
     return tuple(int(v) for v in out)
 
 
@@ -455,16 +414,10 @@ def library_geometry(specs, batch, card, lib=None):
     ``batch`` on ``card`` (``bz_sep_geometry``, a host function), as
     Geometry; ``ffma_geometry`` is its mirror."""
     lib = lib or load_kernels()
-    i32 = ctypes.c_int
-    lib.bz_sep_geometry.argtypes = [i32, i32, ctypes.c_void_p, i32, i32, i32,
-                                    ctypes.c_void_p]
-    lib.bz_sep_geometry.restype = i32
     out = np.zeros((len(specs), 8), np.int32)
     dims = _layer_dims(specs)
-    code = lib.bz_sep_geometry(batch, len(specs), dims.ctypes.data, *card,
-                               out.ctypes.data)
-    if code != 0:
-        raise RuntimeError(f'bz_sep_geometry failed: error {code}')
+    LIBRARY.check(lib, 'bz_sep_geometry', lib.bz_sep_geometry(
+        batch, len(specs), dims.ctypes.data, *card, out.ctypes.data))
     return [Geometry('narrow' if g[0] else 'wide', *map(int, g[1:4]),
                      (int(g[4]), int(g[5])), int(g[6]), int(g[7]))
             for g in out]
@@ -536,35 +489,12 @@ def _launch(operands, x, specs, gap, mode, lib=None):
     out = torch.empty((b, sl.c_out) if gap
                       else (b, sl.h_out * sl.w_out, sl.c_out),
                       dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     # the C side sizes its grids from the current device's SM count
-    with torch.cuda.device(x.device):
-        code = lib.bz_sep_stack(x.data_ptr(), out.data_ptr(), buf0.data_ptr(),
-                                buf1.data_ptr(), b, len(specs),
-                                ptrs.ctypes.data, dims.ctypes.data, int(gap),
-                                _MODE_CODE[mode], stream)
-    if code != 0:
-        raise RuntimeError(f'bz_sep_stack failed: CUDA error {code} '
-                           f'({lib.bz_error_string(code).decode()})')
+    LIBRARY.launch(lib, 'bz_sep_stack', x.device, x.data_ptr(),
+                   out.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), b,
+                   len(specs), ptrs.ctypes.data, dims.ctypes.data, int(gap),
+                   _MODE_CODE[mode])
     return out
-
-
-def _count_launch(wrapper, mode=None, layers=None, batch=None):
-    """One more launch on ``wrapper.launches`` (or on its ``mode`` entry),
-    and with ``layers`` = (start, stop) on ``wrapper.ranges[(start, stop,
-    mode)]``, which tells the layer ranges of one wrapper apart, and with
-    ``batch`` also on ``wrapper.batches[(start, stop, mode, batch)]``, which
-    tells the batch sizes apart; inferer threads share the wrappers, and
-    ``+=`` is not atomic."""
-    with _count_lock:
-        if mode is None:
-            wrapper.launches += 1
-        else:
-            wrapper.launches[mode] += 1
-        if layers is not None:
-            wrapper.ranges[(*layers, mode)] += 1
-            if batch is not None:
-                wrapper.batches[(*layers, mode, batch)] += 1
 
 
 def _flat(operands):
@@ -573,29 +503,14 @@ def _flat(operands):
     return [t for layer in operands for t in layer]
 
 
-def _route(x):
-    """'cpu' -> plain version; 'cuda' -> kernel. Anything else raises."""
-    if x.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f'unsupported device {x.device}')
-    return x.device.type
-
-
-def device_scope(device):
-    """A context that makes CUDA ``device`` current: a no-op where it is
-    current already, which spares a launch the switch there and back."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def fused_front(params, x, *, start_layer: int = 2, stop_layer: int = 8,
                 mode: str = 'highest'):
     """Layer-1 output (B, 48, 32, 32) NHWC -> (B, 6*4, 512) entering layer 8
     (flattened spatial, as the TPU kernel returns it)."""
-    _check_mode(mode)
+    check_mode(mode)
     specs = tail_specs(start_layer, stop_layer)
     operands = _check(params, x, specs, mode)
-    if _route(x) == 'cpu':
+    if route(x) == 'cpu':
         return fused_front_plain(params, x, start_layer=start_layer,
                                  stop_layer=stop_layer, mode=mode)
     from buzzdetect_torch.ops import library
@@ -607,10 +522,10 @@ def fused_tail(params, x, *, start_layer: int = 8, stop_layer: int = None,
                gap: bool = True, mode: str = 'highest'):
     """(B, H, W, C) entering ``start_layer`` -> (B, 1024) embeddings with
     ``gap``, else the last layer's activations (B, Ho*Wo, F)."""
-    _check_mode(mode)
+    check_mode(mode)
     specs = tail_specs(start_layer, stop_layer)
     operands = _check(params, x, specs, mode)
-    if _route(x) == 'cpu':
+    if route(x) == 'cpu':
         return fused_tail_plain(params, x, start_layer=start_layer,
                                 stop_layer=stop_layer, gap=gap, mode=mode)
     from buzzdetect_torch.ops import library
@@ -618,7 +533,6 @@ def fused_tail(params, x, *, start_layer: int = 8, stop_layer: int = None,
                               specs[-1].index + 1, gap, mode)
 
 
-_count_lock = threading.Lock()
 fused_front.launches = dict.fromkeys(MODES, 0)
 fused_tail.launches = dict.fromkeys(MODES, 0)
 fused_front.ranges = collections.Counter()

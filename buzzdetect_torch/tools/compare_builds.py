@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from buzzdetect_torch.ops import _build, logmel, probe, sepconv
+from buzzdetect_torch.ops.common import exact_f32
 
 # name -> (layers, gap, modes)
 CASES = {'fused_front': (dict(start_layer=2, stop_layer=8), False,
@@ -131,7 +132,7 @@ def compare(other, device):
     """{(case, mode, batch): equal} over every case, this checkout's
     library against ``other``."""
     yam = _weights(device)
-    sepconv.exact_f32()
+    exact_f32()
     results = {}
     with torch.inference_mode():
         for mode in sepconv.MODES:
@@ -309,7 +310,7 @@ def compare_probe(other, device):
     """{case: equal}: the three products at ``DOT_SHAPES`` and the 20 layout
     cases, this checkout's library against ``other``."""
     from buzzdetect_torch.tools.capability_probe import layout_items
-    sepconv.exact_f32()
+    exact_f32()
     results = {}
     with torch.inference_mode():
         for label, (a, w) in dot_operands(device).items():

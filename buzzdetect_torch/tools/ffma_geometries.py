@@ -29,7 +29,6 @@ tile spills.
 """
 
 import argparse
-import ctypes
 import os
 import statistics
 import sys
@@ -61,16 +60,16 @@ def layer_at(lib, x, y, ops, s, tile):
     """Launch layer ``s`` on ``x`` into ``y`` at ``tile`` through
     ``bz_sep_layer_at``; False for a tile that does not fit."""
     from buzzdetect_torch.ops import sepconv
+    from buzzdetect_torch.ops.common import device_scope
     ptrs = np.array([t.data_ptr() for t in ops], np.int64)
-    code = lib.bz_sep_layer_at(
-        x.data_ptr(), y.data_ptr(), x.shape[0], ptrs.ctypes.data,
-        sepconv._layer_dims((s,)).ctypes.data, int(tile[0] == 'narrow'),
-        tile[1], tile[2], torch.cuda.current_stream(x.device).cuda_stream)
+    with device_scope(x.device):
+        code = lib.bz_sep_layer_at(
+            x.data_ptr(), y.data_ptr(), x.shape[0], ptrs.ctypes.data,
+            sepconv._layer_dims((s,)).ctypes.data, int(tile[0] == 'narrow'),
+            tile[1], tile[2], torch.cuda.current_stream().cuda_stream)
     if code == -1:
         return False
-    if code != 0:
-        raise RuntimeError(f'bz_sep_layer_at failed on layer {s.index} at '
-                           f'{tile}: CUDA error {code}')
+    sepconv.LIBRARY.check(lib, 'bz_sep_layer_at', code)
     return True
 
 
@@ -114,9 +113,6 @@ def main(argv=None):
     from buzzdetect_torch.utils import cuda_device_ms
     device = resolve_device('cuda')
     lib = sepconv.load_kernels()
-    lib.bz_sep_layer_at.argtypes = ([ctypes.c_void_p] * 5
-                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.bz_sep_layer_at.restype = ctypes.c_int
     card = sepconv.library_card(lib)
     print(f'device: {torch.cuda.get_device_name(device)}; {card[0]} SMs, '
           f'{card[1]} B of shared memory per SM, {card[2]} per block',

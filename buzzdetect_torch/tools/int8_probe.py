@@ -151,7 +151,7 @@ def calibrate_act_scales(params: dict, patches) -> dict:
     on ``patches``' device: ``{key: float}``."""
     import torch
     from buzzdetect_torch.models import yamnet as yamnet_lib
-    from buzzdetect_torch.ops.sepconv import exact_f32
+    from buzzdetect_torch.ops.common import exact_f32
     exact_f32()
     x = patches.to(torch.float32)
     if x.dim() == 4:
@@ -230,6 +230,7 @@ def run(n_patches: int = 1000, chunks: int = 20, device='cuda',
     from buzzdetect_torch.models.convert import load_bundle
     from buzzdetect_torch.models.weights import params_from_numpy
     from buzzdetect_torch.ops import sepconv
+    from buzzdetect_torch.ops.common import exact_f32
     from buzzdetect_torch.utils import cuda_device_ms, cuda_time_ms
 
     check_rows(n_patches)
@@ -244,7 +245,7 @@ def run(n_patches: int = 1000, chunks: int = 20, device='cuda',
     params = (yamnet_lib.fold_batchnorm(raw) if raw else
               {k[len('yamnet/'):]: np.asarray(v) for k, v in arrays.items()
                if k.startswith('yamnet/')})
-    sepconv.exact_f32()
+    exact_f32()
     if dev.type == 'cuda':
         sepconv.load_kernels()
     shipped = params_from_numpy({f'yamnet/{k}': v for k, v in params.items()},

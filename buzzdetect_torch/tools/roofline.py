@@ -168,7 +168,7 @@ def measure_peaks(bf16=False):
     copy between two 1 GiB tensors."""
     import torch
     from buzzdetect_torch.ops import probe
-    from buzzdetect_torch.ops.sepconv import exact_f32
+    from buzzdetect_torch.ops.common import exact_f32
     from buzzdetect_torch.utils import cuda_time_ms
 
     exact_f32()
@@ -200,7 +200,8 @@ def measure_layers(which, bf16, seconds):
     from buzzdetect_torch import config
     from buzzdetect_torch.models import yamnet
     from buzzdetect_torch.models.weights import params_from_numpy
-    from buzzdetect_torch.ops.sepconv import exact_f32, tail_specs
+    from buzzdetect_torch.ops.common import exact_f32
+    from buzzdetect_torch.ops.sepconv import tail_specs
     from buzzdetect_torch.utils import cuda_time_ms
 
     exact_f32()

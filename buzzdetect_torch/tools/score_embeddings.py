@@ -50,7 +50,7 @@ def main(argv=None):
 
     from buzzdetect_torch import config as cfg
     from buzzdetect_torch.models.classifier import resolve_device
-    from buzzdetect_torch.ops.sepconv import exact_f32
+    from buzzdetect_torch.ops.common import exact_f32
     from buzzdetect_torch.models.heads import apply_head
     from buzzdetect_torch.write.formatting import (format_activations,
                                                    format_detections)

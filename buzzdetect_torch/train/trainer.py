@@ -48,7 +48,7 @@ from buzzdetect_torch.models.weights import (flatten, is_state,
                                              train_state_from_numpy)
 from buzzdetect_torch.ops.frontend import (FrontendConfig, log_mel_patches,
                                            num_patches)
-from buzzdetect_torch.ops.sepconv import exact_f32
+from buzzdetect_torch.ops.common import exact_f32
 from buzzdetect_torch.parallel.mesh import Mesh, mesh_device, split
 from buzzdetect_torch.train.augment import (default_augment, draw_spec_mask,
                                             spec_mask)

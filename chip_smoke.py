@@ -67,8 +67,8 @@ Phases, each printed before the last line:
    the fused log-mel on the card: the analyze() run launches it once a
    chunk, and every CLI run launches it; every run launches layer 1 once
    a chunk); for the analyze()
-   run also the realtime factor, an upper estimate of the device busy
-   share, and what the run pays for its batches: the conv launches by B
+   run also what it pays for its batches (its realtime factor and the
+   device's idle share are the benchmark's): the conv launches by B
    (``<wrapper>.batches``), each wrapper's device time per launch at those
    B, and each B's share of the run's conv device time
    (``compare_builds.conv_shares``), with the histogram as
@@ -205,14 +205,9 @@ Phases, each printed before the last line:
    version's and the cuDNN layer stack's (the matmul frontend's), and its
    bound by phase 2's formula; the exact-f32 rows also by ``queued_ms``
    (the call's kernels and gaps, queued behind a device sleep), kernel and
-   cuDNN, warm and with the L2 flushed by a 128 MB write; (b) the three
-   ``BUZZDETECT_PALLAS_FRONT`` routes (``models/yamnet.PALLAS_FRONT``:
-   layers 2-7 in one ``fused_front``; 2-3 and a ``fused_tail`` 4-7; layers
-   1-3 by cuDNN) through ``yamnet.embed`` on one 200.64 s chunk (209
-   patches) of phase 3's first recording: each route's launches by layer
-   range, embeddings against each other and the CPU, device time; then
-   ``analyze()`` on phase 3's recordings on the route with the 4-7 block,
-   whose launches the kernels line reports for it; (c) the modes of
+   cuDNN, warm and with the L2 flushed by a 128 MB write; (b) has gone
+   with the JAX package's three front routes (the port runs one); (c) the
+   modes of
    ``tests/test_pipeline.py`` through ``analyze()``: framehop 0.5 and 0.3,
    the mu-law wire and detections mode on a 300 s excerpt of phase 3's
    first recording against the port's CPU run of the same mode, batched
@@ -2067,16 +2062,6 @@ SUITE_SECONDS = (1.0, 4.8, 10.0)
 # them (queued_ms)
 FLUSH_BYTES = 128 << 20
 QUEUE_CYCLES = 4_000_000
-# (b) BUZZDETECT_PALLAS_FRONT's three routes (models/yamnet.PALLAS_FRONT):
-# (label, config, launches of one embed by (start, stop) layer range of
-# fused_front, and of fused_tail)
-ROUTES = (
-    ('default', dict(groups=4, block_packed=1, fuse_mid=True),
-     {(2, 8): 1}, {(8, 15): 1}),
-    ('without mid', dict(groups=4, block_packed=1),
-     {(2, 4): 1}, {(4, 8): 1, (8, 15): 1}),
-    ("'off'", None, {}, {(4, 8): 1, (8, 15): 1}),
-)
 # (c) the pipeline suite's modes (tests/test_pipeline.py), each an
 # analyze() of an excerpt of phase 3's first recording on the card and on
 # the CPU; and the batched dispatch's chunks per batch
@@ -2707,20 +2692,6 @@ def tolerance(mode, ref):
     return ATOL, RTOL
 
 
-def read_ranges():
-    """The conv kernels' launches since the last reset, by layer range:
-    ({(start, stop): n} of fused_front, the same of fused_tail), every
-    mode summed."""
-    from buzzdetect_torch.ops import sepconv
-    out = []
-    for fn in (sepconv.fused_front, sepconv.fused_tail):
-        ranges = collections.Counter()
-        for (start, stop, _mode), n in fn.ranges.items():
-            ranges[start, stop] += n
-        out.append(dict(ranges))
-    return tuple(out)
-
-
 def read_batches():
     """The conv kernels' launches since the last reset by wrapper and batch,
     every layer range and mode summed: {'fused_front': {B: n},
@@ -2930,111 +2901,6 @@ def suite_kernel_phase(torch, all_params, patches, wav, cfg, device_ms,
             lambda: frontend.log_mel_spectrogram(w, cfg),
             (flops / f32_peak, n_bytes / bytes_peak))
     return rows
-
-
-def routes_phase(torch, arrays, path_audio, cfg, reset_counts, device_ms,
-                 device='cuda'):
-    """(b) The three BUZZDETECT_PALLAS_FRONT routes (ROUTES, set on
-    ``yamnet.PALLAS_FRONT``, which wins over the variable) through
-    ``yamnet.embed`` on one 200.64 s chunk (209 patches) of ``path_audio``
-    on ``device``: each route's launches of one embed by layer range (set
-    to 0 just before, read just after), its embeddings against the first
-    route's and against the CPU's (the default route's plain versions)
-    within ATOL / RTOL, and its device time. Returns {label: row}."""
-    from buzzdetect_torch.audio import build_track
-    from buzzdetect_torch.models import yamnet
-    from buzzdetect_torch.models.classifier import _to_float
-    from buzzdetect_torch.models.weights import params_from_numpy
-    from buzzdetect_torch.ops import frontend
-    print('10b. the BUZZDETECT_PALLAS_FRONT routes', flush=True)
-    n = (frontend.min_waveform_samples(cfg)
-         + (BATCHES[0] - 1) * cfg.patch_hop_samples)
-    track = build_track(path_audio, target_rate=16000)
-    samples = track.read_s16(n)
-    track.close()
-    params = params_from_numpy(arrays, device)['yamnet']
-    saved = yamnet.resolve_front()
-    rows, first = {}, None
-    try:
-        with torch.inference_mode():
-            patches = frontend.log_mel_patches(
-                _to_float(torch.from_numpy(samples).to(device)), cfg)
-            yamnet.PALLAS_FRONT = ROUTES[0][1]
-            cpu = yamnet.embed(params_from_numpy(arrays, 'cpu')['yamnet'],
-                               patches.cpu())
-            for label, front, want_front, want_tail in ROUTES:
-                yamnet.PALLAS_FRONT = front
-                reset_counts()
-                emb = yamnet.embed(params, patches).cpu()
-                got = read_ranges()
-                first = emb if first is None else first
-                d_cpu = float((emb - cpu).abs().max())
-                d_first = float((emb - first).abs().max())
-                row = dict(launches=got, vs_cpu=d_cpu, vs_default=d_first,
-                           device_ms=device_ms(
-                               lambda: yamnet.embed(params, patches)))
-                rows[label] = row
-                print(f'(b) route {label} ({front}): {tuple(emb.shape)} '
-                      f'embeddings; launches of one embed, fused_front '
-                      f'{got[0]}, fused_tail {got[1]}; max |d| against the '
-                      f'default route {d_first:.3g}, against the CPU '
-                      f'{d_cpu:.3g} (atol {ATOL}, rtol {RTOL}); device time '
-                      f'{row["device_ms"]:.4f} ms', flush=True)
-                if got != (want_front, want_tail):
-                    fail(f'route {label}: launches {got}, expected '
-                         f'{(want_front, want_tail)}')
-                for ref, what in ((cpu, 'the CPU'), (first, 'the default')):
-                    if not torch.allclose(emb, ref, atol=ATOL, rtol=RTOL):
-                        fail(f'route {label}: embeddings differ from '
-                             f'{what}\'s')
-    finally:
-        yamnet.PALLAS_FRONT = saved
-    return rows
-
-
-def route_analyze_phase(tmp, dir_audio, dir_out, names, reset_counts,
-                        device='cuda'):
-    """(b) ``analyze()`` on phase 3's recordings on the route without mid
-    (ROUTES[1]): the layer 4-7 block's launches (one per chunk, as many as
-    fused_front(2, 4)'s and fused_tail(8)'s, and no fused_front(2, 8)), the
-    CSVs against phase 3's in ``dir_out`` (equal after 2-digit rounding;
-    whether byte-identical is printed). Returns the block's launches."""
-    import buzzdetect_torch
-    from buzzdetect_torch.models import yamnet
-    saved = yamnet.resolve_front()
-    out = os.path.join(tmp, 'out_route')
-    yamnet.PALLAS_FRONT = ROUTES[1][1]
-    try:
-        reset_counts()
-        t0 = time.perf_counter()
-        result = buzzdetect_torch.analyze(
-            modelname=MODEL, dir_audio=dir_audio, dir_out=out,
-            verbosity_print='WARNING', device=device)
-        wall = time.perf_counter() - t0
-        front, tail = read_ranges()
-    finally:
-        yamnet.PALLAS_FRONT = saved
-    reason = result.coordinator.end_reason
-    audio_s = result.coordinator.audio_seconds_done
-    block = tail.get((4, 8), 0)
-    identical = all(file_bytes(out, n) == file_bytes(dir_out, n)
-                    for n in names)
-    worst = csv_gap(out, dir_out, names)
-    print(f'(b) analyze() on the route {ROUTES[1][0]}: end reason '
-          f'{reason!r}, {wall:.2f} s wall, {audio_s / wall:.1f} audio s per '
-          f'wall s; launches fused_front {front}, fused_tail {tail}; CSVs '
-          f'against phase 3\'s: max |d| = {worst:.3g} after 2-digit '
-          f'rounding, byte-identical: {identical}', flush=True)
-    if reason != 'completed':
-        fail(f'analyze() on the route {ROUTES[1][0]} ended {reason!r}')
-    if not (block > 0 and front == {(2, 4): block}
-            and tail == {(4, 8): block, (8, 15): block}):
-        fail(f'analyze() on the route {ROUTES[1][0]} launched fused_front '
-             f'{front}, fused_tail {tail}')
-    if worst > 0.0101:
-        fail(f'the route {ROUTES[1][0]}\'s CSVs differ from phase 3\'s by '
-             f'{worst:.3g}')
-    return block
 
 
 def file_bytes(dir_out, name):
@@ -3553,9 +3419,8 @@ def run(torch, tmp):
     from buzzdetect_torch.models.heads import apply_head
     from buzzdetect_torch.models.weights import params_from_numpy
     from buzzdetect_torch.ops import _build, frontend, logmel, probe, sepconv
-    from buzzdetect_torch.ops import attention as attention_lib
-    from buzzdetect_torch.ops import epilogue as epilogue_lib
     from buzzdetect_torch.ops import layer1 as layer1_lib
+    from buzzdetect_torch.ops.common import exact_f32, load_libraries
     from buzzdetect_torch.tools import (capability_probe, profile_pipeline,
                                         roofline)
     from buzzdetect_torch.tools.roofline import (
@@ -3578,13 +3443,7 @@ def run(torch, tmp):
           f'tensor cores), {bf16_peak / 1e12:g} TFLOP/s bf16 (tensor cores, '
           f'dense), {bytes_peak / 1e12:g} TB/s', flush=True)
     t0 = time.perf_counter()
-    _build.build_all(_build.SOURCES)
-    sepconv.load_kernels()
-    logmel.load_kernels()
-    probe.load_kernels()
-    attention_lib.load_kernels()
-    epilogue_lib.load_kernels()
-    layer1_lib.load_kernels()
+    load_libraries(_build.SOURCES)
     print(f'built and loaded {", ".join(SOURCES.values())} in '
           f'{time.perf_counter() - t0:.1f} s (one nvcc per source, in '
           f'parallel)', flush=True)
@@ -3592,7 +3451,7 @@ def run(torch, tmp):
 
     # --- 2. kernels against their plain versions -----------------------
     card = geometry_phase()
-    sepconv.exact_f32()
+    exact_f32()
     dev = torch.device('cuda')
     with np.load(os.path.join(ROOT, 'models', MODEL, 'model.npz')) as z:
         arrays = {k: z[k] for k in z.files}
@@ -3891,11 +3750,6 @@ def run(torch, tmp):
     check_chunk_on_cpu(analyzer, arrays, os.path.join(dir_audio, 'rec0.wav'),
                        os.path.join(dir_out, 'rec0_buzzdetect.csv'),
                        'highest')
-    audio_s = analyzer.coordinator.audio_seconds_done
-    print(f'realtime factor: {audio_s / wall:.1f} audio s per wall s '
-          f'({audio_s:.1f} audio s in {wall:.2f} s, model load and warmup '
-          f'included)', flush=True)
-
     def stack_ms(wrapper, b, params=all_params['yamnet'], l1=l1, mid=mid):
         """Device ms of one exact-f32 launch of ``wrapper`` at B = b, on
         phase 2's activations."""
@@ -3906,13 +3760,6 @@ def run(torch, tmp):
             x = mid[:b].contiguous()
             return device_ms(lambda: sepconv.fused_tail(params, x))
     batch_share_phase('3. analyze()', batches, stack_ms)
-    # every dispatch is one chunk of at most 209 patches, so this is an
-    # upper estimate of the run's device time, from phase 2's time
-    dispatches = counts['fused_front']
-    busy = dispatches * classify_ms / 1e3
-    print(f'device time at most {busy:.3f} s ({dispatches} dispatches x '
-          f'{classify_ms:.4f} ms whole classify) of {wall:.2f} s wall: '
-          f'device busy share at most {busy / wall:.3f}', flush=True)
 
     # the CLI, on the model variants
     cli_audio = os.path.join(tmp, 'cli_audio')
@@ -4281,10 +4128,6 @@ def run(torch, tmp):
     with torch.inference_mode():
         suite_kernel_phase(torch, all_params, patches, wav_dev, cfg,
                            device_ms, (f32_peak, bf16_peak, bytes_peak))
-    routes_phase(torch, arrays, os.path.join(dir_audio, 'rec0.wav'), cfg,
-                 reset_counts, device_ms)
-    launches['fused_tail[4:8]'] = route_analyze_phase(
-        tmp, dir_audio, dir_out, names, reset_counts)
     excerpt = pipeline_modes_phase(tmp, dir_audio, dir_out, names, seconds,
                                    analyzer.chunklength, reset_counts,
                                    read_counts)
@@ -4306,7 +4149,6 @@ def run(torch, tmp):
           f'attempt, timed by CUDA events instead: {device_ms.fallbacks}',
           flush=True)
     order = ('layer1', 'layer1[bf16]', 'fused_front', 'fused_tail',
-             'fused_tail[4:8]',
              'fused_front[bf16]',
              'fused_tail[bf16]', 'fused_front[high]', 'fused_tail[high]',
              'log_mel', 'log_mel[kaldi]', 'attention', 'bias_epilogue',

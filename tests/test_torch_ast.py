@@ -259,7 +259,7 @@ def test_epilogue_routes_cuda_through_the_ops(monkeypatch):
                         lambda y, b, mode: calls.append(mode) or y)
     monkeypatch.setattr(library, 'bias_residual',
                         lambda x, y, b: calls.append('residual'))
-    monkeypatch.setattr(epilogue, '_route', lambda t: 'cuda')
+    monkeypatch.setattr(epilogue, 'route', lambda t: 'cuda')
     y, b, x = torch.zeros(2, 8), torch.zeros(8), torch.zeros(2, 8)
     epilogue.apply('bias_bf16', y, b)
     epilogue.apply('bias_gelu_bf16', y, b)

@@ -3,6 +3,7 @@ where each library goes, and what its name is keyed by. Nothing here runs
 ``nvcc``: the build itself happens on the card's machine (``chip_smoke.py``).
 """
 
+import ctypes
 import os
 import re
 import shutil
@@ -156,13 +157,13 @@ def test_probe_bind_declares_what_a_build_has():
     class Lib:
         pass
     lib = Lib()
-    for name in [*probe._INTERFACE, 'bz_probe_error_string']:
+    for name in probe.LIBRARY.entries:
         if name != 'bz_probe_remap_batch':
             setattr(lib, name, Lib())
     assert probe.bind(lib) is lib
-    assert lib.bz_probe_dot_f32.argtypes == probe._INTERFACE[
-        'bz_probe_dot_f32']
-    assert lib.bz_probe_remap.restype is probe._I32
+    assert lib.bz_probe_dot_f32.argtypes == probe.LIBRARY.entries[
+        'bz_probe_dot_f32'][1]
+    assert lib.bz_probe_remap.restype is ctypes.c_int
     assert not hasattr(lib, 'bz_probe_remap_batch')
 
 
@@ -172,7 +173,6 @@ def test_logmel_bind_takes_the_geometry_where_the_build_has_it(new):
     after the waveform, the row stride after the length and its tile before
     the stream; a build of the
     dense-DFT design (bz_logmel_clusters, other operands) is refused."""
-    import ctypes
     from buzzdetect_torch.ops import logmel
 
     class Lib:

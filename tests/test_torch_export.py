@@ -231,8 +231,8 @@ def _stack_operands(specs, mode, device):
     return out
 
 
-# the main path's two ranges, and the JAX package's BUZZDETECT_PALLAS_FRONT
-# =off split (layers 4-7 without pooling)
+# the main path's two ranges, and the op's layer 4-7 range without pooling
+# (a range of the JAX kernel's signature, which no embed route takes)
 RANGES = [('front', 2, 8, False), ('tail', 8, 15, True),
           ('tail', 4, 8, False)]
 
@@ -315,14 +315,14 @@ def test_fake_log_mel_of_the_int16_wire_is_f32():
 def test_log_mel_wrapper_hands_the_wire_to_the_op_as_it_is(monkeypatch):
     """On a CUDA tensor the wrapper passes int16 and f32 samples to the
     operator unconverted (the kernel reads both) and converts any other
-    type to f32. Rehearsed on CPU tensors with _route forced to 'cuda'."""
+    type to f32. Rehearsed on CPU tensors with route forced to 'cuda'."""
     seen = []
 
     def op(x, constants, *args):
         seen.append(x.dtype)
         return torch.zeros(1, 1, 64)
     monkeypatch.setattr(library, 'log_mel', op)
-    monkeypatch.setattr(logmel, '_route', lambda x: 'cuda')
+    monkeypatch.setattr(logmel, 'route', lambda x: 'cuda')
     for dtype in (torch.int16, torch.float32, torch.float64):
         logmel.log_mel_spectrogram_fused(torch.zeros(16000, dtype=dtype),
                                          FrontendConfig())
@@ -331,7 +331,7 @@ def test_log_mel_wrapper_hands_the_wire_to_the_op_as_it_is(monkeypatch):
 
 def test_ops_refuse_cpu_tensors():
     """An operator called on CPU tensors raises; it never falls back to the
-    plain version (only the wrappers' _route reaches those)."""
+    plain version (only the wrappers' route reaches those)."""
     specs = sepconv.tail_specs(2, 8)
     x = torch.zeros(1, 48, 32, 32)
     before = (dict(sepconv.fused_front.launches),
@@ -355,7 +355,7 @@ def test_wrappers_route_cuda_through_the_ops(monkeypatch):
     """On a CUDA tensor the wrappers call the operators (one route to each
     kernel), with the packed operands flattened in _check's order and the
     layer range resolved; the CPU route is the plain version. Rehearsed on
-    CPU tensors with _route forced to 'cuda' and the operators spied."""
+    CPU tensors with route forced to 'cuda' and the operators spied."""
     from buzzdetect_torch.models.weights import params_from_numpy
     arrays = dict(np.load(os.path.join(REPO, 'models', 'model_general_v3',
                                        'model.npz')))
@@ -372,8 +372,8 @@ def test_wrappers_route_cuda_through_the_ops(monkeypatch):
     monkeypatch.setattr(library, 'fused_front', spy('front'))
     monkeypatch.setattr(library, 'fused_tail', spy('tail'))
     monkeypatch.setattr(library, 'log_mel', spy('log_mel'))
-    monkeypatch.setattr(sepconv, '_route', lambda x: 'cuda')
-    monkeypatch.setattr(logmel, '_route', lambda x: 'cuda')
+    monkeypatch.setattr(sepconv, 'route', lambda x: 'cuda')
+    monkeypatch.setattr(logmel, 'route', lambda x: 'cuda')
     sepconv.fused_front(params, torch.zeros(2, 48, 32, 32), mode='bf16')
     sepconv.fused_tail(params, torch.zeros(2, 6, 4, 512), mode='bf16')
     sepconv.fused_tail(params, torch.zeros(2, 24, 16, 128), start_layer=4,

@@ -42,7 +42,8 @@ def test_no_jax_or_reference_package_imports():
 
 
 @pytest.mark.parametrize('first', [
-    'buzzdetect_torch', 'buzzdetect_torch.ops.sepconv',
+    'buzzdetect_torch', 'buzzdetect_torch.ops.common',
+    'buzzdetect_torch.ops.sepconv',
     'buzzdetect_torch.models.yamnet', 'buzzdetect_torch.models.classifier',
     'buzzdetect_torch.ops.logmel', 'buzzdetect_torch.cli',
     'buzzdetect_torch.ops.attention', 'buzzdetect_torch.models.ast',
@@ -118,9 +119,9 @@ def test_cuda_without_a_card_raises(tmp_path):
         api.score_file(str(tmp_path / 'none.wav'))
     assert not (tmp_path / 'out').exists()
     x = torch.zeros(1, 48, 32, 32)
-    from buzzdetect_torch.ops import sepconv
+    from buzzdetect_torch.ops import common, sepconv
     with pytest.raises(ValueError, match='unsupported device'):
-        sepconv._route(x.to('meta'))
+        common.route(x.to('meta'))
     assert sepconv.fused_front.launches == dict.fromkeys(sepconv.MODES, 0)
 
 

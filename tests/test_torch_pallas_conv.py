@@ -22,12 +22,14 @@
   so the twin asserts the loud failure for 'auto' and explicit 'pallas';
 * meshes repeat the CPU 8 times (the JAX tests count 8 virtual devices).
 
-Two cases of the port's own follow the twins:
-``test_embed_front_routes_match_xla`` runs the embed on each of the three
-``BUZZDETECT_PALLAS_FRONT`` routes, checks which kernel functions each calls
-and holds it against ``conv='xla'``; ``test_front_config_is_validated``
-checks that a config the TPU's lane split refuses is refused at model
-init.
+The JAX package's packed-front knob (a module dict and its environment
+variable) picks one of three routes through its kernels; the port has one
+route, the JAX package's default, and reads no knob. So the twins of the
+knob's parsing, validation and lane-split rule have none, and the
+whole-embed twin runs the default route alone. The port's own case,
+``test_embed_route_matches_xla``, runs the embed in each mode, checks
+which kernel functions it calls, directly and through a classifier, and
+holds it against ``conv='xla'``.
 
 The JAX package's docstring:
 
@@ -94,11 +96,11 @@ def xla_tail(params, x, start_layer=8, stop_layer=None, gap=True):
 def xla_layers(params, patches, stop_layer):
     """Reference: the layers before ``stop_layer`` through the port's XLA
     conv path (NCHW out)."""
-    kernels = [yam._xla_kernel(params, key, kind, shape, False)
-               for key, kind, _stride, shape in yam._conv_shapes()
-               if yam._layer_of(key) < stop_layer]
-    return yam._xla_stack(params, torch.from_numpy(patches), torch.float32,
-                          kernels)
+    x = torch.from_numpy(patches)[:, None]
+    for key, kind, stride, shape in yam._conv_shapes():
+        if int(key.split('/')[0][len('layer'):]) < stop_layer:
+            x = _conv(x, params, key, kind, stride, shape)
+    return x
 
 
 def tail_input(b, start_layer=8, seed=3):
@@ -401,7 +403,6 @@ def test_classifier_conv_validation():
 
 
 # --- the front block (layers 2-3) ------------------------------------------
-# BUZZDETECT_PALLAS_FRONT='off' runs layers 1-3 outside the kernels.
 
 def xla_front(params, patches):
     """Reference: layers 1-3 through the port's XLA conv path (NHWC out)."""
@@ -446,117 +447,31 @@ def test_fused_front_tail_matches_xla():
                  _jax_front(folded, patches, plain_through=8))
 
 
-@pytest.mark.parametrize('front', [
-    dict(groups=4, block_packed=1),
-    dict(groups=4, block_packed=1, fuse_mid=True),
-])
-def test_embed_with_front_config_matches_xla(front, monkeypatch):
-    """Whole-embed parity with the front knob enabled, both variants."""
+def test_embed_default_front_matches_xla():
+    """Whole-embed parity on the JAX package's default front route (layers
+    2-7 in one fused_front), the port's one route."""
     folded, params = _params(7)
     patches = RNG.standard_normal((6, 96, 64)).astype(np.float32)
     ref = yam.embed(yam.pack_xla(params), torch.from_numpy(patches),
                     conv='xla').numpy()
-    monkeypatch.setattr(yam, 'PALLAS_FRONT', front)
     got = yam.embed(params, torch.from_numpy(patches),
                     conv='pallas').numpy()
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-5)
-    monkeypatch.setattr(jyam, 'PALLAS_FRONT', front)
     with pltpu.force_tpu_interpret_mode():
         jref = np.asarray(jyam.embed(folded, jnp.asarray(patches),
                                      conv='pallas'))
-    _against_jax(f'embed pallas front={front}', got, jref)
-
-
-def test_front_pw_splits_rule():
-    """Sub-dot counts follow the g*C<=128 rule: one block-diagonal dot
-    while the packed K fits a single MXU pass, dense-K splits beyond (on
-    the card the rule validates a PALLAS_FRONT config)."""
-    from buzzdetect_torch.ops.sepconv import front_pw_splits
-    assert front_pw_splits(4) == (1, 2)     # L2: 4*32=128; L3: 4*64=256
-    assert front_pw_splits(2) == (1, 1)     # 64 and 128: single dots
-    assert front_pw_splits(8) == (2, 4)     # 256 and 512
-
-
-def test_front_env_knob_parsing():
-    """BUZZDETECT_PALLAS_FRONT parses 'g:pbi[:mid]' and fails loudly on
-    typos (silent fallback would un-apply the operator's experiment)."""
-    import os
-
-    from buzzdetect_torch.models.yamnet import _front_from_env
-
-    default = object()
-
-    def with_env(val):
-        old = os.environ.get('BUZZDETECT_PALLAS_FRONT')
-        try:
-            if val is None:
-                os.environ.pop('BUZZDETECT_PALLAS_FRONT', None)
-            else:
-                os.environ['BUZZDETECT_PALLAS_FRONT'] = val
-            return _front_from_env(default)
-        finally:
-            if old is None:
-                os.environ.pop('BUZZDETECT_PALLAS_FRONT', None)
-            else:
-                os.environ['BUZZDETECT_PALLAS_FRONT'] = old
-
-    assert with_env(None) is default          # unset -> shipped default
-    assert with_env('') is default
-    assert with_env('off') is None            # layers 1-3 outside kernels
-    assert with_env('4:1') == dict(groups=4, block_packed=1)
-    assert with_env('4:2:mid') == dict(groups=4, block_packed=2,
-                                       fuse_mid=True)
-    for bad in ('4', 'four:1', '4:1:fuse', '4:1:mid:x'):
-        with pytest.raises(ValueError):
-            with_env(bad)
-
-
-def test_malformed_front_env_fails_at_model_init_not_import():
-    """A typo'd BUZZDETECT_PALLAS_FRONT must NOT take down module import
-    (doctor/GUI — the tools you'd use to diagnose it — import yamnet);
-    the loud failure belongs at model init, naming the knob. A fresh
-    interpreter is the only honest way to test import-time behavior."""
-    import os
-    import subprocess
-    import sys
-
-    code = (
-        'from buzzdetect_torch.models import yamnet\n'          # imports OK
-        'from buzzdetect_torch.models.classifier import ChunkClassifier\n'
-        'import numpy as np\n'
-        'arrays = {"yamnet/layer1/conv/kernel": '
-        'np.zeros((3,3,1,32), np.float32)}\n'
-        'try:\n'
-        '    ChunkClassifier(arrays, conv="pallas", device="cpu")\n'
-        'except ValueError as e:\n'
-        '    assert "BUZZDETECT_PALLAS_FRONT" in str(e), e\n'
-        '    print("INIT_RAISED")\n'
-        'else:\n'
-        '    raise SystemExit("classifier init accepted a malformed knob")\n')
-    env = {**os.environ, 'BUZZDETECT_PALLAS_FRONT': 'typo!!'}
-    r = subprocess.run([sys.executable, '-c', code], env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr
-    assert 'INIT_RAISED' in r.stdout
+    _against_jax('embed pallas, default front', got, jref)
 
 
 # --- the port's own cases ----------------------------------------------------
 
-@pytest.mark.parametrize('front,calls', [
-    (dict(groups=4, block_packed=1, fuse_mid=True),
-     [('front', 2, 8), ('tail', 8, None)]),
-    (dict(groups=4, block_packed=1),
-     [('front', 2, 4), ('tail', 4, 8), ('tail', 8, None)]),
-    (None, [('tail', 4, 8), ('tail', 8, None)]),
-], ids=['default', 'no-mid', 'off'])
 @pytest.mark.parametrize('mode', ['highest', 'bf16', 'high'])
-def test_embed_front_routes_match_xla(front, calls, mode, monkeypatch):
-    """Each BUZZDETECT_PALLAS_FRONT route calls the kernel functions the JAX
-    package's route does (default: fused_front 2-7 + fused_tail 8-14;
-    without 'mid': fused_front 2-3 + fused_tail 4-7 + fused_tail 8-14;
-    'off': layers 1-3 by the XLA conv path + the two fused_tail calls), and
-    its embed matches conv='xla' (exact f32 and HIGH at 2e-4 / 1e-5 and
+def test_embed_route_matches_xla(mode, monkeypatch):
+    """The embed calls layer 1, fused_front(2, 8) and fused_tail(8) and
+    nothing else, through ``yamnet.embed`` and through a classifier's
+    embed; and it matches conv='xla' (exact f32 and HIGH at 2e-4 / 1e-5 and
     1e-4; bf16 against the XLA path's bf16 at 0.02, as the bf16 cases)."""
+    from buzzdetect_torch.models.classifier import ChunkClassifier
     dtype = torch.bfloat16 if mode == 'bf16' else torch.float32
     precision = 'high' if mode == 'high' else 'highest'
     folded = yam.fold_batchnorm(yam.init_raw_params(seed=7))
@@ -572,34 +487,29 @@ def test_embed_front_routes_match_xla(front, calls, mode, monkeypatch):
                       **kw)
         return wrapped
 
-    monkeypatch.setattr(yam, 'PALLAS_FRONT', front)
+    layer1 = yam.layer1
+
+    def spy_layer1(p, x, m):
+        seen.append(('layer1', m))
+        return layer1(p, x, m)
+    monkeypatch.setattr(yam, 'layer1', spy_layer1)
     monkeypatch.setattr(yam, 'fused_front', spy('front', yam.fused_front))
     monkeypatch.setattr(yam, 'fused_tail', spy('tail', yam.fused_tail))
+    calls = [('layer1', mode), ('front', 2, 8), ('tail', 8, None)]
     got = yam.embed(params, patches, dtype, precision, conv='pallas')
     assert seen == calls
     ref = yam.embed(yam.pack_xla(params, dtype), patches, dtype, precision,
                     conv='xla')
     err = float((got - ref).abs().max())
-    print(f'route {front}, mode {mode}: max |kernels - xla| = {err:.3g}')
+    print(f'mode {mode}: max |kernels - xla| = {err:.3g}')
     if mode == 'bf16':
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=0.02)
     else:
         np.testing.assert_allclose(got.numpy(), ref.numpy(),
                                    atol=2e-4 if mode == 'highest' else 1e-4,
                                    rtol=1e-5 if mode == 'highest' else 1e-4)
-
-
-def test_front_config_is_validated(monkeypatch):
-    """groups and block_packed change no arithmetic on the card, but a
-    config the TPU's lane split refuses is refused here too, at model
-    init."""
-    from buzzdetect_torch.models.classifier import ChunkClassifier
-    for bad, match in ((dict(groups=3, block_packed=1), 'not divisible'),
-                       (dict(groups=4, block_packed=0), 'block_packed'),
-                       (dict(groups='4', block_packed=1), 'groups')):
-        monkeypatch.setattr(yam, 'PALLAS_FRONT', bad)
-        with pytest.raises(ValueError, match=match):
-            ChunkClassifier(_bundle_arrays(), device='cpu')
-    # the XLA conv path does not read it
-    assert ChunkClassifier(_bundle_arrays(), conv='xla',
-                           device='cpu').conv == 'xla'
+    seen.clear()
+    clf = ChunkClassifier(_bundle_arrays(), compute_dtype=dtype,
+                          conv_precision=precision, device='cpu')
+    assert clf.embed(np.zeros(16000, np.float32)).shape[1] == 1024
+    assert seen == calls

@@ -201,8 +201,8 @@ def clean_interpreter():
     kernel that raised leaves behind and a kernel still running from
     another test shares (jax's ``reset_tpu_interpret_mode_state``); and the
     JAX classifier's jitted graph, once traced, is reused by any later
-    classifier of the same static arguments, whatever module globals
-    (``yamnet.PALLAS_FRONT``) it was traced under. A worker of the tier-1
+    classifier of the same static arguments, whatever module globals it
+    was traced under. A worker of the tier-1
     run that had run other test files first scored 5.9e-3 here, against
     7.45e-4 on its own; that failure was not reproduced, so whether this
     state was its cause is not known. Against both suspects, wait for every

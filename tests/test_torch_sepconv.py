@@ -19,6 +19,7 @@ from buzzdetect_tpu.ops import pallas_conv as jpc
 from buzzdetect_torch.models import yamnet as tyam
 from buzzdetect_torch.models.weights import params_from_numpy
 from buzzdetect_torch.ops import sepconv
+from buzzdetect_torch.ops.common import count_launch
 
 # As tests/test_pallas_conv.py: both sides are exact f32 but sum the
 # depthwise taps and the pointwise products (K up to 1024) in different
@@ -208,8 +209,9 @@ def test_stride2_layer_reads_odd_centres(tparams):
 
 # The exact-f32 route's launch geometry (ops/sepconv.ffma_geometry, the
 # mirror of csrc/sepconv.cu's rule; chip_smoke.py holds the library's own
-# choice to it on the card). The three layer ranges the wrappers launch:
-# fused_front, fused_tail and fused_tail(4, 8).
+# choice to it on the card). Three layer ranges of the wrappers: the main
+# path's fused_front and fused_tail, and fused_tail(4, 8), a range of the
+# JAX kernel's signature that no embed route takes.
 ROUTES = [(2, 8), (8, None), (4, 8)]
 # the wide tile's grid at B = 209 (one 200 s chunk), as csrc/sepconv.cu's
 # note lists it (TM = 5 on every layer): the small-batch tiles leave it as
@@ -346,8 +348,8 @@ def test_count_launch_by_batch():
     wrapper.ranges = collections.Counter()
     wrapper.batches = collections.Counter()
     for b in (2, 2, 209):
-        sepconv._count_launch(wrapper, 'highest', (8, 15), b)
-    sepconv._count_launch(wrapper, 'bf16', (8, 15))
+        count_launch(wrapper, 'highest', (8, 15), b)
+    count_launch(wrapper, 'bf16', (8, 15))
     assert wrapper.launches == {'highest': 3, 'bf16': 1, 'high': 0}
     assert wrapper.ranges == {(8, 15, 'highest'): 3, (8, 15, 'bf16'): 1}
     assert wrapper.batches == {(8, 15, 'highest', 2): 2,

@@ -336,7 +336,8 @@ def _ast_spied(monkeypatch):
     ``spy.<op>`` range, compute the plain version and count a launch, as
     the CUDA implementations count theirs."""
     from buzzdetect_torch.models.registry import load_model
-    from buzzdetect_torch.ops import attention, library, logmel, sepconv
+    from buzzdetect_torch.ops import attention, library, logmel
+    from buzzdetect_torch.ops.common import count_launch
 
     def spy_log_mel(x, constants, window, hop, floor, geometry='yamnet',
                     shift=0.0, scale=1.0):
@@ -344,16 +345,16 @@ def _ast_spied(monkeypatch):
         with torch.autograd.profiler.record_function('spy.log_mel'):
             out = logmel.log_mel_spectrogram_fused_plain(
                 x, logmel.KaldiFbankConfig())
-        sepconv._count_launch(logmel.log_mel_spectrogram_fused)
+        count_launch(logmel.log_mel_spectrogram_fused)
         return out
 
     def spy_attention(qkv, heads, scale):
         with torch.autograd.profiler.record_function('spy.attention'):
             out = attention.attention_plain(qkv, heads, scale)
-        sepconv._count_launch(attention.attention)
+        count_launch(attention.attention)
         return out
-    monkeypatch.setattr(logmel, '_route', lambda x: 'cuda')
-    monkeypatch.setattr(attention, '_route', lambda x: 'cuda')
+    monkeypatch.setattr(logmel, 'route', lambda x: 'cuda')
+    monkeypatch.setattr(attention, 'route', lambda x: 'cuda')
     monkeypatch.setattr(library, 'log_mel', spy_log_mel)
     monkeypatch.setattr(library, 'attention', spy_attention)
     return load_model('ast_tiny', device='cpu', compute_dtype='bfloat16',
