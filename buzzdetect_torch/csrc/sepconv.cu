@@ -20,7 +20,7 @@
 // The depthwise taps, biases, ReLU and pooling stay f32 in every mode.
 // Weights stay bf16 in device memory in BF16 and HIGH (half the bytes).
 //
-// Three kernels, built on one scheme: a block owns BM positions x BN
+// Four kernels, built on one scheme: a block owns BM positions x BN
 // output channels; K goes in chunks of input channels, in order; a ring of
 // cp.async stages brings each chunk's weights, its 9 depthwise taps and
 // bias, and the window of input positions its outputs read to shared
@@ -33,7 +33,11 @@
 //   sep_narrow_kernel     HIGHEST, the narrow tiles (BN = 8-64): the same
 //                         arithmetic for batches that do not;
 //   sep_layer_mma_kernel  BF16 and HIGH: bf16 operands on the tensor cores
-//                         (mma.sync m16n8k16, f32 accumulate).
+//                         (mma.sync m16n8k16, f32 accumulate), 16-128
+//                         positions a block, two blocks an SM;
+//   sep_mma_wide_kernel   BF16 layers with F a multiple of 256 at batches
+//                         that fill the card: the same products and bits
+//                         on 128 or 64 positions x 256 channels a block.
 // Every layer ran faster on the tensor cores in BF16 and HIGH than on FFMA
 // in exact f32 (chip_smoke.py prints the ratio per layer), so those modes
 // take the tensor cores on every layer, and sep_layer_kernel is exact f32
@@ -212,16 +216,69 @@
 //   - Epilogue: bias + ReLU in f32, pairs of lanes swap halves so each
 //     stores a float4. No atomics, no split K: every output is one fixed
 //     chain of mma.sync over K in order, identical from run to run.
-//   What likely bounds it now (from the shapes; HIGH's three products take
-//   less than twice BF16's one): every block of a layer reads the layer's
-//   weights for its BN channels again, and every n-block its input window,
-//   from L2 (e.g. layer 8: 157 m-blocks x 256 KB of weights each, ~80 MB,
-//   plus ~30 MB of f32 inputs). Sharing a weight tile across the blocks of
-//   a cluster (TMA multicast) or keeping layers on chip is the next step;
-//   wgmma and a producer warp come with it. No wgmma or TMA yet: layer 8's
-//   bf16 product (5016 x 512 x 512 at B = 209) is ~2.7 us at 989 TFLOP/s,
-//   a small part of the layer's time, so the mma loop is not what sets
-//   the pace.
+//   What bounds it (measured on the card, tools/mma_tiles.py): not
+//   the tensor cores. At the cells' 1,667 patches layers 5-14 ran 2.1-10x
+//   their floor (f32 activations read and written once), 2.50 ms a chunk
+//   in all; at B = 209 3.5-22x. Its 16-32 rows a block (BN = 256) bring a
+//   chunk's 16 KB of weights in from L2 for each 16-32 positions. At large
+//   batches sep_mma_wide_kernel (below) takes those layers.
+//
+// BF16 at large batches (sep_mma_wide_kernel<BM>). The same scheme and
+// arithmetic as sep_layer_mma_kernel, on BM = 128 or 64 positions x 256
+// channels: eight warps of 2 x 4, each BM / 2 x 64 outputs (BM = 128: 128
+// accumulators a thread, 255 registers, one block an SM). A chunk's 16 KB
+// of weights now serve 64-128 positions, and the window's rows past its
+// BM outputs are a smaller share.
+//   - Pipeline: sep_layer_kernel's, one barrier a chunk and two A tiles:
+//     stage s of the cp.async ring (3 stages, 2 where 3 do not fit a
+//     block: layers 5 and 7 at 128 rows) holds chunk s's weights and chunk
+//     s + 1's taps, bias and window; between barriers a block refills the
+//     stage the last chunk used, computes chunk k + 1's depthwise into one
+//     A tile and multiplies chunk k from the other.
+//   - Bits: both tensor-core kernels call the same depthwise_at (centre
+//     tap first, the others in tap order, a tap off the image reads 0,
+//     bias, ReLU), store_bf16x4 (round to nearest even) and store_mma_tile
+//     (the epilogue's bias and ReLU in f32), and each output is one chain
+//     of mma.sync over K in k16 steps, ascending, from zero. So its outputs
+//     equal sep_layer_mma_kernel's bit for bit on every layer and batch
+//     (tests/test_torch_sepconv.py checks layers 5-14 at B = 209 and 1,667,
+//     chip_smoke.py at B = 1-1,667, and holds them to the plain version): a
+//     patch's scores do not depend on the tile its batch drew.
+//   - Grid: one dimension, the F / 256 blocks of an M tile one after
+//     another, so the window they share comes from device memory once.
+//   - The window's copy gives each thread rows MT / 8 apart, the taps and
+//     bias apart: per piece an add and a compare, not the divisions and
+//     selects of sep_layer_mma_kernel's loop. That alone took layer 7 from
+//     0.175 to 0.139 ms and layer 13 from 0.187 to 0.140 at 1,667 patches.
+//   - Rule (mma_geometry): in BF16 the tile mma_cost prices least of
+//     sep_layer_mma_kernel's and the wide one at 128 and 64 rows, a wide
+//     one only where its blocks leave no more than every other SM idle;
+//     HIGH keeps sep_layer_mma_kernel. mma_cost is the busiest SM's waves
+//     x chunks x (its blocks' positions at POSITION_COST = 640 bytes each
+//     plus the bytes they bring in), a fit to both tiles' times at B = 32,
+//     64, 209 and 1,667. It gives: B = 1-32 sep_layer_mma_kernel
+//     everywhere; B = 64 the wide tile at 64 rows on layers 5 and 6;
+//     B = 209 the wide tile on every layer 5-14 (64 rows on 5, 6, 13, 14;
+//     128 on 7-12); B = 1,667 128 rows on 5-12, 64 on 13 and 14.
+//   - Measured (tools/mma_tiles.py, device time alone, H100 SXM at 700 W),
+//     at 1,667 patches against sep_layer_mma_kernel: layer 5 0.211 ms
+//     (0.303), 6 0.219 (0.288), 7 0.141 (0.229), 8-12 0.186-0.189 (0.253-
+//     0.254), 13 0.145 (0.165), 14 0.220 (0.252): 1.87 ms against 2.51 for
+//     layers 5-14, 1.4-9.0x their floor. At B = 209 0.378 ms against
+//     0.465, layer 6 even. Each pick is the fastest tile or within 6% of
+//     it, at B = 1-1,667; at B <= 32 the fastest wide tile takes 1.14-1.84x
+//     sep_layer_mma_kernel's time on every layer 5-14.
+//   What bounds it now (timed with parts of the kernel taken out):
+//   at layer 8, 1,667 patches, the copies alone take 0.10-0.12 ms (the
+//   floor is 0.049), the depthwise and product alone 0.16 ms, all of it
+//   0.19: the warps of one block an SM wait on their own depthwise's
+//   shared-memory reads and chains more than on the tensor cores (the
+//   product alone, 0.08 ms, runs at ~250 TFLOP/s). Tried and dropped: bulk
+//   copies by the copy engine (TMA, one a 128-byte row: slower than
+//   cp.async), a depthwise that reuses input rows across output rows (255
+//   registers spill), and producer and consumer warps (setmaxnreg 88/168
+//   and 96/160: 10-15% slower). Fewer instructions a chunk, or a deeper K
+//   chunk, are the next steps.
 
 // Padding. TF-SAME at stride 2 on even input pads bottom/right only, so
 // output (ho, wo) is centred on input (2*ho + 1, 2*wo + 1); at stride 1 it
@@ -827,6 +884,92 @@ __host__ __device__ inline int mma_smem(int mode, int bm, int bn,
                (XHEAD + window_rows(bm, L)) * MK;
 }
 
+// --- what every tensor-core tile computes alike -------------------------------
+// A patch's scores must not depend on the tile its batch drew, so the two
+// tensor-core kernels share the arithmetic of their outputs: one
+// position's depthwise, its bf16 rounding and one mma tile's epilogue.
+
+// The flattened input position of output m's centre tap
+__device__ __forceinline__ int centre_of(const Layer& L, int m) {
+    const int hwo = L.ho * L.wo;
+    const int b = m / hwo, r = m % hwo;
+    return (b * L.h + (r / L.wo) * L.stride + L.off_h) * L.w +
+           (r % L.wo) * L.stride + L.off_w;
+}
+
+// One bit per tap t of output m that lies on the image
+__device__ __forceinline__ int taps_on(const Layer& L, int m) {
+    const int r = m % (L.ho * L.wo);
+    const int ch = (r / L.wo) * L.stride + L.off_h;
+    const int cw = (r % L.wo) * L.stride + L.off_w;
+    int on = 0;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+        const int ih = ch + t / 3 - 1, iw = cw + t % 3 - 1;
+        if (ih >= 0 && ih < L.h && iw >= 0 && iw < L.w) on |= 1 << t;
+    }
+    return on;
+}
+
+// The depthwise + bias + ReLU in f32 of 4 channels of one position: its
+// centre tap at xp in a window of MK channels a position and rows of L.w
+// positions, its taps w and bias; `on` as taps_on gives it, 0 for a
+// position past the batch, which reads 0. The centre tap first, then the
+// others in tap order, a tap off the image reading 0, as the TPU kernel
+// accumulates them.
+__device__ __forceinline__ float4 depthwise_at(const float* xp,
+                                               const float4 (&w)[9],
+                                               float4 bias, int on,
+                                               const Layer& L) {
+    if (!on) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 c = lds4(xp);
+    float4 a = make_float4(c.x * w[4].x, c.y * w[4].y, c.z * w[4].z,
+                           c.w * w[4].w);
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+        if (t == 4) continue;
+        const float4 u =
+            (on >> t) & 1 ? lds4(xp + ((t / 3 - 1) * L.w + (t % 3 - 1)) * MK)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+        a.x = fmaf(u.x, w[t].x, a.x);
+        a.y = fmaf(u.y, w[t].y, a.y);
+        a.z = fmaf(u.z, w[t].z, a.z);
+        a.w = fmaf(u.w, w[t].w, a.w);
+    }
+    return make_float4(fmaxf(a.x + bias.x, 0.f), fmaxf(a.y + bias.y, 0.f),
+                       fmaxf(a.z + bias.z, 0.f), fmaxf(a.w + bias.w, 0.f));
+}
+
+// v rounded to bf16, to nearest even, into 4 consecutive A tile entries
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(bits(__floats2bfloat162_rn(v.x, v.y)),
+                   bits(__floats2bfloat162_rn(v.z, v.w)));
+}
+
+// The epilogue of one m16 x n8 mma tile whose first output is (m, n):
+// bias + ReLU in f32. c0, c1 are row g's columns 2t, 2t+1 and c2, c3 row
+// g+8's; each pair of lanes swaps halves, so the even lane stores row g's
+// columns 2t..2t+3 and the odd lane row g+8's 2t-2..2t+1, one float4 each.
+__device__ __forceinline__ void store_mma_tile(float* y, const Layer& L,
+                                               int m_total,
+                                               const float (&c)[4], int m,
+                                               int n, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    const bool odd = t & 1;
+    const float s0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+    const float s1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+    const float4 o = odd ? make_float4(s0, s1, c[2], c[3])
+                         : make_float4(c[0], c[1], s0, s1);
+    m += g + (odd ? 8 : 0);
+    n += 2 * (t & ~1);
+    const float4 pb = *reinterpret_cast<const float4*>(L.pw_b + n);
+    if (m < m_total)
+        *reinterpret_cast<float4*>(y + (long long)m * L.f + n) =
+            make_float4(fmaxf(o.x + pb.x, 0.f), fmaxf(o.y + pb.y, 0.f),
+                        fmaxf(o.z + pb.z, 0.f), fmaxf(o.w + pb.w, 0.f));
+}
+
 template <int BN, int FM, int MODE>
 __global__ void __launch_bounds__(MT, 2)
 sep_layer_mma_kernel(const float* __restrict__ x, float* __restrict__ y,
@@ -854,30 +997,25 @@ sep_layer_mma_kernel(const float* __restrict__ x, float* __restrict__ y,
     const int n_chunks = L.c / MK;
     const int n_in = m_total / hwo * L.h * L.w;  // input positions
 
-    // the flattened input position of output m's centre tap
-    auto centre = [&](int m) {
-        const int b = m / hwo, r = m % hwo;
-        return (b * L.h + (r / L.wo) * L.stride + L.off_h) * L.w +
-               (r % L.wo) * L.stride + L.off_w;
-    };
     // the block's input window: every tap of its outputs
     const int m_last = (m0 + BM < m_total ? m0 + BM : m_total) - 1;
-    const int lo = centre(m0) - L.w - 1;
-    const int hi = centre(m_last) + L.w + 1;
+    const int lo = centre_of(L, m0) - L.w - 1;
+    const int hi = centre_of(L, m_last) + L.w + 1;
     const int n_rows = hi - lo + 1 < xrows ? hi - lo + 1 : xrows;
 
+    // the thread's depthwise positions: the window row of each centre tap
+    // and its taps on the image (none past the batch)
     const int kq = (tid % 8) * 4;
-    int row[DW_POS], ch[DW_POS], cw[DW_POS];
-    bool live[DW_POS];
+    int row[DW_POS], on[DW_POS];
 #pragma unroll
     for (int j = 0; j < DW_POS; ++j) {
         const int pos = tid / 8 + 32 * j, m = m0 + pos;
-        live[j] = pos < BM && m < m_total;
-        const int mm = live[j] ? m : m0;
-        const int r = mm % hwo;
-        ch[j] = (r / L.wo) * L.stride + L.off_h;
-        cw[j] = (r % L.wo) * L.stride + L.off_w;
-        row[j] = XHEAD + centre(mm) - lo;
+        row[j] = XHEAD;
+        on[j] = 0;
+        if (pos < BM && m < m_total) {
+            row[j] = XHEAD + centre_of(L, m) - lo;
+            on[j] = taps_on(L, m);
+        }
     }
 
     const __nv_bfloat16* const pw = static_cast<const __nv_bfloat16*>(L.pw);
@@ -921,43 +1059,13 @@ sep_layer_mma_kernel(const float* __restrict__ x, float* __restrict__ y,
         for (int j = 0; j < DW_POS; ++j) {
             const int pos = tid / 8 + 32 * j;
             if (pos >= BM) continue;
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (live[j]) {
-                const float* xp = X + row[j] * MK + kq;
-                float4 xv[9];
-#pragma unroll
-                for (int t = 0; t < 9; ++t) {
-                    const int dy = t / 3 - 1, dx = t % 3 - 1;
-                    const int ih = ch[j] + dy, iw = cw[j] + dx;
-                    xv[t] = (ih >= 0 && ih < L.h && iw >= 0 && iw < L.w)
-                                ? lds4(xp + (dy * L.w + dx) * MK)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-                }
-                // centre tap first, then the others in tap order, as the
-                // TPU kernel accumulates them
-                float4 a = make_float4(xv[4].x * w[4].x, xv[4].y * w[4].y,
-                                       xv[4].z * w[4].z, xv[4].w * w[4].w);
-#pragma unroll
-                for (int t = 0; t < 9; ++t) {
-                    if (t == 4) continue;
-                    a.x = fmaf(xv[t].x, w[t].x, a.x);
-                    a.y = fmaf(xv[t].y, w[t].y, a.y);
-                    a.z = fmaf(xv[t].z, w[t].z, a.z);
-                    a.w = fmaf(xv[t].w, w[t].w, a.w);
-                }
-                v = make_float4(fmaxf(a.x + bias.x, 0.f),
-                                fmaxf(a.y + bias.y, 0.f),
-                                fmaxf(a.z + bias.z, 0.f),
-                                fmaxf(a.w + bias.w, 0.f));
-            }
+            const float4 v =
+                depthwise_at(X + row[j] * MK + kq, w, bias, on[j], L);
             __nv_bfloat16* const a_row = As + pos * LDA + kq;
-            if (MODE == HIGH) {
+            if (MODE == HIGH)
                 split_hi_lo(v, a_row, a_row + T::A_PLANE);
-            } else {
-                *reinterpret_cast<uint2*>(a_row) =
-                    make_uint2(bits(__floats2bfloat162_rn(v.x, v.y)),
-                               bits(__floats2bfloat162_rn(v.z, v.w)));
-            }
+            else
+                store_bf16x4(a_row, v);
         }
     };
 
@@ -1034,11 +1142,6 @@ sep_layer_mma_kernel(const float* __restrict__ x, float* __restrict__ y,
         multiply(kc);
     }
 
-    // c0, c1 of an mma tile are row g's columns 2t, 2t+1 and c2, c3 row
-    // g+8's; each pair of lanes swaps halves, so the even lane stores row
-    // g's columns 2t..2t+3 and the odd lane row g+8's 2t-2..2t+1
-    const int g = lane / 4, t = lane % 4;
-    const bool odd = t & 1;
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -1048,18 +1151,240 @@ sep_layer_mma_kernel(const float* __restrict__ x, float* __restrict__ y,
             for (int e = 0; e < 4; ++e)
                 c[e] = MODE == HIGH ? acc[0][i][j][e] + acc[NP - 1][i][j][e]
                                     : acc[0][i][j][e];
-            const float s0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
-            const float s1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
-            const float4 o = odd ? make_float4(s0, s1, c[2], c[3])
-                                 : make_float4(c[0], c[1], s0, s1);
-            const int m = m0 + wm * 16 * FM + i * 16 + g + (odd ? 8 : 0);
-            const int n = n0 + wn * 32 + j * 8 + 2 * (t & ~1);
-            const float4 pb = *reinterpret_cast<const float4*>(L.pw_b + n);
-            if (m < m_total)
-                *reinterpret_cast<float4*>(y + (long long)m * L.f + n) =
-                    make_float4(fmaxf(o.x + pb.x, 0.f), fmaxf(o.y + pb.y, 0.f),
-                                fmaxf(o.z + pb.z, 0.f), fmaxf(o.w + pb.w, 0.f));
+            store_mma_tile(y, L, m_total, c, m0 + wm * 16 * FM + i * 16,
+                           n0 + wn * 32 + j * 8, lane);
         }
+}
+
+// --- the wide tensor-core tile (BF16, F >= 256, large batches) -------------------
+
+constexpr int WBN = 256;         // output channels a block
+constexpr int WWM = 2, WWN = 4;  // warps along M and along N
+
+// The tile of sep_mma_wide_kernel<BM>: BM = 128 or 64 positions x 256
+// output channels over 2 x 4 warps, each BM / 2 positions x 64 channels,
+// FM x FN mma tiles of m16 x n8.
+template <int BM>
+struct WideTile {
+    static constexpr int FM = BM / (16 * WWM);  // m16 tiles a warp: 4 or 2
+    static constexpr int FN = WBN / (8 * WWN);  // n8 tiles a warp: 8
+    static constexpr int LDA = MK + MPAD;       // A row, bf16
+    static constexpr int LDB = WBN + MPAD;      // B row, bf16
+    static constexpr int A_TILE = BM * LDA;     // one A tile, bf16
+    static constexpr int B_STAGE = MK * LDB;    // a chunk's weights, bf16
+};
+
+// One ring stage of the wide tile, in bytes: a chunk's (MK, 256) bf16
+// weights, then the next chunk's taps, bias and input window in f32, MK
+// channels a row, the window sized by ffma_window_rows
+__host__ __device__ inline int wide_stage(int bm, const Layer& L) {
+    return (int)sizeof(__nv_bfloat16) * MK * (WBN + MPAD) +
+           (int)sizeof(float) * (XHEAD + ffma_window_rows(bm, L)) * MK;
+}
+
+// Dynamic shared memory of the wide tile: two bf16 A tiles, then the ring
+inline int wide_smem(int bm, int ring, const Layer& L) {
+    return (int)sizeof(__nv_bfloat16) * 2 * bm * (MK + MPAD) +
+           ring * wide_stage(bm, L);
+}
+
+template <int BM>
+__global__ void __launch_bounds__(MT, 1)
+sep_mma_wide_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    const Layer L, const int m_total, const int ring) {
+    using T = WideTile<BM>;
+    constexpr int FM = T::FM, FN = T::FN, LDA = T::LDA, LDB = T::LDB;
+    // depthwise: 8 threads per position, 4 neighbouring channels each, so
+    // 32 positions per pass
+    constexpr int DW_POS = BM / 32;
+    constexpr int PIECES = MK * WBN / 8;  // 16-byte pieces of weights
+    static_assert(PIECES % MT == 0, "weight tile");
+    const int xrows = ffma_window_rows(BM, L);
+    const int stage = wide_stage(BM, L);  // bytes
+    extern __shared__ __align__(16) unsigned char wide_smem_raw[];
+    __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(wide_smem_raw);
+    unsigned char* const Ring =
+        wide_smem_raw + sizeof(__nv_bfloat16) * 2 * T::A_TILE;
+    // a stage's weights, and after them its depthwise inputs
+    auto weights_of = [](unsigned char* S) {
+        return reinterpret_cast<__nv_bfloat16*>(S);
+    };
+    auto window_of = [](unsigned char* S) {
+        return reinterpret_cast<float*>(S + sizeof(__nv_bfloat16) *
+                                                T::B_STAGE);
+    };
+
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int wm = warp / WWN, wn = warp % WWN;
+    // the F / 256 blocks of one M tile run one after another, so the
+    // input window they all read comes from device memory once
+    const int n_tiles = L.f / WBN;
+    const int m0 = blockIdx.x / n_tiles * BM;
+    const int n0 = blockIdx.x % n_tiles * WBN;
+    const int hwo = L.ho * L.wo;
+    const int n_chunks = L.c / MK;
+    const int n_in = m_total / hwo * L.h * L.w;  // input positions
+
+    // the block's input window: every tap of its outputs
+    const int m_last = (m0 + BM < m_total ? m0 + BM : m_total) - 1;
+    const int lo = centre_of(L, m0) - L.w - 1;
+    const int hi = centre_of(L, m_last) + L.w + 1;
+    const int n_rows = hi - lo + 1 < xrows ? hi - lo + 1 : xrows;
+
+    // the thread's depthwise positions: the window row of each centre tap
+    // and its taps on the image (none past the batch)
+    const int kq = (tid % 8) * 4;
+    int row[DW_POS], on[DW_POS];
+#pragma unroll
+    for (int j = 0; j < DW_POS; ++j) {
+        const int m = m0 + tid / 8 + 32 * j;
+        row[j] = XHEAD;
+        on[j] = 0;
+        if (m < m_total) {
+            row[j] = XHEAD + centre_of(L, m) - lo;
+            on[j] = taps_on(L, m);
+        }
+    }
+
+    // Stage s holds chunk s's weights and chunk s + 1's depthwise inputs,
+    // the two a block uses between the same two barriers; chunk 0's
+    // depthwise inputs go to the stage before 0, ring - 1, whose weights
+    // come only after chunk 0's depthwise is done.
+    const __nv_bfloat16* const pw = static_cast<const __nv_bfloat16*>(L.pw);
+    auto load_weights = [&](unsigned char* S, int chunk) {
+        __nv_bfloat16* const B = weights_of(S);
+        const __nv_bfloat16* const src =
+            pw + (long long)chunk * MK * L.f + n0;
+#pragma unroll
+        for (int i = 0; i < PIECES / MT; ++i) {
+            const int q = threadIdx.x + i * MT;
+            const int r = q / (WBN / 8), cc = (q % (WBN / 8)) * 8;
+            cp_async16(B + r * LDB + cc, src + (long long)r * L.f + cc);
+        }
+    };
+    // chunk k's depthwise inputs into stage S, after its weights: taps and
+    // bias (the first 80 threads), then the input window's MK channels,
+    // a thread's rows MT / 8 apart; zeros off the ends of the batch
+    auto load_window = [&](unsigned char* S, int chunk) {
+        float* const X = window_of(S);
+        const int c0 = chunk * MK, cc = threadIdx.x % (MK / 4) * 4;
+        if (threadIdx.x < XHEAD * (MK / 4)) {
+            const int r = threadIdx.x / (MK / 4);
+            cp_async16(X + r * MK + cc,
+                       (r < 9 ? L.dw + r * L.c : L.dw_b) + c0 + cc);
+        }
+        // not unrolled: an unrolled copy keeps each piece's address live
+        // across the product
+#pragma unroll 1
+        for (int r = threadIdx.x / (MK / 4); r < n_rows; r += MT / (MK / 4)) {
+            const int p = lo + r;
+            const bool ok = p >= 0 && p < n_in;
+            cp_async16(X + (XHEAD + r) * MK + cc,
+                       x + (long long)(ok ? p : 0) * L.c + c0 + cc, ok);
+        }
+    };
+    // cp.async group g into stage S: chunk g's weights and chunk g + 1's
+    // depthwise inputs
+    auto load_group = [&](unsigned char* S, int g) {
+        if (g < n_chunks) load_weights(S, g);
+        if (g + 1 < n_chunks) load_window(S, g + 1);
+        cp_async_commit();
+    };
+    // the depthwise + bias + ReLU of the chunk whose inputs stage S holds,
+    // rounded to bf16, into A tile A (depthwise_at, as sep_layer_mma_kernel)
+    auto depthwise = [&](unsigned char* S, __nv_bfloat16* A) {
+        const float* const X = window_of(S);
+        float4 w[9];
+#pragma unroll
+        for (int t = 0; t < 9; ++t) w[t] = lds4(X + t * MK + kq);
+        const float4 bias = lds4(X + 9 * MK + kq);
+#pragma unroll
+        for (int j = 0; j < DW_POS; ++j)
+            store_bf16x4(A + (tid / 8 + 32 * j) * LDA + kq,
+                         depthwise_at(X + row[j] * MK + kq, w, bias, on[j],
+                                      L));
+    };
+
+    float acc[FM][FN][4];
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    // the product of the chunk whose weights stage S holds with A tile A:
+    // per k16 step, FM ldmatrix of A and FN / 2 transposed ldmatrix of B
+    // feed FM x FN mma.sync, each output's chain over K ascending
+    auto multiply = [&](unsigned char* S, const __nv_bfloat16* A) {
+        const __nv_bfloat16* const B = weights_of(S);
+#pragma unroll
+        for (int ks = 0; ks < MK; ks += 16) {
+            uint32_t a[FM][4], b[FN][2];
+#pragma unroll
+            for (int i = 0; i < FM; ++i)
+                ldmatrix_x4(a[i], A + (wm * 16 * FM + i * 16 + lane % 16) * LDA +
+                                      ks + (lane / 16) * 8);
+#pragma unroll
+            for (int jj = 0; jj < FN / 2; ++jj) {
+                uint32_t r[4];
+                ldmatrix_x4_trans(r, B + (ks + lane % 16) * LDB +
+                                         wn * 8 * FN + jj * 16 +
+                                         (lane / 16) * 8);
+                b[2 * jj][0] = r[0];
+                b[2 * jj][1] = r[1];
+                b[2 * jj + 1][0] = r[2];
+                b[2 * jj + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int i = 0; i < FM; ++i)
+#pragma unroll
+                for (int j = 0; j < FN; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+        }
+    };
+
+    // One barrier per chunk, as sep_layer_kernel's. Group g lands in stage
+    // g % ring; the wait before barrier k leaves ring - 2 groups in flight,
+    // so group k has landed. Between barriers k and k + 1 a block refills
+    // stage (k - 1) % ring (`last`), which chunk k - 1's product and chunk
+    // k's depthwise are done with, with group k + ring - 1; computes chunk k
+    // + 1's depthwise from stage k % ring (`cur`) into A tile (k + 1) % 2,
+    // which chunk k - 1's product is done with; and multiplies chunk k,
+    // from `cur` and A tile k % 2.
+    unsigned char* const end = Ring + (ring - 1) * stage;
+    unsigned char* last = end;
+    unsigned char* cur = Ring;
+    load_window(last, 0);
+    cp_async_commit();
+    for (int g = 0; g < ring - 1; ++g) load_group(Ring + g * stage, g);
+    if (ring == 3)
+        cp_async_wait<2>();
+    else
+        cp_async_wait<1>();
+    __syncthreads();
+    depthwise(last, As);
+    for (int kc = 0; kc < n_chunks; ++kc) {
+        if (ring == 3)
+            cp_async_wait<1>();
+        else
+            cp_async_wait<0>();
+        __syncthreads();
+        load_group(last, kc + ring - 1);
+        if (kc + 1 < n_chunks)
+            depthwise(cur, As + ((kc + 1) & 1) * T::A_TILE);
+        multiply(cur, As + (kc & 1) * T::A_TILE);
+        last = cur;
+        cur = cur == end ? Ring : cur + stage;
+    }
+
+    // the epilogue of sep_layer_mma_kernel (store_mma_tile)
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+            store_mma_tile(y, L, m_total, acc[i][j],
+                           m0 + wm * 16 * FM + i * 16, n0 + wn * 8 * FN + j * 8,
+                           lane);
 }
 
 // (B, P, F) -> (B, F): mean over the P spatial positions, summed in order.
@@ -1290,37 +1615,17 @@ cudaError_t launch_mma_mode(int mode, int device, dim3 grid, int smem,
                                           L, m_total);
 }
 
-// One BF16 or HIGH layer: BN = min(F, 256); the full tile (warp tiles
-// 32 x 32) if it gives at least two blocks per SM, by count and by shared
-// memory, else half as many rows (16 x 32).
-cudaError_t launch_mma_layer(int mode, int device, int sms, int sm_smem,
-                             cudaStream_t stream, const float* in, float* dst,
-                             const Layer& L, int m_total) {
-    const int bn = L.f < 256 ? L.f : 256;
-    const int bm = 32 * (8 / (bn / 32));
-    const bool full =
-        (long long)((m_total + bm - 1) / bm) * (L.f / bn) >= 2 * sms &&
-        2 * (mma_smem(mode, bm, bn, L) + 1024) <= sm_smem;
-    const int rows = full ? bm : bm / 2;
-    const int smem = mma_smem(mode, rows, bn, L);
-    const dim3 grid((m_total + rows - 1) / rows, L.f / bn);
-    switch (bn) {
-        case 64:
-            return full ? launch_mma_mode<64, 2>(mode, device, grid, smem,
-                                                 stream, in, dst, L, m_total)
-                        : launch_mma_mode<64, 1>(mode, device, grid, smem,
-                                                 stream, in, dst, L, m_total);
-        case 128:
-            return full ? launch_mma_mode<128, 2>(mode, device, grid, smem,
-                                                  stream, in, dst, L, m_total)
-                        : launch_mma_mode<128, 1>(mode, device, grid, smem,
-                                                  stream, in, dst, L, m_total);
-        default:
-            return full ? launch_mma_mode<256, 2>(mode, device, grid, smem,
-                                                  stream, in, dst, L, m_total)
-                        : launch_mma_mode<256, 1>(mode, device, grid, smem,
-                                                  stream, in, dst, L, m_total);
-    }
+template <int BM>
+cudaError_t launch_wide(int device, dim3 grid, int smem, int ring,
+                        cudaStream_t stream, const float* in, float* dst,
+                        const Layer& L, int m_total) {
+    static std::atomic<bool> ready[MAX_DEVICES];
+    const cudaError_t err =
+        opt_in_smem(sep_mma_wide_kernel<BM>, device, ready);
+    if (err != cudaSuccess) return err;
+    sep_mma_wide_kernel<BM><<<grid, MT, smem, stream>>>(in, dst, L, m_total,
+                                                       ring);
+    return cudaGetLastError();
 }
 
 // The current device and what the grids are sized by: its SMs, and the
@@ -1328,6 +1633,123 @@ cudaError_t launch_mma_layer(int mode, int device, int sms, int sm_smem,
 struct Card {
     int device, sms, sm_smem, block_smem;
 };
+
+// The launch of one BF16 or HIGH layer: the kernel (wide 0:
+// sep_layer_mma_kernel, 1: sep_mma_wide_kernel), its tile (BN output
+// channels x BM positions), its grid along M and N, the wide tile's ring
+// stages (0 for sep_layer_mma_kernel, whose mode fixes its ring) and the
+// dynamic shared memory in bytes.
+struct MmaGeometry {
+    int wide, bn, bm, grid_m, grid_n, ring, smem;
+};
+
+// sep_layer_mma_kernel's tile: BN = min(F, 256); the full tile (warp tiles
+// 32 x 32) if it gives at least two blocks per SM, by count and by shared
+// memory, else half as many rows (16 x 32).
+MmaGeometry small_mma_geometry(int mode, const Layer& L, int m_total,
+                               const Card& card) {
+    const int bn = L.f < 256 ? L.f : 256;
+    const int bm = 32 * (8 / (bn / 32));
+    const bool full =
+        (long long)((m_total + bm - 1) / bm) * (L.f / bn) >= 2 * card.sms &&
+        2 * (mma_smem(mode, bm, bn, L) + 1024) <= card.sm_smem;
+    const int rows = full ? bm : bm / 2;
+    return MmaGeometry{0, bn, rows, (m_total + rows - 1) / rows, L.f / bn, 0,
+                       mma_smem(mode, rows, bn, L)};
+}
+
+// sep_mma_wide_kernel's tile at BM rows (BF16): a ring of 3 stages if a
+// block's shared memory holds it, else 2; ring 0 where neither fits or F
+// is no multiple of its 256 channels.
+MmaGeometry wide_mma_geometry(const Layer& L, int m_total, int bm,
+                              const Card& card) {
+    int ring = wide_smem(bm, 3, L) <= card.block_smem ? 3 : 2;
+    if (L.f % WBN || wide_smem(bm, ring, L) > card.block_smem) ring = 0;
+    return MmaGeometry{1, WBN, bm, (m_total + bm - 1) / bm, L.f / WBN, ring,
+                       wide_smem(bm, ring, L)};
+}
+
+// What one position's depthwise and product cost a block, in bytes brought
+// in from L2 (mma_cost): fitted to both tiles' device times on layers 5-14
+// at B = 32, 64, 209 and 1,667 (tools/mma_tiles.py), where each tile's time
+// followed its busiest SM's positions and bytes within 6%
+constexpr int POSITION_COST = 640;
+
+// The busiest SM's time on a tensor-core tile, in bytes: its waves,
+// ceil(blocks / (SMs x the blocks an SM holds at once)), x the layer's K
+// chunks x what a wave's blocks do a chunk on one SM: their positions at
+// POSITION_COST each, and the bytes they bring in (the chunk's 32 rows of
+// BN bf16 weights, and of f32 input for each row of its window).
+long long mma_cost(const MmaGeometry& g, int mode, int m_total,
+                   const Layer& L, const Card& card) {
+    const int held =
+        !g.wide && 2 * (g.smem + 1024) <= card.sm_smem ? 2 : 1;
+    const long long blocks = (long long)g.grid_m * g.grid_n;
+    const long long waves = (blocks + held * card.sms - 1) / (held * card.sms);
+    const int rows = g.bm < m_total ? g.bm : m_total;
+    const int window = g.wide ? ffma_window_rows(rows, L)
+                              : window_rows(rows, L);
+    return waves * (L.c / MK) * held *
+           ((long long)rows * POSITION_COST +
+            (long long)MK * (2 * g.bn * mma_planes(mode) + 4 * window));
+}
+
+// The tile of a BF16 or HIGH layer. HIGH keeps sep_layer_mma_kernel (its
+// two accumulators would double the wide tile's registers). In BF16 a
+// layer with F a multiple of 256 takes the wide tile at 128 or 64 rows
+// where mma_cost prices it below sep_layer_mma_kernel's tile and its
+// blocks leave no more than every other SM idle (below that, at B = 1-32,
+// the wide tile timed 1.14-1.84x sep_layer_mma_kernel's on every layer
+// 5-14). The outputs are the same bits on every tile, so only the time
+// depends on the choice.
+MmaGeometry mma_geometry(int mode, const Layer& L, int m_total,
+                         const Card& card) {
+    MmaGeometry best = small_mma_geometry(mode, L, m_total, card);
+    if (mode != BF16) return best;
+    long long least = mma_cost(best, mode, m_total, L, card);
+    for (const int bm : {128, 64}) {
+        const MmaGeometry w = wide_mma_geometry(L, m_total, bm, card);
+        if (!w.ring || 2LL * w.grid_m * w.grid_n < card.sms) continue;
+        const long long cost = mma_cost(w, mode, m_total, L, card);
+        if (cost < least) {
+            least = cost;
+            best = w;
+        }
+    }
+    return best;
+}
+
+// One BF16 or HIGH layer at geometry g.
+cudaError_t launch_mma_geometry(int mode, int device, const MmaGeometry& g,
+                                cudaStream_t stream, const float* in,
+                                float* dst, const Layer& L, int m_total) {
+    const dim3 grid(g.grid_m, g.grid_n);
+    if (g.wide) {
+        const dim3 blocks(g.grid_m * g.grid_n);
+        return g.bm == 128 ? launch_wide<128>(device, blocks, g.smem, g.ring,
+                                              stream, in, dst, L, m_total)
+                           : launch_wide<64>(device, blocks, g.smem, g.ring,
+                                             stream, in, dst, L, m_total);
+    }
+    const bool full = g.bm == 32 * (8 / (g.bn / 32));
+    switch (g.bn) {
+        case 64:
+            return full ? launch_mma_mode<64, 2>(mode, device, grid, g.smem,
+                                                 stream, in, dst, L, m_total)
+                        : launch_mma_mode<64, 1>(mode, device, grid, g.smem,
+                                                 stream, in, dst, L, m_total);
+        case 128:
+            return full ? launch_mma_mode<128, 2>(mode, device, grid, g.smem,
+                                                  stream, in, dst, L, m_total)
+                        : launch_mma_mode<128, 1>(mode, device, grid, g.smem,
+                                                  stream, in, dst, L, m_total);
+        default:
+            return full ? launch_mma_mode<256, 2>(mode, device, grid, g.smem,
+                                                  stream, in, dst, L, m_total)
+                        : launch_mma_mode<256, 1>(mode, device, grid, g.smem,
+                                                  stream, in, dst, L, m_total);
+    }
+}
 
 Card current_card() {
     Card c{};
@@ -1354,7 +1776,8 @@ Layer layer_of(const int* d) {
 // directly, or (with gap) a scratch buffer that gap_kernel reduces to `out`.
 int run_stack(const float* x, float* out, float* buf0, float* buf1, int batch,
               int n_layers, const int64_t* ptrs, const int* dims, int gap,
-              int mode, cudaStream_t stream) {
+              int mode, cudaStream_t stream, int* wide) {
+    if (wide) *wide = 0;
     if (batch <= 0 || n_layers <= 0 || mode < HIGHEST || mode > HIGH)
         return (int)cudaErrorInvalidValue;
     const Card card = current_card();
@@ -1371,14 +1794,18 @@ int run_stack(const float* x, float* out, float* buf0, float* buf1, int batch,
         const bool last = i == n_layers - 1;
         float* dst = (last && !gap) ? out : bufs[i % 2];
         const int m_total = batch * L.ho * L.wo;
-        const cudaError_t err =
-            mode == HIGHEST
-                ? launch_geometry(card.device,
+        cudaError_t err;
+        if (mode == HIGHEST) {
+            err = launch_geometry(card.device,
                                   ffma_geometry(L, m_total, card.sms,
                                                 card.sm_smem, card.block_smem),
-                                  stream, in, dst, L, m_total)
-                : launch_mma_layer(mode, card.device, card.sms, card.sm_smem,
-                                   stream, in, dst, L, m_total);
+                                  stream, in, dst, L, m_total);
+        } else {
+            const MmaGeometry g = mma_geometry(mode, L, m_total, card);
+            err = launch_mma_geometry(mode, card.device, g, stream, in, dst, L,
+                                      m_total);
+            if (wide && err == cudaSuccess) *wide += g.wide;
+        }
         if (err != cudaSuccess) return (int)err;
         in = dst;
     }
@@ -1400,11 +1827,14 @@ extern "C" {
 // A range of separable layers on NHWC f32, e.g. layers 2-7 of the front,
 // (B, 48, 32, 32) -> (B, 6, 4, 512), or layers 8-14 with gap=1,
 // (B, 6, 4, 512) -> (B, 1024); mode is a Mode (0 HIGHEST, 1 BF16, 2 HIGH).
+// Into `wide`, unless null, the number of layers it launched on
+// sep_mma_wide_kernel. `wide` comes after the stream, so a caller that
+// passes it to an older build, which lacks it, loses nothing but the count.
 int bz_sep_stack(const float* x, float* out, float* buf0, float* buf1,
                  int batch, int n_layers, const int64_t* ptrs,
-                 const int* dims, int gap, int mode, void* stream) {
+                 const int* dims, int gap, int mode, void* stream, int* wide) {
     return run_stack(x, out, buf0, buf1, batch, n_layers, ptrs, dims, gap,
-                     mode, static_cast<cudaStream_t>(stream));
+                     mode, static_cast<cudaStream_t>(stream), wide);
 }
 
 // The exact-f32 route's launch of each of n_layers layers (dims as
@@ -1456,6 +1886,39 @@ int bz_sep_layer_at(const float* x, float* y, int batch, const int64_t* ptrs,
     return (int)launch_geometry(card.device, g,
                                 static_cast<cudaStream_t>(stream), x, y, L,
                                 m_total);
+}
+
+// One BF16 or HIGH layer (its descriptor and 4 operand pointers as one
+// layer of bz_sep_stack's) at a tile the caller names: `tile` -1 for the
+// rule's, 0 for sep_layer_mma_kernel's, 128 or 64 for the wide tile at
+// that many rows (BF16 and F a multiple of 256 only), the tile it launched
+// into `launched` as `tile` names it. For the tools and tests that time and
+// compare the tiles; the wrappers launch through bz_sep_stack only. A tile
+// that does not fit or take the layer returns -1.
+int bz_mma_layer_at(const float* x, float* y, int batch, const int64_t* ptrs,
+                    const int* dims, int mode, int tile, int* launched,
+                    void* stream) {
+    Layer L = layer_of(dims);
+    L.dw = reinterpret_cast<const float*>(ptrs[0]);
+    L.dw_b = reinterpret_cast<const float*>(ptrs[1]);
+    L.pw = reinterpret_cast<const void*>(ptrs[2]);
+    L.pw_b = reinterpret_cast<const float*>(ptrs[3]);
+    if (batch <= 0 || (mode != BF16 && mode != HIGH) || !takes(mode, L) ||
+        (tile != -1 && tile != 0 && tile != 128 && tile != 64))
+        return (int)cudaErrorInvalidValue;
+    const Card card = current_card();
+    const int m_total = batch * L.ho * L.wo;
+    MmaGeometry g = tile == -1 ? mma_geometry(mode, L, m_total, card)
+                               : small_mma_geometry(mode, L, m_total, card);
+    if (tile > 0) {
+        if (mode != BF16) return -1;
+        g = wide_mma_geometry(L, m_total, tile, card);
+        if (!g.ring) return -1;
+    }
+    *launched = g.wide ? g.bm : 0;
+    return (int)launch_mma_geometry(mode, card.device, g,
+                                    static_cast<cudaStream_t>(stream), x, y,
+                                    L, m_total);
 }
 
 // The current device's SMs, shared memory per SM and per block (opted

@@ -71,16 +71,16 @@ class Library:
             raise RuntimeError(f'{entry} failed: CUDA error {code} '
                                f'({message})')
 
-    def launch(self, lib, entry: str, device, *args):
-        """``lib.<entry>(*args, stream)`` with ``device`` current and its
-        current stream last; raises on a nonzero return code."""
+    def launch(self, lib, entry: str, device, *args, after=()):
+        """``lib.<entry>(*args, stream, *after)`` with ``device`` current
+        and its current stream; raises on a nonzero return code."""
         with device_scope(device):
             # the raw handle: torch.cuda.current_stream() builds a Stream
             # object, ~7 us a call on the H100 machine's host against
             # ~0.2 us
             stream = torch._C._cuda_getCurrentRawStream(
                 torch.cuda.current_device())
-            code = getattr(lib, entry)(*args, stream)
+            code = getattr(lib, entry)(*args, stream, *after)
         if code:
             self.check(lib, entry, code)
 
@@ -113,18 +113,21 @@ def device_scope(device):
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper, mode=None, layers=None, batch=None):
+def count_launch(wrapper, mode=None, layers=None, batch=None, tiles=None):
     """One more launch on ``wrapper.launches`` (or on its ``mode`` entry),
     and with ``layers`` = (start, stop) on ``wrapper.ranges[(start, stop,
     mode)]``, which tells the layer ranges of one wrapper apart, and with
     ``batch`` also on ``wrapper.batches[(start, stop, mode, batch)]``, which
-    tells the batch sizes apart; inferer threads share the wrappers, and
+    tells the batch sizes apart; ``tiles`` ({entry: n}) adds n to each such
+    entry of ``wrapper.launches``. Inferer threads share the wrappers, and
     ``+=`` is not atomic."""
     with _count_lock:
         if mode is None:
             wrapper.launches += 1
         else:
             wrapper.launches[mode] += 1
+        for entry, n in (tiles or {}).items():
+            wrapper.launches[entry] += n
         if layers is not None:
             wrapper.ranges[(*layers, mode)] += 1
             if batch is not None:

@@ -86,9 +86,10 @@ def fused_front(x: Tensor, operands: list[Tensor], start_layer: int,
     """Layers [start_layer, stop_layer) of the separable-conv stack on
     (B, H, W, C) NHWC f32 -> (B, Ho*Wo, F) in ``mode``."""
     specs = sepconv.tail_specs(start_layer, stop_layer)
-    out = sepconv._launch(_layers(operands, specs), x, specs, False, mode)
-    count_launch(sepconv.fused_front, mode,
-                          (start_layer, stop_layer), x.shape[0])
+    out, wide = sepconv._launch(_layers(operands, specs), x, specs, False,
+                                mode)
+    count_launch(sepconv.fused_front, mode, (start_layer, stop_layer),
+                 x.shape[0], {'mma_wide': wide})
     return out
 
 
@@ -105,9 +106,10 @@ def fused_tail(x: Tensor, operands: list[Tensor], start_layer: int,
     """Layers [start_layer, stop_layer) on (B, H, W, C) NHWC f32 ->
     (B, F) pooled with ``gap``, else (B, Ho*Wo, F), in ``mode``."""
     specs = sepconv.tail_specs(start_layer, stop_layer)
-    out = sepconv._launch(_layers(operands, specs), x, specs, gap, mode)
-    count_launch(sepconv.fused_tail, mode,
-                          (start_layer, stop_layer), x.shape[0])
+    out, wide = sepconv._launch(_layers(operands, specs), x, specs, gap,
+                                mode)
+    count_launch(sepconv.fused_tail, mode, (start_layer, stop_layer),
+                 x.shape[0], {'mma_wide': wide})
     return out
 
 

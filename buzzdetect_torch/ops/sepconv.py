@@ -8,10 +8,11 @@ its custom operator (``buzzdetect::fused_front`` / ``fused_tail``,
 the note at the top of that file) and counts the launch in
 ``<wrapper>.launches[mode]`` (and per layer range in
 ``<wrapper>.ranges[(start, stop, mode)]``, per range and batch in
-``<wrapper>.batches[(start, stop, mode, B)]``); on a CPU tensor it computes the
-plain PyTorch version. There is no other path. The pointwise
-product runs on FFMA in exact f32 ('highest') and on the tensor cores
-('bf16', 'high'; ``layer_route``).
+``<wrapper>.batches[(start, stop, mode, B)]``, and the layers the library
+ran on the wide tensor-core tile in ``<wrapper>.launches['mma_wide']``); on
+a CPU tensor it computes the plain PyTorch version. There is no other path.
+The pointwise product runs on FFMA in exact f32 ('highest') and on the
+tensor cores ('bf16', 'high'; ``layer_route``).
 
 ``mode`` selects the pointwise product's operands, as the TPU kernel's
 ``compute_dtype`` and ``precision`` do (``resolve_mode``):
@@ -125,8 +126,9 @@ _MODE_CODE = {'highest': 0, 'bf16': 1, 'high': 2}
 
 def layer_route(mode: str) -> str:
     """The unit that runs a layer's pointwise product in ``mode``: 'ffma'
-    (sep_layer_kernel, exact f32) or 'mma' (sep_layer_mma_kernel, bf16
-    operands on the tensor cores)."""
+    (sep_layer_kernel, exact f32) or 'mma' (sep_layer_mma_kernel, or in
+    bf16 at large batches sep_mma_wide_kernel: bf16 operands on the tensor
+    cores)."""
     check_mode(mode)
     return 'ffma' if mode == 'highest' else 'mma'
 
@@ -383,9 +385,11 @@ def fused_tail_plain(params, x, *, start_layer=8, stop_layer=None, gap=True,
 
 # the C interface of csrc/sepconv.cu
 LIBRARY = Library('sepconv', {
-    'bz_sep_stack': (I32, [PTR] * 4 + [I32, I32, PTR, PTR, I32, I32, PTR]),
+    'bz_sep_stack': (I32, [PTR] * 4 + [I32, I32, PTR, PTR, I32, I32, PTR,
+                                       PTR]),
     'bz_sep_geometry': (I32, [I32, I32, PTR, I32, I32, I32, PTR]),
     'bz_sep_layer_at': (I32, [PTR, PTR, I32, PTR, PTR, I32, I32, I32, PTR]),
+    'bz_mma_layer_at': (I32, [PTR, PTR, I32, PTR, PTR, I32, I32, PTR, PTR]),
     'bz_sep_card': (I32, [PTR]),
 }, errors='bz_error_string')
 load_kernels, bind = LIBRARY.load, LIBRARY.bind
@@ -468,8 +472,10 @@ def _check(params, x, specs, mode):
 
 def _launch(operands, x, specs, gap, mode, lib=None):
     """Launch ``bz_sep_stack`` of ``csrc/sepconv.cu`` (or of ``lib``,
-    another build of it) on the current stream; returns the output tensor.
-    Raises on any CUDA error code."""
+    another build of it) on the current stream; returns the output tensor
+    and the number of layers the library ran on the wide tensor-core tile
+    (0 from a build that does not count them). Raises on any CUDA error
+    code."""
     if not x.is_contiguous():
         raise ValueError('input must be contiguous NHWC')
     if not all(t.is_contiguous() for layer in operands for t in layer):
@@ -489,12 +495,13 @@ def _launch(operands, x, specs, gap, mode, lib=None):
     out = torch.empty((b, sl.c_out) if gap
                       else (b, sl.h_out * sl.w_out, sl.c_out),
                       dtype=torch.float32, device=x.device)
+    wide = np.zeros(1, np.int32)
     # the C side sizes its grids from the current device's SM count
     LIBRARY.launch(lib, 'bz_sep_stack', x.device, x.data_ptr(),
                    out.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), b,
                    len(specs), ptrs.ctypes.data, dims.ctypes.data, int(gap),
-                   _MODE_CODE[mode])
-    return out
+                   _MODE_CODE[mode], after=(wide.ctypes.data,))
+    return out, int(wide[0])
 
 
 def _flat(operands):
@@ -533,8 +540,11 @@ def fused_tail(params, x, *, start_layer: int = 8, stop_layer: int = None,
                               specs[-1].index + 1, gap, mode)
 
 
-fused_front.launches = dict.fromkeys(MODES, 0)
-fused_tail.launches = dict.fromkeys(MODES, 0)
+# a wrapper's launches: one a call in its mode, and the layers each call ran
+# on the wide tensor-core tile, as ``bz_sep_stack`` counts them
+LAUNCH_KEYS = MODES + ('mma_wide',)
+fused_front.launches = dict.fromkeys(LAUNCH_KEYS, 0)
+fused_tail.launches = dict.fromkeys(LAUNCH_KEYS, 0)
 fused_front.ranges = collections.Counter()
 fused_tail.ranges = collections.Counter()
 fused_front.batches = collections.Counter()

@@ -146,9 +146,9 @@ def compare(other, device):
                 for b in BATCHES:
                     x = xs[name][:b].contiguous()
                     ops = sepconv._check(params, x, specs, mode)
-                    ours = sepconv._launch(ops, x, specs, gap, mode)
+                    ours = sepconv._launch(ops, x, specs, gap, mode)[0]
                     theirs = sepconv._launch(ops, x, specs, gap, mode,
-                                             lib=other)
+                                             lib=other)[0]
                     torch.cuda.synchronize(device)
                     results[name, mode, b] = _report(
                         f'{name} [{mode}] B={b} {tuple(ours.shape)}', ours,

@@ -35,7 +35,12 @@ Phases, each printed before the last line:
    tensor cores in bf16 and HIGH). Then each mode's device time layer by
    layer with its bound,
    the exact-f32 FFMA kernel's against the cuDNN layer's (TF32 off), the
-   ratio of the bf16 and HIGH kernels' to the exact-f32 kernel's, and one
+   ratio of the bf16 and HIGH kernels' to the exact-f32 kernel's, the bf16
+   layers 5-14 at B = 1,667, 209, 64, 32, 8 and 1 on each tensor-core tile
+   (``mma_tile_phase``: outputs equal to ``sep_layer_mma_kernel``'s bit for
+   bit and its outputs within the bf16 tolerance of the plain version,
+   device time against the f32-activation floor, the library's pick,
+   registers and spills), and one
    chunk's device time stage by stage, with the matmul frontend and with
    the fused log-mel on the int16 wire. The fused log-mel also at the
    benchmark cells' shape, one 1,667-patch chunk of the int16 wire: bits
@@ -2209,6 +2214,72 @@ def log_mel_chunk_phase(torch, dev, cfg, f32_peak, bytes_peak, time_ms,
           f'dense-DFT count ({100 * dft_ms / d["kernel"]:.1f}%)', flush=True)
 
 
+# the bf16 layers that the wide tensor-core tile can take (F a multiple of
+# 256), at the benchmark cells' chunk, a default 200 s chunk and the short
+# files' and the watch's batches; how much slower than
+# sep_layer_mma_kernel's tile the library's pick may time at B <= 209 (two
+# tiles' device times alone, in one process, differ by up to 2% from run
+# to run), and than the fastest tile at any batch
+WIDE_LAYERS = tuple(range(5, 15))
+WIDE_BATCHES = (CHUNK_PATCHES, 209, 64, 32, 8, 1)
+WIDE_SLACK = 1.03
+PICK_SLACK = 1.10
+
+
+def mma_tile_phase(params, bytes_peak):
+    """The bf16 layers 5-14 at each of WIDE_BATCHES on each tensor-core
+    tile (``tools/mma_tiles.py``): sep_layer_mma_kernel's and the wide
+    tile at 128 and 64 rows, each one's device time against the layer's
+    floor (its f32 activations read and written once), the tile the
+    library picks, sep_layer_mma_kernel's output against the layer's plain
+    version at the bf16 tolerance, and each kernel's registers and spills
+    (``nvcc -Xptxas -v``). Fails if a wide tile's outputs differ from
+    sep_layer_mma_kernel's, if those differ from the plain version beyond
+    the tolerance, if the wide kernel spills, if a pick at B <= 209 times
+    slower than sep_layer_mma_kernel's tile by more than WIDE_SLACK, and
+    if a pick times slower than the fastest tile by more than
+    PICK_SLACK."""
+    from buzzdetect_torch.tools import mma_tiles
+    kernels = mma_tiles.resources()
+    print('tensor-core conv kernels, registers a thread (spilled bytes '
+          'stored / loaded): ' + ', '.join(
+              f'{k["kernel"]} {k.get("registers")} ({k["spill_stores"]} / '
+              f'{k["spill_loads"]})' for k in kernels), flush=True)
+    spilled = [k['kernel'] for k in kernels
+               if k['kernel'].startswith('sep_mma_wide_kernel')
+               and (k['spill_stores'] or k['spill_loads'])]
+    if spilled:
+        fail(f'the wide tensor-core tile spills: {spilled}')
+    rows = mma_tiles.layer_rows(params, WIDE_LAYERS, WIDE_BATCHES,
+                                bytes_peak, tolerance=tolerance)
+    for row in rows:
+        print('  [bf16] ' + mma_tiles.row_line(row), flush=True)
+        where = f'layer {row["layer"]} B={row["b"]}'
+        if row['differ']:
+            fail(f'{where}: the wide tile\'s outputs differ from '
+                 f'sep_layer_mma_kernel\'s')
+        err, atol, ok = row['plain']
+        if not ok:
+            fail(f'{where}: sep_layer_mma_kernel disagrees with the plain '
+                 f'version: max |d| {err:.3g} (atol {atol:.3g})')
+        ms = row['ms']
+        picked = ms[row['pick']]
+        if row['b'] <= 209 and picked > WIDE_SLACK * ms[0]:
+            fail(f'{where}: the library\'s pick {picked:.4f} ms is slower '
+                 f'than sep_layer_mma_kernel\'s {ms[0]:.4f} ms')
+        if picked > PICK_SLACK * min(ms.values()):
+            fail(f'{where}: the library\'s pick {picked:.4f} ms is slower '
+                 f'than the fastest tile\'s {min(ms.values()):.4f} ms')
+    for b in WIDE_BATCHES:
+        group = [r for r in rows if r['b'] == b]
+        today = sum(r['ms'][0] for r in group)
+        picked = sum(r['ms'][r['pick']] for r in group)
+        floor = sum(r['floor_ms'] for r in group)
+        print(f'[bf16] layers 5-14 at B={b}: picked tiles {picked:.4f} ms, '
+              f'sep_layer_mma_kernel\'s {today:.4f} ms, floor '
+              f'{floor:.4f} ms', flush=True)
+
+
 # YAMNet's layer 1 at the main path's batches: a ragged chunk, a default
 # 200 s chunk and the benchmark cells' 1,667-patch chunk
 LAYER1_BATCHES = (5, 209, CHUNK_PATCHES)
@@ -3661,6 +3732,7 @@ def run(torch, tmp):
                       if m == 'highest' and b == b0)
             print(f'[{mode}] tensor cores / exact-f32 FFMA kernel, per layer: '
                   + ', '.join(ratios), flush=True)
+        mma_tile_phase(all_params['yamnet'], bytes_peak)
 
         # where one chunk's device time goes, stage by stage, at B = 209,
         # with the matmul frontend and with the fused log-mel
@@ -3695,8 +3767,8 @@ def run(torch, tmp):
 
     # --- 3. the main paths end to end ----------------------------------
     def reset_counts():
-        sepconv.fused_front.launches = dict.fromkeys(sepconv.MODES, 0)
-        sepconv.fused_tail.launches = dict.fromkeys(sepconv.MODES, 0)
+        sepconv.fused_front.launches = dict.fromkeys(sepconv.LAUNCH_KEYS, 0)
+        sepconv.fused_tail.launches = dict.fromkeys(sepconv.LAUNCH_KEYS, 0)
         sepconv.fused_front.ranges.clear()
         sepconv.fused_tail.ranges.clear()
         sepconv.fused_front.batches.clear()
@@ -3705,12 +3777,18 @@ def run(torch, tmp):
         layer1_lib.layer1.launches = 0
 
     def read_counts():
+        """The launches of the wrappers in each mode; the layers run on
+        the wide tensor-core tile are read apart (``wide_layers``)."""
         counts = {'log_mel': logmel.log_mel_spectrogram_fused.launches}
         for fn in (sepconv.fused_front, sepconv.fused_tail):
-            for mode, n in fn.launches.items():
+            for mode in sepconv.MODES:
                 counts[fn.__name__ + ('' if mode == 'highest'
-                                      else f'[{mode}]')] = n
+                                      else f'[{mode}]')] = fn.launches[mode]
         return counts
+
+    def wide_layers():
+        return sum(fn.launches['mma_wide']
+                   for fn in (sepconv.fused_front, sepconv.fused_tail))
 
     launches = {}
     dir_audio = os.path.join(tmp, 'audio')
@@ -3780,7 +3858,8 @@ def run(torch, tmp):
         counts = read_counts()
         reason = result.coordinator.end_reason
         print(f'CLI {" ".join(argv[:2] + flags)} ({key}): end reason '
-              f'{reason!r}, {wall:.2f} s wall, kernel launches {counts}',
+              f'{reason!r}, {wall:.2f} s wall, kernel launches {counts}, '
+              f'layers on the wide tensor-core tile {wide_layers()}',
               flush=True)
         if reason != 'completed':
             fail(f'the CLI run of {variant} ended {reason!r}')

@@ -236,6 +236,54 @@ def test_ffma_geometries_prices_the_rule_against_the_fastest_tile():
     assert fg.regret(times, 0, sepconv.H100_CARD)[2] == [(8, 1, 48)]
 
 
+def test_mma_tiles_asks_for_the_card():
+    from buzzdetect_torch.tools import mma_tiles
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mma_tiles.main(['--layers', '8', '--batches', '209'])
+
+
+@pytest.mark.parametrize('layer', range(5, 15))
+def test_mma_tiles_floor_is_the_layers_f32_activations(layer):
+    """A row's floor is the layer's f32 input read once and its f32 output
+    written once, at the bandwidth given: at 1,667 patches layers 5-14
+    move 2.09 GB, and layers 8-12 164 MB each."""
+    from buzzdetect_torch.ops import sepconv
+    from buzzdetect_torch.tools import mma_tiles
+    s = sepconv.tail_specs(layer, layer + 1)[0]
+    n = 1667 * (s.h * s.w * s.c_in + s.h_out * s.w_out * s.c_out) * 4
+    assert mma_tiles.floor_ms(s, 1667, 1e12) == pytest.approx(n / 1e9)
+    if 8 <= layer <= 12:
+        assert n == 1667 * 24 * 512 * 8
+    total = sum(mma_tiles.floor_ms(t, 1667, 1e9)
+                for t in sepconv.tail_specs(5, None))
+    assert total == pytest.approx(1667 * 313344 * 4 / 1e6)
+
+
+def test_mma_tiles_names_each_tile_as_the_library_does():
+    """``bz_mma_layer_at`` names sep_layer_mma_kernel's tile 0 and the wide
+    tile by its rows; a row line marks the library's pick against the
+    fastest tile, each tile's time against the floor, and the plain check
+    where it was made."""
+    from buzzdetect_torch.tools import mma_tiles
+    assert mma_tiles.TILES == (0, 128, 64)
+    assert [mma_tiles.label(t) for t in mma_tiles.TILES] == [
+        'mma', 'wide128', 'wide64']
+    line = mma_tiles.row_line(dict(layer=14, b=1667, pick=64,
+                                   ms={0: 0.25, 128: 0.2, 64: 0.21},
+                                   floor_ms=0.025, differ=[],
+                                   plain=(0.004, 0.031, True)))
+    assert line.startswith('layer 14 B=1667: pick wide64 0.2100 ms (1.050x '
+                           'the fastest, wide128)')
+    assert 'mma 0.2500 (10.00x floor)' in line and 'DIFFERENT' not in line
+    assert line.endswith('max |mma - plain| 0.004 (atol 0.031)')
+    line = mma_tiles.row_line(dict(layer=8, b=1, pick=0,
+                                   ms={0: 0.01, 128: 0.02}, floor_ms=0.001,
+                                   differ=[128]))
+    assert '(1.000x the fastest, mma)' in line and 'plain' not in line
+    assert line.endswith("DIFFERENT: ['wide128']")
+
+
 PTXAS = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__ab893dda_16_sepconv_cu_2c3154fb16sep_layer_kernelILi256ELi5EEEvPKfPfNS_5LayerEii' for 'sm_90a'

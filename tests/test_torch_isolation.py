@@ -122,7 +122,8 @@ def test_cuda_without_a_card_raises(tmp_path):
     from buzzdetect_torch.ops import common, sepconv
     with pytest.raises(ValueError, match='unsupported device'):
         common.route(x.to('meta'))
-    assert sepconv.fused_front.launches == dict.fromkeys(sepconv.MODES, 0)
+    assert sepconv.fused_front.launches == dict.fromkeys(
+        sepconv.LAUNCH_KEYS, 0)
 
 
 @pytest.mark.parametrize('kw', [

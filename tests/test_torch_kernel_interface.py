@@ -117,6 +117,22 @@ def test_launch_passes_the_current_stream_last(monkeypatch):
         library.launch(lib, 'bz_x', torch.device('cuda'), 3)
 
 
+def test_launch_passes_after_the_stream_what_comes_after_it(monkeypatch):
+    """``after`` goes after the stream (``bz_sep_stack``'s count of
+    wide-tile layers), so a build whose entry ends at the stream ignores
+    it."""
+    calls = []
+    library = common.Library('x', {'bz_x': (common.I32, [])},
+                             errors='bz_x_error_string')
+    lib = types.SimpleNamespace(bz_x=lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
+    monkeypatch.setattr(torch._C, '_cuda_getCurrentRawStream',
+                        {0: 1234}.__getitem__, raising=False)
+    library.launch(lib, 'bz_x', torch.device('cuda'), 7, after=(99,))
+    library.launch(lib, 'bz_x', torch.device('cuda'), 7)
+    assert calls == [(7, 1234, 99), (7, 1234)]
+
+
 def test_load_libraries_builds_at_once_and_binds_each(monkeypatch):
     """One call builds the named sources together, then loads and binds
     each through its module's table, once."""

@@ -5,21 +5,28 @@ kernels in interpret mode, as tests/test_pallas_conv.py does. B = 5 is
 ragged against every block size of both implementations. The CUDA kernels
 themselves are held against these plain versions on the card by
 chip_smoke.py.
+
+The tests marked ``card`` run the tensor-core tiles on a CUDA card and skip
+without one (``tests/conftest.py`` hides it from the tier-1 run). They
+import neither JAX nor the JAX package, which this file imports only
+inside the tests that compare with it, so on the card they run with
+
+    python -m pytest --noconftest -p no:cacheprovider -m card \
+        tests/test_torch_sepconv.py
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
-
-from buzzdetect_tpu.models import yamnet as jyam
-from buzzdetect_tpu.ops import pallas_conv as jpc
 from buzzdetect_torch.models import yamnet as tyam
 from buzzdetect_torch.models.weights import params_from_numpy
 from buzzdetect_torch.ops import sepconv
 from buzzdetect_torch.ops.common import count_launch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # As tests/test_pallas_conv.py: both sides are exact f32 but sum the
 # depthwise taps and the pointwise products (K up to 1024) in different
@@ -31,6 +38,7 @@ B = 5
 
 @pytest.fixture(scope='module')
 def folded():
+    from buzzdetect_tpu.models import yamnet as jyam
     return jyam.fold_batchnorm(jyam.init_raw_params(seed=7))
 
 
@@ -47,6 +55,11 @@ def _report(name, got, ref):
 
 
 def test_fused_front_plain_matches_pallas(folded, tparams):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from buzzdetect_tpu.models import yamnet as jyam
+    from buzzdetect_tpu.ops import pallas_conv as jpc
     patches = np.random.default_rng(1).standard_normal(
         (B, 96, 64, 1)).astype(np.float32)
     xp = jyam.packed_l1(folded, jnp.asarray(patches), 4)
@@ -66,6 +79,10 @@ def test_fused_front_plain_matches_pallas(folded, tparams):
 ])
 def test_fused_tail_plain_matches_pallas(folded, tparams, start_layer,
                                          stop_layer, gap, shape):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from buzzdetect_tpu.ops import pallas_conv as jpc
     s0 = sepconv.tail_specs(start_layer, stop_layer)[0]
     x = np.random.default_rng(3).standard_normal(
         (B, s0.h, s0.w, s0.c_in)).astype(np.float32)
@@ -96,7 +113,7 @@ def test_wrappers_on_cpu_take_the_plain_path(tparams):
                          .astype(np.float32))
     np.testing.assert_array_equal(sepconv.fused_tail(tparams, y).numpy(),
                                   sepconv.fused_tail_plain(tparams, y).numpy())
-    zero = dict.fromkeys(sepconv.MODES, 0)
+    zero = dict.fromkeys(sepconv.LAUNCH_KEYS, 0)
     assert (sepconv.fused_front.launches,
             sepconv.fused_tail.launches) == before == (zero, zero)
 
@@ -354,3 +371,108 @@ def test_count_launch_by_batch():
     assert wrapper.ranges == {(8, 15, 'highest'): 3, (8, 15, 'bf16'): 1}
     assert wrapper.batches == {(8, 15, 'highest', 2): 2,
                                (8, 15, 'highest', 209): 1}
+
+
+def test_count_launch_adds_the_tile_launches():
+    """``tiles`` adds each entry's layers to the wrapper's ``launches``
+    beside the one launch of its mode."""
+    import collections
+
+    def wrapper():
+        pass
+    wrapper.launches = dict.fromkeys(sepconv.LAUNCH_KEYS, 0)
+    wrapper.ranges = collections.Counter()
+    wrapper.batches = collections.Counter()
+    count_launch(wrapper, 'bf16', (8, 15), 1667, {'mma_wide': 7})
+    count_launch(wrapper, 'bf16', (8, 15), 5, {'mma_wide': 0})
+    assert wrapper.launches == {'highest': 0, 'bf16': 2, 'high': 0,
+                                'mma_wide': 7}
+
+
+def test_wide_tile_is_a_kernel_of_the_conv_roofline():
+    """``sepconv_roofline`` counts the kernels ``csrc/sepconv.cu`` declares,
+    as ``benchmark/program.kernel_names`` parses them: the wide
+    tensor-core tile is one of them, beside the tile it replaces at large
+    batches, and a trace's name of it matches."""
+    from benchmark import program
+    names = program.kernel_names('sepconv')
+    assert {'sep_mma_wide_kernel', 'sep_layer_mma_kernel'} <= set(names)
+    match = program.kernel_matcher('sepconv')
+    assert match('void (anonymous namespace)::sep_mma_wide_kernel<128>('
+                 'float const*, float*, (anonymous namespace)::Layer, int, '
+                 'int)')
+
+
+# --- on the card -----------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the tensor-core tiles of '
+                    'csrc/sepconv.cu run only there')
+    return torch.device('cuda')
+
+
+@pytest.fixture(scope='module')
+def bundle(card):
+    """The bundle's YAMNet weights on the card, packed for bf16 and HIGH."""
+    with np.load(os.path.join(ROOT, 'models', 'model_general_v3',
+                              'model.npz')) as z:
+        params = params_from_numpy({k: z[k] for k in z.files},
+                                   card)['yamnet']
+    return sepconv.pack_params(sepconv.pack_params(params, 'bf16'), 'high')
+
+
+@pytest.mark.card
+@pytest.mark.parametrize('batch', [1667, 209])
+@pytest.mark.parametrize('layer', range(5, 15))
+def test_wide_tile_matches_the_mma_tile_bit_for_bit(card, bundle, layer,
+                                                    batch):
+    """On each bf16 layer 5-14, at the cells' 1,667 patches and a 200 s
+    chunk's 209, the wide tile at 128 and at 64 rows gives
+    sep_layer_mma_kernel's outputs bit for bit, on seeded inputs: a
+    patch's scores do not depend on the tile its batch drew."""
+    from buzzdetect_torch.tools import mma_tiles
+    lib = sepconv.load_kernels()
+    s = sepconv.tail_specs(layer, layer + 1)[0]
+    ops = sepconv._check(bundle, torch.zeros(1, s.h, s.w, s.c_in,
+                                             device=card), (s,), 'bf16')[0]
+    gen = torch.Generator(device=card).manual_seed(1000 * layer + batch)
+    x = torch.relu(torch.randn((batch, s.h, s.w, s.c_in), device=card,
+                               generator=gen))
+    outs = {}
+    for tile in mma_tiles.TILES:
+        y = torch.full((batch * s.h_out * s.w_out, s.c_out), float('nan'),
+                       device=card)
+        assert mma_tiles.layer_at(lib, x, y, ops, s, 'bf16', tile) == tile
+        outs[tile] = y
+    torch.cuda.synchronize(card)
+    assert not outs[0].isnan().any()
+    for tile in mma_tiles.TILES[1:]:
+        assert torch.equal(outs[tile], outs[0]), (tile, float(
+            (outs[tile] - outs[0]).abs().max()))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize('mode,batch,wide', [('bf16', 1667, 10),
+                                             ('bf16', 5, 0),
+                                             ('high', 1667, 0)])
+def test_classify_counts_its_wide_tile_launches(card, bundle, mode, batch,
+                                                wide):
+    """A bf16 embed at 1,667 patches runs layers 5-14 on the wide tile (10
+    launches counted on the wrappers' ``launches['mma_wide']``); at B = 5,
+    and in HIGH at any batch, none; each wrapper counts one launch in its
+    mode all the same."""
+    x = torch.relu(torch.randn((batch, 48, 32, 32), device=card,
+                               generator=torch.Generator(device=card)
+                               .manual_seed(batch)))
+    wrappers = (sepconv.fused_front, sepconv.fused_tail)
+    before = [dict(w.launches) for w in wrappers]
+    with torch.inference_mode():
+        mid = sepconv.fused_front(bundle, x, mode=mode)
+        sepconv.fused_tail(bundle, mid.reshape(batch, 6, 4, 512), mode=mode)
+    torch.cuda.synchronize(card)
+    added = [{k: w.launches[k] - b[k] for k in b}
+             for w, b in zip(wrappers, before)]
+    assert sum(a['mma_wide'] for a in added) == wide, added
+    assert all(a[mode] == 1 for a in added), added
