@@ -43,6 +43,22 @@
 // computes the 32 scores as fmaf chains over d ascending, and runs the
 // same online softmax with expf. No tensor cores, no TF32.
 //
+// BEATs (models/beats.py; bz_attention_relpos) adds to each score a gated
+// relative-position bias: s_ij = q_i k_j * scale + g_ih bias_h[j - i].
+// bias_h is one f32 row a head of 2n - 1 values (d = j - i from -(n - 1),
+// built once on the host from the shared bucketed table, so no bucket is
+// computed here); the gate g_ih = u0 (u1 a_h - 1) + 2, (u0, u1) =
+// sigmoid(G q_i + c), is the layer's (G: 2 x 64, c: 2, a: heads; f32) and
+// reads the query row as the kernel holds it (bf16 under bf16). Both
+// kernels take it as a template parameter, RELPOS: with it the bf16 kernel
+// computes each warp's 16 gates from the q tile in shared memory (two
+// lanes a row, a shuffle), adds g bias from the L1-cached row to S in f32
+// before the online softmax (the scale folded in there, so the softmax
+// runs in units of log2 e), and the f32 kernel computes its row's gate
+// from q in registers; without it both compile to the code they had, the
+// Audio Spectrogram Transformer's. The bias row and the gate add 4 (2n -
+// 1) bytes a head and 2 x 2 x 64 flops a row and head to the work above.
+//
 // Plain C interface, loaded with ctypes; returns a cudaError_t code
 // (0 = success) and launches on the given stream.
 
@@ -62,6 +78,7 @@ constexpr int NT = 128;      // threads a block (bf16): 4 warps
 constexpr int TILE = BM * D / 8;   // 16-byte chunks of a 64 x 64 bf16 tile
 constexpr int F_BM = 128;    // query rows a block (f32): one a thread
 constexpr int F_BN = 32;     // keys a tile (f32)
+constexpr float LOG2E = 1.4426950408889634f;
 
 // chunk c (8 bf16 of a row) of row r of a 64 x 64 tile, swizzled so that
 // the 8 rows an ldmatrix phase reads lie in 8 different bank quads
@@ -93,11 +110,26 @@ __device__ __forceinline__ float quad_sum(float v) {
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// grid (query tiles, heads, batch); scale_log2 = scale * log2(e)
+// the gate of query row q (d values of head h, f32) under gate = G (2 x
+// 64) | c (2) | a (heads): u0 (u1 a_h - 1) + 2, (u0, u1) = sigmoid(G q + c)
+__device__ __forceinline__ float gate_of(float dot0, float dot1,
+                                         const float* __restrict__ gate,
+                                         int h) {
+    const float u0 = 1.f / (1.f + expf(-(dot0 + __ldg(gate + 2 * D))));
+    const float u1 = 1.f / (1.f + expf(-(dot1 + __ldg(gate + 2 * D + 1))));
+    return fmaf(u0, fmaf(u1, __ldg(gate + 2 * D + 2 + h), -1.f), 2.f);
+}
+
+// grid (query tiles, heads, batch); scale_log2 = scale * log2(e), or with
+// RELPOS the scale itself; with RELPOS, rel: (heads, 2n - 1) f32 bias
+// rows, gate: G | c | a as above
+template <bool RELPOS>
 __global__ void __launch_bounds__(NT)
 attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
                       __nv_bfloat16* __restrict__ out, const int n,
-                      const int heads, const float scale_log2) {
+                      const int heads, const float scale_log2,
+                      const float* __restrict__ rel,
+                      const float* __restrict__ gate) {
     __shared__ uint4 sm[5 * TILE];                // q | k x 2 | v x 2
     uint4* const Qs = sm;
     uint4* const Ks = sm + TILE;
@@ -125,6 +157,18 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
         for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
     // rows g = lane / 4 (m0, l0) and g + 8 (m1, l1) of the warp's 16
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    // RELPOS: the two rows' gates and bias rows (at d = 0 for key 0), and
+    // the softmax's factor once the scale is in S
+    float g0 = 0.f, g1 = 0.f;
+    const float* rel0 = nullptr;
+    const float* rel1 = nullptr;
+    const float sl2 = RELPOS ? LOG2E : scale_log2;
+    if constexpr (RELPOS) {
+        const int i0 = min(q0 + 16 * warp + (lane >> 2), n - 1);
+        const int i1 = min(q0 + 16 * warp + (lane >> 2) + 8, n - 1);
+        const float* const relh = rel + (long long)h * (2 * n - 1) + n - 1;
+        rel0 = relh - i0, rel1 = relh - i1;
+    }
 
 #pragma unroll 1
     for (int t = 0; t < tiles; ++t) {
@@ -141,6 +185,32 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
             for (int kk = 0; kk < 4; ++kk)
                 ldmatrix_x4(qf[kk], Qs + swz(16 * warp + (lane & 15),
                                              2 * kk + (lane >> 4)));
+            if constexpr (RELPOS) {
+                // lanes 2r and 2r + 1 take row r of the warp's 16, half of
+                // d each
+                const int r = 16 * warp + (lane >> 1), half = lane & 1;
+                float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+                for (int c = 4 * half; c < 4 * half + 4; ++c) {
+                    const uint4 v = Qs[swz(r, c)];
+                    const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float2 qq = __bfloat1622float2(
+                            *reinterpret_cast<const __nv_bfloat162*>(&w4[e]));
+                        const int d = 8 * c + 2 * e;
+                        dot0 = fmaf(qq.x, __ldg(gate + d), dot0);
+                        dot0 = fmaf(qq.y, __ldg(gate + d + 1), dot0);
+                        dot1 = fmaf(qq.x, __ldg(gate + D + d), dot1);
+                        dot1 = fmaf(qq.y, __ldg(gate + D + d + 1), dot1);
+                    }
+                }
+                dot0 += __shfl_xor_sync(0xffffffffu, dot0, 1);
+                dot1 += __shfl_xor_sync(0xffffffffu, dot1, 1);
+                const float g = gate_of(dot0, dot1, gate, h);
+                g0 = __shfl_sync(0xffffffffu, g, 2 * (lane >> 2));
+                g1 = __shfl_sync(0xffffffffu, g, 2 * (lane >> 2) + 16);
+            }
         }
         const uint4* const K = Ks + s * TILE;
         const uint4* const V = Vs + s * TILE;
@@ -163,6 +233,19 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
                 mma_bf16(sc[2 * jj + 1], qf[kk], kb + 2);
             }
         const int key0 = t * BN;
+        if constexpr (RELPOS) {  // S scale + g bias[j - i], keys below n
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int key = key0 + 8 * j + 2 * (lane & 3) + (e & 1);
+                    if (key < n)
+                        sc[j][e] = fmaf(
+                            sc[j][e], scale_log2,
+                            (e < 2 ? g0 : g1) *
+                                __ldg((e < 2 ? rel0 : rel1) + key));
+                }
+        }
         if (key0 + BN > n) {  // the tail: keys past n take no weight
 #pragma unroll
             for (int j = 0; j < 8; ++j)
@@ -181,18 +264,18 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
         }
         mx0 = quad_max(mx0);
         mx1 = quad_max(mx1);
-        const float a0 = exp2f((m0 - mx0) * scale_log2);   // 0 at t = 0
-        const float a1 = exp2f((m1 - mx1) * scale_log2);
+        const float a0 = exp2f((m0 - mx0) * sl2);   // 0 at t = 0
+        const float a1 = exp2f((m1 - mx1) * sl2);
         m0 = mx0, m1 = mx1;
-        const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
+        const float mb0 = mx0 * sl2, mb1 = mx1 * sl2;
         float rs0 = 0.f, rs1 = 0.f;
         uint32_t pf[4][4];  // P as the A operand of PV, k-step kk
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-            const float p0 = exp2f(fmaf(sc[j][0], scale_log2, -mb0));
-            const float p1 = exp2f(fmaf(sc[j][1], scale_log2, -mb0));
-            const float p2 = exp2f(fmaf(sc[j][2], scale_log2, -mb1));
-            const float p3 = exp2f(fmaf(sc[j][3], scale_log2, -mb1));
+            const float p0 = exp2f(fmaf(sc[j][0], sl2, -mb0));
+            const float p1 = exp2f(fmaf(sc[j][1], sl2, -mb0));
+            const float p2 = exp2f(fmaf(sc[j][2], sl2, -mb1));
+            const float p3 = exp2f(fmaf(sc[j][3], sl2, -mb1));
             rs0 += p0 + p1;
             rs1 += p2 + p3;
             pf[j >> 1][(j & 1) * 2] = bits(__floats2bfloat162_rn(p0, p1));
@@ -235,10 +318,13 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
 }
 
-// grid (query tiles of F_BM, heads, batch)
+// grid (query tiles of F_BM, heads, batch); rel and gate as above
+template <bool RELPOS>
 __global__ void __launch_bounds__(F_BM)
 attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                     const int n, const int heads, const float scale) {
+                     const int n, const int heads, const float scale,
+                     const float* __restrict__ rel,
+                     const float* __restrict__ gate) {
     __shared__ __align__(16) float Ks[F_BN][D];
     __shared__ __align__(16) float Vs[F_BN][D];
     const int tid = threadIdx.x, h = blockIdx.y;
@@ -256,6 +342,18 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
         o[d] = o[d + 1] = o[d + 2] = o[d + 3] = 0.f;
     }
     float m = -INFINITY, l = 0.f;
+    float g = 0.f;
+    const float* relr = nullptr;
+    if constexpr (RELPOS) {
+        float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            dot0 = fmaf(q[d], __ldg(gate + d), dot0);
+            dot1 = fmaf(q[d], __ldg(gate + D + d), dot1);
+        }
+        g = gate_of(dot0, dot1, gate, h);
+        relr = rel + (long long)h * (2 * n - 1) + n - 1 - min(row, n - 1);
+    }
 #pragma unroll 1
     for (int k0 = 0; k0 < n; k0 += F_BN) {
         __syncthreads();  // the last tile is read out
@@ -278,7 +376,13 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
             float acc = 0.f;
 #pragma unroll
             for (int d = 0; d < D; ++d) acc = fmaf(q[d], Ks[k][d], acc);
-            s[k] = k0 + k < n ? __fmul_rn(acc, scale) : -INFINITY;
+            if constexpr (RELPOS)
+                s[k] = k0 + k < n
+                           ? __fadd_rn(__fmul_rn(acc, scale),
+                                       __fmul_rn(g, __ldg(relr + k0 + k)))
+                           : -INFINITY;
+            else
+                s[k] = k0 + k < n ? __fmul_rn(acc, scale) : -INFINITY;
             mx = fmaxf(mx, s[k]);
         }
         const float a = expf(__fsub_rn(m, mx));   // 0 at the first tile
@@ -304,6 +408,34 @@ attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
     }
 }
 
+template <bool RELPOS>
+int launch(const void* qkv, void* out, int dtype, int batch, int n,
+           int heads, int head_dim, float scale, const float* rel,
+           const float* gate, void* stream) {
+    if (head_dim != D || batch <= 0 || batch > 65535 || n <= 0 ||
+        heads <= 0 || heads > 65535 || (dtype != 0 && dtype != 1) ||
+        reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+        (RELPOS && (rel == nullptr || gate == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 1) {
+        const dim3 grid((unsigned)((n + BM - 1) / BM), (unsigned)heads,
+                        (unsigned)batch);
+        attention_bf16_kernel<RELPOS><<<grid, NT, 0, s>>>(
+            static_cast<const __nv_bfloat16*>(qkv),
+            static_cast<__nv_bfloat16*>(out), n, heads,
+            RELPOS ? scale : scale * LOG2E, rel, gate);
+    } else {
+        const dim3 grid((unsigned)((n + F_BM - 1) / F_BM), (unsigned)heads,
+                        (unsigned)batch);
+        attention_f32_kernel<RELPOS><<<grid, F_BM, 0, s>>>(
+            static_cast<const float*>(qkv), static_cast<float*>(out), n,
+            heads, scale, rel, gate);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -313,27 +445,18 @@ extern "C" {
 // the rows 16-byte aligned. scale multiplies q k^T.
 int bz_attention(const void* qkv, void* out, int dtype, int batch, int n,
                  int heads, int head_dim, float scale, void* stream) {
-    if (head_dim != D || batch <= 0 || batch > 65535 || n <= 0 ||
-        heads <= 0 || heads > 65535 || (dtype != 0 && dtype != 1) ||
-        reinterpret_cast<uintptr_t>(qkv) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(out) % 16 != 0)
-        return (int)cudaErrorInvalidValue;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) {
-        const dim3 grid((unsigned)((n + BM - 1) / BM), (unsigned)heads,
-                        (unsigned)batch);
-        attention_bf16_kernel<<<grid, NT, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(qkv),
-            static_cast<__nv_bfloat16*>(out), n, heads,
-            scale * 1.4426950408889634f);
-    } else {
-        const dim3 grid((unsigned)((n + F_BM - 1) / F_BM), (unsigned)heads,
-                        (unsigned)batch);
-        attention_f32_kernel<<<grid, F_BM, 0, s>>>(
-            static_cast<const float*>(qkv), static_cast<float*>(out), n,
-            heads, scale);
-    }
-    return (int)cudaGetLastError();
+    return launch<false>(qkv, out, dtype, batch, n, heads, head_dim, scale,
+                         nullptr, nullptr, stream);
+}
+
+// As bz_attention, each score plus g_ih bias_h[j - i]: rel (heads, 2n - 1)
+// f32, d = j - i at column d + n - 1; gate G (2 x 64) | c (2) | a (heads)
+// f32 (see the note at the top).
+int bz_attention_relpos(const void* qkv, void* out, int dtype, int batch,
+                        int n, int heads, int head_dim, float scale,
+                        const float* rel, const float* gate, void* stream) {
+    return launch<true>(qkv, out, dtype, batch, n, heads, head_dim, scale,
+                        rel, gate, stream);
 }
 
 const char* bz_attention_error_string(int code) {

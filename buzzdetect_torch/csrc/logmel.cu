@@ -84,7 +84,13 @@
 // in place of the magnitude; a (257 x 128) Kaldi mel matrix (20-8000 Hz,
 // the Nyquist row zero) in 16-bin ring chunks, each thread 4 frames x 8
 // bands; and log(max(e, floor)), then (x + shift) / divisor, AST's
-// normalisation. Its work a frame is the FFT's and a product twice as
+// normalisation. BEATs (models/beats.py) takes the same instantiation with
+// other host operands: the Povey window (the symmetric Hann window to the
+// 0.85) in the window table, its own shift and divisor, and a sample scale
+// of 1 for the int16 wire (raw amplitudes; AST's is 2^-15): in the Kaldi
+// geometry each loaded sample is multiplied by the launch's in_scale, a
+// power of two, so exact, and AST's 2^-15 gives the bits it gave as a
+// constant. Its work a frame is the FFT's and a product twice as
 // wide: 131,072 frames (a 128-window chunk) are 8.6 GFLOP, 0.13 ms at the
 // f32 peak, against 0.109 ms for its bytes (the int16 wire and the f32
 // output). KIND = YAMNET compiles to the code above, unchanged.
@@ -296,18 +302,29 @@ __device__ __forceinline__ float2 as_f32(short2 v) {
                        __fmul_rn(__int2float_rn(v.y), INT16_SCALE));
 }
 
+// the Kaldi geometry's samples: the wire's values times in_scale
+__device__ __forceinline__ float2 scaled(float2 v, float in_scale) {
+    return make_float2(__fmul_rn(v.x, in_scale), __fmul_rn(v.y, in_scale));
+}
+
+__device__ __forceinline__ float2 scaled(short2 v, float in_scale) {
+    return make_float2(__fmul_rn(__int2float_rn(v.x), in_scale),
+                       __fmul_rn(__int2float_rn(v.y), in_scale));
+}
+
 // wav: batch rows of In, stride samples apart (even), each holding at
 // least the n_frames frames' samples; out: (batch, n_frames, NM);
 // tables: TABLE_FLOATS as above; mel: (257, NM) row-major. Grid: (frame
-// tiles, batch). YAMNet: log(mel + log_offset); Kaldi: (log(max(mel,
-// log_offset)) + shift) / divisor.
+// tiles, batch). YAMNet: log(mel + log_offset); Kaldi: the samples times
+// in_scale, (log(max(mel, log_offset)) + shift) / divisor.
 template <typename In, int FT, int KIND>
 __global__ void __launch_bounds__(FftTile<FT>::NT, 2)
 logmel_fft_kernel(const In* __restrict__ wav, float* __restrict__ out,
                   const float* __restrict__ tables,
                   const float* __restrict__ mel, const long long stride,
                   const int n_frames, const float log_offset,
-                  const float shift, const float divisor) {
+                  const float shift, const float divisor,
+                  const float in_scale) {
     using T = FftTile<FT>;
     using W = Mel<KIND>;
     constexpr int NT = T::NT, MP = T::MP, NM = W::NM, NB = W::NB;
@@ -352,7 +369,9 @@ logmel_fft_kernel(const In* __restrict__ wav, float* __restrict__ out,
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
             if (j < JN) {
-                const float2 v = as_f32(cur[j]);
+                float2 v;
+                if constexpr (KIND == KALDI) v = scaled(cur[j], in_scale);
+                else v = as_f32(cur[j]);
                 zr[j] = v.x, zi[j] = v.y;
             } else {
                 zr[j] = zi[j] = 0.f;
@@ -520,7 +539,7 @@ cudaError_t configure(int device) {
 template <typename In, int FT, int KIND>
 int run(bool launch, const void* wav, float* out, const float* tables,
         const float* mel, int batch, long long stride, int n_frames,
-        const float (&post)[3], cudaStream_t stream, int* blocks) {
+        const float (&post)[4], cudaStream_t stream, int* blocks) {
     using T = FftTile<FT>;
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
@@ -534,14 +553,15 @@ int run(bool launch, const void* wav, float* out, const float* tables,
         return (int)cudaErrorMisalignedAddress;
     const dim3 grid((unsigned)((n_frames + FT - 1) / FT), (unsigned)batch);
     logmel_fft_kernel<In, FT, KIND><<<grid, T::NT, T::SMEM, stream>>>(
-        w, out, tables, mel, stride, n_frames, post[0], post[1], post[2]);
+        w, out, tables, mel, stride, n_frames, post[0], post[1], post[2],
+        post[3]);
     return (int)cudaGetLastError();
 }
 
 template <typename In, int KIND>
 int dispatch(int ft, bool launch, const void* wav, float* out,
              const float* tables, const float* mel, int batch,
-             long long stride, int n_frames, const float (&post)[3],
+             long long stride, int n_frames, const float (&post)[4],
              cudaStream_t stream, int* blocks) {
 #define BZ_LOGMEL_CASE(F)                                                   \
     if (ft == F)                                                            \
@@ -572,7 +592,7 @@ int bz_logmel(const void* wav, int wire, float* out, const float* tables,
         (wire != 0 && wire != 1))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float post[3] = {log_offset, 0.f, 1.f};
+    const float post[4] = {log_offset, 0.f, 1.f, 1.f};
     return wire == 0
                ? dispatch<float, YAMNET>(ft, true, wav, out, tables, mel,
                                          batch, stride, n_frames, post, s,
@@ -587,23 +607,26 @@ int bz_logmel(const void* wav, int wire, float* out, const float* tables,
 // wires)
 int bz_logmel_blocks(int ft, int* blocks) {
     *blocks = 0;
-    const float post[3] = {0.f, 0.f, 1.f};
+    const float post[4] = {0.f, 0.f, 1.f, 1.f};
     return dispatch<float, YAMNET>(ft, false, nullptr, nullptr, nullptr,
                                    nullptr, 1, 0, 0, post, nullptr, blocks);
 }
 
 // The Kaldi geometry: as bz_logmel, with mel (257, 128) and out (batch,
-// n_frames, 128) = (log(max(fbank, floor)) + shift) / divisor.
+// n_frames, 128) = (log(max(fbank, floor)) + shift) / divisor, the fbank
+// of the wire's values times in_scale (2^-15 for AST's int16 wire, 1 for
+// BEATs').
 int bz_fbank_kaldi(const void* wav, int wire, float* out,
                    const float* tables, const float* mel, int batch,
                    long long n, long long stride, int n_frames, float floor,
-                   float shift, float divisor, int ft, void* stream) {
+                   float shift, float divisor, float in_scale, int ft,
+                   void* stream) {
     if (batch <= 0 || batch > 65535 || n < WINDOW || stride < n ||
         stride % 2 != 0 || n_frames != 1 + (n - WINDOW) / HOP ||
         (wire != 0 && wire != 1))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float post[3] = {floor, shift, divisor};
+    const float post[4] = {floor, shift, divisor, in_scale};
     return wire == 0
                ? dispatch<float, KALDI>(ft, true, wav, out, tables, mel,
                                         batch, stride, n_frames, post, s,
@@ -615,7 +638,7 @@ int bz_fbank_kaldi(const void* wav, int wire, float* out,
 
 int bz_fbank_kaldi_blocks(int ft, int* blocks) {
     *blocks = 0;
-    const float post[3] = {0.f, 0.f, 1.f};
+    const float post[4] = {0.f, 0.f, 1.f, 1.f};
     return dispatch<float, KALDI>(ft, false, nullptr, nullptr, nullptr,
                                   nullptr, 1, 0, 0, post, nullptr, blocks);
 }

@@ -43,31 +43,24 @@ operands and the same f32 arithmetic, the same function.
 
 Spans (``runtime/spans.py``) inside ``buzzdetect.classify``:
 ``buzzdetect.frontend`` (the fbank), and for each block of up to
-``WINDOW_BLOCK`` windows ``buzzdetect.patch_embed``, ``buzzdetect.embed``
-(the encoder, with a ``buzzdetect.attention`` around each attention call)
-and ``buzzdetect.head``.
+``transformer.WINDOW_BLOCK`` windows ``buzzdetect.patch_embed``,
+``buzzdetect.embed`` (the encoder, with a ``buzzdetect.attention`` around
+each attention call) and ``buzzdetect.head``.
 """
 
-import zlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from buzzdetect_torch.models.classifier import (WireClassifier,
-                                                 _frontend_input,
-                                                 resolve_device)
+from buzzdetect_torch.models.transformer import (
+    FbankWindowClassifier, linear, operand as _operand, product,
+    seeded_normal)
 from buzzdetect_torch.ops import attention as attention_lib
 from buzzdetect_torch.ops import epilogue, logmel
-from buzzdetect_torch.ops.common import (
-    exact_f32, load_libraries, resolve_compute_dtype)
 from buzzdetect_torch.runtime.spans import span
 
-# windows a pass of the encoder takes at most: a chunk's windows go through
-# in blocks of this many (memory grows with it; a 128-window block holds
-# about 5 GB of activations in bf16)
-WINDOW_BLOCK = 128
 INIT_STD = 0.02
 
 
@@ -100,6 +93,11 @@ class ASTConfig:
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
+
+    @property
+    def width(self) -> int:
+        """The encoder's width."""
+        return self.embed_dim
 
     @property
     def f_dim(self) -> int:
@@ -160,10 +158,7 @@ def seeded_params(cfg: ASTConfig, seed: int) -> dict:
         elif name.endswith('.bias'):
             out[name] = np.zeros(shape, np.float32)
         else:
-            rng = np.random.default_rng(np.random.SeedSequence(
-                [int(seed), zlib.crc32(name.encode())]))
-            out[name] = (rng.standard_normal(shape) * INIT_STD).astype(
-                np.float32)
+            out[name] = seeded_normal(seed, name, shape, INIT_STD)
     return out
 
 
@@ -199,28 +194,6 @@ def pack_params(arrays: dict, cfg: ASTConfig, device,
                 t = t.to(torch.bfloat16)
         out[name] = t
     return out
-
-
-def _operand(x: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """A product's activation operand: bf16 under bf16, else as it is."""
-    return x.to(torch.bfloat16) if bf16 else x
-
-
-def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M, K) x (N, K)^T in f32. bf16 operands (both bf16) accumulate in f32
-    into an f32 product: on the card cuBLAS's ``mm.dtype``, on the CPU the
-    f32 product of the same values (each product of two bf16 values is
-    exact in f32)."""
-    if w.dtype == torch.bfloat16:
-        if x.device.type == 'cuda':
-            return torch.ops.aten.mm.dtype(x, w.t(), torch.float32)
-        x, w = x.to(torch.float32), w.to(torch.float32)
-    return torch.mm(x, w.t())
-
-
-def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``product(x, w)`` + b in f32."""
-    return product(x, w).add_(b)
 
 
 def patch_embed(p: dict, windows: torch.Tensor, cfg: ASTConfig,
@@ -296,92 +269,34 @@ def head(p: dict, x: torch.Tensor, cfg: ASTConfig,
                   p['mlp_head.1.bias'])
 
 
-def window_hop_frames(cfg: ASTConfig, framehop_prop: float) -> int:
-    """The window hop in whole 10 ms frames: ``framehop_prop`` of a window,
-    rounded; at least one frame."""
-    hop = int(round(cfg.input_tdim * framehop_prop))
-    if hop < 1:
-        raise ValueError(f'framehop_prop={framehop_prop} is below one 10 ms '
-                         f'frame of a {cfg.input_tdim}-frame window')
-    return hop
+class ASTClassifier(FbankWindowClassifier):
+    """AST over variable-length chunks (``FbankWindowClassifier``: the
+    shared wire, dispatch and windows). ``arrays`` are the parameters under
+    ``param_shapes``' names. On CUDA the log-mel, attention and epilogue
+    libraries are built and loaded here."""
 
-
-class ASTClassifier(WireClassifier):
-    """AST over variable-length chunks, on the shared wire and dispatch
-    (``WireClassifier``).
-
-    A chunk of n samples is padded, as YAMNet's patches are, to whole
-    windows: one for the first ``input_tdim`` frames (400 + 160 (tdim - 1)
-    samples), one for each further window hop or part of one, none that
-    would start at or past the chunk's last sample. ``arrays`` are the
-    parameters under ``param_shapes``' names. On CUDA the log-mel,
-    attention and epilogue libraries are built and loaded here."""
+    name = 'AST'
+    libraries = ('logmel', 'attention', 'epilogue')
 
     def __init__(self, arrays: dict, cfg: ASTConfig = ASTConfig(),
                  framehop_prop: float = 1.0, compute_dtype=None,
                  device='cuda', transfer_dtype='int16'):
-        self.cfg = cfg
-        self.fbank = logmel.KaldiFbankConfig(mel_bands=cfg.input_fdim)
-        logmel._check_geometry(self.fbank)
-        self.hop_frames = window_hop_frames(cfg, framehop_prop)
-        self.compute_dtype = resolve_compute_dtype(compute_dtype)
-        self.bf16 = self.compute_dtype == torch.bfloat16
-        self._init_wire(transfer_dtype)
-        self.device = resolve_device(device)
-        exact_f32()
         check_params(arrays, cfg)
-        if self.device.type == 'cuda':
-            if cfg.head_dim != attention_lib.HEAD_DIM:
-                raise ValueError(f'the attention kernel takes heads of '
-                                 f'{attention_lib.HEAD_DIM}, not '
-                                 f'{cfg.head_dim}')
-            load_libraries(['logmel', 'attention', 'epilogue'])
+        if torch.device(device).type == 'cuda' \
+                and cfg.head_dim != attention_lib.HEAD_DIM:
+            raise ValueError(f'the attention kernel takes heads of '
+                             f'{attention_lib.HEAD_DIM}, not {cfg.head_dim}')
+        self._init_windows(cfg, logmel.KaldiFbankConfig(
+            mel_bands=cfg.input_fdim), framehop_prop, compute_dtype, device,
+            transfer_dtype)
         self.params = pack_params(arrays, cfg, self.device, self.bf16)
 
-    @property
-    def window_samples(self) -> int:
-        """Samples of one window: its frames' starts and the last frame."""
-        return (self.fbank.window_samples
-                + (self.cfg.input_tdim - 1) * self.fbank.hop_samples)
-
-    @property
-    def hop_samples(self) -> int:
-        return self.hop_frames * self.fbank.hop_samples
-
-    def _valid(self, n_samples: int) -> int:
-        extra = max(0, n_samples - self.window_samples)
-        n = 1 + -(-extra // self.hop_samples)
-        if n_samples > 0:
-            n = min(n, (n_samples - 1) // self.hop_samples + 1)
-        return max(n, 1)
-
-    def _padded(self, n_samples: int) -> int:
-        return self.window_samples + (self._valid(n_samples) - 1) \
-            * self.hop_samples
-
-    def _classify(self, wavs: torch.Tensor,
-                  resample_args=None) -> torch.Tensor:
-        """(..., L) padded wire waveforms -> (..., windows, classes)."""
-        if resample_args is not None:
-            raise ValueError('the AST classifier takes 16 kHz chunks; it '
-                             'does not resample on the device')
+    def _block_scores(self, windows: torch.Tensor) -> torch.Tensor:
+        """(W, 128, tdim) windows -> (W, classes) logits."""
         cfg = self.cfg
-        with span('buzzdetect.classify'):
-            with span('buzzdetect.frontend'):
-                fb = logmel.log_mel_spectrogram_fused(
-                    _frontend_input(wavs, 'pallas'), self.fbank)
-            lead = fb.shape[:-2]
-            # (..., W, 128, tdim): each window a view of the fbank
-            windows = fb.unfold(-2, cfg.input_tdim, self.hop_frames)
-            windows = windows.reshape(-1, cfg.input_fdim, cfg.input_tdim)
-            outs = []
-            for lo in range(0, windows.shape[0], WINDOW_BLOCK):
-                part = windows[lo:lo + WINDOW_BLOCK]
-                with span('buzzdetect.patch_embed'):
-                    x = patch_embed(self.params, part, cfg, self.bf16)
-                with span('buzzdetect.embed'):
-                    x = encoder(self.params, x, cfg, self.bf16)
-                with span('buzzdetect.head'):
-                    outs.append(head(self.params, x, cfg, self.bf16))
-            scores = outs[0] if len(outs) == 1 else torch.cat(outs)
-            return scores.reshape(*lead, -1, cfg.label_dim)
+        with span('buzzdetect.patch_embed'):
+            x = patch_embed(self.params, windows, cfg, self.bf16)
+        with span('buzzdetect.embed'):
+            x = encoder(self.params, x, cfg, self.bf16)
+        with span('buzzdetect.head'):
+            return head(self.params, x, cfg, self.bf16)

@@ -23,8 +23,15 @@ Sources understood:
   convert ast <checkpoint.pth> <model dir>``): the arrays under the names
   ``models/ast.param_shapes`` gives, and a ``config_model.json`` naming
   ``"architecture": "ast"`` with the sizes the shapes give.
+* a BEATs checkpoint (``{'cfg': ..., 'model': state dict}``, e.g. the
+  fine-tuned ``BEATs_iter3_plus_AS2M``), by ``beats_npz_from_state_dict``
+  and ``convert_beats_checkpoint`` (``python -m buzzdetect_torch.models.
+  convert beats <checkpoint.pt> <model dir>``): the sizes from the
+  checkpoint's ``cfg``, the position convolution's weight-norm folded, the
+  one relative-position table that every layer shares taken from layer 0,
+  and a ``config_model.json`` naming ``"architecture": "beats"``.
 
-Beside the AST branch, a copy of ``buzzdetect_tpu/models/convert.py``,
+Beside the AST and BEATs branches, a copy of ``buzzdetect_tpu/models/convert.py``,
 import prefix changed: the arrays are numpy, so a bundle written by either
 package loads in the other. ``tensorflow`` and ``h5py`` are imported only by the readers that
 need them, so a machine without them still builds seeded bundles and
@@ -381,22 +388,105 @@ def convert_ast_checkpoint(path: str, dir_out: str, **sizes):
     return config
 
 
+# --- BEATs -------------------------------------------------------------------
+
+def beats_config_from_cfg(cfg: dict, **window):
+    """The ``models/beats.BEATsConfig`` of a BEATs checkpoint's ``cfg``: the
+    keys the configuration knows, taken as the checkpoint states them (the
+    published ``BEATsConfig``'s own defaults where it leaves one out), and
+    ``window`` (``input_fdim``, ``input_tdim``), which no ``cfg`` holds."""
+    from buzzdetect_torch.models.beats import BEATsConfig
+    published = {'input_patch_size': 16, 'embed_dim': 512,
+                 'conv_bias': False, 'encoder_layers': 12,
+                 'encoder_embed_dim': 768, 'encoder_ffn_embed_dim': 3072,
+                 'encoder_attention_heads': 12, 'layer_norm_first': False,
+                 'deep_norm': False, 'conv_pos': 128, 'conv_pos_groups': 16,
+                 'relative_position_embedding': False, 'num_buckets': 320,
+                 'max_distance': 1280, 'gru_rel_pos': False}
+    sizes = {k: cfg.get(k, v) for k, v in published.items()}
+    if cfg.get('predictor_class') is not None:
+        sizes['predictor_class'] = cfg['predictor_class']
+    return BEATsConfig(**sizes, **window)
+
+
+def fold_weight_norm(g: np.ndarray, v: np.ndarray, dim: int = 2):
+    """``torch.nn.utils.weight_norm``'s weight, g v / |v|, with |v| the
+    norm over every axis but ``dim`` (BEATs' position convolution: dim 2,
+    a norm for each tap)."""
+    v = np.asarray(v, np.float64)
+    axes = tuple(a for a in range(v.ndim) if a != dim)
+    norm = np.sqrt(np.sum(v * v, axis=axes, keepdims=True))
+    return (np.asarray(g, np.float64) * v / norm).astype(np.float32)
+
+
+def beats_npz_from_state_dict(state: dict, cfg) -> dict:
+    """The port's BEATs arrays from a published state dict: every name of
+    ``models/beats.param_shapes(cfg)``, at its shape; the position
+    convolution's weight-norm pair (``weight_g``, ``weight_v``: BEATs'
+    ``nn.utils.weight_norm``) folded (``fold_weight_norm``); layer 0's
+    ``relative_attention_bias`` the one table every layer shares (the
+    other layers' keys, where the state holds them, name the same
+    tensor); a missing name or a wrong shape raises."""
+    from buzzdetect_torch.models.beats import check_params, param_shapes
+    arrays = _ast_arrays(state)
+    pos = 'encoder.pos_conv.0.'
+    if pos + 'weight_g' in arrays:
+        arrays[pos + 'weight'] = fold_weight_norm(arrays[pos + 'weight_g'],
+                                                  arrays[pos + 'weight_v'])
+    out = {name: arrays[name] for name in param_shapes(cfg)
+           if name in arrays}
+    check_params(out, cfg)
+    return out
+
+
+def convert_beats_checkpoint(path: str, dir_out: str, **window):
+    """``torch.load`` a BEATs checkpoint (``{'cfg': ..., 'model': state
+    dict}``) and write ``dir_out/model.npz`` and ``config_model.json``;
+    returns the config. The sizes come from the checkpoint's ``cfg``
+    (``beats_config_from_cfg``; ``window`` beside it)."""
+    import dataclasses
+
+    import torch
+    checkpoint = torch.load(path, map_location='cpu', weights_only=True)
+    cfg = beats_config_from_cfg(checkpoint['cfg'], **window)
+    arrays = beats_npz_from_state_dict(checkpoint['model'], cfg)
+    config = {
+        'architecture': 'beats',
+        'embeddername': 'beats',
+        'digits_results': 2,
+        'sizes': dataclasses.asdict(cfg),
+        'provenance': f'converted from {os.path.basename(path)} '
+                      f'(models/convert.convert_beats_checkpoint)',
+    }
+    save_bundle(dir_out, arrays, config)
+    return config
+
+
 def main(argv=None):
     """``python -m buzzdetect_torch.models.convert ast <checkpoint.pth>
-    <model dir> [--heads 12] [--tdim 1024]``."""
+    <model dir> [--heads 12] [--tdim 1024]``, or ``... beats
+    <checkpoint.pt> <model dir> [--tdim 992]``."""
     import argparse
     ap = argparse.ArgumentParser(description='convert a published '
                                  'checkpoint into a model directory')
-    ap.add_argument('architecture', choices=['ast'])
+    ap.add_argument('architecture', choices=['ast', 'beats'])
     ap.add_argument('checkpoint')
     ap.add_argument('dir_out')
-    ap.add_argument('--heads', type=int, default=12)
-    ap.add_argument('--tdim', type=int, default=1024,
-                    help='frames a window (the model\'s input_tdim)')
+    ap.add_argument('--heads', type=int, default=12,
+                    help='AST: attention heads (no shape gives them)')
+    ap.add_argument('--tdim', type=int, default=None,
+                    help='frames a window (the model\'s input_tdim; AST '
+                         '1024, BEATs 992 by default)')
     args = ap.parse_args(argv)
+    if args.architecture == 'beats':
+        config = convert_beats_checkpoint(
+            args.checkpoint, args.dir_out,
+            **({} if args.tdim is None else {'input_tdim': args.tdim}))
+        print(f'wrote {args.dir_out}: BEATs {config["sizes"]}')
+        return
     config = convert_ast_checkpoint(args.checkpoint, args.dir_out,
                                     num_heads=args.heads,
-                                    input_tdim=args.tdim)
+                                    input_tdim=args.tdim or 1024)
     print(f'wrote {args.dir_out}: AST {config["sizes"]}')
 
 

@@ -13,7 +13,8 @@ the caller asks for ``'cpu'``), or split over a device mesh (``mesh=``,
 ``"architecture": "ast"`` is the Audio Spectrogram Transformer
 (:class:`ASTModel`, ``models/ast.py``), with its weights from
 ``model.npz`` where one is present, else from the seed the file gives
-(``"weights": "seeded"``).
+(``"weights": "seeded"``); ``"architecture": "beats"`` is BEATs
+(:class:`BEATsModel`, ``models/beats.py``), likewise.
 
 Counterpart of ``buzzdetect_tpu/models/registry.py``.
 """
@@ -24,6 +25,7 @@ import os
 import threading
 
 from buzzdetect_torch import config as cfg
+from buzzdetect_torch.models import ast, beats
 from buzzdetect_torch.models.classifier import (
     ChunkClassifier, resolve_conv, resolve_device)
 from buzzdetect_torch.ops.frontend import FrontendConfig
@@ -160,26 +162,46 @@ class EmbedderAST(BaseEmbedder):
     :class:`ASTModel`; ``embed`` is not offered."""
 
     embeddername = 'ast'
+    label = 'AST'
     digits_time = 2
     samplerate = 16000
 
-    def __init__(self, framehop_prop: float = 1.0, cfg=None):
+    @staticmethod
+    def _default_config():
         from buzzdetect_torch.models import ast
+        return ast.ASTConfig()
+
+    def __init__(self, framehop_prop: float = 1.0, cfg=None):
+        from buzzdetect_torch.models.transformer import window_hop_frames
         from buzzdetect_torch.ops.logmel import HOP, WINDOW
-        cfg = ast.ASTConfig() if cfg is None else cfg
+        cfg = self._default_config() if cfg is None else cfg
         self.framelength_s = cfg.input_tdim * HOP / self.samplerate
         self.lookahead_s = (WINDOW - HOP) / self.samplerate
-        self.n_embeddings = cfg.embed_dim
+        self.n_embeddings = cfg.width
         super().__init__(framehop_prop)
-        self.framehop_s = (ast.window_hop_frames(cfg, framehop_prop) * HOP
+        self.framehop_s = (window_hop_frames(cfg, framehop_prop) * HOP
                            / self.samplerate)
 
     def initialize(self):
         pass
 
     def embed(self, samples):
-        raise NotImplementedError('the AST model gives scores, not '
-                                  'embeddings; use predict()')
+        raise NotImplementedError(f'the {self.label} model gives scores, not '
+                                  f'embeddings; use predict()')
+
+
+class EmbedderBEATs(EmbedderAST):
+    """BEATs' frame contract, as :class:`EmbedderAST`'s with BEATs' windows
+    (``input_tdim`` frames: 9.92 s at the port's 992). Its scores come from
+    :class:`BEATsModel`."""
+
+    embeddername = 'beats'
+    label = 'BEATs'
+
+    @staticmethod
+    def _default_config():
+        from buzzdetect_torch.models import beats
+        return beats.BEATsConfig()
 
 
 # 'yamnet_k2' resolves to the same native embedder: reference model configs
@@ -189,6 +211,7 @@ BUILTIN_EMBEDDERS = {
     'yamnet': EmbedderYamnet,
     'yamnet_k2': EmbedderYamnet,
     'ast': EmbedderAST,
+    'beats': EmbedderBEATs,
 }
 
 
@@ -294,40 +317,48 @@ class BundleModel(BaseModel):
         self.classifier.warmup(chunk_samples)
 
 
-class ASTModel(BundleModel):
-    """The Audio Spectrogram Transformer of a model directory whose
-    ``config_model.json`` names ``"architecture": "ast"``: its ``sizes``
-    (``models/ast.ASTConfig``), its weights from ``model.npz`` where one is
-    present, else, where the file says ``"weights": "seeded"``, from
-    ``models/ast.seeded_params`` at its ``seed``. Class names are the file's
-    ``classes``, or ``audioset_000`` .. where it has none. One device, the
-    int16 wire by default; the YAMNet options (``frontend``, ``conv``, a
-    mesh) are refused, and ``conv_precision`` may only say exact f32."""
+class TransformerModel(BundleModel):
+    """A spectrogram transformer of a model directory whose
+    ``config_model.json`` names its ``architecture``: its ``sizes`` (the
+    architecture's configuration), its weights from ``model.npz`` where one
+    is present, else, where the file says ``"weights": "seeded"``, from the
+    architecture's ``seeded_params`` at its ``seed``. Class names are the
+    file's ``classes``, or ``audioset_000`` .. where it has none. One device,
+    the int16 wire by default; the YAMNet options (``frontend``, ``conv``, a
+    mesh) are refused, and ``conv_precision`` may only say exact f32. A
+    subclass names its ``architecture``, its configuration class, its
+    classifier class, its ``seeded_params`` and its embedder class."""
 
+    architecture = None
+    label = None
     supports_device_resample = False
+    config_class = classifier_class = embedder_class = None
+    seeded_params = None
 
     def __init__(self, dir_model: str, framehop_prop: float = 1.0,
                  compute_dtype=None, sharding=None, mesh=None,
                  transfer_dtype=None, frontend=None, conv=None, device='cuda',
                  conv_precision=None):
-        from buzzdetect_torch.models import ast
         self.dir_model = dir_model
         self.framehop_prop = framehop_prop
         self.modelname = os.path.basename(dir_model.rstrip('/'))
         with open(os.path.join(dir_model, 'config_model.json')) as f:
             self.config = json.load(f)
-        if self.config.get('architecture') != 'ast':
-            raise ValueError(f'{dir_model}: not an AST model directory')
+        if self.config.get('architecture') != self.architecture:
+            raise ValueError(f'{dir_model}: not an {self.label} model '
+                             f'directory')
         if sharding is not None or mesh is not None:
-            raise ValueError('the AST model runs on one device: no mesh')
+            raise ValueError(f'the {self.label} model runs on one device: '
+                             f'no mesh')
         if (frontend not in (None, 'auto') or conv not in (None, 'auto')
                 or conv_precision not in (None, 'auto', 'highest')):
-            raise ValueError('frontend, conv and conv_precision are YAMNet '
-                             'options; the AST model takes none of them')
-        self.ast_config = ast.ASTConfig.from_sizes(self.config['sizes'])
+            raise ValueError(f'frontend, conv and conv_precision are YAMNet '
+                             f'options; the {self.label} model takes none '
+                             f'of them')
+        self.model_config = self.config_class.from_sizes(self.config['sizes'])
         self.config.setdefault('classes', [
-            f'audioset_{i:03d}' for i in range(self.ast_config.label_dim)])
-        self.embeddername = 'ast'
+            f'audioset_{i:03d}' for i in range(self.model_config.label_dim)])
+        self.embeddername = self.architecture
         self.digits_results = self.config.get('digits_results', 2)
         self._compute_dtype = compute_dtype
         self._sharding = self._mesh = None
@@ -337,11 +368,10 @@ class ASTModel(BundleModel):
                                 or 'int16')
         self.classifier = None
         self._init_lock = threading.Lock()
-        self.embedder = EmbedderAST(framehop_prop, self.ast_config)
+        self.embedder = self.embedder_class(framehop_prop, self.model_config)
 
     def weights(self) -> dict:
         """The parameters: ``model.npz``, or the seeded ones."""
-        from buzzdetect_torch.models import ast
         import numpy as np
         path = os.path.join(self.dir_model, 'model.npz')
         if os.path.exists(path):
@@ -351,18 +381,46 @@ class ASTModel(BundleModel):
             raise FileNotFoundError(
                 f'{self.dir_model}: no model.npz, and config_model.json does '
                 f'not say "weights": "seeded"')
-        return ast.seeded_params(self.ast_config, self.config['seed'])
+        return self.seeded_params(self.model_config, self.config['seed'])
 
     def initialize(self):
-        from buzzdetect_torch.models import ast
         with self._init_lock:
             if self.classifier is not None:
                 return
-            self.classifier = ast.ASTClassifier(
-                self.weights(), self.ast_config,
+            self.classifier = self.classifier_class(
+                self.weights(), self.model_config,
                 framehop_prop=self.framehop_prop,
                 compute_dtype=self._compute_dtype, device=self._device,
                 transfer_dtype=self._transfer_dtype)
+
+
+class ASTModel(TransformerModel):
+    """The Audio Spectrogram Transformer (``"architecture": "ast"``,
+    ``models/ast.py``)."""
+
+    architecture = 'ast'
+    label = 'AST'
+
+    config_class = ast.ASTConfig
+    classifier_class = ast.ASTClassifier
+    seeded_params = staticmethod(ast.seeded_params)
+    embedder_class = EmbedderAST
+
+
+class BEATsModel(TransformerModel):
+    """BEATs (``"architecture": "beats"``, ``models/beats.py``)."""
+
+    architecture = 'beats'
+    label = 'BEATs'
+
+    config_class = beats.BEATsConfig
+    classifier_class = beats.BEATsClassifier
+    seeded_params = staticmethod(beats.seeded_params)
+    embedder_class = EmbedderBEATs
+
+
+# the architectures a config_model.json may name
+ARCHITECTURES = {'ast': ASTModel, 'beats': BEATsModel}
 
 
 def _architecture(dir_model: str):
@@ -447,8 +505,8 @@ def load_model(modelname: str, framehop_prop: float = 1.0,
                conv_precision=None) -> BaseModel:
     """Resolve a model by directory name.
 
-    ``models/<name>/config_model.json`` naming ``"architecture": "ast"`` ->
-    ASTModel on ``device``;
+    ``models/<name>/config_model.json`` naming ``"architecture": "ast"`` or
+    ``"beats"`` -> ASTModel or BEATsModel on ``device``;
     ``models/<name>/model.npz`` -> built-in BundleModel on ``device``, or
     over ``mesh`` (of ``device``'s type);
     otherwise ``models/<name>/model.py`` -> user plugin class.
@@ -459,8 +517,9 @@ def load_model(modelname: str, framehop_prop: float = 1.0,
     if not os.path.isdir(dir_model):
         raise FileNotFoundError(f'no model directory: {dir_model}')
 
-    if _architecture(dir_model) == 'ast':
-        model = ASTModel(dir_model, framehop_prop,
+    architecture = ARCHITECTURES.get(_architecture(dir_model))
+    if architecture is not None:
+        model = architecture(dir_model, framehop_prop,
                          compute_dtype=compute_dtype, sharding=sharding,
                          mesh=mesh, transfer_dtype=transfer_dtype,
                          frontend=frontend, conv=conv, device=device,

@@ -7,9 +7,9 @@ hash of the source and the headers, and is serialized across threads
 and processes with a file lock, so concurrent first users build once.
 Nothing here runs at import: callers build at first use (model
 initialization for ``sepconv``, ``layer1`` and ``logmel``, and for
-``attention`` and ``epilogue`` under the Audio Spectrogram Transformer;
-the tools for ``probe``), through ``ops/common.py``, which binds each
-library to its interface.
+``attention`` and ``epilogue`` under the Audio Spectrogram Transformer and
+BEATs; the tools for ``probe``), through ``ops/common.py``, which binds
+each library to its interface.
 ``build_all`` starts one ``nvcc`` per source at once, for callers that need
 several libraries (``common.load_libraries``).
 """

@@ -22,6 +22,17 @@ operator (``ops/library.py``), which launches ``csrc/attention.cu`` once and
 counts the launch in ``attention.launches``; on a CPU tensor it computes
 ``attention_plain``. There is no other path.
 
+``attention_relpos(qkv, heads, rel, gate)`` is BEATs' attention
+(``models/beats.py``): each score q_i k_j * scale plus g_ih rel[h, j - i +
+n - 1], with ``rel`` a (heads, 2n - 1) f32 bias row a head and the gate
+g_ih = u0 (u1 a_h - 1) + 2, (u0, u1) = sigmoid(G q_i + c), from ``gate``,
+the f32 vector G (2 x d) | c (2) | a (heads); q is the query as the
+operand holds it (bf16 under bf16). On a CUDA tensor it calls
+``buzzdetect::attention_relpos``, the same kernels' ``RELPOS``
+instantiation, and counts the launch in
+``attention_relpos.launches['attention_relpos']``; on a CPU tensor
+``attention_relpos_plain``.
+
 ``attention_blocked`` replays the bf16 kernel's schedule in PyTorch (tiles
 of 64 keys, the masked tail, the running maximum and sum, P rounded at the
 running maximum, one division at the end): the tests hold it against
@@ -78,6 +89,46 @@ def attention_plain(qkv: torch.Tensor, heads: int,
     q, k, v = _split(qkv, heads)
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2))
                       * _scale(scale, q.shape[-1]), dim=-1)
+    if qkv.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).to(torch.float32)
+    return _merge(torch.matmul(p, v), qkv.dtype)
+
+
+def relpos_gate(q: torch.Tensor, gate: torch.Tensor,
+                heads: int) -> torch.Tensor:
+    """(B, heads, n, d) f32 queries -> (B, heads, n) gates u0 (u1 a_h - 1)
+    + 2, (u0, u1) = sigmoid(G q + c), ``gate`` = G (2 x d) | c (2) | a
+    (heads)."""
+    d = q.shape[-1]
+    g = gate[:2 * d].view(2, d)
+    u = torch.sigmoid(torch.matmul(q, g.t()) + gate[2 * d:2 * d + 2])
+    a = gate[2 * d + 2:2 * d + 2 + heads].view(1, heads, 1)
+    return u[..., 0] * (u[..., 1] * a - 1.0) + 2.0
+
+
+def relpos_bias(rel: torch.Tensor, n: int) -> torch.Tensor:
+    """(heads, 2n - 1) bias rows -> (heads, n, n): [h, i, j] = rel[h, j - i
+    + n - 1]."""
+    idx = (torch.arange(n, device=rel.device)[None, :]
+           - torch.arange(n, device=rel.device)[:, None] + n - 1)
+    return rel[:, idx]
+
+
+def attention_relpos_plain(qkv: torch.Tensor, heads: int, rel: torch.Tensor,
+                           gate: torch.Tensor,
+                           scale: float = None) -> torch.Tensor:
+    """Plain version of ``attention_relpos``: S = q k^T * scale + g rel in
+    f32 (TF32 off), softmax in f32; under bf16 P rounded to bf16 before PV
+    and the output rounded to bf16."""
+    exact_f32()
+    if qkv.dtype not in DTYPES:
+        raise ValueError(f'qkv: expected float32 or bfloat16, got {qkv.dtype}')
+    q, k, v = _split(qkv, heads)
+    n = q.shape[-2]
+    g = relpos_gate(q, gate, heads)
+    s = (torch.matmul(q, k.transpose(-1, -2)) * _scale(scale, q.shape[-1])
+         + g[..., None] * relpos_bias(rel, n))
+    p = torch.softmax(s, dim=-1)
     if qkv.dtype == torch.bfloat16:
         p = p.to(torch.bfloat16).to(torch.float32)
     return _merge(torch.matmul(p, v), qkv.dtype)
@@ -142,13 +193,18 @@ def attention_bound_s(batch: int, n: int, heads: int, dtype, peak: dict):
 # the C interface of csrc/attention.cu
 LIBRARY = Library('attention', {
     'bz_attention': (I32, [PTR, PTR, I32, I32, I32, I32, I32, F32, PTR]),
+    'bz_attention_relpos': (I32, [PTR, PTR, I32, I32, I32, I32, I32, F32,
+                                  PTR, PTR, PTR]),
 }, errors='bz_attention_error_string')
 load_kernels = LIBRARY.load
 
 
-def _launch(qkv: torch.Tensor, heads: int, scale: float, lib=None):
+def _launch(qkv: torch.Tensor, heads: int, scale: float, lib=None,
+            rel: torch.Tensor = None, gate: torch.Tensor = None):
     """(B, n, 3C) contiguous f32 or bf16 CUDA tensor -> (B, n, C) through
-    ``bz_attention``: the CUDA implementation of ``buzzdetect::attention``."""
+    ``bz_attention``: the CUDA implementation of ``buzzdetect::attention``;
+    with ``rel`` and ``gate`` through ``bz_attention_relpos``, that of
+    ``buzzdetect::attention_relpos``."""
     lib = load_kernels() if lib is None else lib
     if qkv.dtype not in DTYPES or not qkv.is_contiguous() or qkv.dim() != 3:
         raise ValueError(f'qkv: expected a contiguous (B, n, 3C) float32 or '
@@ -161,9 +217,20 @@ def _launch(qkv: torch.Tensor, heads: int, scale: float, lib=None):
                          f'{HEAD_DIM}')
     out = torch.empty((b, n, heads * HEAD_DIM), dtype=qkv.dtype,
                       device=qkv.device)
-    LIBRARY.launch(lib, 'bz_attention', qkv.device, qkv.data_ptr(),
-                   out.data_ptr(), DTYPES.index(qkv.dtype), b, n, heads,
-                   HEAD_DIM, float(scale))
+    args = (qkv.data_ptr(), out.data_ptr(), DTYPES.index(qkv.dtype), b, n,
+            heads, HEAD_DIM, float(scale))
+    if rel is None:
+        LIBRARY.launch(lib, 'bz_attention', qkv.device, *args)
+        return out
+    for name, t, shape in (('rel', rel, (heads, 2 * n - 1)),
+                           ('gate', gate, (2 * HEAD_DIM + 2 + heads,))):
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != shape or t.device != qkv.device):
+            raise ValueError(f'{name}: expected a contiguous float32 '
+                             f'{shape} tensor on {qkv.device}, got '
+                             f'{t.dtype} {tuple(t.shape)} on {t.device}')
+    LIBRARY.launch(lib, 'bz_attention_relpos', qkv.device, *args,
+                   rel.data_ptr(), gate.data_ptr())
     return out
 
 
@@ -182,3 +249,21 @@ def attention(qkv: torch.Tensor, heads: int,
 
 
 attention.launches = 0
+
+
+def attention_relpos(qkv: torch.Tensor, heads: int, rel: torch.Tensor,
+                     gate: torch.Tensor, scale: float = None) -> torch.Tensor:
+    """(B, n, 3C) qkv -> (B, n, C) attention output in qkv's dtype, each
+    score plus the gated relative-position bias; see the module's
+    docstring."""
+    if qkv.dim() != 3:
+        raise ValueError(f'expected a (B, n, 3C) tensor, got '
+                         f'{tuple(qkv.shape)}')
+    if route(qkv) == 'cpu':
+        return attention_relpos_plain(qkv, heads, rel, gate, scale)
+    from buzzdetect_torch.ops import library
+    return library.attention_relpos(qkv.contiguous(), heads, rel, gate,
+                                    _scale(scale, head_dim(qkv, heads)))
+
+
+attention_relpos.launches = {'attention_relpos': 0}

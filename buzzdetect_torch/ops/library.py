@@ -2,8 +2,9 @@
 
 ``buzzdetect::layer1``, ``buzzdetect::fused_front``,
 ``buzzdetect::fused_tail``, ``buzzdetect::log_mel``,
-``buzzdetect::attention``, ``buzzdetect::bias_epilogue`` and
-``buzzdetect::bias_residual`` are the one route to the kernels of
+``buzzdetect::attention``, ``buzzdetect::attention_relpos``,
+``buzzdetect::bias_epilogue``, ``buzzdetect::bias_residual`` and
+``buzzdetect::post_ln`` are the one route to the kernels of
 ``csrc/layer1.cu``, ``csrc/sepconv.cu``, ``csrc/logmel.cu``,
 ``csrc/attention.cu`` and ``csrc/epilogue.cu``: the wrappers of
 ``ops/layer1.py``, ``ops/sepconv.py``, ``ops/logmel.py``,
@@ -131,22 +132,24 @@ def _log_mel_frames(n, window, hop):
                          device_types='cuda')
 def log_mel(waveform: Tensor, constants: list[Tensor], window: int,
             hop: int, log_offset: float, geometry: str = 'yamnet',
-            shift: float = 0.0, scale: float = 1.0) -> Tensor:
+            shift: float = 0.0, scale: float = 1.0,
+            input_scale: float = 1.0) -> Tensor:
     """(B, n) contiguous f32 or int16 waveforms -> (B, n_frames, 64) f32
     log-mel; ``constants`` is ``[tables, mel]`` of ``logmel._operands``.
     ``geometry='kaldi'``: (B, n_frames, 128), (log(max(fbank, log_offset))
-    + shift) / scale."""
+    + shift) / scale of the samples (in [-1, 1]) times ``input_scale``."""
     _log_mel_frames(waveform.shape[-1], window, hop)
     tables, mel = constants
     out = logmel._launch_operands(waveform, tables, mel, log_offset,
-                                  kind=geometry, shift=shift, divisor=scale)
+                                  kind=geometry, shift=shift, divisor=scale,
+                                  input_scale=input_scale)
     count_launch(logmel.log_mel_spectrogram_fused)
     return out
 
 
 @log_mel.register_fake
 def _(waveform, constants, window, hop, log_offset, geometry='yamnet',
-      shift=0.0, scale=1.0):
+      shift=0.0, scale=1.0, input_scale=1.0):
     n_frames = _log_mel_frames(waveform.shape[-1], window, hop)
     return waveform.new_empty((waveform.shape[0], n_frames,
                                logmel.GEOMETRIES[geometry][-1]),
@@ -165,6 +168,24 @@ def attention(qkv: Tensor, heads: int, scale: float) -> Tensor:
 
 @attention.register_fake
 def _(qkv, heads, scale):
+    b, n, _ = qkv.shape
+    return qkv.new_empty((b, n, heads * attention_lib.HEAD_DIM))
+
+
+@torch.library.custom_op(f'{NAMESPACE}::attention_relpos', mutates_args=(),
+                         device_types='cuda')
+def attention_relpos(qkv: Tensor, heads: int, rel: Tensor, gate: Tensor,
+                     scale: float) -> Tensor:
+    """As ``attention``, each score plus the gated relative-position bias:
+    ``rel`` (heads, 2n - 1) f32, ``gate`` G (2 x 64) | c (2) | a (heads)
+    f32 (``ops/attention.attention_relpos``)."""
+    out = attention_lib._launch(qkv, heads, scale, rel=rel, gate=gate)
+    count_launch(attention_lib.attention_relpos, 'attention_relpos')
+    return out
+
+
+@attention_relpos.register_fake
+def _(qkv, heads, rel, gate, scale):
     b, n, _ = qkv.shape
     return qkv.new_empty((b, n, heads * attention_lib.HEAD_DIM))
 
@@ -195,4 +216,21 @@ def bias_residual(x: Tensor, y: Tensor, bias: Tensor) -> None:
 
 @bias_residual.register_fake
 def _(x, y, bias):
+    return None
+
+
+@torch.library.custom_op(f'{NAMESPACE}::post_ln', mutates_args=('x', 'out'),
+                         device_types='cuda')
+def post_ln(x: Tensor, y: Tensor, bias: Tensor, weight: Tensor,
+            norm_bias: Tensor, out: Tensor | None, alpha: float,
+            eps: float) -> None:
+    """x = LayerNorm(alpha x + (y + bias)) in place on (rows, cols) f32 x;
+    ``out`` (rows, cols) bf16, or None, the same values rounded
+    (``ops/epilogue.post_ln``)."""
+    epilogue._launch_post_ln(x, y, bias, weight, norm_bias, out, alpha, eps)
+    count_launch(epilogue.post_ln, 'post_ln')
+
+
+@post_ln.register_fake
+def _(x, y, bias, weight, norm_bias, out, alpha, eps):
     return None

@@ -22,11 +22,14 @@ The plain version frames the waveform with ``unfold`` and multiplies by the
 matmul frontend of ``ops/frontend.py``, formulated on its own.
 
 The kernel has a second geometry, the Kaldi fbank of the Audio
-Spectrogram Transformer (``KaldiFbankConfig``, ``models/ast.py``): the same
-frames, FFT and wire, and per frame its mean subtracted, a 0.97
-pre-emphasis and a symmetric Hann window before the FFT, the power
-spectrum, a (257, 128) Kaldi mel matrix, log(max(e, floor)) and AST's
-normalisation, out as ``(n_frames, 128)``. ``_check_geometry`` takes these
+Spectrogram Transformer and of BEATs (``KaldiFbankConfig``,
+``models/ast.py``, ``models/beats.py``): the same frames, FFT and wire,
+and per frame its samples scaled (``input_scale``: 1 for AST's samples in
+[-1, 1], 2^15 for BEATs' raw int16 amplitudes), its mean subtracted, a
+0.97 pre-emphasis and a symmetric Hann window (AST) or Kaldi's Povey
+window, the Hann window to the 0.85 (BEATs), before the FFT, the power
+spectrum, a (257, 128) Kaldi mel matrix, log(max(e, floor)) and the
+model's normalisation, out as ``(n_frames, 128)``. ``_check_geometry`` takes these
 two and refuses any other; the wrapper, the operator and the plain version
 follow the configuration's type.
 """
@@ -59,7 +62,12 @@ class KaldiFbankConfig:
     each frame's mean removed, pre-emphasis 0.97, a symmetric Hann window,
     the power spectrum of a 512-point FFT, Kaldi mel bands over 20-8000 Hz,
     log(max(e, float32 eps))) at 16 kHz, then AST's normalisation
-    (x - norm_mean) / (2 norm_std) with the AudioSet statistics."""
+    (x - norm_mean) / (2 norm_std) with the AudioSet statistics.
+
+    ``window_power`` raises the window to a power (0.85: Kaldi's default
+    'povey' window, which BEATs takes) and ``input_scale`` multiplies the
+    samples, taken in [-1, 1], before the fbank (BEATs' 2^15: raw int16
+    amplitudes); ``BEATS_FBANK`` is BEATs' whole setting."""
     sample_rate: int = 16000
     window_samples: int = WINDOW
     hop_samples: int = HOP
@@ -71,6 +79,8 @@ class KaldiFbankConfig:
     floor: float = float(np.finfo(np.float32).eps)
     norm_mean: float = -4.2677393
     norm_std: float = 4.5689974
+    window_power: float = 1.0
+    input_scale: float = 1.0
 
     @property
     def fft_bins(self) -> int:
@@ -86,6 +96,12 @@ class KaldiFbankConfig:
         """What the normalisation divides by."""
         return self.norm_std * 2
 
+
+# BEATs' fbank (``BEATs.preprocess``): torchaudio's Kaldi fbank at its
+# defaults (the Povey window), 128 bins, on the waveform times 2^15, then
+# (x - 15.41663) / (2 x 6.55582)
+BEATS_FBANK = KaldiFbankConfig(norm_mean=15.41663, norm_std=6.55582,
+                               window_power=0.85, input_scale=32768.0)
 
 # the geometries the kernel takes: (frame, hop, FFT, bins, bands) of each
 GEOMETRIES = {'yamnet': (WINDOW, HOP, FFT, FFT // 2 + 1, MELS),
@@ -107,18 +123,21 @@ def _check_geometry(cfg) -> str:
 
 
 def fft_tables(window_samples: int = WINDOW, fft_length: int = FFT,
-               symmetric: bool = False):
+               symmetric: bool = False, power: float = 1.0):
     """The kernel's constants besides the mel matrix, each computed in
     float64 and rounded once to f32: the Hann window halved (periodic, or
-    with ``symmetric`` the Kaldi geometry's 0.5 - 0.5 cos(2 pi n / (N - 1));
-    the kernel's even/odd split of the packed FFT then needs no 1/2;
-    halving is exact), ``W256^e = exp(-2 pi i e / 256)`` for e < 256,
-    ``W512^k`` for k < 128, and pass 1's twiddles ``W256^(t k2)`` at [k2, t]
-    (t, k2 < 16: the same values as ``W256[t k2]``, in the order the
-    kernel's lanes read them), each as (re, im) rows."""
+    with ``symmetric`` the Kaldi geometry's 0.5 - 0.5 cos(2 pi n / (N - 1)),
+    raised to ``power`` where it is not 1; the kernel's even/odd split of
+    the packed FFT then needs no 1/2; halving is exact), ``W256^e =
+    exp(-2 pi i e / 256)`` for e < 256, ``W512^k`` for k < 128, and pass
+    1's twiddles ``W256^(t k2)`` at [k2, t] (t, k2 < 16: the same values
+    as ``W256[t k2]``, in the order the kernel's lanes read them), each as
+    (re, im) rows."""
     n = np.arange(window_samples, dtype=np.float64)
     hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / (
         window_samples - 1 if symmetric else window_samples))
+    if power != 1.0:
+        hann = hann ** power
     half = fft_length // 2
 
     def roots(count, order):
@@ -142,8 +161,9 @@ def _operands(cfg, device):
     ops = _OPERANDS.get(key)
     if ops is None:
         kaldi = _check_geometry(cfg) == 'kaldi'
+        power = cfg.window_power if kaldi else 1.0
         w_re, w_im = mel_lib.windowed_rdft_matrices(
-            cfg.window_samples, cfg.fft_length, symmetric=kaldi)
+            cfg.window_samples, cfg.fft_length, symmetric=kaldi, power=power)
         dft = np.concatenate([w_re, w_im], axis=1)
         mel = (mel_lib.kaldi_mel_matrix(cfg.mel_bands, cfg.fft_length,
                                         cfg.sample_rate, cfg.mel_min_hz,
@@ -152,20 +172,24 @@ def _operands(cfg, device):
                                          cfg.sample_rate, cfg.mel_min_hz,
                                          cfg.mel_max_hz))
         tables = np.concatenate([t.reshape(-1) for t in fft_tables(
-            cfg.window_samples, cfg.fft_length, symmetric=kaldi)])
+            cfg.window_samples, cfg.fft_length, symmetric=kaldi,
+            power=power)])
         ops = _OPERANDS[key] = {
             k: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
             for k, a in (('dft', dft), ('mel', mel), ('tables', tables))}
     return ops
 
 
-def _samples(waveform: torch.Tensor) -> torch.Tensor:
-    """f32 samples of a waveform: the int16 wire scaled by 2^-15 (exact, as
-    ``models/classifier._to_float`` and the kernel's load do), any other
-    type converted."""
+def _samples(waveform: torch.Tensor,
+             input_scale: float = 1.0) -> torch.Tensor:
+    """f32 samples of a waveform times ``input_scale``: the int16 wire
+    scaled by 2^-15 x ``input_scale`` (one product, exact for a power of
+    two, as ``models/classifier._to_float`` and the kernel's load do), any
+    other type converted, then scaled."""
     if waveform.dtype == torch.int16:
-        return waveform.to(torch.float32) * INT16_SCALE
-    return waveform.to(torch.float32)
+        return waveform.to(torch.float32) * (INT16_SCALE * input_scale)
+    x = waveform.to(torch.float32)
+    return x if input_scale == 1.0 else x * input_scale
 
 
 def log_mel_spectrogram_fused_plain(waveform: torch.Tensor,
@@ -178,8 +202,8 @@ def log_mel_spectrogram_fused_plain(waveform: torch.Tensor,
     exact_f32()
     kaldi = _check_geometry(cfg) == 'kaldi'
     ops = _operands(cfg, waveform.device)
-    frames = _samples(waveform).unfold(-1, cfg.window_samples,
-                                       cfg.hop_samples)
+    frames = _samples(waveform, cfg.input_scale if kaldi else 1.0).unfold(
+        -1, cfg.window_samples, cfg.hop_samples)
     if kaldi:
         frames = frames - frames.mean(dim=-1, keepdim=True)
         before = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
@@ -261,7 +285,7 @@ LIBRARY = Library('logmel', {
                         I32, PTR]),
     'bz_logmel_blocks': (I32, [I32, ctypes.POINTER(I32)]),
     'bz_fbank_kaldi': (I32, [PTR, I32, PTR, PTR, PTR, I32, I64, I64, I32,
-                             F32, F32, F32, I32, PTR]),
+                             F32, F32, F32, F32, I32, PTR]),
     'bz_fbank_kaldi_blocks': (I32, [I32, ctypes.POINTER(I32)]),
 }, errors='bz_logmel_error_string')
 load_kernels = LIBRARY.load
@@ -328,7 +352,7 @@ def _launch(waveform, cfg, lib=None, ft=None):
     if _check_geometry(cfg) == 'kaldi':
         return _launch_operands(waveform, ops['tables'], ops['mel'],
                                 cfg.floor, lib, ft, 'kaldi', cfg.shift,
-                                cfg.divisor)
+                                cfg.divisor, cfg.input_scale)
     return _launch_operands(waveform, ops['tables'], ops['mel'],
                             cfg.log_offset, lib, ft)
 
@@ -348,10 +372,12 @@ def _paired_rows(waveform):
 
 
 def _launch_operands(waveform, tables, mel, log_offset, lib=None, ft=None,
-                     kind='yamnet', shift=0.0, divisor=1.0):
+                     kind='yamnet', shift=0.0, divisor=1.0,
+                     input_scale=1.0):
     """``_launch`` on the constants of ``_operands`` as given: the CUDA
     implementation of the ``buzzdetect::log_mel`` operator. In the Kaldi
-    geometry ``log_offset`` is the floor."""
+    geometry ``log_offset`` is the floor and ``input_scale`` the samples'
+    factor (``KaldiFbankConfig.input_scale``)."""
     lib = load_kernels() if lib is None else lib
     bands = GEOMETRIES[kind][-1]
     b, n = waveform.shape
@@ -374,7 +400,9 @@ def _launch_operands(waveform, tables, mel, log_offset, lib=None, ft=None,
         ft = geometry_on(device, n_frames, b, lib, kind).ft
     entry = ENTRIES[kind][0]
     post = ((float(log_offset),) if kind == 'yamnet' else
-            (float(log_offset), float(shift), float(divisor)))
+            (float(log_offset), float(shift), float(divisor),
+             input_scale * (INT16_SCALE if waveform.dtype == torch.int16
+                            else 1.0)))
     x = _paired_rows(waveform)
     LIBRARY.launch(lib, entry, device, x.data_ptr(), WIRES.index(x.dtype),
                    out.data_ptr(), tables.data_ptr(), mel.data_ptr(), b, n,
@@ -406,7 +434,8 @@ def log_mel_spectrogram_fused(waveform: torch.Tensor, cfg) -> torch.Tensor:
                               [ops['tables'], ops['mel']],
                               cfg.window_samples, cfg.hop_samples, cfg.floor,
                               geometry=kind, shift=cfg.shift,
-                              scale=cfg.divisor)
+                              scale=cfg.divisor,
+                              input_scale=cfg.input_scale)
     else:
         out = library.log_mel(x.reshape(-1, x.shape[-1]),
                               [ops['tables'], ops['mel']],

@@ -35,10 +35,12 @@ def hann_window_periodic(length: int, dtype=np.float32):
 
 
 def windowed_rdft_matrices(frame_length: int, fft_length: int,
-                           dtype=np.float32, symmetric: bool = False):
+                           dtype=np.float32, symmetric: bool = False,
+                           power: float = 1.0):
     """Real-input DFT as matmul, with the Hann window folded in (periodic;
     with ``symmetric`` 0.5 - 0.5 cos(2 pi n / (frame_length - 1)), Kaldi's
-    'hanning').
+    'hanning'; raised to ``power`` where it is not 1: Kaldi's 'povey' is
+    the symmetric window to the 0.85).
 
     Returns ``(w_real, w_imag)`` of shape ``(frame_length, fft_length//2 + 1)``
     such that for a frame ``x`` of ``frame_length`` samples::
@@ -52,6 +54,8 @@ def windowed_rdft_matrices(frame_length: int, fft_length: int,
     n = np.arange(frame_length, dtype=np.float64)
     window = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / (
         frame_length - 1 if symmetric else frame_length))
+    if power != 1.0:
+        window = window ** power
     t = np.arange(frame_length, dtype=np.float64)[:, None]
     k = np.arange(bins, dtype=np.float64)[None, :]
     angle = 2.0 * np.pi * t * k / float(fft_length)

@@ -24,6 +24,10 @@ The spans, by name (fixed; ``PERF.md`` lists what reads each):
   launch, and each block of windows has ``buzzdetect.patch_embed``,
   ``buzzdetect.embed`` (the encoder, with a ``buzzdetect.attention``
   around each launch of the attention operator) and ``buzzdetect.head``;
+  under BEATs (``models/beats.py``) likewise, with ``buzzdetect.pos_conv``
+  (the convolutional position embedding) after ``buzzdetect.patch_embed``
+  and a ``buzzdetect.post_ln`` around each deep-norm post-LN launch inside
+  ``buzzdetect.embed``;
 * ``buzzdetect.copy_back``: ``runtime/inferer._start_host_copy``;
 * ``buzzdetect.wait``: ``runtime/writer._materialize``, the host blocked
   on a chunk's scores.

@@ -56,7 +56,10 @@ Phases, each printed before the last line:
    and the bytes bound; one launch an embed, and no kernel in the embed
    but those of ``csrc/layer1.cu`` and ``csrc/sepconv.cu``. Then the
    Audio Spectrogram Transformer's kernels and one chunk of its cell
-   (``ast_phase``);
+   (``ast_phase``), then BEATs' (``beats_phase``: the Povey fbank against
+   float64 and a Hann window, the gated relative-position attention and
+   the deep-norm post-LN against their plain versions, one chunk of
+   ``beats_iter3p_as2m`` against ``benchmark/reference/beats.py``);
 3. the main paths end to end: ``buzzdetect_torch.analyze()`` on three
    30-minute 16 kHz WAV recordings (exact f32), then the CLI in process
    (``buzzdetect_torch.cli.main``, which must return None; the run's
@@ -293,6 +296,8 @@ REPLACES = {'fused_front': 'buzzdetect_tpu/ops/pallas_conv.py:448',
             'attention': 'none (added for the Audio Spectrogram Transformer)',
             'bias_epilogue': 'none (added for the Audio Spectrogram '
                              'Transformer)',
+            'attention_relpos': 'none (added for BEATs)',
+            'post_ln': 'none (added for BEATs)',
             # no TPU kernel: the JAX package leaves layer 1 to XLA
             'layer1': 'none (buzzdetect_tpu/models/yamnet.py packed_l1 is '
                       'XLA)',
@@ -487,7 +492,7 @@ def write_recording(path, seconds, seed, rate=16000, channels=1):
 def make_models_dir(root):
     """``root/models``: model_general_v3 (its bundle linked, not copied),
     the XLA_BUNDLE and the VARIANTS, each a copy whose config_model.json
-    differs in one key."""
+    differs in one key; the AST and BEATs model directories."""
     src = os.path.join(ROOT, 'models', MODEL)
     models = os.path.join(root, 'models')
     for name, extra in [(MODEL, {}), XLA_BUNDLE] + [
@@ -501,9 +506,11 @@ def make_models_dir(root):
             config = json.load(f)
         with open(path, 'w') as f:
             json.dump({**config, **extra}, f)
-    # the AST model directory (a config, seeded weights), as it is
-    shutil.copytree(os.path.join(ROOT, 'models', AST_MODEL),
-                    os.path.join(models, AST_MODEL))
+    # the AST and BEATs model directories (a config, seeded weights), as
+    # they are
+    for name in (AST_MODEL, BEATS_MODEL):
+        shutil.copytree(os.path.join(ROOT, 'models', name),
+                        os.path.join(models, name))
     return models
 
 
@@ -2701,6 +2708,336 @@ def ast_phase(torch, dev, f32_peak, bf16_peak, bytes_peak, time_ms,
     return rows
 
 
+# the BEATs cell's chunk: 128 windows of 992 fbank frames (126,976 frames,
+# 1269.775 s) and its attention: 12 heads of 64 over 496 tokens a window
+BEATS_WINDOWS, BEATS_TOKENS, BEATS_HEADS = 128, 496, 12
+BEATS_MODEL = 'beats_iter3p_as2m'
+BEATS_CELL = 'beats.bf16.long_chunks.pinned'
+# the BEATs fbank kernel against float64 of the same function. An f32
+# band's error grows as the band's energy falls below its frame's (the
+# pre-emphasis leaves the lowest bands of noise 1e-9-1e-14 of it), so the
+# lowest bands hold the largest gaps: on this chunk the kernel's 6.4e-4,
+# the plain version's cuFFT 3.2e-4 (H100). The kernel with a Hann window
+# in the Povey window's place lies 0.69 away.
+BEATS_FBANK_ATOL = 1e-3
+
+
+def beats_fbank_f64(reference, wire, window_power):
+    """(n,) int16 samples on the card -> (frames, 128) normalised Kaldi
+    fbank of ``benchmark/reference/beats.py`` in float64 (its mel banks as
+    that file rounds them), with the window raised to ``window_power``."""
+    import torch
+    frames = wire.double().unfold(0, reference.FRAME, reference.SHIFT)
+    frames = frames - frames.mean(dim=1, keepdim=True)
+    before = torch.cat([frames[:, :1], frames[:, :-1]], dim=1)
+    frames = frames - reference.PREEMPHASIS * before
+    window = torch.hann_window(reference.FRAME, periodic=False,
+                               dtype=torch.float64,
+                               device=wire.device).pow(window_power)
+    power = torch.fft.rfft(frames * window, n=reference.NFFT).abs().pow(2)
+    del frames
+    energies = power @ reference.mel_banks(128).double().to(wire.device)
+    eps = float(np.finfo(np.float32).eps)
+    return (torch.clamp_min(energies, eps).log() - reference.FBANK_MEAN) \
+        / (2 * reference.FBANK_STD)
+
+
+def beats_phase(torch, dev, f32_peak, bf16_peak, bytes_peak, time_ms,
+                device_ms):
+    """BEATs' kernels and its classify on the card, at the benchmark cell's
+    shapes:
+
+    (a) the Kaldi fbank in BEATs' geometry (``logmel.BEATS_FBANK``: the
+        Povey window, raw int16 amplitudes) on one chunk (126,976 frames):
+        bits equal on two launches; within ``BEATS_FBANK_ATOL`` of a
+        float64 fbank, beside the plain version's gap to it (timed only);
+        and the kernel with a Hann window in the Povey window's place past
+        ``BEATS_FBANK_ATOL`` of the float64 fbank, so the limit tells the
+        two windows apart;
+    (b) the gated relative-position attention at 128 windows x 12 heads x
+        496 x 64 in bf16 (every window against ``attention_relpos_plain``;
+        its time, device time and bound beside the plain version's and
+        ``F.scaled_dot_product_attention``'s with the gated bias as an
+        additive bf16 mask, timed only, the mask's making left out) and in
+        f32 at 8 windows;
+    (c) the deep-norm post-LN at 63,488 x 768 (the f32 stream and its bf16
+        operand against ``post_ln_plain``) beside the PyTorch chain it
+        replaces; the position convolution (cuDNN) timed;
+    (d) one chunk through ``load_model(BEATS_MODEL, bf16)``'s
+        ``predict_async`` on the int16 wire with the counters zeroed just
+        before: one fbank, 12 attention and 24 post-LN launches, the scores'
+        gap to ``benchmark/reference/beats.py``'s bf16 function and to the
+        same chunk with the plain attention, each held to the cell's
+        ``score_gap`` limit, and the chunk's time.
+
+    Returns the kernels line's rows ('attention_relpos', 'post_ln')."""
+    import dataclasses
+    import torch.nn.functional as F
+    from buzzdetect_torch.models import beats
+    from buzzdetect_torch.ops import attention, epilogue, library, logmel
+    from buzzdetect_torch.runtime.inferer import _start_host_copy
+    from buzzdetect_torch.runtime.writer import _materialize
+    sys.path.insert(0, ROOT)
+    from benchmark import roofline_beats
+    from benchmark.manifest import load_module
+    reference = load_module(os.path.join(ROOT, 'benchmark', 'reference',
+                                         'beats.py'), 'chip_smoke_beats_ref')
+    with open(os.path.join(ROOT, 'benchmark', 'configs',
+                           'beats_iter3p_as2m.bf16.long_chunks.json')) as f:
+        sizes = json.load(f)['sizes']
+    with open(os.path.join(ROOT, 'benchmark', 'workloads',
+                           BEATS_CELL + '.json')) as f:
+        limit = json.load(f)['limits']['score_gap']
+    peak = {'f32': f32_peak, 'bf16': bf16_peak, 'bytes': bytes_peak}
+    rows = {}
+
+    # (a) the fbank in BEATs' geometry
+    fb = logmel.BEATS_FBANK
+    n = 400 + (BEATS_WINDOWS * 992 - 1) * 160
+    rng = np.random.default_rng(992)
+    wire = torch.from_numpy(
+        (rng.standard_normal(n) * 3277).clip(-32768, 32767).astype(np.int16)
+        ).to(dev)
+    got = logmel.log_mel_spectrogram_fused(wire, fb)
+    again = logmel.log_mel_spectrogram_fused(wire, fb)
+    plain = logmel.log_mel_spectrogram_fused_plain(wire, fb)
+    hann = logmel.log_mel_spectrogram_fused(
+        wire, dataclasses.replace(fb, window_power=1.0))
+    f64 = beats_fbank_f64(reference, wire, reference.POVEY)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail('beats fbank: two launches differ')
+    band_gap = (got.double() - f64).abs().amax(dim=0).cpu().numpy()
+    gap = float(band_gap.max())
+    plain_f64 = float((plain.double() - f64).abs().max())
+    hann_gap = float((hann.double() - f64).abs().max())
+    print(f'kernel log_mel[kaldi] BEATs geometry {tuple(got.shape)} (int16 '
+          f'wire, Povey window, raw amplitudes): max |kernel - float64| = '
+          f'{gap:.3g} (atol {BEATS_FBANK_ATOL:g}; by band, 0-15: '
+          f'{[float(f"{v:.2g}") for v in band_gap[:16]]}); |plain - '
+          f'float64| {plain_f64:.3g}; |kernel - plain| '
+          f'{float((got - plain).abs().max()):.3g}; the kernel with a Hann '
+          f'window {hann_gap:.3g} from the float64 Povey fbank (must exceed '
+          f'{BEATS_FBANK_ATOL:g}); bits equal on two launches; kernel '
+          f'{time_ms(lambda: logmel.log_mel_spectrogram_fused(wire, fb)):.4f} '
+          f'ms', flush=True)
+    if gap > BEATS_FBANK_ATOL:
+        fail(f'beats fbank: the kernel lies {gap:.3g} from float64')
+    if hann_gap <= BEATS_FBANK_ATOL:
+        fail(f'beats fbank: a Hann window lies only {hann_gap:.3g} from the '
+             f'Povey fbank: the limit {BEATS_FBANK_ATOL:g} cannot tell them '
+             f'apart')
+    del got, again, plain, hann, f64
+    torch.cuda.empty_cache()
+
+    # (b) the gated relative-position attention
+    cfg = beats.BEATsConfig.from_sizes(sizes)
+    params = beats.seeded_params(cfg, 20221218)
+    rel = torch.from_numpy(beats.bias_rows(params[beats.REL_TABLE],
+                                           BEATS_TOKENS, cfg)).to(dev)
+    a = 'encoder.layers.3.self_attn.'
+    gate = torch.from_numpy(beats.fold_gate(
+        params[a + 'grep_linear.weight'], params[a + 'grep_linear.bias'],
+        params[a + 'grep_a'])).to(dev)
+    c = BEATS_HEADS * attention.HEAD_DIM
+    gen = torch.Generator(device=dev).manual_seed(2212)
+    qkv = (torch.randn(BEATS_WINDOWS, BEATS_TOKENS, 3 * c, device=dev,
+                       generator=gen) * 0.7).to(torch.bfloat16)
+    kernel = lambda: attention.attention_relpos(qkv, BEATS_HEADS, rel, gate)  # noqa
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail('attention_relpos: two launches on the same input differ')
+    err = 0.0
+    for w in range(0, BEATS_WINDOWS, 16):
+        want = attention.attention_relpos_plain(qkv[w:w + 16], BEATS_HEADS,
+                                                rel, gate)
+        err = max(err, float((got[w:w + 16].float() - want.float())
+                             .abs().max()))
+    # two bf16 ulps of the largest v: the kernel rounds P before its
+    # normalisation, the plain version after it
+    atol = 2.0 ** -7 * float(qkv[..., 2 * c:].float().abs().max())
+    unbiased = attention.attention(qkv[:8].contiguous(), BEATS_HEADS)
+    moved = float((unbiased.float() - got[:8].float()).abs().max())
+    if err > atol:
+        fail(f'attention_relpos bf16 disagrees with its plain version: max '
+             f'|d| {err:.3g} > {atol:.3g}')
+    if moved <= 10 * atol:
+        fail(f'attention_relpos: the gated bias moves the output by only '
+             f'{moved:.3g}')
+    q, k, v = qkv.view(BEATS_WINDOWS, BEATS_TOKENS, 3, BEATS_HEADS,
+                       attention.HEAD_DIM).permute(2, 0, 3, 1, 4)
+    g = attention.relpos_gate(q.float(), gate, BEATS_HEADS)
+    mask = (g[..., None] * attention.relpos_bias(rel, BEATS_TOKENS)).to(
+        torch.bfloat16)
+    del g
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa
+    plain = lambda: attention.attention_relpos_plain(  # noqa
+        qkv, BEATS_HEADS, rel, gate)
+    # a block's launch as roofline_beats.attention_bound_s counts it: QK^T,
+    # PV and the gate; q, k, v and o once and the bias rows
+    flops = BEATS_WINDOWS * roofline_beats.attention_flops(sizes)
+    n_bytes = (BEATS_WINDOWS * 4.0 * BEATS_TOKENS * c * 2
+               + BEATS_HEADS * (2 * BEATS_TOKENS - 1) * 4)
+    row = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+               library_ms=time_ms(sdpa), device_ms=device_ms(kernel),
+               library_device_ms=device_ms(sdpa), product='mma',
+               **bound(flops / bf16_peak, n_bytes / bytes_peak))
+    row['ratio'] = row['ms'] / row['library_ms']
+    rows['attention_relpos'] = row
+    print(f'kernel attention_relpos bf16 {BEATS_WINDOWS}x{BEATS_HEADS}x'
+          f'{BEATS_TOKENS}x64: max |kernel - plain| = {err:.3g} (atol '
+          f'{atol:.3g}, every window); the gated bias moves the output by '
+          f'{moved:.3g}; bits equal on two launches; kernel {row["ms"]:.4f} '
+          f'ms (device {row["device_ms"]:.4f} ms, '
+          f'{flops / row["device_ms"] / 1e9:.1f} TFLOP/s), plain '
+          f'{row["plain_ms"]:.4f} ms, sdpa with the bias as a bf16 mask '
+          f'{row["library_ms"]:.4f} ms (device '
+          f'{row["library_device_ms"]:.4f} ms); bound {row["bound_ms"]:.4f} '
+          f'ms ({row["bound_by"]}: {flops / 1e12:.2f} TFLOP, '
+          f'{n_bytes / 1e9:.3f} GB; '
+          f'{100 * row["bound_ms"] / row["device_ms"]:.1f}% of it)',
+          flush=True)
+    del mask, q, k, v, got, again, want, unbiased
+    qkv32 = qkv[:8].float().contiguous()
+    got32 = attention.attention_relpos(qkv32, BEATS_HEADS, rel, gate)
+    err32 = float((got32 - attention.attention_relpos_plain(
+        qkv32, BEATS_HEADS, rel, gate)).abs().max())
+    if err32 > 2e-5:
+        fail(f'attention_relpos f32 disagrees with its plain version: max '
+             f'|d| {err32:.3g}')
+    print(f'kernel attention_relpos f32 8x{BEATS_HEADS}x{BEATS_TOKENS}x64: '
+          f'max |kernel - plain| = {err32:.3g} (atol 2e-05); kernel '
+          f'{time_ms(lambda: attention.attention_relpos(qkv32, BEATS_HEADS, rel, gate)):.4f} ms',
+          flush=True)
+    del qkv, qkv32, got32
+    torch.cuda.empty_cache()
+
+    # (c) the post-LN: alpha x + (y + b), LayerNorm, the f32 stream and its
+    # bf16 operand
+    m = BEATS_WINDOWS * BEATS_TOKENS
+    y = torch.randn(m, c, device=dev, generator=gen) * 0.3
+    x0 = torch.randn(m, c, device=dev, generator=gen)
+    b, lb = (torch.randn(c, device=dev, generator=gen) * 0.1
+             for _ in range(2))
+    lw = 1 + torch.randn(c, device=dev, generator=gen) * 0.1
+    eps = cfg.layer_norm_eps
+    x, xp = x0.clone(), x0.clone()
+    h = epilogue.post_ln(y, b, x, lw, lb, cfg.alpha, eps, True)
+    hp = epilogue.post_ln_plain(y, b, xp, lw, lb, cfg.alpha, eps, True)
+    torch.cuda.synchronize()
+    err = float((x - xp).abs().max())
+    err16 = float((h.float() - hp.float()).abs().max())
+    # the f32 stream: LayerNorm's statistics summed in another order; the
+    # bf16 operand: one bf16 ulp of the largest value where the two f32
+    # values round apart
+    if err > 1e-5 or err16 > 2.0 ** -8 * float(xp.abs().max()):
+        fail(f'post_ln disagrees with its plain version: max |d| {err:.3g} '
+             f'(f32), {err16:.3g} (bf16)')
+    if epilogue.post_ln(y, b, x, lw, lb, cfg.alpha, eps, False) is not None:
+        fail('post_ln: without bf16 it returned an operand')
+    xs = x0.clone()
+    kernel = lambda: epilogue.post_ln(y, b, xs, lw, lb, cfg.alpha, eps, True)  # noqa
+    plain = lambda: epilogue.post_ln_plain(  # noqa
+        y, b, xs, lw, lb, cfg.alpha, eps, True)
+
+    def chain():
+        s = (xs * cfg.alpha).add_(y + b)
+        xs.copy_(F.layer_norm(s, (c,), lw, lb, eps))
+        return xs.to(torch.bfloat16)
+    row = dict(max_abs_err=max(err, err16), ms=time_ms(kernel),
+               plain_ms=time_ms(plain), library_ms=time_ms(chain),
+               device_ms=device_ms(kernel), library_device_ms=device_ms(chain),
+               **bound(0.0, roofline_beats.postln_bound_s(
+                   BEATS_WINDOWS, sizes, peak) / (2 * cfg.encoder_layers)))
+    row['ratio'] = row['ms'] / row['library_ms']
+    rows['post_ln'] = row
+    print(f'kernel post_ln {m}x{c}: max |kernel - plain| = {err:.3g} (f32 '
+          f'stream), {err16:.3g} (bf16 operand); kernel {row["ms"]:.4f} ms '
+          f'(device {row["device_ms"]:.4f} ms) against the PyTorch chain\'s '
+          f'{row["library_ms"]:.4f} ms (device '
+          f'{row["library_device_ms"]:.4f} ms); bound {row["bound_ms"]:.4f} '
+          f'ms (bytes: 14 a value; '
+          f'{100 * row["bound_ms"] / row["device_ms"]:.1f}% of it)',
+          flush=True)
+    del y, x0, x, xp, xs, h, hp
+    p = beats.pack_params(params, cfg, dev, True)
+    xs = torch.randn(BEATS_WINDOWS, BEATS_TOKENS, c, device=dev,
+                     generator=gen)
+    conv = lambda: beats.pos_conv(p, xs, cfg, True)  # noqa
+    flops = 2.0 * m * c * (c // cfg.conv_pos_groups) * cfg.conv_pos
+    conv_ms = device_ms(conv)
+    print(f'pos_conv (cuDNN, one call a group, bf16) {BEATS_WINDOWS}x'
+          f'{BEATS_TOKENS}x{c}: device {conv_ms:.4f} ms, '
+          f'{flops / conv_ms / 1e9:.1f} TFLOP/s; bound at the bf16 peak '
+          f'{1e3 * flops / bf16_peak:.4f} ms', flush=True)
+    del p, xs, params
+    torch.cuda.empty_cache()
+
+    # (d) one chunk through the model
+    from buzzdetect_torch.models.registry import load_model
+    t0 = time.perf_counter()
+    model = load_model(BEATS_MODEL, compute_dtype='bfloat16',
+                       transfer_dtype='int16', device='cuda',
+                       initialize=True)
+    print(f'{BEATS_MODEL}: loaded in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    chunk = wire.cpu().numpy()
+    logmel.log_mel_spectrogram_fused.launches = 0
+    attention.attention.launches = 0
+    attention.attention_relpos.launches['attention_relpos'] = 0
+    epilogue.post_ln.launches['post_ln'] = 0
+    out, n_valid = model.predict_async(chunk)
+    scores = _materialize(_start_host_copy(out), n_valid)
+    counts = (logmel.log_mel_spectrogram_fused.launches,
+              attention.attention_relpos.launches['attention_relpos'],
+              epilogue.post_ln.launches['post_ln'],
+              attention.attention.launches)
+    if counts != (1, 12, 24, 0) or scores.shape != (BEATS_WINDOWS, 527):
+        fail(f'{BEATS_MODEL}: one chunk gave {scores.shape} with (fbank, '
+             f'attention_relpos, post_ln, attention) launches {counts}, '
+             f'expected (1, 12, 24, 0)')
+    s, w = reference.load_weights(os.path.join(ROOT, 'models', BEATS_MODEL),
+                                  dev)
+    ref = reference.classify(w, s, chunk, 1.0, 'bf16', block=16)
+    ref32 = reference.classify(w, s, chunk, 1.0, 'f32', block=16)
+    del w
+    gap = float(np.abs(scores - ref).max())
+    # the same chunk with the plain attention in the kernel's place: how
+    # much of the gap is the kernel's
+    launch = library.attention_relpos
+    library.attention_relpos = lambda qkv, heads, rel, gate, scale: \
+        attention.attention_relpos_plain(qkv, heads, rel, gate, scale)
+    try:
+        out, _ = model.predict_async(chunk)
+        plain_scores = _materialize(_start_host_copy(out), n_valid)
+    finally:
+        library.attention_relpos = launch
+    plain_gap = float(np.abs(plain_scores - ref).max())
+    kernel_gap = float(np.abs(scores - plain_scores).max())
+    if gap > limit or kernel_gap > limit:
+        fail(f'{BEATS_MODEL}: one chunk\'s scores lie {gap:.3g} from the '
+             f'reference\'s bf16 function and {kernel_gap:.3g} from the same '
+             f'chunk with the plain attention, past the cell\'s score_gap '
+             f'limit {limit:g}')
+    chunk_ms = time_ms(lambda: model.predict_async(chunk), reps=5, warmup=2)
+    print(f'{BEATS_MODEL} bf16, one {BEATS_WINDOWS}-window chunk on the '
+          f'int16 wire: launches (fbank, attention_relpos, post_ln, '
+          f'attention) {counts}; max |scores - reference bf16| = {gap:.3g} '
+          f'(limit {limit:g}); with the plain attention {plain_gap:.3g}; '
+          f'|kernel - plain attention scores| {kernel_gap:.3g} (limit '
+          f'{limit:g}); |reference bf16 - reference f32| '
+          f'{float(np.abs(ref - ref32).max()):.3g}; {chunk_ms:.2f} ms a '
+          f'chunk ({(n / 16000) / (chunk_ms / 1e3):.0f} audio_s/s)',
+          flush=True)
+    rows['attention_relpos']['launches'] = counts[1]
+    rows['post_ln']['launches'] = counts[2]
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
 def frontend_span_phase(torch, params, wire, cfg, calls=3, sessions=3):
     """The main path's frontend on the int16 wire launches one kernel, the
     fused log-mel's: ``calls`` classifies (frontend 'pallas', as 'auto'
@@ -2708,9 +3045,11 @@ def frontend_span_phase(torch, params, wire, cfg, calls=3, sessions=3):
     given to the ``buzzdetect.frontend`` span inside which its runtime call
     was made (the call's correlation id), as ``benchmark/spans.py`` does.
     A span holding any other operation fails the run; each must hold one
-    ``logmel_fft_kernel``, in one of up to ``sessions`` sessions (the
-    profiler can lose launches at a session's start). Also counts the
-    wrapper's launches."""
+    ``logmel_fft_kernel``, in one of up to ``sessions`` sessions. The
+    profiler loses the launches of a session's first classify (its span
+    held none in every session of the H100 runs), so each session starts
+    with one more classify whose span is not counted, as a benchmark
+    trace starts after a lead. Also counts the wrapper's launches."""
     from buzzdetect_torch.models.classifier import _classify
     from buzzdetect_torch.ops import logmel
     cpu = torch.autograd.DeviceType.CPU
@@ -2722,10 +3061,10 @@ def frontend_span_phase(torch, params, wire, cfg, calls=3, sessions=3):
         with torch.inference_mode(), torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(1 + calls):
                 _classify(params, wire, cfg, 'pallas')
             torch.cuda.synchronize()
-        launched = logmel.log_mel_spectrogram_fused.launches - before
+        launched = logmel.log_mel_spectrogram_fused.launches - before - 1
         spans, calls_at, device = [], {}, []
         for e in prof.profiler.kineto_results.events():
             on_cpu = e.device_type() == cpu
@@ -2736,9 +3075,10 @@ def frontend_span_phase(torch, params, wire, cfg, calls=3, sessions=3):
                 calls_at[e.correlation_id()] = e.start_ns()
             elif not on_cpu:
                 device.append((e.correlation_id(), e.name()))
+        spans = sorted(spans)[1:]
         held = [[name for corr, name in device
                  if corr in calls_at and a <= calls_at[corr] <= b]
-                for a, b in sorted(spans)]
+                for a, b in spans]
         print(f'buzzdetect.frontend on the int16 wire, {calls} classifies '
               f'(profiler session {session}): {len(spans)} spans holding '
               f'{[len(h) for h in held]} device operations '
@@ -3764,6 +4104,9 @@ def run(torch, tmp):
         ast_rows = ast_phase(torch, dev, f32_peak, bf16_peak, bytes_peak,
                              time_ms, device_ms)
         rows.update(ast_rows)
+        beats_rows = beats_phase(torch, dev, f32_peak, bf16_peak,
+                                 bytes_peak, time_ms, device_ms)
+        rows.update(beats_rows)
 
     # --- 3. the main paths end to end ----------------------------------
     def reset_counts():
@@ -4231,17 +4574,19 @@ def run(torch, tmp):
              'fused_front[bf16]',
              'fused_tail[bf16]', 'fused_front[high]', 'fused_tail[high]',
              'log_mel', 'log_mel[kaldi]', 'attention', 'bias_epilogue',
-             'remap') + DOTS + (
+             'attention_relpos', 'post_ln', 'remap') + DOTS + (
                  'fma_chain',)
     launches.update((k, ast_rows[k]['launches']) for k in ast_rows)
+    launches.update((k, beats_rows[k]['launches']) for k in beats_rows)
     table = []
     for name in order:
         r = rows[name]
         base = name.split('[')[0]
         source = SOURCES['layer1' if base == 'layer1' else
                          'logmel' if base == 'log_mel' else
-                         'attention' if base == 'attention' else
-                         'epilogue' if base == 'bias_epilogue' else
+                         'attention' if base.startswith('attention') else
+                         'epilogue' if base in ('bias_epilogue', 'post_ln')
+                         else
                          'sepconv' if base.startswith('fused') else 'probe']
         table.append({'name': name, 'route': 'cuda', 'source': source,
                       'replaces': REPLACES[base],

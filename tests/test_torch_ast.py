@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from benchmark.manifest import load_module
-from buzzdetect_torch.models import ast
+from buzzdetect_torch.models import ast, transformer
 from buzzdetect_torch.models.registry import ASTModel, load_model
 from buzzdetect_torch.ops import attention, epilogue, logmel, mel
 from tests.audio_fixtures import write_wav
@@ -288,8 +288,8 @@ def test_epilogue_routes_cuda_through_the_ops(monkeypatch):
 def test_window_counts_and_padding(n, framehop, windows, padded):
     m = load_model('ast_audioset_10s', device='cpu', framehop_prop=framehop)
     clf = ast.ASTClassifier.__new__(ast.ASTClassifier)
-    clf.cfg, clf.fbank = m.ast_config, logmel.KaldiFbankConfig()
-    clf.hop_frames = ast.window_hop_frames(m.ast_config, framehop)
+    clf.cfg, clf.fbank = m.model_config, logmel.KaldiFbankConfig()
+    clf.hop_frames = transformer.window_hop_frames(m.model_config, framehop)
     assert (clf._valid(n), clf._padded(n)) == (windows, padded)
     assert REFERENCE.n_windows(n, 1024, clf.hop_frames) == windows
     assert m.embedder.framehop_s == pytest.approx(10.24 * framehop)
@@ -418,3 +418,38 @@ def test_convert_a_published_state_dict(tmp_path):
         convert.ast_npz_from_state_dict(
             {k: v for k, v in state.items() if 'norm2' not in k},
             ast.ASTConfig.from_sizes(sizes))
+
+
+# the parent tree's seeded scores (ast_tiny, the int16 wire, ``_chunk(3.3,
+# seed=27)``, every 97th class), before AST's window machinery moved into
+# ``models/transformer.py`` beside BEATs: f32 and bf16
+PARENT_SCORES = {
+    'f32': [[0.03517123684287071, -0.01407795213162899, 0.04190538823604584,
+             0.10138761252164841, 0.10467349737882614, 0.017647219821810722],
+            [0.03299321234226227, 0.0005069101462140679, 0.036943480372428894,
+             0.1119711846113205, 0.10634803026914597, 0.02030162885785103],
+            [-0.18937332928180695, 0.07994689047336578, 0.10047020763158798,
+             0.08276411145925522, 0.029683144763112068,
+             0.008582091890275478]],
+    'bf16': [[0.035535119473934174, -0.015123864635825157,
+              0.04225330054759979, 0.1005580797791481, 0.10467611998319626,
+              0.017285622656345367],
+             [0.03383491560816765, 0.0007595478091388941,
+              0.037595272064208984, 0.11167547106742859, 0.10631407052278519,
+              0.02013484761118889],
+             [-0.1885654628276825, 0.0791526585817337, 0.1008918285369873,
+              0.08316108584403992, 0.029028993099927902,
+              0.009487144649028778]]}
+
+
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+def test_seeded_scores_equal_the_parent_trees(precision):
+    """AST's path, shared with BEATs since, keeps the scores it gave
+    before: equal to the stored values within 1e-6 (the f32 rounding a
+    CPU's other thread count or instruction set may move; the scores
+    were bit-identical at 1 and 6 threads where they were taken)."""
+    got = _port(precision, _chunk(3.3, seed=27))[:, ::97]
+    want = np.array(PARENT_SCORES[precision], np.float32)
+    gap = float(np.abs(got - want).max())
+    print(f'{precision}: max |scores - parent\'s| = {gap:.3g}')
+    assert got.shape == want.shape and gap <= 1e-6

@@ -340,7 +340,7 @@ def _ast_spied(monkeypatch):
     from buzzdetect_torch.ops.common import count_launch
 
     def spy_log_mel(x, constants, window, hop, floor, geometry='yamnet',
-                    shift=0.0, scale=1.0):
+                    shift=0.0, scale=1.0, input_scale=1.0):
         assert geometry == 'kaldi'
         with torch.autograd.profiler.record_function('spy.log_mel'):
             out = logmel.log_mel_spectrogram_fused_plain(
@@ -369,10 +369,10 @@ def test_ast_spans_hold_their_launches(monkeypatch, tmp_path, block):
     block of the encoder (12 at the published depth, 2 here), and
     ``patch_embed``, ``embed`` and ``head`` once each, inside
     ``classify``."""
-    from buzzdetect_torch.models import ast
+    from buzzdetect_torch.models import ast, transformer
     from buzzdetect_torch.ops import attention, logmel
     model = _ast_spied(monkeypatch)
-    monkeypatch.setattr(ast, 'WINDOW_BLOCK', block)
+    monkeypatch.setattr(transformer, 'WINDOW_BLOCK', block)
     samples = _chunk(seconds=6.3)          # 5 windows of 1.28 s
     model.predict(samples)                 # first-use allocations
     blocks = -(-5 // block)
@@ -386,7 +386,7 @@ def test_ast_spans_hold_their_launches(monkeypatch, tmp_path, block):
         prof.stop()
     launched = (logmel.log_mel_spectrogram_fused.launches - before[0],
                 attention.attention.launches - before[1])
-    depth = model.ast_config.depth
+    depth = model.model_config.depth
     assert launched == (1, depth * blocks)
     assert ast.ASTConfig().depth == 12
     path = str(tmp_path / 'trace.json')
